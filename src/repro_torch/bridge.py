@@ -1,0 +1,47 @@
+"""Carry the JAX package's weights into the port, leaf for leaf.
+
+``params_from_numpy`` takes an unboxed values tree whose leaves are numpy
+arrays (float32, or ``ml_dtypes`` bfloat16 as ``np.asarray`` returns them
+from a bf16 JAX array) and returns the same nested dicts of torch tensors.
+The stacked-layer axis and the leading ensemble axis pass through
+unchanged.  bfloat16 leaves go through float32, which every bf16 value
+survives exactly, so the port computes on the very weights the reference
+holds.  Converting JAX arrays to numpy is the caller's job: this module
+never imports JAX.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+
+
+def _leaf(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(device, torch.bfloat16)
+    if a.dtype not in (np.float32, np.int32):
+        raise TypeError(f"unsupported weight dtype {a.dtype}")
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def params_from_numpy(tree, cfg: ModelConfig, device=None):
+    """Nested dict of numpy leaves -> nested dict of torch tensors on
+    ``device``.  ``tree['layers']`` leaves must carry the stacked layer
+    axis (``cfg.n_layers``) first, or second behind an ensemble axis."""
+    device = resolve_device(device)
+    lead = tree["embed"].ndim - 2  # 1 when the tree is a stacked ensemble
+
+    def conv(t, path):
+        if isinstance(t, dict):
+            return {k: conv(v, path + (k,)) for k, v in t.items()}
+        if path[0] == "layers" and np.shape(t)[lead] != cfg.n_layers:
+            raise ValueError(
+                f"{'/'.join(path)}: layer axis {np.shape(t)[lead]} != "
+                f"n_layers {cfg.n_layers}"
+            )
+        return _leaf(t, device)
+
+    return conv(tree, ())

@@ -1,0 +1,112 @@
+"""Model configuration dataclass (a copy of ``repro.configs.base``'s
+``ModelConfig``) and a registry restricted to the configs this port runs."""
+from __future__ import annotations
+
+import importlib
+from dataclasses import dataclass, replace
+from typing import Optional
+
+FAMILIES = ("dense", "moe", "ssm_mamba2", "ssm_rwkv6", "hybrid", "encoder", "vlm")
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """A single architecture; field names and defaults match the JAX
+    package's ``ModelConfig`` so a config can be rebuilt field for field."""
+
+    name: str
+    family: str
+    n_layers: int
+    d_model: int
+    d_ff: int
+    vocab_size: int
+    n_heads: int = 0
+    n_kv_heads: int = 0
+    head_dim: int = 0  # 0 -> d_model // n_heads
+
+    # attention
+    qkv_bias: bool = False
+    attn_out_bias: bool = False
+    rope_theta: float = 10_000.0
+    sliding_window: Optional[int] = None
+    attn_logit_softcap: Optional[float] = None
+
+    # norm / mlp
+    norm_type: str = "rmsnorm"  # 'rmsnorm' | 'layernorm' | 'nonparametric_ln'
+    norm_eps: float = 1e-5
+    mlp_activation: str = "silu"  # 'silu' (gated) | 'gelu' (ungated)
+
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    moe_every: int = 1
+    n_shared_experts: int = 0
+    capacity_factor: float = 1.25
+    router_aux_coef: float = 0.01
+
+    # SSM (Mamba2 / RWKV6)
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_conv: int = 4
+    ssm_ngroups: int = 1
+    rwkv_lora_rank: int = 64
+
+    # hybrid
+    attn_every: int = 0
+
+    # encoder / vlm frontends
+    is_encoder: bool = False
+    n_vision_tokens: int = 0
+    frontend_dim: int = 0
+
+    # numerics
+    dtype: str = "bfloat16"
+    tie_embeddings: bool = False
+    remat: bool = True
+
+    def __post_init__(self):
+        assert self.family in FAMILIES, self.family
+        if self.n_heads and not self.head_dim:
+            object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
+
+    def reduced(self) -> "ModelConfig":
+        """Smoke-test variant: 2 layers, d_model<=256, vocab<=512 — the same
+        reduction rule as the JAX package's ``ModelConfig.reduced``."""
+        d_model = min(self.d_model, 256)
+        n_heads = min(self.n_heads, 4) if self.n_heads else 0
+        n_kv = min(self.n_kv_heads, n_heads) if self.n_kv_heads else 0
+        if n_kv and self.n_kv_heads < self.n_heads:
+            n_kv = max(1, n_heads // max(1, self.n_heads // self.n_kv_heads))
+        changes = dict(
+            name=self.name + "-reduced",
+            n_layers=2,
+            d_model=d_model,
+            d_ff=min(self.d_ff, 512),
+            vocab_size=min(self.vocab_size, 512),
+            n_heads=n_heads,
+            n_kv_heads=n_kv,
+            head_dim=(d_model // n_heads) if n_heads else 0,
+            n_experts=min(self.n_experts, 4) if self.n_experts else 0,
+            top_k=min(self.top_k, 2) if self.top_k else 0,
+            ssm_state=min(self.ssm_state, 16) if self.ssm_state else 0,
+            ssm_head_dim=min(self.ssm_head_dim, 32) if self.ssm_head_dim else 0,
+            rwkv_lora_rank=min(self.rwkv_lora_rank, 16),
+            attn_every=min(self.attn_every, 2) if self.attn_every else 0,
+            n_vision_tokens=min(self.n_vision_tokens, 16),
+            sliding_window=min(self.sliding_window, 64) if self.sliding_window else None,
+            remat=False,
+        )
+        return replace(self, **changes)
+
+
+ARCH_IDS = ("internlm2-1.8b", "qwen2.5-3b")
+
+_MODULE_FOR = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
+
+
+def get_config(arch: str) -> ModelConfig:
+    if arch not in _MODULE_FOR:
+        raise KeyError(f"unknown arch {arch!r}; ported: {sorted(_MODULE_FOR)}")
+    mod = importlib.import_module(f"repro_torch.configs.{_MODULE_FOR[arch]}")
+    return mod.CONFIG

@@ -1,0 +1,73 @@
+"""Agreement reduce: ``agreement(logits)`` with logits (E, B, V) returns
+``{'pred', 'vote_frac', 'mean_score'}`` per example — the inputs to the
+paper's deferral rules r_v (Eq. 3) and r_s (Eq. 4).
+
+``member_stats`` is the V sweep (max, first-index argmax, sum exp(x-max)
+per member).  On a CUDA tensor it launches ``csrc/agreement.cu``, which
+replaces ``src/repro/kernels/agreement/kernel.py`` ``member_stats_pallas``
+and is bound by the E*B*V*4 bytes it reads; on a CPU tensor it runs the
+plain version below.  The O(E^2 B) vote epilogue is plain PyTorch on
+either device, as in the JAX package.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+_LAUNCHES = build.launch_counter("agreement")
+
+
+def member_stats_plain(logits: torch.Tensor):
+    lf = logits.float()
+    m = lf.amax(-1)
+    idx = lf.argmax(-1).to(torch.int32)
+    l = torch.exp(lf - m[..., None]).sum(-1)
+    return m, idx, l
+
+
+def _member_stats_cuda(logits: torch.Tensor):
+    build.require_cuda(logits, "member_stats logits", (torch.float32,))
+    E, B, V = logits.shape
+    m = torch.empty((E, B), dtype=torch.float32, device=logits.device)
+    l = torch.empty_like(m)
+    idx = torch.empty((E, B), dtype=torch.int32, device=logits.device)
+    lib = build.library("agreement")
+    rc = lib.agreement_member_stats(
+        build.ptr(logits), build.ptr(m), build.ptr(idx), build.ptr(l),
+        ctypes.c_int(E * B), ctypes.c_int(V), build.stream_ptr(logits),
+    )
+    build.check(lib, rc, "agreement_member_stats")
+    _LAUNCHES.add(1)
+    return m, idx, l
+
+
+def member_stats(logits: torch.Tensor):
+    """(m, idx, l), each (E, B): per-member max, argmax (first index on
+    ties) and sum exp(x - max) over V."""
+    if logits.device.type == "cpu":
+        return member_stats_plain(logits)
+    return _member_stats_cuda(logits)
+
+
+def _epilogue(logits, m, idx, l):
+    """Majority vote + mean majority-class probability from member stats
+    (E, B).  Tie-break: most votes, then the smallest class id."""
+    E = logits.shape[0]
+    votes = (idx[:, None, :] == idx[None, :, :]).sum(0)  # (E, B)
+    vmax = votes.max(0, keepdim=True).values
+    pred = torch.where(votes == vmax, idx, 2**30).min(0).values.to(torch.int32)
+    lm = logits.float().gather(2, pred.long()[None, :, None].expand(E, -1, 1))[..., 0]
+    p_maj = torch.exp(lm - m) / l
+    return {
+        "pred": pred,
+        "vote_frac": vmax[0].float() / E,
+        "mean_score": p_maj.mean(0),
+    }
+
+
+def agreement(logits: torch.Tensor):
+    m, idx, l = member_stats(logits)
+    return _epilogue(logits, m, idx, l)

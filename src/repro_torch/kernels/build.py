@@ -1,0 +1,143 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
+with a plain C interface (loaded with ``ctypes``), so the build needs no
+PyTorch headers and takes seconds.  All sources compile in parallel on the
+first ``library()`` call, into ``build/torch_kernels/`` under the repo root
+(git-ignored); a library whose source hash matches is reused.
+
+Launch counting: each wrapper owns a ``kernels.<name>.launches`` counter on
+the process-wide registry and adds one where it launches a kernel — never
+on the plain CPU path.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict
+
+import torch
+
+from repro_torch.obs import global_registry
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
+SOURCES = ("agreement", "compaction", "flash_attention", "decode_attention")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
+# argtypes of every exported entry point (all return a cudaError_t as int)
+SIGNATURES = {
+    "agreement": {"agreement_member_stats": [_P, _P, _P, _P, _I, _I, _P]},
+    "compaction": {
+        "compaction_scan": [_P, _P, _P, _I, _P],
+        "compaction_gather": [_P, _P, _P, _I, _L, _I, _P],
+    },
+    "flash_attention": {"flash_attention_fwd": [_P] * 5 + [_I] * 8 + [_F] * 2 + [_P]},
+    "decode_attention": {"decode_attention_fwd": [_P] * 5 + [_I, _P] + [_I] * 6 + [_F] * 2 + [_P]},
+}
+
+_LOCK = threading.Lock()
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def launch_counter(name: str):
+    return global_registry().counter(f"kernels.{name}.launches")
+
+
+def launch_counts() -> Dict[str, int]:
+    return {n: launch_counter(n).value for n in SOURCES}
+
+
+def reset_launch_counts() -> None:
+    for n in SOURCES:
+        launch_counter(n).reset()
+
+
+def _nvcc() -> str:
+    exe = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(exe):
+        raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is")
+    return exe
+
+
+def _target(name: str) -> Path:
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}-{digest}.so"
+
+
+def build_all() -> Dict[str, Path]:
+    """Compile every source whose library is missing, all at once.
+    Returns name -> library path; ptxas reports go to ``<lib>.log``."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    targets = {n: _target(n) for n in SOURCES}
+    procs = {}
+    for n, so in targets.items():
+        if so.exists():
+            continue
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        log = open(so.with_suffix(".log"), "w")
+        procs[n] = (subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")],
+            stdout=log, stderr=subprocess.STDOUT,
+        ), tmp, log)
+    failed = []
+    for n, (p, tmp, log) in procs.items():
+        rc = p.wait()
+        log.close()
+        if rc != 0:
+            failed.append(f"{n}: nvcc exit {rc}\n{targets[n].with_suffix('.log').read_text()}")
+        else:
+            os.replace(tmp, targets[n])
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return targets
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu`` (building on first use)."""
+    with _LOCK:
+        if name not in _LIBS:
+            path = build_all()[name]
+            lib = ctypes.CDLL(str(path))
+            lib.kernel_error_string.restype = ctypes.c_char_p
+            lib.kernel_error_string.argtypes = [ctypes.c_int]
+            for fn, argtypes in SIGNATURES[name].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            _LIBS[name] = lib
+        return _LIBS[name]
+
+
+def stream_ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc} ({lib.kernel_error_string(rc).decode()})")
+
+
+def require_cuda(t: torch.Tensor, name: str, dtypes, *, align: int = 16) -> None:
+    """Wrapper-side validation: the kernels take contiguous tensors of
+    the listed dtypes on a CUDA device, ``align``-byte aligned."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name}: dtype {t.dtype} not in {dtypes}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: tensor must be contiguous")
+    if t.data_ptr() % align:
+        raise ValueError(f"{name}: data pointer must be {align}-byte aligned")

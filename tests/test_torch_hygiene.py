@@ -1,0 +1,80 @@
+"""Port hygiene: the port never imports JAX or the JAX package, never runs
+on the CPU unless asked, and launches no kernel on a CPU call."""
+import dataclasses
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import kernels
+from repro_torch.configs import get_config
+from repro_torch.core import ensemble as ens
+from repro_torch.core.cascade import TierSpec
+from repro_torch.serve import CascadeServer, CascadeTier
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+SCRIPT = r"""
+import sys
+import numpy as np, torch
+from repro_torch.configs import get_config
+from repro_torch.core import ensemble as ens
+from repro_torch.core.cascade import TierSpec
+from repro_torch.serve import CascadeServer, CascadeTier
+c1, c2 = get_config("qwen2.5-3b").reduced(), get_config("internlm2-1.8b").reduced()
+g = torch.Generator().manual_seed(0)
+server = CascadeServer([
+    CascadeTier(c1, ens.init_ensemble(c1, 3, g, "cpu"), TierSpec("s", "vote", 0.5, k=3), device="cpu"),
+    CascadeTier(c2, ens.init_ensemble(c2, 1, g, "cpu"), TierSpec("b", "confidence", -1.0), device="cpu"),
+], device="cpu")
+res = server.classify(np.random.default_rng(0).integers(0, 512, (8, 16)).astype(np.int32))
+assert res.tier_counts.sum() == 8, res
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "repro.")) or m == "repro")
+assert not bad, bad
+print("OK")
+"""
+
+
+def test_subprocess_classify_imports_no_jax():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", SCRIPT], env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip().endswith("OK"), out.stderr[-2000:]
+
+
+FORBIDDEN = re.compile(r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)\b[\s.])", re.M)
+
+
+@pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT)) for p in (ROOT / "src" / "repro_torch").rglob("*.py")) + ["chip_smoke.py"])
+def test_source_has_no_jax_or_repro_import(path):
+    text = (ROOT / path).read_text()
+    assert not FORBIDDEN.search(text), FORBIDDEN.search(text).group(0)
+
+
+def _tiny_server(device_kw):
+    cfg = dataclasses.replace(get_config("internlm2-1.8b").reduced(), n_layers=1)
+    vals = ens.init_ensemble(cfg, 1, torch.Generator().manual_seed(0), "cpu")
+    tier = CascadeTier(cfg, vals, TierSpec("only", "confidence", -1.0), device="cpu")
+    return CascadeServer([tier], **device_kw)
+
+
+def test_no_gpu_means_no_silent_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _tiny_server({})
+    cfg = get_config("internlm2-1.8b").reduced()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        CascadeTier(cfg, {}, TierSpec("x", "confidence", -1.0))
+
+
+def test_cpu_call_launches_no_kernel():
+    kernels.reset_launch_counts()
+    server = _tiny_server({"device": "cpu"})
+    toks = np.random.default_rng(0).integers(0, 512, (8, 8)).astype(np.int32)
+    server.classify(toks)
+    server.generate(toks, 2)
+    assert kernels.launch_counts() == {n: 0 for n in kernels.launch_counts()}

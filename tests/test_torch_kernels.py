@@ -1,0 +1,213 @@
+"""Parity of the port's kernel modules (their plain PyTorch versions on the
+CPU) with the JAX package's ``impl='xla'`` paths, on the same numpy
+inputs.  Float outputs: rtol 1e-5 / atol 1e-6 for f32 (two frameworks sum
+in different orders); discrete outputs (argmax, votes, index maps, counts,
+compacted payloads) must be equal.  ``test_torch_cuda.py`` holds the CUDA
+kernels against these plain versions on the card."""
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.agreement import ops as j_agree
+from repro.kernels.compaction import ops as j_compact
+from repro.kernels.decode_attention import ops as j_decode
+from repro.kernels.flash_attention import ops as j_flash
+from repro_torch.kernels.agreement import ops as t_agree
+from repro_torch.kernels.agreement import ref as t_agree_ref
+from repro_torch.kernels.compaction import ops as t_compact
+from repro_torch.kernels.compaction import ref as t_compact_ref
+from repro_torch.kernels.decode_attention import ops as t_decode
+from repro_torch.kernels.decode_attention import ref as t_decode_ref
+from repro_torch.kernels.flash_attention import ops as t_flash
+from repro_torch.kernels.flash_attention import ref as t_flash_ref
+
+RTOL, ATOL = 1e-5, 1e-6
+
+
+def _np(x):
+    return np.asarray(x.float() if isinstance(x, torch.Tensor) and x.dtype == torch.bfloat16 else x)
+
+
+# ---------------------------------------------------------------------------
+# agreement
+# ---------------------------------------------------------------------------
+
+
+def _logits(E, B, V, seed, ties=False):
+    x = np.random.default_rng(seed).standard_normal((E, B, V)).astype(np.float32)
+    if ties:
+        # every member's max is hit twice: argmax must keep the first index;
+        # members 0/1 and 2/3 split 2-2 on some rows: smallest id must win
+        x[:, :, 7] = x[:, :, 300 % V] = 10.0
+        x[0, :3, 11] = x[1, :3, 11] = 20.0
+        x[2, :3, 5] = x[3 % E, :3, 5] = 20.0
+    return x
+
+
+@pytest.mark.parametrize("E,B,V,ties", [(3, 8, 64, False), (4, 16, 500, True), (1, 4, 500, False), (3, 5, 2048 + 384, True)])
+def test_agreement_matches_jax(E, B, V, ties):
+    x = _logits(E, B, V, seed=V + B, ties=ties)
+    got = t_agree.agreement(torch.from_numpy(x))
+    ref = j_agree.agreement(jnp.asarray(x))
+    for k in ("pred",):
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(ref[k]))
+    for k in ("vote_frac", "mean_score"):
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(ref[k]), rtol=RTOL, atol=ATOL)
+    oracle = t_agree_ref.agreement_ref(torch.from_numpy(x))
+    np.testing.assert_array_equal(got["pred"].numpy(), oracle["pred"].numpy())
+    np.testing.assert_allclose(got["mean_score"].numpy(), oracle["mean_score"].numpy(), rtol=RTOL, atol=ATOL)
+
+
+def test_member_stats_first_index_ties():
+    x = np.zeros((2, 3, 500), np.float32)
+    x[:, :, 123] = x[:, :, 456] = 1.0
+    m, idx, l = t_agree.member_stats(torch.from_numpy(x))
+    assert (idx == 123).all()
+    np.testing.assert_allclose(l.numpy(), 498 * np.exp(-1.0) + 2, rtol=RTOL)
+
+
+# ---------------------------------------------------------------------------
+# compaction
+# ---------------------------------------------------------------------------
+
+
+def _mask(kind, B, seed):
+    if kind == "all":
+        return np.ones(B, bool)
+    if kind == "none":
+        return np.zeros(B, bool)
+    return np.random.default_rng(seed).random(B) < 0.5
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int32"])
+@pytest.mark.parametrize("kind", ["all", "none", "random"])
+def test_compact_matches_jax(dtype, kind):
+    rng = np.random.default_rng(3)
+    B = 13
+    x = rng.standard_normal((B, 5, 3)) * 1e3
+    x = x.astype(np.int32) + 2**30 if dtype == "int32" else x.astype(getattr(ml_dtypes, dtype, np.float32))
+    mask = _mask(kind, B, seed=4)
+    tx = torch.from_numpy(x.astype(np.float32)).to(torch.bfloat16) if dtype == "bfloat16" else torch.from_numpy(x)
+    out, im, cnt = t_compact.compact(tx, torch.from_numpy(mask))
+    j_out, j_im, j_cnt = j_compact.compact(jnp.asarray(x), jnp.asarray(mask))
+    assert out.dtype == tx.dtype and out.shape == tx.shape
+    np.testing.assert_array_equal(_np(out), np.asarray(j_out).astype(_np(out).dtype))
+    np.testing.assert_array_equal(im.numpy(), np.asarray(j_im))
+    assert int(cnt) == int(j_cnt) == mask.sum()
+    r_out, r_im, r_cnt = t_compact_ref.compact_ref(tx, torch.from_numpy(mask))
+    assert torch.equal(out, r_out) and torch.equal(im, r_im) and int(r_cnt) == int(cnt)
+
+
+@pytest.mark.parametrize("kind", ["all", "none", "random"])
+def test_compact_tree_and_scatter_back(kind):
+    rng = np.random.default_rng(5)
+    B = 11
+    tree = {
+        "tokens": rng.integers(0, 2**31 - 1, (B, 7)).astype(np.int32),
+        "feat": rng.standard_normal((B, 4)).astype(np.float32),
+        "__idx": np.arange(B, dtype=np.int32),
+    }
+    mask = _mask(kind, B, seed=6)
+    out, im, cnt = t_compact.compact_tree({k: torch.from_numpy(v) for k, v in tree.items()}, torch.from_numpy(mask))
+    j_out, j_im, j_cnt = j_compact.compact_tree({k: jnp.asarray(v) for k, v in tree.items()}, jnp.asarray(mask))
+    for k in tree:
+        np.testing.assert_array_equal(out[k].numpy(), np.asarray(j_out[k]))
+    np.testing.assert_array_equal(im.numpy(), np.asarray(j_im))
+    assert int(cnt) == int(j_cnt)
+    vals = torch.arange(B, dtype=torch.float32) + 1
+    back = t_compact.scatter_back(vals, im, B)
+    np.testing.assert_array_equal(back.numpy(), np.asarray(j_compact.scatter_back(jnp.asarray(vals.numpy()), jnp.asarray(im.numpy()), B)))
+    np.testing.assert_array_equal(back.numpy(), t_compact_ref.scatter_back_ref(vals, im, B).numpy())
+
+
+def test_gather_rows_more_rows_than_source():
+    x = torch.arange(12, dtype=torch.int32).reshape(4, 3)
+    im = torch.tensor([3, -1, 0, 3, 1, -1], dtype=torch.int32)
+    out = t_compact.gather_rows(x, im)
+    np.testing.assert_array_equal(out.numpy(), np.asarray(j_compact.gather_rows(jnp.asarray(x.numpy()), jnp.asarray(im.numpy()))))
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+FLASH_CASES = [
+    dict(causal=True, window=None, softcap=None, starts=None),
+    dict(causal=True, window=5, softcap=None, starts=None),
+    dict(causal=True, window=None, softcap=3.0, starts=None),
+    dict(causal=True, window=None, softcap=None, starts=[0, 5, 16]),
+    dict(causal=True, window=6, softcap=2.0, starts=[3, 0, 9]),
+    dict(causal=False, window=None, softcap=None, starts=None),
+]
+
+
+def _qkv(B, Sq, Sk, H, KVH, hd, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, Sq, H, hd)).astype(np.float32),
+            rng.standard_normal((B, Sk, KVH, hd)).astype(np.float32),
+            rng.standard_normal((B, Sk, KVH, hd)).astype(np.float32))
+
+
+@pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "-".join(f"{k}={v}" for k, v in c.items() if v))
+def test_flash_attention_matches_jax(case):
+    q, k, v = _qkv(3, 16, 16, 4, 2, 8, seed=7)
+    starts = case["starts"]
+    kw = dict(causal=case["causal"], window=case["window"], softcap=case["softcap"])
+    got = t_flash.flash_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), **kw,
+        starts=None if starts is None else torch.tensor(starts, dtype=torch.int32),
+    )
+    ref = j_flash.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), **kw,
+        starts=None if starts is None else jnp.asarray(starts, jnp.int32),
+    )
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+    oracle = t_flash_ref.attention_ref(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), **kw,
+        starts=None if starts is None else torch.tensor(starts),
+    )
+    np.testing.assert_allclose(got.numpy(), oracle.numpy(), rtol=1e-5, atol=1e-5)
+    if starts is not None:  # pure-padding rows emit zeros
+        for b, s in enumerate(starts):
+            assert not got[b, :s].any()
+
+
+# ---------------------------------------------------------------------------
+# decode attention
+# ---------------------------------------------------------------------------
+
+DECODE_CASES = [
+    dict(cur_len=9, window=None, softcap=None, starts=None),
+    dict(cur_len=[3, 16, 9], window=None, softcap=None, starts=None),
+    dict(cur_len=12, window=4, softcap=None, starts=None),
+    dict(cur_len=[5, 12, 16], window=None, softcap=2.5, starts=[0, 4, 10]),
+    dict(cur_len=12, window=None, softcap=None, starts=[0, 12, 3]),
+]
+
+
+@pytest.mark.parametrize("case", DECODE_CASES, ids=lambda c: "-".join(f"{k}={v}" for k, v in c.items() if v))
+def test_decode_attention_matches_jax(case):
+    rng = np.random.default_rng(8)
+    B, KVH, G, S, hd = 3, 2, 4, 16, 8
+    q = rng.standard_normal((B, 1, KVH * G, hd)).astype(np.float32)
+    kc = rng.standard_normal((B, KVH, S, hd)).astype(np.float32)
+    vc = rng.standard_normal((B, KVH, S, hd)).astype(np.float32)
+    cur, starts = case["cur_len"], case["starts"]
+    kw = dict(window=case["window"], softcap=case["softcap"])
+    got = t_decode.decode_attention_bksd(
+        torch.from_numpy(q), torch.from_numpy(kc), torch.from_numpy(vc),
+        cur if np.isscalar(cur) else torch.tensor(cur, dtype=torch.int32), **kw,
+        starts=None if starts is None else torch.tensor(starts, dtype=torch.int32),
+    )
+    ref = j_decode.decode_attention_bksd(
+        jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc), jnp.asarray(cur, jnp.int32), **kw,
+        starts=None if starts is None else jnp.asarray(starts, jnp.int32),
+    )
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+    oracle = t_decode_ref.decode_attention_ref(
+        torch.from_numpy(q), torch.from_numpy(kc), torch.from_numpy(vc),
+        torch.as_tensor(cur), **kw, starts=None if starts is None else torch.tensor(starts),
+    )
+    np.testing.assert_allclose(got.numpy(), oracle.numpy(), rtol=1e-5, atol=1e-5)
