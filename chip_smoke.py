@@ -5,23 +5,35 @@
 
 Phases, in order; any failure raises and exits non-zero:
 
-1. build — compiles every CUDA kernel of the port from ``src/repro_torch/csrc``
+1. build — compiles every CUDA source of the port from ``src/repro_torch/csrc``
    (one ``nvcc`` per source, all in parallel) and prints the build seconds and
    the card's name and power limit.
 2. kernels — holds each kernel against its plain PyTorch version on the card,
    at the main path's shapes and at edge cases (ragged vocabulary, forced
    argmax ties, all/none deferred, left-pad ``starts`` with pure-pad rows,
-   window/softcap, ragged Sk, vector ``cur_len``), with the tolerance stated
-   beside each check; times kernel, plain version and one library call (the
-   yardstick; the port never calls it) with CUDA events.
+   window/softcap, ragged Sk, vector ``cur_len``; for the paged decode
+   kernel shuffled page tables, unmapped pages past and inside ``cur_len``,
+   ``cur_len`` off the page grid, page sizes 16 and 64, hd 64 with G = 1,
+   both tiers' serving shapes (G = 8 and G = 2 at hd 128), and bitwise
+   equality with the dense decode kernel on the gathered view), with
+   the tolerance stated beside each check; times kernel, plain version and
+   one library call (the yardstick; the port never calls it) with CUDA
+   events.
 3. reference — the port on the card (kernels) against the port on the CPU
-   (plain versions) with the same bf16 weights at reduced width.
+   (plain versions) with the same bf16 weights at reduced width: prefill and
+   decode, paged decode and paged chunked prefill; then a short
+   ``serve_continuous`` on the card with block-paged pools and with the dense
+   slot cache, which must emit equal tokens.
 4. main path — the cascade at published widths and full depth: tier 1 a k=3
    ensemble of qwen2.5-3b (score rule, theta = median tier-1 mean score on a
-   calibration batch; for generate the digest vote with theta = 0.5), tier 2
-   internlm2-1.8b (confidence, theta = -1), bf16 weights drawn from ``--seed``.  ``classify`` on 32 prompts of 256 tokens and
-   greedy ``generate`` on 8 prompts of 128 tokens with 16 new tokens, each run
-   with the launch counters zeroed just before and read just after.
+   calibration batch; for generate and serve_continuous the digest vote with
+   theta = 0.5), tier 2 internlm2-1.8b (confidence, theta = -1), bf16 weights
+   drawn from ``--seed``.  ``classify`` on 32 prompts of 256 tokens, greedy
+   ``generate`` on 8 prompts of 128 tokens with 16 new tokens, and
+   ``serve_continuous`` (8 slots, max_seq 512, 16-token pages, chunked
+   prefill) on 32 requests of 16-384 prompt tokens, 8 of them sharing a
+   128-token prefix, 16 new tokens each; each run with the launch counters
+   zeroed just before and read just after.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -30,6 +42,7 @@ non-zero before printing any result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import subprocess
@@ -252,6 +265,83 @@ def check_decode(dev, g):
     )
 
 
+def check_decode_paged(dev, g):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.compaction.ops import gather_rows_plain
+    from repro_torch.kernels.decode_attention import ops
+
+    mk = lambda *s: torch.randn(*s, device=dev, generator=g).to(torch.bfloat16)
+
+    def table(cur, n_pg, ps, P, holes=()):
+        """A shuffled, non-monotone table: slot b maps ceil(cur[b] / ps)
+        distinct random pages, -1 past its length and at ``holes``."""
+        perm = torch.randperm(P - 1, device=dev, generator=g)
+        pages = torch.full((len(cur), n_pg), -1, dtype=torch.int32, device=dev)
+        used = 0
+        for b, c in enumerate(cur):
+            n = -(-c // ps)
+            pages[b, :n] = perm[used:used + n].to(torch.int32)
+            used += n
+        for b, i in holes:
+            pages[b, i] = -1
+        return pages
+
+    def run(E, B, H, KVH, hd, P, ps, n_pg, cur, holes=(), **kw):
+        q = mk(E * B, 1, H, hd)
+        kp, vp = mk(E, P, KVH, ps, hd), mk(E, P, KVH, ps, hd)
+        pages = table(cur, n_pg, ps, P, holes)
+        cur_t = torch.tensor(cur, dtype=torch.int32, device=dev)
+        got = ops.decode_attention_paged(q, kp, vp, pages, cur_t, **kw)
+        ref = ops.decode_attention_paged_plain(q, kp, vp, pages, cur_t, **kw)
+        err = (got.float() - ref.float()).abs().max().item()
+        require(math.isfinite(err) and err <= DECODE_TOL, f"paged decode err {err} > {DECODE_TOL} ({kw})")
+        # the same tiles in the same order: bitwise the dense kernel on the gathered view
+        kv, vv = (ops.paged_pool_view(t, pages, gather_rows_plain) for t in (kp, vp))
+        dense = ops.decode_attention_bksd(q, kv, vv, cur_t.repeat(E), **kw)
+        require(torch.equal(got, dense), f"paged decode is not bitwise the dense kernel on the gathered view ({kw})")
+        return q, kp, vp, pages, cur_t, err
+
+    run(1, 4, 16, 2, 128, 40, 16, 8, [1, 37, 128, 70])  # cur_len off the page grid
+    run(2, 3, 16, 2, 128, 40, 16, 8, [100, 5, 128], holes=[(0, 2), (2, 7)])  # unmapped pages inside cur_len
+    run(3, 3, 8, 8, 128, 20, 64, 4, [200, 64, 1])  # page_size 64
+    run(1, 4, 16, 2, 128, 40, 16, 8, [120, 33, 128, 9], window=40, softcap=20.0)
+    run(2, 3, 4, 4, 64, 30, 16, 8, [17, 128, 60])  # hd 64, G = 1
+    # the main path's shapes, 8 slots of max_seq 512 in 16-row pages: tier 2
+    # (internlm2-1.8b, E = 1, G = 2), then tier 1 (3 x qwen2.5-3b, G = 8), timed
+    E, B, n_pg, ps = 3, 8, 32, 16
+    cur2 = torch.randint(1, 513, (B,), generator=torch.Generator().manual_seed(1)).tolist()
+    err2 = run(1, B, 16, 8, 128, B * n_pg + 1, ps, n_pg, cur2)[-1]
+    cur = torch.randint(1, 513, (B,), generator=torch.Generator().manual_seed(0)).tolist()
+    q, kp, vp, pages, cur_t, err = run(E, B, 16, 2, 128, B * n_pg + 1, ps, n_pg, cur)
+    H, hd, KVH = q.shape[2], q.shape[3], kp.shape[2]
+    visible = E * sum(cur)  # K/V rows the kernel must read
+    n_bytes = 2 * nbytes(q) + 2 * visible * KVH * hd * 2 + nbytes(pages, cur_t)
+    b_ms, b_by = bound(n_bytes, 4 * H * hd * visible, BF16_FLOPS)
+    idx = ops.pool_row_index(pages, E, kp.shape[1]).clamp(min=0).long()
+    S = n_pg * ps
+    valid = (torch.arange(S, device=dev)[None, :] < cur_t.repeat(E)[:, None])[:, None, None, :]
+    qt = q.transpose(1, 2)
+
+    def library():
+        kv, vv = (
+            t.reshape(-1, KVH, ps, hd).index_select(0, idx).reshape(E * B, n_pg, KVH, ps, hd)
+            .transpose(1, 2).reshape(E * B, KVH, S, hd) for t in (kp, vp)
+        )
+        return F.scaled_dot_product_attention(qt, kv, vv, attn_mask=valid, enable_gqa=True)
+
+    return dict(
+        name="decode_attention_paged", tol=f"abs {DECODE_TOL}, bitwise the dense kernel on the gathered view",
+        shape={"q": list(q.shape), "pool": list(kp.shape), "pages": list(pages.shape), "cur_len": cur,
+               "tier2_cur_len": cur2},
+        max_abs_err=max(err, err2), tier1_err=err, tier2_err=err2,
+        ms=time_ms(lambda: ops.decode_attention_paged(q, kp, vp, pages, cur_t)),
+        plain_ms=time_ms(lambda: ops.decode_attention_paged_plain(q, kp, vp, pages, cur_t)),
+        library_ms=time_ms(library),
+        bound_ms=b_ms, bound_by=b_by,
+    )
+
+
 # ---------------------------------------------------------------------------
 # phase 3: card (kernels) against CPU (plain versions) on the same weights
 # ---------------------------------------------------------------------------
@@ -280,10 +370,87 @@ def check_reference(dev, seed):
             step, _ = ens.ensemble_decode_step(v, tok, cache, 40, cfg)
             outs.append((logits.float().cpu(), step.float().cpu()))
         for name, a, b in (("prefill", outs[0][0], outs[1][0]), ("decode", outs[0][1], outs[1][1])):
-            err = ((a - b).abs().max() / a.abs().max()).item()
-            require(math.isfinite(err) and err <= REF_TOL, f"{arch} {name} card vs cpu normwise err {err} > {REF_TOL}")
-            errs[f"{arch}/{name}"] = err
+            errs[f"{arch}/{name}"] = normwise(a, b, f"{arch} {name} card vs cpu")
+        errs.update(check_reference_paged(arch, cfg, k, vals, gvals, seed))
     return errs
+
+
+def normwise(a, b, what):
+    a, b = a.float().cpu(), b.float().cpu()
+    err = ((a - b).abs().max() / a.abs().max()).item()
+    require(math.isfinite(err) and err <= REF_TOL, f"{what} normwise err {err} > {REF_TOL}")
+    return err
+
+
+def check_reference_paged(arch, cfg, k, vals, gvals, seed):
+    """Paged chunked prefill into one slot, then one paged decode step over
+    every slot, on the card and on the CPU from the same random pools."""
+    from repro_torch.core import ensemble as ens
+
+    rng = np.random.default_rng(seed + 1)
+    n_slots, ps, n_pg = 3, 16, 4  # max_seq 64
+    pages = np.full((n_slots, n_pg), -1, np.int32)
+    pages[0, :3], pages[1, :2], pages[2, :4] = [4, 0, 9], [7, 2], [1, 11, 5, 3]
+    chunk = rng.integers(0, cfg.vocab_size, 32).astype(np.int32)
+    tok = rng.integers(0, cfg.vocab_size, (k, n_slots, 1)).astype(np.int32)
+    pos = np.array([33, 20, 50], np.int32)
+    pool0 = ens.init_ensemble_paged_pool(vals, cfg, n_slots * n_pg + 1, ps)
+    gen = torch.Generator().manual_seed(seed)
+    pool0 = {name: torch.randn(t.shape, generator=gen).to(t.dtype) for name, t in pool0.items()}
+    outs = []
+    for v in (vals, gvals):
+        pool = {name: t.to(v["embed"].device) for name, t in pool0.items()}
+        pool = ens.ensemble_prefill_into_slot_paged(v, chunk, pool, pages[0], 1, cfg)
+        logits, pool = ens.ensemble_decode_step_paged(v, tok, pool, pos, pages, cfg)
+        outs.append((logits, pool["k"], pool["v"]))
+    return {
+        f"{arch}/paged_{name}": normwise(a, b, f"{arch} paged {name} card vs cpu")
+        for name, a, b in zip(("decode_logits", "pool_k", "pool_v"), outs[0], outs[1])
+    }
+
+
+def serve_requests(rng, n, vocab, lo, hi, max_new, *, n_prefix=0, prefix_len=0):
+    """Seeded requests: prompt lengths drawn from [lo, hi]; the first
+    ``n_prefix`` share one ``prefix_len``-token prefix."""
+    from repro_torch.serve import Request
+
+    prefix = rng.integers(0, vocab, prefix_len).astype(np.int32)
+    reqs = []
+    for i in range(n):
+        toks = rng.integers(0, vocab, int(rng.integers(lo, hi + 1))).astype(np.int32)
+        if i < n_prefix:
+            toks = np.concatenate([prefix, toks[: max(1, len(toks) - prefix_len)]])
+        reqs.append(Request(tokens=toks, max_new_tokens=max_new))
+    return reqs
+
+
+def check_serving_paged_vs_dense(dev, seed):
+    """A short ``serve_continuous`` on the card at reduced width, with
+    block-paged pools and with the dense slot cache: equal tokens, tiers
+    and truncation flags for every request."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import ensemble as ens
+    from repro_torch.core.cascade import TierSpec
+    from repro_torch.serve import CascadeServer, CascadeTier, ServeConfig
+
+    c1, c2 = get_config("qwen2.5-3b").reduced(), get_config("internlm2-1.8b").reduced()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    server = CascadeServer([
+        CascadeTier(c1, ens.init_ensemble(c1, 3, gen, dev), TierSpec("s", "vote", 0.5, k=3), device=dev),
+        CascadeTier(c2, ens.init_ensemble(c2, 1, gen, dev), TierSpec("b", "confidence", -1.0), device=dev),
+    ], device=dev)
+    reqs = serve_requests(np.random.default_rng(seed), 12, 512, 4, 60, 6, n_prefix=4, prefix_len=20)
+    outs = {}
+    for paged in (True, False):
+        run = [copy.deepcopy(r) for r in reqs]
+        done = server.serve_continuous(run, ServeConfig(n_slots=4, max_seq=128, page_size=16, paged=paged))
+        require(sorted(r.rid for r in done) == sorted(r.rid for r in reqs), f"paged={paged}: requests lost or doubled")
+        outs[paged] = {r.rid: (r.tier, r.truncated, r.output.tolist()) for r in done}
+    require(outs[True] == outs[False], "serve_continuous: paged and dense slot caches emit different tokens")
+    tiers = [t for t, _, _ in outs[True].values()]
+    return {"requests": len(reqs), "tier_counts": [tiers.count(0), tiers.count(1)], "paged_equals_dense": True}
 
 
 # ---------------------------------------------------------------------------
@@ -292,6 +459,8 @@ def check_reference(dev, seed):
 
 CLASSIFY_KERNELS = ("agreement", "compaction", "flash_attention")
 GENERATE_KERNELS = ("compaction", "flash_attention", "decode_attention")
+SERVE_KERNELS = ("compaction", "decode_attention_paged")  # the row gather under paged_view, paged decode
+SERVE_CONFIG = dict(n_slots=8, max_seq=512, page_size=16, chunked_prefill=True, max_chunk=256)
 
 
 def main_path(dev, seed):
@@ -359,7 +528,75 @@ def main_path(dev, seed):
                 max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30,
             )
             log(f"{mode}: {json.dumps(results[mode])}")
+        results["serve_continuous"], launches["serve_continuous"] = serve_continuous_path(
+            servers["generate"], rng, vocab,
+        )
     return results, launches
+
+
+def serve_continuous_path(server, rng, vocab):
+    """``serve_continuous`` at published widths: 32 requests of 16-384
+    prompt tokens (8 sharing a 128-token prefix, 8 full pages), 16 new
+    tokens each, after a warm-up at a small shape."""
+    from repro_torch import kernels
+    from repro_torch.core.cascade import host_fetch_stats, reset_host_fetch_stats
+    from repro_torch.obs import Observability
+    from repro_torch.serve import ServeConfig
+
+    cfg = ServeConfig(**SERVE_CONFIG)
+    server.serve_continuous(serve_requests(rng, 4, vocab, 8, 40, 2, n_prefix=2, prefix_len=16), cfg)
+    reqs = serve_requests(rng, 32, vocab, 16, 384, 16, n_prefix=8, prefix_len=128)
+    ob = Observability()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_host_fetch_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    done = server.serve_continuous(reqs, dataclasses.replace(cfg, obs=ob))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    for name in SERVE_KERNELS:
+        require(counts[name] > 0, f"serve_continuous: kernel {name} was not launched on the main path")
+    require(sorted(r.rid for r in done) == sorted(r.rid for r in reqs), "serve_continuous: a request was lost or doubled")
+    reg = ob.registry
+    n_tiers = len(server.tiers)
+    for i in range(n_tiers):
+        require(reg.get(f"paging.tier{i}.pool_occupancy").value == 0, f"tier {i}: pool pages still in use")
+    out_tokens = 0
+    for r in done:
+        require(r.tier in range(n_tiers) and r.output.ndim == 1, f"request {r.rid}: bad tier or output")
+        require(len(r.output) == r.max_new_tokens or r.truncated, f"request {r.rid}: short output not flagged")
+        v = server.tiers[r.tier].cfg.vocab_size
+        require(((r.output >= 0) & (r.output < v)).all(), f"request {r.rid}: bad token ids")
+        out_tokens += len(r.output)
+    tiers = [r.tier for r in done]
+    st = server.last_stream_stats
+    result = dict(
+        config=SERVE_CONFIG,
+        n_pages=SERVE_CONFIG["n_slots"] * SERVE_CONFIG["max_seq"] // SERVE_CONFIG["page_size"] + 1,
+        requests=len(reqs), prompt_tokens=int(sum(len(r.tokens) for r in reqs)),
+        wall_s=wall, output_tokens=out_tokens, output_tokens_per_s=out_tokens / wall,
+        tier_counts=[tiers.count(i) for i in range(n_tiers)],
+        truncated=sum(r.truncated for r in done),
+        tiers=[dict(
+            decode_steps=reg.get(f"slot_stream.tier{i}.decode.dispatch_s").count,
+            decode_tokens=st[i]["decode_tokens"], chunk_calls=st[i]["chunk_calls"],
+            chunk_tokens=st[i]["chunk_tokens"], shared_tokens=st[i]["shared_tokens"],
+            peak_pages=reg.get(f"paging.tier{i}.pool_occupancy").peak,
+            # host clock: admission (page claims + chunked-prefill launches)
+            # and decode (launches + the one token fetch, which waits for
+            # the device); each step's host->device copies of positions and
+            # tables wait for the stream too
+            admit_s=st[i]["admit_time"], decode_s=st[i]["decode_time"],
+            shared_hits=reg.value(f"paging.tier{i}.shared_hits"),
+            forced_completions=st[i]["forced_completions"],
+        ) for i in range(n_tiers)],
+        host_fetch=host_fetch_stats(), launches=counts,
+        max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30,
+    )
+    log(f"serve_continuous: {json.dumps(result)}")
+    return result, counts
 
 
 def main(argv=None):
@@ -388,12 +625,14 @@ def main(argv=None):
 
     g = torch.Generator(device=dev).manual_seed(args.seed)
     checks = []
-    for fn in (check_agreement, check_compaction, check_flash, check_decode):
+    for fn in (check_agreement, check_compaction, check_flash, check_decode, check_decode_paged):
         r = fn(dev, g)
         log(f"kernel {r['name']}: {json.dumps(r)}")
         checks.append(r)
     ref = check_reference(dev, args.seed)
     log(f"reference (card vs cpu, normwise, tol {REF_TOL}): {json.dumps(ref)}")
+    ref["serve_continuous_paged_vs_dense"] = check_serving_paged_vs_dense(dev, args.seed)
+    log(f"serve_continuous on the card, paged vs dense: {json.dumps(ref['serve_continuous_paged_vs_dense'])}")
     results, launches = main_path(dev, args.seed)
 
     sources = {
@@ -401,6 +640,7 @@ def main(argv=None):
         "compaction": ("src/repro_torch/csrc/compaction.cu", "src/repro/kernels/compaction/kernel.py:56"),
         "flash_attention": ("src/repro_torch/csrc/flash_attention.cu", "src/repro/kernels/flash_attention/kernel.py:179"),
         "decode_attention": ("src/repro_torch/csrc/decode_attention.cu", "src/repro/kernels/decode_attention/kernel.py:226"),
+        "decode_attention_paged": ("src/repro_torch/csrc/decode_attention.cu", "src/repro/kernels/decode_attention/kernel.py:110"),
     }
     line = {"kernels": [
         {

@@ -45,3 +45,21 @@ def params_from_numpy(tree, cfg: ModelConfig, device=None):
         return _leaf(t, device)
 
     return conv(tree, ())
+
+
+def pool_from_numpy(pool, device=None, *, members: bool = True):
+    """Carry a JAX KV pool (or dense slot cache) into the port's layout.
+
+    ``pool`` is a dict of numpy leaves.  With ``members`` they are
+    member-stacked as the JAX ``TierBackend`` holds them, (E, L, ...), and
+    come out layer-major, (L, E, ...) — (L, E, P, KVH, page_size, hd) for a
+    pool — so one layer's slab of every member is contiguous for the
+    kernels.  Without, single-model leaves (L, ...) pass through.  The page
+    table needs no conversion: the port's API takes the same (n_slots,
+    n_pg) int32 numpy array and moves it to the device once per step."""
+    device = resolve_device(device)
+    out = {}
+    for k, a in pool.items():
+        t = _leaf(a, device)
+        out[k] = t.transpose(0, 1).contiguous() if members else t
+    return out

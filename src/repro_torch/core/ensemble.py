@@ -2,7 +2,8 @@
 ``repro.core.ensemble``).  Every parameter leaf carries a leading E axis;
 the members run as one batched program (E-batched weight products, E
 folded into the batch around the attention kernels) where the JAX package
-``vmap``s.  Member caches are (L, E, B, KVH, S, hd)."""
+``vmap``s.  Member caches are (L, E, B, KVH, S, hd); member pools are
+(L, E, P, KVH, page_size, hd) under one page table."""
 from __future__ import annotations
 
 import torch
@@ -26,10 +27,34 @@ def ensemble_prefill(values, batch, cfg: ModelConfig):
     return api.prefill_members(values, batch, cfg)
 
 
-def ensemble_decode_step(values, token, caches, pos: int, cfg: ModelConfig):
-    """token (E, B, 1) per member, shared scalar ``pos``; caches updated in
-    place.  Returns (logits (E, B, V), caches)."""
+def ensemble_decode_step(values, token, caches, pos, cfg: ModelConfig):
+    """token (E, B, 1) per member; ``pos`` the shared scalar position or a
+    (B,) per-slot vector; caches updated in place.  Returns
+    (logits (E, B, V), caches)."""
     return api.decode_step_members(values, token, caches, pos, cfg)
+
+
+def ensemble_prefill_into_slot(values, tokens, caches, slot: int, start: int, cfg: ModelConfig):
+    """Chunked prefill of one slot for every member (dense slot caches
+    (L, E, n_slots, KVH, S, hd), in place)."""
+    return api.prefill_into_slot_members(values, tokens, caches, slot, start, cfg)
+
+
+def init_ensemble_paged_pool(values, cfg: ModelConfig, n_pages: int, page_size: int):
+    """E member planes of paged pools, (L, E, P, KVH, page_size, hd), on the
+    members' device, under one page table."""
+    return api.init_paged_pool_members(cfg, member_count(values), n_pages, page_size, values["embed"].device)
+
+
+def ensemble_decode_step_paged(values, token, pools, pos, pages, cfg: ModelConfig):
+    """One decode token per member and slot against the member-stacked
+    pools, one (B, n_pg) table.  Returns (logits (E, B, V), pools)."""
+    return api.decode_step_paged_members(values, token, pools, pos, pages, cfg)
+
+
+def ensemble_prefill_into_slot_paged(values, tokens, pools, pages_row, start: int, cfg: ModelConfig):
+    """Chunked prefill of one slot into every member plane of the pools."""
+    return api.prefill_into_slot_paged_members(values, tokens, pools, pages_row, start, cfg)
 
 
 def member_count(values) -> int:

@@ -8,7 +8,9 @@ first ``library()`` call, into ``build/torch_kernels/`` under the repo root
 
 Launch counting: each wrapper owns a ``kernels.<name>.launches`` counter on
 the process-wide registry and adds one where it launches a kernel — never
-on the plain CPU path.
+on the plain CPU path.  ``KERNELS`` names every counter; a source may hold
+more than one kernel (``decode_attention.cu`` holds the dense and the paged
+decode kernels).
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ from repro_torch.obs import global_registry
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 SOURCES = ("agreement", "compaction", "flash_attention", "decode_attention")
+KERNELS = SOURCES + ("decode_attention_paged",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -42,7 +45,10 @@ SIGNATURES = {
         "compaction_gather": [_P, _P, _P, _I, _L, _I, _P],
     },
     "flash_attention": {"flash_attention_fwd": [_P] * 5 + [_I] * 8 + [_F] * 2 + [_P]},
-    "decode_attention": {"decode_attention_fwd": [_P] * 5 + [_I, _P] + [_I] * 6 + [_F] * 2 + [_P]},
+    "decode_attention": {
+        "decode_attention_fwd": [_P] * 5 + [_I, _P] + [_I] * 6 + [_F] * 2 + [_P],
+        "decode_attention_paged_fwd": [_P] * 6 + [_I] * 9 + [_F] * 2 + [_P],
+    },
 }
 
 _LOCK = threading.Lock()
@@ -54,11 +60,11 @@ def launch_counter(name: str):
 
 
 def launch_counts() -> Dict[str, int]:
-    return {n: launch_counter(n).value for n in SOURCES}
+    return {n: launch_counter(n).value for n in KERNELS}
 
 
 def reset_launch_counts() -> None:
-    for n in SOURCES:
+    for n in KERNELS:
         launch_counter(n).reset()
 
 

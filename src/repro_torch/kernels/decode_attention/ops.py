@@ -1,15 +1,26 @@
-"""Decode attention over the kernel-native dense cache layout.
+"""Decode attention over the kernel-native dense cache layout and over
+block-paged KV pools.
 
 ``decode_attention_bksd(q, k_cache, v_cache, cur_len)`` — q (B, 1, H, hd),
 caches (B, KVH, S, hd), ``cur_len`` a scalar or (B,) count of valid cache
 rows, optional ``starts`` (B,) (cache columns before a row's prompt start
 stay invisible), sliding window and tanh softcap.
 
-On a CUDA tensor it launches ``csrc/decode_attention.cu`` (bf16, hd in
-{64, 128}, G = H / KVH in {1, 2, 4, 8, 16}, any S), which replaces
-``src/repro/kernels/decode_attention/kernel.py`` ``decode_attention_bkgd``
-and is bound by the cache bytes it reads.  On a CPU tensor the plain
-version runs — the JAX package's ``_xla_decode_bksd``.
+``decode_attention_paged(q, k_pool, v_pool, pages, cur_len)`` — pools
+(P, KVH, page_size, hd) shared by every slot, ``pages`` the (B, n_pg)
+int32 page table (-1 = unmapped, reads as zero rows), ``cur_len`` (B,).
+The pools may carry a leading member axis, (E, P, KVH, page_size, hd),
+with q (E*B, 1, H, hd): row r of q is slot r % B of member plane r // B,
+and the ONE table serves every plane.  No ``starts``.
+
+On a CUDA tensor each launches its kernel of ``csrc/decode_attention.cu``
+(bf16, hd in {64, 128}, G = H / KVH in {1, 2, 4, 8, 16}, any S or
+page_size), which replace ``src/repro/kernels/decode_attention/kernel.py``
+``decode_attention_bkgd`` and ``decode_attention_paged_bkgd``; both are
+bound by the cache bytes they read.  On a CPU tensor the plain versions
+run — the JAX package's ``_xla_decode_bksd`` and ``_xla_decode_paged``
+(gather each slot's view of exactly ``n_pg * page_size`` rows, then the
+dense sweep).
 """
 from __future__ import annotations
 
@@ -20,8 +31,10 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.compaction.ops import gather_rows_plain
 
 _LAUNCHES = build.launch_counter("decode_attention")
+_PAGED_LAUNCHES = build.launch_counter("decode_attention_paged")
 NEG_INF = -1e30
 
 
@@ -100,3 +113,104 @@ def decode_attention_bksd(
             q, k_cache, v_cache, cur_len, window=window, softcap=softcap, starts=starts
         )
     return _decode_cuda(q, k_cache, v_cache, cur_len, window=window, softcap=softcap, starts=starts)
+
+
+# ---------------------------------------------------------------------------
+# block-paged pools
+# ---------------------------------------------------------------------------
+
+
+def pool_row_index(pages: torch.Tensor, E: int, P: int) -> torch.Tensor:
+    """(E * B * n_pg,) row index into a member-stacked pool flattened to
+    (E * P, ...): member e's copy of table entry p is row e * P + p; -1
+    (unmapped) stays -1."""
+    flat = pages.reshape(-1).to(torch.int32)
+    off = torch.arange(E, dtype=torch.int32, device=pages.device)[:, None] * P
+    return torch.where(flat >= 0, flat[None, :] + off, -1).reshape(-1)
+
+
+def _member_pool(pool: torch.Tensor) -> torch.Tensor:
+    return pool[None] if pool.ndim == 4 else pool
+
+
+def paged_pool_view(pool: torch.Tensor, pages: torch.Tensor, gather) -> torch.Tensor:
+    """(E*B, KVH, n_pg * page_size, hd) per-slot contiguous view of an
+    (E, P, KVH, page_size, hd) pool (or a 4-D pool, E = 1) through the
+    (B, n_pg) table; unmapped entries come out as zero rows.  ``gather`` is
+    the row gather: ``compaction.ops.gather_rows`` (the kernel on a CUDA
+    tensor) or its plain version."""
+    pool = _member_pool(pool)
+    E, P, KVH, ps, hd = pool.shape
+    B, n_pg = pages.shape
+    rows = gather(pool.reshape(E * P, KVH, ps, hd), pool_row_index(pages, E, P))
+    return (
+        rows.reshape(E * B, n_pg, KVH, ps, hd)
+        .permute(0, 2, 1, 3, 4)
+        .reshape(E * B, KVH, n_pg * ps, hd)
+    )
+
+
+def decode_attention_paged_plain(q, k_pool, v_pool, pages, cur_len, *, window=None, softcap=None):
+    E = _member_pool(k_pool).shape[0]
+    cur = torch.as_tensor(cur_len, device=q.device).reshape(-1).repeat(E)
+    return decode_attention_plain(
+        q, paged_pool_view(k_pool, pages, gather_rows_plain),
+        paged_pool_view(v_pool, pages, gather_rows_plain), cur, window=window, softcap=softcap,
+    )
+
+
+def _paged_cuda(q, k_pool, v_pool, pages, cur_len, *, window, softcap):
+    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
+        build.require_cuda(t, f"decode_attention_paged {name}", (torch.bfloat16,))
+    # the table and positions must already be on the card: the caller moves
+    # them once per decode step, not once per layer
+    build.require_cuda(pages, "decode_attention_paged pages", (torch.int32,), align=4)
+    build.require_cuda(cur_len, "decode_attention_paged cur_len", (torch.int32,), align=4)
+    pool = _member_pool(k_pool)
+    E, P, KVH, ps, hd = pool.shape
+    B, n_pg = pages.shape
+    H = q.shape[2]
+    G = H // KVH
+    if hd not in (64, 128) or G not in (1, 2, 4, 8, 16) or H % KVH or q.shape[3] != hd:
+        raise ValueError(
+            f"decode_attention_paged: unsupported shapes q {tuple(q.shape)} pool {tuple(k_pool.shape)}"
+        )
+    out = torch.empty_like(q)
+    lib = build.library("decode_attention")
+    rc = lib.decode_attention_paged_fwd(
+        build.ptr(q), build.ptr(k_pool), build.ptr(v_pool), build.ptr(out),
+        build.ptr(cur_len), build.ptr(pages),
+        ctypes.c_int(E), ctypes.c_int(B), ctypes.c_int(P), ctypes.c_int(KVH), ctypes.c_int(G),
+        ctypes.c_int(ps), ctypes.c_int(n_pg), ctypes.c_int(hd),
+        ctypes.c_int(window or 0), ctypes.c_float(softcap or 0.0),
+        ctypes.c_float(1.0 / math.sqrt(hd)), build.stream_ptr(q),
+    )
+    build.check(lib, rc, "decode_attention_paged_fwd")
+    _PAGED_LAUNCHES.add(1)
+    return out
+
+
+def decode_attention_paged(
+    q: torch.Tensor,
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    pages: torch.Tensor,
+    cur_len: torch.Tensor,
+    *,
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+) -> torch.Tensor:
+    """Decode attention against block-paged pools; see the module
+    docstring for the layouts."""
+    if k_pool.shape != v_pool.shape:
+        raise ValueError(f"pool mismatch: k {tuple(k_pool.shape)} v {tuple(v_pool.shape)}")
+    if q.shape[0] != _member_pool(k_pool).shape[0] * pages.shape[0] or cur_len.shape != pages.shape[:1]:
+        raise ValueError(
+            f"decode_attention_paged: q {tuple(q.shape)}, pool {tuple(k_pool.shape)}, page table "
+            f"{tuple(pages.shape)} and cur_len {tuple(cur_len.shape)} do not agree"
+        )
+    if q.device.type == "cpu":
+        return decode_attention_paged_plain(
+            q, k_pool, v_pool, pages, cur_len, window=window, softcap=softcap
+        )
+    return _paged_cuda(q, k_pool, v_pool, pages, cur_len, window=window, softcap=softcap)

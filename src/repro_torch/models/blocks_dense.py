@@ -1,5 +1,6 @@
-"""Dense transformer layer: prefill and decode paths (port of
-``repro.models.blocks_dense`` for the dense family)."""
+"""Dense transformer layer: prefill, decode, chunked prefill and their
+block-paged forms (port of ``repro.models.blocks_dense`` for the dense
+family)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -18,6 +19,10 @@ def init_dense_layer(ini: Initializer, cfg: ModelConfig):
     }
 
 
+def _mlp_residual(p, x, cfg: ModelConfig):
+    return x + L.apply_mlp(p["mlp"], L.apply_norm(p["ln2"], x, cfg), cfg)
+
+
 def dense_layer_fwd(p, x, cfg: ModelConfig, *, causal: bool = True,
                     sliding_window: Optional[int] = None, positions=None, starts=None):
     """Full-sequence forward.  Returns (x, (k, v))."""
@@ -25,16 +30,47 @@ def dense_layer_fwd(p, x, cfg: ModelConfig, *, causal: bool = True,
         p["attn"], L.apply_norm(p["ln1"], x, cfg), cfg, causal=causal,
         positions=positions, sliding_window=sliding_window, starts=starts,
     )
-    x = x + h
-    x = x + L.apply_mlp(p["mlp"], L.apply_norm(p["ln2"], x, cfg), cfg)
-    return x, kv
+    return _mlp_residual(p, x + h, cfg), kv
 
 
-def dense_layer_decode(p, x, cfg: ModelConfig, k_cache, v_cache, cur_index: int, *,
+def dense_layer_decode(p, x, cfg: ModelConfig, k_cache, v_cache, cur_index, *,
                        sliding_window: Optional[int] = None, starts=None):
-    """Single-token decode.  x (E, B, 1, D); caches updated in place."""
+    """Single-token decode at a scalar or per-slot (B,) position.
+    x (E, B, 1, D); caches updated in place."""
     x = x + L.attention_decode(
         p["attn"], L.apply_norm(p["ln1"], x, cfg), cfg, k_cache, v_cache, cur_index,
         sliding_window=sliding_window, starts=starts,
     )
-    return x + L.apply_mlp(p["mlp"], L.apply_norm(p["ln2"], x, cfg), cfg)
+    return _mlp_residual(p, x, cfg)
+
+
+def dense_layer_prefill_chunk(p, x, cfg: ModelConfig, k_cache, v_cache, slot: int, start: int, *,
+                              sliding_window: Optional[int] = None):
+    """Chunked prefill for one slot.  x (E, 1, C, D); the layer's
+    (E, n_slots, KVH, S_max, hd) caches are written in place."""
+    x = x + L.attention_prefill_chunk(
+        p["attn"], L.apply_norm(p["ln1"], x, cfg), cfg, k_cache, v_cache, slot, start,
+        sliding_window=sliding_window,
+    )
+    return _mlp_residual(p, x, cfg)
+
+
+def dense_layer_prefill_chunk_paged(p, x, cfg: ModelConfig, k_pool, v_pool, start: int, pages_row, *,
+                                    sliding_window: Optional[int] = None):
+    """Chunked prefill for one slot against the layer's (E, P, KVH,
+    page_size, hd) pools, through the slot's (n_pg,) table row."""
+    x = x + L.attention_prefill_chunk_paged(
+        p["attn"], L.apply_norm(p["ln1"], x, cfg), cfg, k_pool, v_pool, start, pages_row,
+        sliding_window=sliding_window,
+    )
+    return _mlp_residual(p, x, cfg)
+
+
+def dense_layer_decode_paged(p, x, cfg: ModelConfig, k_pool, v_pool, step: L.PagedStep, *,
+                             sliding_window: Optional[int] = None):
+    """Single-token decode against the layer's paged pools.  x (E, B, 1, D)."""
+    x = x + L.attention_decode_paged(
+        p["attn"], L.apply_norm(p["ln1"], x, cfg), cfg, k_pool, v_pool, step,
+        sliding_window=sliding_window,
+    )
+    return _mlp_residual(p, x, cfg)

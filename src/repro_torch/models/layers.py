@@ -9,12 +9,13 @@ single-model function.  The weight products are batched matmuls over E
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.compaction import ops as compaction_ops
 from repro_torch.kernels.decode_attention import ops as dec_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models.params import Initializer
@@ -174,24 +175,180 @@ def attention_layer(p, x, cfg: ModelConfig, *, causal: bool, positions=None,
     return attn_output(p, ctx.reshape(q.shape), cfg), (k, v)
 
 
-def attention_decode(p, x, cfg: ModelConfig, k_cache, v_cache, cur_index: int, *,
+def attention_decode(p, x, cfg: ModelConfig, k_cache, v_cache, cur_index, *,
                      sliding_window: Optional[int] = None, starts=None):
-    """Single-token decode at a shared scalar position.  Caches (E, B, KVH,
-    S_max, hd) are the kernel-native layout, updated IN PLACE at row
-    ``cur_index`` (the JAX package returns new caches; writing one row in
-    place saves a copy of the whole cache per step).  Returns out."""
+    """Single-token decode.  Caches (E, B, KVH, S_max, hd) are the
+    kernel-native layout, updated IN PLACE (the JAX package returns new
+    caches; writing one row in place saves a copy of the whole cache per
+    step).  ``cur_index`` is the shared scalar position (an int) or a (B,)
+    int64 tensor of per-slot positions on the cache's device (continuous
+    batching): each slot writes its row at its own position and attends
+    rows ``< pos + 1``.  Returns out."""
     E, B = x.shape[:2]
-    positions = torch.full((B, 1), int(cur_index), device=x.device)
+    vector_pos = isinstance(cur_index, torch.Tensor)
+    if vector_pos:
+        positions = cur_index[:, None]
+    else:
+        positions = torch.full((B, 1), int(cur_index), device=x.device)
     if starts is not None:
         positions = positions - starts[:, None]
     q, k, v = qkv_project(p, x, cfg, positions)
-    k_cache[:, :, :, cur_index, :] = k[:, :, 0].to(k_cache.dtype)
-    v_cache[:, :, :, cur_index, :] = v[:, :, 0].to(v_cache.dtype)
+    if vector_pos:
+        members = torch.arange(E, device=x.device)[:, None]
+        rows = torch.arange(B, device=x.device)[None, :]
+        k_cache[members, rows, :, cur_index[None, :]] = k[:, :, 0].to(k_cache.dtype)
+        v_cache[members, rows, :, cur_index[None, :]] = v[:, :, 0].to(v_cache.dtype)
+        cur_len = (cur_index + 1).to(torch.int32).repeat(E)
+    else:
+        k_cache[:, :, :, cur_index, :] = k[:, :, 0].to(k_cache.dtype)
+        v_cache[:, :, :, cur_index, :] = v[:, :, 0].to(v_cache.dtype)
+        cur_len = int(cur_index) + 1
     ctx = dec_ops.decode_attention_bksd(
-        _fold(q), _fold(k_cache), _fold(v_cache), cur_len=int(cur_index) + 1,
+        _fold(q), _fold(k_cache), _fold(v_cache), cur_len=cur_len,
         window=sliding_window, softcap=cfg.attn_logit_softcap,
         starts=None if starts is None else starts.repeat(E),
     )
+    return attn_output(p, ctx.reshape(q.shape), cfg)
+
+
+def attention_prefill_chunk(p, x, cfg: ModelConfig, k_cache, v_cache, slot: int, start: int, *,
+                            sliding_window: Optional[int] = None):
+    """Chunked-prefill attention for one slot (continuous batching).
+
+    x: (E, 1, C, D) — a C-token chunk of one request's prompt; caches are
+    the layer's (E, n_slots, KVH, S_max, hd) slabs; ``start`` is the
+    absolute position of the chunk's first token.  Writes the chunk's K/V
+    at rows [start, start+C) of ``slot`` IN PLACE and attends each chunk
+    token causally over the slot's rows — row t is visible to chunk token j
+    iff t <= start+j, so stale rows of a slot's previous occupant stay
+    invisible.  Returns out (E, 1, C, D)."""
+    E, _, C, _ = x.shape
+    positions = start + torch.arange(C, device=x.device)[None, :]  # (1, C)
+    q, k, v = qkv_project(p, x, cfg, positions)
+    k_cache[:, slot, :, start:start + C] = k[:, 0].transpose(1, 2).to(k_cache.dtype)
+    v_cache[:, slot, :, start:start + C] = v[:, 0].transpose(1, 2).to(v_cache.dtype)
+    # contiguous, like the paged path's gathered view, so both reach the
+    # same matmuls and stay bitwise equal
+    k_view = k_cache[:, slot].contiguous()
+    v_view = v_cache[:, slot].contiguous()
+    ctx = _chunk_attend(_fold(q), k_view, v_view, positions, cfg, sliding_window)
+    return attn_output(p, ctx.reshape(q.shape), cfg)
+
+
+def _chunk_attend(q, k_view, v_view, positions, cfg: ModelConfig, sliding_window):
+    """Masked-softmax chunk attention over a (B, KVH, S, hd) cache view —
+    the one implementation behind both the dense and the paged chunk
+    prefill, which is what makes their outputs bitwise identical: masked
+    lanes are pinned to -1e30 so their softmax weight underflows to exactly
+    0.0, hiding stale dense rows and unmapped paged rows alike.  Plain
+    PyTorch on every device, as in the JAX package (no kernel computes
+    it)."""
+    B, C, H, hd = q.shape
+    KVH, S = k_view.shape[1], k_view.shape[2]
+    G = H // KVH
+    qg = q.reshape(B, C, KVH, G, hd).float() * (1.0 / math.sqrt(hd))
+    s = torch.einsum("bckgd,bksd->bkgcs", qg, k_view.float())
+    if cfg.attn_logit_softcap is not None:
+        s = cfg.attn_logit_softcap * torch.tanh(s / cfg.attn_logit_softcap)
+    cols = torch.arange(S, device=q.device)[None, :]  # (1, S)
+    rows = positions[0][:, None]  # (C, 1)
+    mask = cols <= rows
+    if sliding_window is not None:
+        mask &= cols > rows - sliding_window
+    s = torch.where(mask[None, None, None], s, dec_ops.NEG_INF)
+    pr = torch.softmax(s, -1)
+    ctx = torch.einsum("bkgcs,bksd->bckgd", pr, v_view.float())
+    return ctx.reshape(B, C, H, hd).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# block-paged attention (serve/paging.py owns the table)
+# ---------------------------------------------------------------------------
+
+
+def paged_view(pool, pages):
+    """Gather per-slot contiguous cache views out of a paged pool.
+
+    pool: (E, P, KVH, page_size, hd) (or (P, ...), E = 1); pages: (B, n_pg)
+    int32 table on the pool's device, -1 = unmapped (zero rows).  Returns
+    (E*B, KVH, n_pg * page_size, hd) — by construction exactly the dense
+    cache's rows.  The rows move through ``compaction.ops.gather_rows``, the
+    compaction kernel on a CUDA tensor."""
+    return dec_ops.paged_pool_view(pool, pages, compaction_ops.gather_rows)
+
+
+class PagedStep(NamedTuple):
+    """One decode step's addressing of the paged pools, built once per step
+    by ``paged_step`` and shared by every layer: nothing here is re-sent to
+    the device, and nothing is read back, inside the layer loop."""
+
+    positions: torch.Tensor  # (B, 1) int64 RoPE positions
+    cur_len: torch.Tensor  # (B,) int32 = pos + 1
+    pages: torch.Tensor  # (B, n_pg) int32 page table
+    members: torch.Tensor  # (E, 1) int64 member-plane index
+    write_page: torch.Tensor  # (1, B) int64, the overflow sink where unmapped
+    write_off: torch.Tensor  # (1, B) int64 row inside the page
+
+
+def paged_step(pos, pages, *, E: int, n_pages: int, page_size: int, device) -> PagedStep:
+    """``pos`` (B,) per-slot positions and ``pages`` the (B, n_pg) table,
+    host numpy or tensors: each goes to ``device`` once."""
+    pos = torch.as_tensor(pos, device=device).to(torch.int64)
+    pages = torch.as_tensor(pages, device=device).to(torch.int32)
+    pg = torch.gather(pages, 1, (pos // page_size)[:, None])[:, 0].to(torch.int64)
+    return PagedStep(
+        positions=pos[:, None],
+        cur_len=(pos + 1).to(torch.int32),
+        pages=pages,
+        members=torch.arange(E, device=device)[:, None],
+        write_page=torch.where(pg >= 0, pg, n_pages - 1)[None, :],  # overflow sink
+        write_off=(pos % page_size)[None, :],
+    )
+
+
+def attention_decode_paged(p, x, cfg: ModelConfig, k_pool, v_pool, step: PagedStep, *,
+                           sliding_window: Optional[int] = None):
+    """Single-token decode against a block-paged KV pool.
+
+    x (E, B, 1, D); pools (E, P, KVH, page_size, hd), one layer's slabs,
+    under ONE page table for all E member planes.  The new K/V row
+    scatters IN PLACE into each slot's current page (an unmapped row lands
+    on the overflow sink — the last pool page); attention runs page by page
+    through the table (``decode_attention_paged``), bitwise the dense slot
+    cache on the card and on the CPU.  Returns out."""
+    q, k, v = qkv_project(p, x, cfg, step.positions)
+    k_pool[step.members, step.write_page, :, step.write_off] = k[:, :, 0].to(k_pool.dtype)
+    v_pool[step.members, step.write_page, :, step.write_off] = v[:, :, 0].to(v_pool.dtype)
+    ctx = dec_ops.decode_attention_paged(
+        _fold(q), k_pool, v_pool, step.pages, step.cur_len,
+        window=sliding_window, softcap=cfg.attn_logit_softcap,
+    )
+    return attn_output(p, ctx.reshape(q.shape), cfg)
+
+
+def attention_prefill_chunk_paged(p, x, cfg: ModelConfig, k_pool, v_pool, start: int, pages_row, *,
+                                  sliding_window: Optional[int] = None):
+    """Chunked-prefill attention for one slot against the paged pool.
+
+    x: (E, 1, C, D); pools (E, P, KVH, page_size, hd); ``pages_row`` the
+    slot's (n_pg,) int32 table row on the pool's device.  The chunk's K/V
+    rows scatter IN PLACE into the mapped pages at their in-page offsets,
+    then the chunk attends over the slot's gathered view through the same
+    ``_chunk_attend`` as the dense path — bitwise what the dense slot row
+    computes.  Returns out (E, 1, C, D)."""
+    E, _, C, _ = x.shape
+    ps = k_pool.shape[-2]
+    positions = start + torch.arange(C, device=x.device)[None, :]  # (1, C)
+    q, k, v = qkv_project(p, x, cfg, positions)
+    pg = pages_row[positions[0] // ps].to(torch.int64)
+    pg = torch.where(pg >= 0, pg, k_pool.shape[1] - 1)[None, :]  # overflow sink
+    off = (positions % ps)
+    members = torch.arange(E, device=x.device)[:, None]
+    k_pool[members, pg, :, off] = k[:, 0].to(k_pool.dtype)
+    v_pool[members, pg, :, off] = v[:, 0].to(v_pool.dtype)
+    k_view = paged_view(k_pool, pages_row[None])  # (E, KVH, S, hd)
+    v_view = paged_view(v_pool, pages_row[None])
+    ctx = _chunk_attend(_fold(q), k_view, v_view, positions, cfg, sliding_window)
     return attn_output(p, ctx.reshape(q.shape), cfg)
 
 

@@ -1,5 +1,5 @@
 """CascadeServer: ABC as a serving runtime (port of
-``repro.serve.cascade_server``, batch modes).
+``repro.serve.cascade_server``, greedy).
 
 * ``classify`` — each tier's ensemble produces last-token logits; the
   agreement rule (Eq. 3/4) selects or defers; deferred rows are compacted
@@ -8,9 +8,15 @@
   greedily, all members in one batched program per decode step; answers
   become stable crc32 digests and are compared by vote
   (``vote_rule_from_preds``).
+* ``serve_continuous`` — cascade-aware continuous batching: each tier runs
+  a ``SlotStream`` (the same slot state machine the single-model engine
+  drives at E=1, here at E=k) over block-paged KV pools with chunked
+  prefill admission; a slot that finishes votes on its member generations,
+  and a disagreement re-queues the request on the next tier.  Tier streams
+  are stepped round-robin, so tier i+1 starts while tier i still decodes.
 
-Continuous batching, placement/transports and sampling (temperature > 0)
-are not ported yet.
+Not ported yet: placement and transports, sampling (temperature > 0), the
+speculative (cascade-as-drafter) path and ``serve_open_loop``.
 """
 from __future__ import annotations
 
@@ -18,17 +24,23 @@ import dataclasses
 import functools
 import zlib
 from types import SimpleNamespace
-from typing import Sequence
+from typing import List, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import deferral
 from repro_torch.core import ensemble as ens
 from repro_torch.core.cascade import CascadeResult, TierSpec, cascade_apply_routed, host_fetch
 from repro_torch.device import resolve_device
+from repro_torch.models import api
 from repro_torch.models.params import tree_map
+from repro_torch.obs import UNIT_BUCKETS, Observability
+from repro_torch.serve.batching import Request
+from repro_torch.serve.config import ServeConfig
 from repro_torch.serve.engine import grow_cache
+from repro_torch.serve.slot_stream import SlotStream, TierBackend
 
 
 def stable_digest(tokens) -> int:
@@ -45,16 +57,27 @@ def digest_generations(out: np.ndarray) -> np.ndarray:
     return np.asarray([[stable_digest(out[e, b]) for b in range(B)] for e in range(E)], np.int32)
 
 
-@functools.lru_cache(maxsize=None)
-def tier_programs(cfg: ModelConfig, temperature: float) -> SimpleNamespace:
-    """The batch programs of one tier: ``last_logits(values, batch)``,
-    ``prefill(values, batch) -> (tok (E, B, 1), caches)`` and
-    ``decode(values, tok, caches, pos) -> (tok, caches)``, greedy."""
+def _greedy(logits):
+    return logits.argmax(-1).to(torch.int32)[..., None]
+
+
+def _require_greedy(temperature: float):
     if temperature > 0.0:
         raise NotImplementedError("sampling (temperature > 0) is not ported yet")
 
-    def _greedy(logits):
-        return logits.argmax(-1).to(torch.int32)[..., None]
+
+@functools.lru_cache(maxsize=None)
+def tier_programs(cfg: ModelConfig, temperature: float) -> SimpleNamespace:
+    """The programs of one tier, greedy:
+
+    ``last_logits(values, batch) -> (E, B, V)``
+    ``prefill(values, batch) -> (tok (E, B, 1), caches)``
+    ``decode(values, tok, caches, pos) -> (tok, caches)`` (scalar ``pos``)
+    ``decode_slots(values, tok, caches, pos) -> (tok, caches)`` (per-slot
+        (B,) ``pos``, continuous batching over the dense slot cache)
+    ``prefill_chunk(values, caches, tokens, slot, start) -> caches``
+    ``reset_slot`` (None: the dense family has no slot state)."""
+    _require_greedy(temperature)
 
     def last_logits(values, batch):
         return ens.ensemble_last_logits(values, batch, cfg)
@@ -67,7 +90,31 @@ def tier_programs(cfg: ModelConfig, temperature: float) -> SimpleNamespace:
         logits, caches = ens.ensemble_decode_step(values, tok, caches, pos, cfg)
         return _greedy(logits), caches
 
-    return SimpleNamespace(last_logits=last_logits, prefill=prefill, decode=decode)
+    def prefill_chunk(values, caches, tokens, slot, start):
+        return ens.ensemble_prefill_into_slot(values, tokens, caches, slot, start, cfg)
+
+    return SimpleNamespace(
+        last_logits=last_logits, prefill=prefill, decode=decode, decode_slots=decode,
+        prefill_chunk=prefill_chunk if api.supports_chunked_prefill(cfg) else None,
+        reset_slot=None if not api.has_slot_state(cfg) else functools.partial(api.reset_slot, cfg=cfg),
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def tier_paged_programs(cfg: ModelConfig, temperature: float) -> SimpleNamespace:
+    """Block-paged counterparts of the continuous-mode programs: E pool
+    planes advance under ONE shared (n_slots, n_pg) page table."""
+    assert api.supports_paging(cfg), cfg.family
+    _require_greedy(temperature)
+
+    def decode_slots(values, tok, pools, pos, pages):
+        logits, pools = ens.ensemble_decode_step_paged(values, tok, pools, pos, pages, cfg)
+        return _greedy(logits), pools
+
+    def prefill_chunk(values, pools, tokens, pages_row, start):
+        return ens.ensemble_prefill_into_slot_paged(values, tokens, pools, pages_row, start, cfg)
+
+    return SimpleNamespace(decode_slots=decode_slots, prefill_chunk=prefill_chunk, copy_page=api.copy_pool_page)
 
 
 @dataclasses.dataclass
@@ -90,6 +137,9 @@ class CascadeTier:
         self._last_logits = programs.last_logits
         self._prefill = programs.prefill
         self._decode = programs.decode
+        self._decode_slots = programs.decode_slots
+        self._prefill_chunk = programs.prefill_chunk
+        self._reset_slot = programs.reset_slot
 
     def generate(self, tokens: np.ndarray, max_new_tokens: int, seed: int = 0) -> np.ndarray:
         """Greedy ensemble generation: tokens (B, S) -> (E, B, max_new).
@@ -103,6 +153,87 @@ class CascadeTier:
             tok, caches = self._decode(self.values, tok, caches, S + t)
             out.append(host_fetch(tok)[..., 0])
         return np.stack(out, axis=2)  # (E, B, T)
+
+
+class _CascadeRun:
+    """One ``serve_continuous`` run's machinery: per-tier ``SlotStream``s
+    over ``TierBackend``s, the vote / defer / complete routing and the
+    telemetry scopes."""
+
+    def __init__(self, server: "CascadeServer", cfg: ServeConfig, ob: Observability):
+        self.tiers = server.tiers
+        self.device = server.device
+        self.ob = ob
+        self.tr = ob.tracer
+        self.clk = ob.clock
+        self.h_lat = ob.registry.histogram("serve.request_latency_s")
+        tier_sc = [ob.scope(f"cascade.tier{i}") for i in range(len(self.tiers))]
+        self.c_answered = [sc.counter("answered") for sc in tier_sc]
+        self.c_deferred = [sc.counter("deferred") for sc in tier_sc]
+        self.c_tokens = [sc.counter("output_tokens") for sc in tier_sc]
+        self.h_margin = [sc.histogram("agreement_margin", buckets=UNIT_BUCKETS) for sc in tier_sc]
+        self.streams = [
+            SlotStream(
+                TierBackend(
+                    t, n_slots=cfg.n_slots, max_seq=cfg.max_seq, paged=cfg.paged,
+                    page_size=cfg.page_size, n_pages=cfg.n_pages,
+                    obs=ob, pool_name=f"paging.tier{i}",
+                ),
+                dataclasses.replace(cfg, obs=ob),
+                name=f"slot_stream.tier{i}",
+            )
+            for i, t in enumerate(self.tiers)
+        ]
+        self.t_start: dict = {}
+        self.done: List[Request] = []
+
+    def submit(self, requests: Sequence[Request]) -> None:
+        """Enqueue onto tier 0."""
+        for r in requests:
+            self.t_start[r.rid] = self.clk()
+        self.streams[0].submit(requests)
+
+    @property
+    def active(self) -> bool:
+        return any(st.active for st in self.streams)
+
+    def sweep(self) -> None:
+        """One round-robin pass: step every stream once, routing each
+        completed slot through its tier's vote.  Deferred re-queues land on
+        tier i+1 before its step in the same sweep."""
+        for i, st in enumerate(self.streams):
+            for r, gen in st.step():
+                self._finish_slot(i, r, gen)
+
+    def _finish_slot(self, i: int, r: Request, gen: np.ndarray) -> None:
+        tier = self.tiers[i]
+        tr = self.tr
+        digests = np.asarray([stable_digest(gen[e]) for e in range(tier.k)], np.int32)
+        out = deferral.vote_rule_from_preds(
+            torch.as_tensor(digests[:, None], device=self.device), tier.spec.theta
+        )
+        # one metered fetch per completed slot: the vote verdict and the
+        # winning digest
+        defer_h, pred_h = host_fetch((out.defer[0], out.pred[0]))
+        defer = bool(defer_h) and i < len(self.streams) - 1
+        # agreement margin: the winning digest's vote share (1.0 = unanimous)
+        margin = float(np.unique(digests, return_counts=True)[1].max()) / tier.k
+        self.h_margin[i].record(margin)
+        if tr.enabled:
+            tr.instant(r.rid, "defer_vote", tier=i, margin=margin, defer=bool(defer_h))
+        if defer:
+            self.c_deferred[i].add(1)
+            self.streams[i + 1].submit([r])
+            return
+        self.c_answered[i].add(1)
+        self.c_tokens[i].add(int(gen.shape[1]))
+        winner = int(np.argmax(digests == pred_h))
+        r.output = gen[winner].astype(np.int32)
+        r.tier = i
+        self.h_lat.record(self.clk() - self.t_start[r.rid])
+        if tr.enabled:
+            tr.instant(r.rid, "complete", tier=i)
+        self.done.append(r)
 
 
 class CascadeServer:
@@ -147,6 +278,30 @@ class CascadeServer:
             [tier_fn(t) for t in self.tiers], specs, {"tokens": tokens},
             pad_to=self.pad_to, device=self.device,
         )
+
+    def serve_continuous(self, requests: Sequence[Request], config: ServeConfig = ServeConfig()) -> List[Request]:
+        """Continuous-batching generate mode: every tier runs a
+        ``SlotStream`` over its stacked-ensemble programs (block-paged
+        pools and chunked-prefill admission by default); streams are
+        stepped round-robin, so a request deferred by tier i is admitted
+        into a freed tier-(i+1) slot while tier i still decodes.  A
+        completed slot votes over its member generations (Eq. 3 on stable
+        digests): agreement -> the request exits with the majority answer
+        and ``r.tier`` set; disagreement -> it is re-queued, prompt intact,
+        on the next tier.  Per-tier stream counters land in
+        ``last_stream_stats``.  Returns completed requests."""
+        cfg = config.with_max_seq_default(256)
+        for r in requests:
+            assert len(r.tokens) + r.max_new_tokens <= cfg.max_seq, (
+                f"request {r.rid}: prompt+budget {len(r.tokens)}+{r.max_new_tokens} "
+                f"exceeds max_seq={cfg.max_seq}"
+            )
+        run = _CascadeRun(self, cfg, cfg.resolved_obs())
+        run.submit(requests)
+        while run.active:
+            run.sweep()
+        self.last_stream_stats = [dict(st.stats) for st in run.streams]
+        return run.done
 
     def tier_fractions(self, result: CascadeResult) -> np.ndarray:
         """(n_tiers,) fraction of examples answered by each tier."""

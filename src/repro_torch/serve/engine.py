@@ -1,9 +1,63 @@
-"""Serving-engine helpers ported so far from ``repro.serve.engine``."""
+"""Single-model serving engine (port of ``repro.serve.engine``, greedy).
+
+The JAX package keeps long-lived jitted programs per config; PyTorch runs
+eagerly, so the port's "programs" are plain functions bound to a config
+(``model_programs``, ``paged_model_programs``) and there is nothing to
+trace or count.  Prompts in a batch are left-padded to a common length and
+the per-row ``starts`` carve the padding out of attention (RoPE relative
+to each row's start), so padded generations match solo runs.
+
+Continuous batching lives in ``serve/slot_stream.py``;
+``ServingEngine.serve_continuous`` is its E=1 entry point, with chunked-prefill
+admission and block-paged KV pools by default.
+"""
 from __future__ import annotations
 
+import dataclasses
+import functools
+from types import SimpleNamespace
+from typing import List, Optional
+
+import numpy as np
+import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.cascade import host_fetch
+from repro_torch.device import resolve_device
+from repro_torch.models import api
+from repro_torch.models.params import tree_map
+from repro_torch.obs import Observability, StatsView
+from repro_torch.serve.batching import Request, RequestQueue
+from repro_torch.serve.config import ServeConfig
+
+
+@functools.lru_cache(maxsize=None)
+def model_programs(cfg: ModelConfig) -> SimpleNamespace:
+    """The single-model functions for one config: ``prefill``/``decode``
+    (batch), ``prefill_chunk`` (chunked prefill into a slot) and
+    ``reset_slot`` (None: the dense family has no slot state)."""
+    return SimpleNamespace(
+        prefill=functools.partial(api.prefill, cfg=cfg),
+        decode=functools.partial(api.decode_step, cfg=cfg),
+        prefill_chunk=(
+            functools.partial(api.prefill_into_slot, cfg=cfg)
+            if api.supports_chunked_prefill(cfg) else None
+        ),
+        reset_slot=functools.partial(api.reset_slot, cfg=cfg) if api.has_slot_state(cfg) else None,
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def paged_model_programs(cfg: ModelConfig) -> SimpleNamespace:
+    """The block-paged single-model functions: page-table decode, paged
+    chunked prefill and the copy-on-write page copy."""
+    assert api.supports_paging(cfg), cfg.family
+    return SimpleNamespace(
+        decode=functools.partial(api.decode_step_paged, cfg=cfg),
+        prefill_chunk=functools.partial(api.prefill_into_slot_paged, cfg=cfg),
+        copy_page=api.copy_pool_page,
+    )
 
 
 def grow_cache(cache, pad: int, cfg: ModelConfig):
@@ -15,3 +69,151 @@ def grow_cache(cache, pad: int, cfg: ModelConfig):
     if cfg.family != "dense":
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     return {k: F.pad(v, (0, 0, 0, pad)) for k, v in cache.items()}
+
+
+class ServingEngine:
+    """Single-model serving front end: ``classify`` (last-token logits),
+    ``generate`` (batch decode loop), ``serve_continuous`` (the E=1
+    ``SlotStream`` loop), ``slot_stream`` and the queue-driven
+    ``serve_pending``.  Greedy only.  ``device=None`` means the card."""
+
+    def __init__(
+        self,
+        cfg: ModelConfig,
+        params,
+        *,
+        max_batch: int = 32,
+        max_seq: int = 512,
+        temperature: float = 0.0,
+        obs: Optional[Observability] = None,
+        device=None,
+    ):
+        if temperature > 0.0:
+            raise NotImplementedError("sampling (temperature > 0) is not ported yet")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.params = tree_map(lambda t: t.to(self.device), params)
+        self.max_batch = max_batch
+        self.max_seq = max_seq
+        self.temperature = temperature
+        self.queue = RequestQueue(max_batch=max_batch)
+        programs = model_programs(cfg)
+        self._prefill = programs.prefill
+        self._decode = programs.decode
+        self.obs = obs if obs is not None else Observability.private()
+        sc = self.obs.scope("engine")
+        self._c_prefill = sc.counter("prefill_tokens")
+        self._c_decode = sc.counter("decode_tokens")
+        self._c_batches = sc.counter("batches")
+        self.stats = StatsView({
+            "prefill_tokens": lambda: self._c_prefill.value,
+            "decode_tokens": lambda: self._c_decode.value,
+            "batches": lambda: self._c_batches.value,
+        })
+
+    # -- low-level --------------------------------------------------------
+    def _prefill_batch(self, tokens, starts):
+        batch = {"tokens": torch.as_tensor(tokens, device=self.device)}
+        if starts is not None:
+            batch["starts"] = torch.as_tensor(starts, device=self.device).to(torch.int32)
+        return batch
+
+    @staticmethod
+    def _sample(logits: torch.Tensor) -> torch.Tensor:
+        return logits.argmax(-1).to(torch.int32)
+
+    def classify(self, tokens: np.ndarray, starts=None) -> np.ndarray:
+        """Last-token logits as a classifier head: tokens (B, S) -> (B, V);
+        ``starts`` (B,) the per-row prompt starts of a left-padded batch."""
+        logits, _ = self._prefill(self.params, self._prefill_batch(tokens, starts))
+        self._c_prefill.add(tokens.size)
+        return host_fetch(logits)
+
+    def generate(self, tokens: np.ndarray, max_new_tokens: int, starts=None) -> np.ndarray:
+        """Greedy generation: tokens (B, S) -> (B, max_new).  With
+        ``starts`` the left-pad carve-out rides every decode step too."""
+        B, S = tokens.shape
+        logits, cache = self._prefill(self.params, self._prefill_batch(tokens, starts))
+        self._c_prefill.add(tokens.size)
+        cache = grow_cache(cache, max_new_tokens, self.cfg)
+        out = []
+        tok = self._sample(logits)[:, None]
+        dec_kw = {} if starts is None else {"starts": torch.as_tensor(starts, device=self.device).to(torch.int32)}
+        for t in range(max_new_tokens):
+            out.append(host_fetch(tok)[:, 0])
+            if t == max_new_tokens - 1:
+                break
+            logits, cache = self._decode(self.params, tok, cache, S + t, **dec_kw)
+            self._c_decode.add(B)
+            tok = self._sample(logits)[:, None]
+        return np.stack(out, axis=1)
+
+    # -- continuous batching ----------------------------------------------
+    def slot_stream(self, config: ServeConfig = ServeConfig()):
+        """A fresh ``SlotStream`` over this engine's model — the E=1 case
+        of the shared slot state machine.  ``paged`` selects block-paged KV
+        pools (default: wherever the family supports them; ``paged=False``
+        keeps the dense slot cache as the parity oracle); ``n_pages``
+        bounds the pool (default: dense-equivalent capacity plus the
+        overflow sink)."""
+        from repro_torch.serve.slot_stream import EngineBackend, SlotStream
+
+        cfg = config.with_max_seq_default(self.max_seq)
+        backend = EngineBackend(
+            self.cfg, self.params, model_programs(self.cfg), self._sample,
+            n_slots=cfg.n_slots, max_seq=cfg.max_seq,
+            prefill_counter=self._c_prefill,
+            paged=cfg.paged, page_size=cfg.page_size, n_pages=cfg.n_pages,
+            obs=cfg.obs,
+        )
+        return SlotStream(backend, cfg)
+
+    def serve_continuous(self, requests: List[Request], config: ServeConfig = ServeConfig()) -> List[Request]:
+        """Slot-based continuous batching, a thin loop over
+        ``SlotStream``: one decode step advances every active slot by one
+        token at its own position; freed slots admit new requests
+        mid-stream, consuming ``prompt[:-1]`` through bucketed chunked
+        prefill (or token by token through decode with
+        ``chunked_prefill=False``).  Requests cut short by the cache wall
+        come back with ``truncated=True``.  The stream records into
+        ``config.obs`` or, without one, the engine's own registry; the run's
+        stream counters land in ``last_stream_stats``.  Returns the
+        completed requests."""
+        cfg = config.with_max_seq_default(self.max_seq)
+        ob = cfg.obs if cfg.obs is not None else self.obs
+        stream = self.slot_stream(dataclasses.replace(cfg, obs=ob))
+        clk = ob.clock
+        h_lat = ob.registry.histogram("serve.request_latency_s")
+        # counters in a shared registry are cumulative across serves: the
+        # engine's decode credit and ``last_stream_stats`` are this run's delta
+        st0 = dict(stream.stats)
+        t_submit = {r.rid: clk() for r in requests}
+        stream.submit(requests)
+        done: List[Request] = []
+        for r, gen in stream.drain():
+            r.output = gen[0].astype(np.int32)
+            h_lat.record(clk() - t_submit[r.rid])
+            if ob.tracer.enabled:
+                ob.tracer.instant(r.rid, "complete", truncated=r.truncated)
+            done.append(r)
+        st1 = dict(stream.stats)
+        self._c_decode.add(st1["decode_tokens"] - st0["decode_tokens"])
+        self.last_stream_stats = {k: v - st0[k] for k, v in st1.items()}
+        return done
+
+    # -- queue-driven serving --------------------------------------------
+    def serve_pending(self) -> List[Request]:
+        """Drain ``self.queue`` batch by batch: each batch is padded to its
+        power-of-two bucket (right-aligned prompts, per-row starts) and
+        generated in one call.  Returns the completed requests."""
+        done = []
+        while True:
+            batch = self.queue.next_batch()
+            if batch is None:
+                return done
+            toks, starts, _ = self.queue.pad_batch_with_starts(batch)
+            gen = self.generate(toks, max(r.max_new_tokens for r in batch), starts=starts)
+            self._c_batches.add(1)
+            for i, r in enumerate(batch):
+                r.output = gen[i, : r.max_new_tokens]
+                done.append(r)

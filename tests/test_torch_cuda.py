@@ -7,7 +7,8 @@ where only PyTorch is installed:
 
 Tolerances: argmax, max, index maps and compacted payloads exact; sumexp
 rel 1e-5; bf16 attention outputs abs 2e-2 (inputs ~N(0, 1); the flash
-kernel rounds P to bf16 before the PV product)."""
+kernel rounds P to bf16 before the PV product); the paged decode kernel
+bitwise equal to the dense one on the gathered view."""
 import numpy as np
 import pytest
 import torch
@@ -103,3 +104,53 @@ def test_decode_attention(cuda, case, G, hd):
     kw = dict(window=case["window"], softcap=case["softcap"], starts=starts)
     got = decode.decode_attention_bksd(q, kc, vc, cur, **kw).float()
     torch.testing.assert_close(got, decode.decode_attention_plain(q, kc, vc, cur, **kw).float(), rtol=0, atol=2e-2)
+
+
+PAGED_CASES = [
+    dict(ps=16, cur=[1, 37, 128, 70], holes=[], window=None, softcap=None),  # cur_len off the page grid
+    dict(ps=16, cur=[100, 5, 128, 64], holes=[(0, 2), (3, 1)], window=None, softcap=None),  # -1 inside cur_len
+    dict(ps=64, cur=[200, 64, 1, 129], holes=[], window=None, softcap=None),
+    dict(ps=16, cur=[120, 33, 128, 9], holes=[], window=40, softcap=20.0),
+]
+
+
+@pytest.mark.parametrize("E", [1, 3])
+@pytest.mark.parametrize("G,hd", [(8, 128), (2, 128), (1, 64)])
+@pytest.mark.parametrize("case", PAGED_CASES, ids=lambda c: f"ps={c['ps']}-cur={c['cur']}-w={c['window']}")
+def test_decode_attention_paged(cuda, case, G, hd, E):
+    """Shuffled tables, -1 entries past and inside cur_len, member planes
+    under one table: within 2e-2 of the plain version and bitwise the dense
+    kernel on the gathered view."""
+    B, KVH, ps = 4, 2, case["ps"]
+    n_pg = -(-max(case["cur"]) // ps) + 1
+    P = B * n_pg + 1
+    gen = torch.Generator().manual_seed(ps + G)
+    pages = torch.full((B, n_pg), -1, dtype=torch.int32)
+    perm = torch.randperm(P - 1, generator=gen)
+    used = 0
+    for b, c in enumerate(case["cur"]):
+        n = -(-c // ps)
+        pages[b, :n] = perm[used:used + n].to(torch.int32)
+        used += n
+    for b, i in case["holes"]:
+        pages[b, i] = -1
+    q = _randn(E * B, 1, KVH * G, hd, seed=0).to(cuda, torch.bfloat16)
+    kp = _randn(E, P, KVH, ps, hd, seed=1).to(cuda, torch.bfloat16)
+    vp = _randn(E, P, KVH, ps, hd, seed=2).to(cuda, torch.bfloat16)
+    pages, cur = pages.to(cuda), torch.tensor(case["cur"], dtype=torch.int32, device=cuda)
+    kw = dict(window=case["window"], softcap=case["softcap"])
+    before = kernels.launch_counts()["decode_attention_paged"]
+    got = decode.decode_attention_paged(q, kp, vp, pages, cur, **kw)
+    assert kernels.launch_counts()["decode_attention_paged"] == before + 1
+    ref = decode.decode_attention_paged_plain(q, kp, vp, pages, cur, **kw)
+    torch.testing.assert_close(got.float(), ref.float(), rtol=0, atol=2e-2)
+    view_k, view_v = (decode.paged_pool_view(t, pages, compact.gather_rows_plain) for t in (kp, vp))
+    assert torch.equal(got, decode.decode_attention_bksd(q, view_k, view_v, cur.repeat(E), **kw))
+
+
+def test_decode_attention_paged_wants_device_table(cuda):
+    q = _randn(2, 1, 8, 64).to(cuda, torch.bfloat16)
+    kp = _randn(4, 2, 16, 64).to(cuda, torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        decode.decode_attention_paged(q, kp, kp, torch.zeros((2, 1), dtype=torch.int32),
+                                      torch.ones(2, dtype=torch.int32, device=cuda))

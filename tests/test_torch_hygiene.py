@@ -15,7 +15,7 @@ from repro_torch import kernels
 from repro_torch.configs import get_config
 from repro_torch.core import ensemble as ens
 from repro_torch.core.cascade import TierSpec
-from repro_torch.serve import CascadeServer, CascadeTier
+from repro_torch.serve import CascadeServer, CascadeTier, Request, ServeConfig
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -25,7 +25,7 @@ import numpy as np, torch
 from repro_torch.configs import get_config
 from repro_torch.core import ensemble as ens
 from repro_torch.core.cascade import TierSpec
-from repro_torch.serve import CascadeServer, CascadeTier
+from repro_torch.serve import CascadeServer, CascadeTier, Request, ServeConfig
 c1, c2 = get_config("qwen2.5-3b").reduced(), get_config("internlm2-1.8b").reduced()
 g = torch.Generator().manual_seed(0)
 server = CascadeServer([
@@ -34,6 +34,8 @@ server = CascadeServer([
 ], device="cpu")
 res = server.classify(np.random.default_rng(0).integers(0, 512, (8, 16)).astype(np.int32))
 assert res.tier_counts.sum() == 8, res
+reqs = [Request(tokens=np.arange(3 + i, dtype=np.int32), max_new_tokens=2) for i in range(4)]
+assert len(server.serve_continuous(reqs, ServeConfig(n_slots=2, max_seq=32, page_size=8))) == 4
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "repro.")) or m == "repro")
 assert not bad, bad
 print("OK")
@@ -77,4 +79,10 @@ def test_cpu_call_launches_no_kernel():
     toks = np.random.default_rng(0).integers(0, 512, (8, 8)).astype(np.int32)
     server.classify(toks)
     server.generate(toks, 2)
+    reqs = [Request(tokens=toks[i], max_new_tokens=2) for i in range(3)]
+    for paged in (True, False):
+        server.serve_continuous(reqs, ServeConfig(n_slots=2, max_seq=32, page_size=8, paged=paged))
+    assert set(kernels.launch_counts()) == {
+        "agreement", "compaction", "flash_attention", "decode_attention", "decode_attention_paged",
+    }
     assert kernels.launch_counts() == {n: 0 for n in kernels.launch_counts()}
