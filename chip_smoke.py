@@ -6,34 +6,50 @@
 Phases, in order; any failure raises and exits non-zero:
 
 1. build — compiles every CUDA source of the port from ``src/repro_torch/csrc``
-   (one ``nvcc`` per source, all in parallel) and prints the build seconds and
-   the card's name and power limit.
+   (one ``nvcc`` per source, all in parallel, the Mamba2 SSD and RWKV6 WKV
+   scans included) and prints the build seconds and the card's name and
+   power limit.
 2. kernels — holds each kernel against its plain PyTorch version on the card,
    at the main path's shapes and at edge cases (ragged vocabulary, forced
    argmax ties, all/none deferred, left-pad ``starts`` with pure-pad rows,
-   window/softcap, ragged Sk, vector ``cur_len``; for the paged decode
-   kernel shuffled page tables, unmapped pages past and inside ``cur_len``,
+   window/softcap, ragged Sk, vector ``cur_len``, hd 80 with G = 1 at
+   zamba2's shapes for flash and dense decode; for the paged decode kernel
+   shuffled page tables, unmapped pages past and inside ``cur_len``,
    ``cur_len`` off the page grid, page sizes 16 and 64, hd 64 with G = 1,
    both tiers' serving shapes (G = 8 and G = 2 at hd 128), and bitwise
-   equality with the dense decode kernel on the gathered view), with
-   the tolerance stated beside each check; times kernel, plain version and
-   one library call (the yardstick; the port never calls it) with CUDA
-   events.
+   equality with the dense decode kernel on the gathered view; for the SSD
+   scan (``check_ssd``) ragged S, an initial state, G > 1, per-member A and
+   P/N at 64/64 and 32/16; for the WKV6 scan (``check_wkv6``) S = 1 with a
+   state, ragged S, strongly negative log-decay, per-member u and D 32 and
+   64; both scans also at serve_continuous's chunked-admission shape), with
+   the tolerance stated beside each check; times kernel, plain
+   version and one library call where one computes the same function (the
+   yardstick; the port never calls it) with CUDA events.
 3. reference — the port on the card (kernels) against the port on the CPU
    (plain versions) with the same bf16 weights at reduced width: prefill and
-   decode, paged decode and paged chunked prefill; then a short
-   ``serve_continuous`` on the card with block-paged pools and with the dense
-   slot cache, which must emit equal tokens.
-4. main path — the cascade at published widths and full depth: tier 1 a k=3
-   ensemble of qwen2.5-3b (score rule, theta = median tier-1 mean score on a
-   calibration batch; for generate and serve_continuous the digest vote with
-   theta = 0.5), tier 2 internlm2-1.8b (confidence, theta = -1), bf16 weights
-   drawn from ``--seed``.  ``classify`` on 32 prompts of 256 tokens, greedy
-   ``generate`` on 8 prompts of 128 tokens with 16 new tokens, and
-   ``serve_continuous`` (8 slots, max_seq 512, 16-token pages, chunked
-   prefill) on 32 requests of 16-384 prompt tokens, 8 of them sharing a
-   128-token prefix, 16 new tokens each; each run with the launch counters
-   zeroed just before and read just after.
+   decode, paged decode and paged chunked prefill for the dense tiers;
+   prefill, decode and chunked prefill into a slot followed by a decode step
+   for rwkv6-7b and zamba2-2.7b, and the same again in float32 (rwkv6-7b,
+   and zamba2-2.7b's Mamba2 backbone) at a tight tolerance, where only
+   summation order differs; then a short ``serve_continuous`` on the
+   card with block-paged pools and with the dense slot cache, which must
+   emit equal tokens.
+4. main path — two cascades at published widths and full depth, bf16
+   weights drawn from ``--seed``, the second built after the first one's
+   tensors are freed by reference counting alone (the cyclic collector is
+   off, and device memory that outlives a cascade fails the run).  First: tier 1 a k=3 ensemble of qwen2.5-3b, tier 2
+   internlm2-1.8b.  Second: tier 1 a k=3 ensemble of zamba2-2.7b (Mamba2
+   backbone, shared attention every 6th layer), tier 2 rwkv6-7b — the path
+   that runs the SSD and WKV6 kernels.  Each: tier 1 uses the score rule
+   for classify (theta = median tier-1 mean score on a calibration batch)
+   and the digest vote with theta = 0.5 for generate and serve_continuous;
+   tier 2 answers (confidence, theta = -1).  ``classify`` on 32 prompts of
+   256 tokens, greedy ``generate`` on 8 prompts of 128 tokens with 16 new
+   tokens, and ``serve_continuous`` (8 slots, max_seq 512, chunked
+   prefill; 16-token pages where the family pages, dense slot caches for
+   the recurrent tiers) on 32 requests of 16-384 prompt tokens, 8 of them
+   sharing a 128-token prefix, 16 new tokens each; each run with the
+   launch counters zeroed just before and read just after.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -43,6 +59,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -205,19 +222,29 @@ def check_flash(dev, g):
     run(*qkv(4, 200, 200, 8, 2, 128), causal=True, window=48, starts=st)
     run(*qkv(2, 77, 200, 8, 8, 64), causal=False)
     run(*qkv(16, 256, 256, 16, 8, 128), causal=True)  # tier 2 prefill
-    q, k, v = qkv(96, 256, 256, 16, 2, 128)  # tier 1 prefill: E*B = 3*32 rows
+    run(*qkv(4, 200, 200, 8, 8, 80), causal=True, starts=st)  # hd 80, G 1
+    run(*qkv(3, 77, 150, 4, 4, 80), causal=False)
+
+    def timed(q, k, v):
+        B, S, H, hd = q.shape
+        pairs = B * H * S * (S + 1) // 2
+        b_ms, b_by = bound(nbytes(q, k, v, q), 4 * hd * pairs, BF16_FLOPS)  # q, k, v read; out written
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        return dict(
+            ms=time_ms(lambda: ops.flash_attention(q, k, v, causal=True)),
+            plain_ms=time_ms(lambda: ops.flash_attention_plain(q, k, v, causal=True), iters=5),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)),
+            bound_ms=b_ms, bound_by=b_by,
+        )
+
+    q80 = qkv(96, 256, 256, 32, 32, 80)  # zamba2 tier 1 prefill: E*B = 3*32 rows, hd 80, G 1
+    err80 = run(*q80, causal=True)
+    q, k, v = qkv(96, 256, 256, 16, 2, 128)  # qwen2.5-3b tier 1 prefill: E*B = 3*32 rows
     err = run(q, k, v, causal=True)
-    B, S, H, hd = q.shape
-    pairs = B * H * S * (S + 1) // 2
-    b_ms, b_by = bound(nbytes(q, k, v, q), 4 * hd * pairs, BF16_FLOPS)  # q, k, v read; out written
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     return dict(
         name="flash_attention", tol=f"abs {FLASH_TOL}", shape={"q": list(q.shape), "kv": list(k.shape)},
-        max_abs_err=err,
-        ms=time_ms(lambda: ops.flash_attention(q, k, v, causal=True)),
-        plain_ms=time_ms(lambda: ops.flash_attention_plain(q, k, v, causal=True), iters=5),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)),
-        bound_ms=b_ms, bound_by=b_by,
+        max_abs_err=max(err, err80), hd128_err=err, **timed(q, k, v),
+        hd80=dict(shape={"q": list(q80[0].shape), "kv": list(q80[1].shape)}, max_abs_err=err80, **timed(*q80)),
     )
 
 
@@ -247,21 +274,33 @@ def check_decode(dev, g):
     run(q, kc, vc, 250, window=32, softcap=20.0)
     run(*inputs(3, 8, 8, 100, 64), 100, starts=torch.tensor([5, 0, 99], dtype=torch.int32, device=dev))
     run(*inputs(8, 16, 8, 144, 128), 143)  # tier 2 generate decode
-    q, kc, vc = inputs(24, 16, 2, 144, 128)  # tier 1: E*B = 3*8 rows, last step
-    cur = 143
+    run(*inputs(3, 4, 4, 100, 80), 100, window=30, starts=torch.tensor([5, 0, 99], dtype=torch.int32, device=dev))
+    # zamba2 serve_continuous decode: 3*8 slots of max_seq 512, per-slot cur_len
+    run(*inputs(24, 32, 32, 512, 80), torch.randint(1, 513, (24,), device=dev, generator=g, dtype=torch.int32))
+
+    def timed(q, kc, vc, cur):
+        B, _, H, hd = q.shape
+        KVH = kc.shape[1]
+        n_bytes = 2 * nbytes(q) + 2 * B * KVH * cur * hd * 2
+        b_ms, b_by = bound(n_bytes, 4 * B * H * cur * hd, BF16_FLOPS)
+        qt, ks, vs = q.transpose(1, 2), kc[:, :, :cur], vc[:, :, :cur]
+        return dict(
+            ms=time_ms(lambda: ops.decode_attention_bksd(q, kc, vc, cur)),
+            plain_ms=time_ms(lambda: ops.decode_attention_plain(q, kc, vc, cur)),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(qt, ks, vs, enable_gqa=True)),
+            bound_ms=b_ms, bound_by=b_by,
+        )
+
+    cur = 143  # the last generate step
+    q80 = inputs(24, 32, 32, 144, 80)  # zamba2 tier 1: E*B = 3*8 rows, hd 80, G 1
+    err80 = run(*q80, cur)
+    q, kc, vc = inputs(24, 16, 2, 144, 128)  # qwen2.5-3b tier 1: E*B = 3*8 rows
     err = run(q, kc, vc, cur)
-    B, _, H, hd = q.shape
-    KVH = kc.shape[1]
-    n_bytes = 2 * nbytes(q) + 2 * B * KVH * cur * hd * 2
-    b_ms, b_by = bound(n_bytes, 4 * B * H * cur * hd, BF16_FLOPS)
-    qt, ks, vs = q.transpose(1, 2), kc[:, :, :cur], vc[:, :, :cur]
     return dict(
         name="decode_attention", tol=f"abs {DECODE_TOL}", shape={"q": list(q.shape), "cache": list(kc.shape), "cur_len": cur},
-        max_abs_err=err,
-        ms=time_ms(lambda: ops.decode_attention_bksd(q, kc, vc, cur)),
-        plain_ms=time_ms(lambda: ops.decode_attention_plain(q, kc, vc, cur)),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(qt, ks, vs, enable_gqa=True)),
-        bound_ms=b_ms, bound_by=b_by,
+        max_abs_err=max(err, err80), hd128_err=err, **timed(q, kc, vc, cur),
+        hd80=dict(shape={"q": list(q80[0].shape), "cache": list(q80[1].shape), "cur_len": cur}, max_abs_err=err80,
+                  **timed(*q80, cur)),
     )
 
 
@@ -342,6 +381,149 @@ def check_decode_paged(dev, g):
     )
 
 
+# The scans: each kernel runs the per-step recurrence, its plain version the
+# chunked form (the JAX package's XLA route) — one f32 function summed in
+# another order.  Outputs normwise: 1e-5 in f32; 2**-7 in bf16, where the
+# two f32 results each round to bf16 and may land one bf16 step apart (at
+# most 2**-7 of the element, so of the largest value).  Final states
+# normwise 1e-3.
+SCAN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0**-7}
+STATE_TOL = 1e-3
+# Under strong decay (log-decay down to -exp(9)) the chunked plain version's
+# exponents lose up to ~|cum| * 6e-8 ~ 6e-3: there the kernel is held to the
+# plain version at this bound and to the per-step ref at SCAN_TOL.
+STRONG_DECAY_TOL = 2e-2
+SCAN_TOL_TEXT = ("output normwise 1e-5 (f32) / 2**-7 (bf16), state normwise 1e-3; strong decay: "
+                 "2e-2 against the plain version and the above against the per-step ref")
+
+
+def normwise_err(got, ref):
+    got, ref = got.float(), ref.float()
+    return ((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30)).item()
+
+
+def check_scan(name, got, ref, tol=None):
+    """got and ref (y, final state): normwise errors, held to the stated
+    tolerances (``tol`` overrides both).  Returns (y normwise err, state
+    normwise err, y max abs err)."""
+    (y, s), (py, ps) = got, ref
+    ey, es = normwise_err(y, py), normwise_err(s, ps)
+    ty, ts = (tol, tol) if tol else (SCAN_TOL[y.dtype], STATE_TOL)
+    require(math.isfinite(ey) and ey <= ty, f"{name}: output normwise err {ey} > {ty}")
+    require(math.isfinite(es) and es <= ts, f"{name}: state normwise err {es} > {ts}")
+    return ey, es, (y.float() - py.float()).abs().max().item()
+
+
+def check_ssd(dev, g):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.mamba2_ssd import ops
+
+    def inputs(B, S, H, P, G, N, E, dtype, h0, dt_shift=0.0):
+        x = torch.randn(B, S, H, P, device=dev, generator=g).to(dtype)
+        dt = F.softplus(torch.randn(B, S, H, device=dev, generator=g) + dt_shift)
+        A = -torch.exp(torch.randn(E, H, device=dev, generator=g) * 0.3)
+        Bm, Cm = (torch.randn(B, S, G, N, device=dev, generator=g).mul(0.5).to(dtype) for _ in range(2))
+        s0 = torch.randn(B, H, N, P, device=dev, generator=g).mul(0.2) if h0 else None
+        return (x, dt, A, Bm, Cm), s0
+
+    def run(args, s0):
+        got = ops.ssd(*args, initial_state=s0, return_final_state=True)
+        return check_scan("ssd", got, ops.ssd_plain(*args, initial_state=s0))
+
+    errs = [
+        run(*inputs(2, 300, 8, 64, 1, 64, 2, torch.bfloat16, True)),  # ragged S, P/N 64/64, per-member A
+        run(*inputs(3, 130, 8, 32, 2, 16, 3, torch.float32, True)),  # G > 1, P/N 32/16
+        run(*inputs(4, 77, 4, 32, 4, 16, 1, torch.bfloat16, False)),
+        run(*inputs(6, 1, 8, 64, 1, 64, 3, torch.bfloat16, True)),  # a single step
+    ]
+    # the main path: zamba2-2.7b tier-1 classify, E*B = 3*32 rows, S 256, 80
+    # heads of P 64, G 1, N 64; bf16 x, B and C as the block gives them, dt
+    # near softplus(dt_bias) as initialised
+    args, _ = inputs(96, 256, 80, 64, 1, 64, 3, torch.bfloat16, False, dt_shift=-4.0)
+    errs.append(run(args, None))
+    # and serve_continuous's chunked admission: one slot of each of the 3
+    # members, a full 256-token chunk (max_chunk) continuing the slot's state
+    adm, adm_s0 = inputs(3, 256, 80, 64, 1, 64, 3, torch.bfloat16, True, dt_shift=-4.0)
+    errs.append(run(adm, adm_s0))
+
+    def timed(args, s0):
+        x, dt, A, Bm, Cm = args
+        B, S, H, P = x.shape
+        N = Bm.shape[-1]
+        y, hT = ops.ssd(*args, initial_state=s0, return_final_state=True)
+        ins = (x, dt, A, Bm, Cm) + (() if s0 is None else (s0,))
+        b_ms, b_by = bound(nbytes(*ins, y, hT), 5 * B * S * H * N * P, F32_FLOPS)
+        return dict(
+            shape={"x": list(x.shape), "B": list(Bm.shape), "E": A.shape[0], "initial_state": s0 is not None},
+            ms=time_ms(lambda: ops.ssd(*args, initial_state=s0, return_final_state=True)),
+            plain_ms=time_ms(lambda: ops.ssd_plain(*args, initial_state=s0), iters=5),
+            library_ms=None,  # no single PyTorch call computes the scan
+            bound_ms=b_ms, bound_by=b_by,
+        )
+
+    return dict(
+        name="mamba2_ssd", tol=SCAN_TOL_TEXT,
+        max_abs_err=max(e[2] for e in errs), normwise_err=max(e[0] for e in errs),
+        state_normwise_err=max(e[1] for e in errs), **timed(args, None), admission=timed(adm, adm_s0),
+    )
+
+
+def check_wkv6(dev, g):
+    from repro_torch.kernels.rwkv6_wkv import ops
+    from repro_torch.kernels.rwkv6_wkv.ref import wkv6_ref
+
+    def inputs(B, S, H, D, E, dtype, h0, scale=0.5, shift=0.0):
+        r, k, v = (torch.randn(B, S, H, D, device=dev, generator=g).to(dtype) for _ in range(3))
+        logw = -torch.exp(torch.randn(B, S, H, D, device=dev, generator=g) * scale + shift)
+        u = torch.randn(E, H, D, device=dev, generator=g).mul(0.5)
+        s0 = torch.randn(B, H, D, D, device=dev, generator=g).mul(0.1) if h0 else None
+        return (r, k, v, logw, u), s0
+
+    def run(args, s0, strong=False):
+        got = ops.wkv6(*args, initial_state=s0, return_final_state=True)
+        if strong:
+            check_scan("wkv6 (per-step ref)", got, wkv6_ref(*args, initial_state=s0, return_final_state=True))
+        return check_scan("wkv6", got, ops.wkv6_plain(*args, initial_state=s0), STRONG_DECAY_TOL if strong else None)
+
+    errs = [
+        run(*inputs(8, 1, 64, 64, 1, torch.bfloat16, True)),  # S = 1 with a state
+        run(*inputs(3, 77, 8, 32, 3, torch.float32, True)),  # ragged S, per-member u, D 32
+        run(*inputs(4, 70, 4, 64, 2, torch.bfloat16, True, scale=3.0), strong=True),  # strongly negative logw
+        run(*inputs(2, 45, 4, 32, 1, torch.float32, False, scale=2.0), strong=True),
+    ]
+
+    def timed(args, s0):
+        r, k, v, logw, u = args
+        B, S, H, D = r.shape
+        y, sT = ops.wkv6(*args, initial_state=s0, return_final_state=True)
+        ins = (r, k, v, logw, u) + (() if s0 is None else (s0,))
+        b_ms, b_by = bound(nbytes(*ins, y, sT), 4 * B * S * H * D * D, F32_FLOPS)
+        return dict(
+            shape={"r": list(r.shape), "initial_state": s0 is not None},
+            ms=time_ms(lambda: ops.wkv6(*args, initial_state=s0, return_final_state=True)),
+            plain_ms=time_ms(lambda: ops.wkv6_plain(*args, initial_state=s0), iters=5),
+            library_ms=None,  # no single PyTorch call computes the scan
+            bound_ms=b_ms, bound_by=b_by,
+        )
+
+    # the main path: rwkv6-7b tier-2 prefill (16 deferred rows of 256
+    # tokens, 64 heads of 64), its decode step (8 rows, S = 1, a state) and
+    # serve_continuous's chunked admission (one slot, a full 256-token chunk
+    # continuing the slot's state); log-decay near -exp(decay_base) as
+    # initialised
+    pre, _ = inputs(16, 256, 64, 64, 1, torch.bfloat16, False, shift=-4.0)
+    dec, dec_s0 = inputs(8, 1, 64, 64, 1, torch.bfloat16, True, shift=-4.0)
+    adm, adm_s0 = inputs(1, 256, 64, 64, 1, torch.bfloat16, True, shift=-4.0)
+    errs += [run(pre, None), run(dec, dec_s0), run(adm, adm_s0)]
+    return dict(
+        name="rwkv6_wkv", tol=SCAN_TOL_TEXT,
+        max_abs_err=max(e[2] for e in errs), normwise_err=max(e[0] for e in errs),
+        state_normwise_err=max(e[1] for e in errs), **timed(pre, None), decode=timed(dec, dec_s0),
+        admission=timed(adm, adm_s0),
+    )
+
+
 # ---------------------------------------------------------------------------
 # phase 3: card (kernels) against CPU (plain versions) on the same weights
 # ---------------------------------------------------------------------------
@@ -375,10 +557,155 @@ def check_reference(dev, seed):
     return errs
 
 
-def normwise(a, b, what):
+# Card against CPU end to end, for the recurrent families: a bf16 drift of
+# ~3e-3 a recurrent layer grows about tenfold through a dense block of these
+# random-weight models (qwen2.5-3b's second layer does the same to its
+# input's drift), so end-to-end outputs are held at this looser bound and
+# every layer, fed the CPU's own input and state, at REF_TOL.
+E2E_TOL = 0.15
+# The same end-to-end run with bf16 rounding removed: float32 weights and
+# activations (TF32 off), where card and CPU differ only in summation order
+# (~1e-6 a layer).  It separates rounding from a fault.  The hybrid's shared
+# attention cannot run so (the flash and decode kernels take bf16 only, as
+# the TPU kernels do), so zamba2 runs its Mamba2 backbone alone.
+F32_TOL = 1e-4
+
+
+def layer_by_layer(cfg, vals, gvals, dev, x, cache=None, *, step=False, slot=None, start=0, pos=None):
+    """Walk the recurrent stack on the CPU from hidden x (E, B, S, D); feed
+    each layer's CPU input and state (and the hybrid's KV leaves) to the same
+    layer on the card and hold its output, new state and written KV against
+    the CPU's.  ``cache`` None is a prefill; otherwise a member cache (CPU,
+    updated in place) continued by a decode step (``step``, ``pos``) or by a
+    chunk into ``slot`` at ``start``.  Returns (worst normwise error, final
+    CPU hidden)."""
+    from repro_torch.models import api
+    from repro_torch.models import blocks_dense as BD
+
+    row = slice(None) if slot is None else slice(slot, slot + 1)
+    worst = 0.0
+
+    def hold(got, ref, what):
+        nonlocal worst
+        worst = max(worst, normwise(ref, got, f"{cfg.name} {what} card vs cpu, same input"))
+
+    for l in range(cfg.n_layers):
+        st = None if cache is None else {n: cache[n][l][:, row] for n in api._state_keys(cfg)}
+        gst = None if st is None else {n: t.to(dev) for n, t in st.items()}
+        y, new = api._recurrent_layer(vals, l, x, cfg, st, step=step)
+        gy, gnew = api._recurrent_layer(gvals, l, x.to(dev), cfg, gst, step=step)
+        hold(gy, y, f"layer {l}")
+        for n, t in new.items():
+            hold(gnew[n], t, f"layer {l} {n}")
+            if cache is not None:
+                cache[n][l][:, row] = t
+        x = y
+        if not api._attn_after(cfg, l):
+            continue
+        shared, gshared = vals["shared_attn"], gvals["shared_attn"]
+        if cache is None:
+            y = BD.dense_layer_fwd(shared, x, cfg, causal=True, sliding_window=cfg.sliding_window)[0]
+            gy = BD.dense_layer_fwd(gshared, x.to(dev), cfg, causal=True, sliding_window=cfg.sliding_window)[0]
+        else:
+            inv = l // cfg.attn_every
+            kc, vc = cache["attn_k"][inv], cache["attn_v"][inv]
+            gk, gv = kc.to(dev), vc.to(dev)  # copies, before the CPU writes its rows
+            if step:
+                y = BD.dense_layer_decode(shared, x, cfg, kc, vc, api._positions(pos, "cpu"))
+                gy = BD.dense_layer_decode(gshared, x.to(dev), cfg, gk, gv, api._positions(pos, dev))
+            else:
+                y = BD.dense_layer_prefill_chunk(shared, x, cfg, kc, vc, slot, start)
+                gy = BD.dense_layer_prefill_chunk(gshared, x.to(dev), cfg, gk, gv, slot, start)
+            hold(gk, kc, f"attention {inv} k")
+            hold(gv, vc, f"attention {inv} v")
+        hold(gy, y, f"attention after layer {l}")
+        x = y
+    return worst, x
+
+
+def check_reference_recurrent(dev, seed):
+    """rwkv6-7b (k=1) and zamba2-2.7b (k=3) reduced, card against CPU on
+    the same bf16 weights: prefill logits, a decode step, and a 33-token
+    chunk into slot 1 of a 3-slot cache followed by a decode step at
+    per-slot positions (logits and every state leaf) — end to end at
+    E2E_TOL, and layer by layer on the CPU's own inputs at REF_TOL; then
+    end to end in float32 at F32_TOL."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import ensemble as ens
+    from repro_torch.models import api
+    from repro_torch.models import layers as L
+    from repro_torch.serve.engine import grow_cache
+
+    errs = {}
+    for arch, k in (("zamba2-2.7b", 3), ("rwkv6-7b", 1)):
+        cfg = get_config(arch).reduced()
+        vals, gvals, e2e = recurrent_end_to_end(cfg, k, dev, seed, E2E_TOL)
+        errs.update({f"{arch}/{name}": e for name, e in e2e.items()})
+        rng = np.random.default_rng(seed)
+        toks = rng.integers(0, cfg.vocab_size, (4, 40)).astype(np.int32)
+        step_tok = np.full((k, 4, 1), 7, np.int32)
+        chunk = rng.integers(0, cfg.vocab_size, 33).astype(np.int32)
+        tok = rng.integers(0, cfg.vocab_size, (k, 3, 1)).astype(np.int32)
+        slot_pos = np.array([0, 33, 0], np.int32)
+        # layer by layer, each stage from the CPU's own inputs and states
+        head = lambda x: (L.project_logits(vals, x, cfg), L.project_logits(gvals, x.to(dev), cfg))
+        embed = lambda t: api.embed_inputs(vals, torch.as_tensor(t).to(torch.int64))
+        worst, x = layer_by_layer(cfg, vals, gvals, dev, embed(toks))
+        worst = max(worst, normwise(*head(x[:, :, -1]), f"{arch} prefill head card vs cpu"))
+        _, cache = ens.ensemble_prefill(vals, {"tokens": toks}, cfg)
+        w, x = layer_by_layer(cfg, vals, gvals, dev, embed(step_tok), grow_cache(cache, 2, cfg), step=True, pos=40)
+        worst = max(worst, w, normwise(*head(x[:, :, 0]), f"{arch} decode head card vs cpu"))
+        slots = api.init_cache_members(cfg, k, 3, 64, "cpu")
+        w, _ = layer_by_layer(cfg, vals, gvals, dev, embed(chunk[None]), slots, slot=1, start=0)
+        worst = max(worst, w)
+        w, x = layer_by_layer(cfg, vals, gvals, dev, embed(tok), slots, step=True, pos=slot_pos)
+        worst = max(worst, w, normwise(*head(x[:, :, 0]), f"{arch} slot decode head card vs cpu"))
+        errs[f"{arch}/layer_by_layer_worst"] = worst
+    require(not torch.backends.cuda.matmul.allow_tf32, "float32 card-vs-cpu needs TF32 off")
+    for arch, k, family in (("zamba2-2.7b", 3, "ssm_mamba2"), ("rwkv6-7b", 1, "ssm_rwkv6")):
+        cfg = dataclasses.replace(get_config(arch).reduced(), family=family, dtype="float32")
+        e2e = recurrent_end_to_end(cfg, k, dev, seed, F32_TOL)[2]
+        errs.update({f"{arch}/f32_{family}_{name}": e for name, e in e2e.items()})
+    return errs
+
+
+def recurrent_end_to_end(cfg, k, dev, seed, tol):
+    """Prefill logits, a decode step, and a 33-token chunk into slot 1 of a
+    3-slot cache followed by a decode step at per-slot positions (logits
+    and every state leaf), on the card and on the CPU from the same seeded
+    weights, held normwise at ``tol``.  Returns (cpu weights, card weights,
+    errors)."""
+    from repro_torch.core import ensemble as ens
+    from repro_torch.models import api
+    from repro_torch.models.params import tree_map
+    from repro_torch.serve.engine import grow_cache
+
+    vals = ens.init_ensemble(cfg, k, torch.Generator().manual_seed(seed), "cpu")
+    gvals = tree_map(lambda t: t.to(dev), vals)
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, (4, 40)).astype(np.int32)
+    step_tok = np.full((k, 4, 1), 7, np.int32)
+    chunk = rng.integers(0, cfg.vocab_size, 33).astype(np.int32)
+    tok = rng.integers(0, cfg.vocab_size, (k, 3, 1)).astype(np.int32)
+    slot_pos = np.array([0, 33, 0], np.int32)
+    outs = []
+    for v in (vals, gvals):
+        logits, cache = ens.ensemble_prefill(v, {"tokens": toks}, cfg)
+        cache = grow_cache(cache, 2, cfg)
+        step, _ = ens.ensemble_decode_step(v, step_tok, cache, 40, cfg)
+        slots = api.init_cache_members(cfg, k, 3, 64, v["embed"].device)
+        slots = ens.ensemble_prefill_into_slot(v, chunk, slots, 1, 0, cfg)
+        slot_step, slots = ens.ensemble_decode_step(v, tok, slots, slot_pos, cfg)
+        outs.append(dict(prefill=logits, decode=step, slot_decode=slot_step,
+                         **{f"slot_{n}": t for n, t in slots.items() if not isinstance(t, list)}))
+    errs = {name: normwise(outs[0][name], outs[1][name], f"{cfg.name} {name} card vs cpu", tol) for name in outs[0]}
+    return vals, gvals, errs
+
+
+def normwise(a, b, what, tol=REF_TOL):
     a, b = a.float().cpu(), b.float().cpu()
     err = ((a - b).abs().max() / a.abs().max()).item()
-    require(math.isfinite(err) and err <= REF_TOL, f"{what} normwise err {err} > {REF_TOL}")
+    require(math.isfinite(err) and err <= tol, f"{what} normwise err {err} > {tol}")
     return err
 
 
@@ -457,13 +784,35 @@ def check_serving_paged_vs_dense(dev, seed):
 # phase 4: the main path at published widths
 # ---------------------------------------------------------------------------
 
-CLASSIFY_KERNELS = ("agreement", "compaction", "flash_attention")
-GENERATE_KERNELS = ("compaction", "flash_attention", "decode_attention")
-SERVE_KERNELS = ("compaction", "decode_attention_paged")  # the row gather under paged_view, paged decode
 SERVE_CONFIG = dict(n_slots=8, max_seq=512, page_size=16, chunked_prefill=True, max_chunk=256)
+# the two cascades of phase 4, and the kernels each mode must launch
+CASCADES = {
+    "qwen2.5-3b x3 -> internlm2-1.8b": dict(
+        tier1="qwen2.5-3b", tier2="internlm2-1.8b",
+        need=dict(
+            classify=("agreement", "compaction", "flash_attention"),
+            generate=("compaction", "flash_attention", "decode_attention"),
+            # the row gather under paged_view, the paged decode
+            serve_continuous=("compaction", "decode_attention_paged"),
+        ),
+    ),
+    "zamba2-2.7b x3 -> rwkv6-7b": dict(
+        tier1="zamba2-2.7b", tier2="rwkv6-7b",
+        need=dict(
+            classify=("agreement", "compaction", "flash_attention", "mamba2_ssd", "rwkv6_wkv"),
+            generate=("compaction", "flash_attention", "decode_attention", "mamba2_ssd", "rwkv6_wkv"),
+            # dense slot caches: chunked admission through the scans, hybrid
+            # decode with per-slot positions
+            serve_continuous=("decode_attention", "mamba2_ssd", "rwkv6_wkv"),
+        ),
+    ),
+}
 
 
-def main_path(dev, seed):
+def main_path(dev, seed, name):
+    """One cascade of ``CASCADES`` at published widths and full depth: the
+    three modes, each with the launch counters zeroed just before and read
+    just after.  Returns (results, launches per mode)."""
     from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.core import ensemble as ens
@@ -472,13 +821,15 @@ def main_path(dev, seed):
     from repro_torch.models.params import param_count
     from repro_torch.serve import CascadeServer, CascadeTier
 
-    c1, c2 = get_config("qwen2.5-3b"), get_config("internlm2-1.8b")
+    spec = CASCADES[name]
+    a1, a2 = spec["tier1"], spec["tier2"]
+    c1, c2 = get_config(a1), get_config(a2)
     g = torch.Generator(device=dev).manual_seed(seed)
     t0 = time.perf_counter()
     v1 = ens.init_ensemble(c1, 3, g, dev)
     v2 = ens.init_ensemble(c2, 1, g, dev)
     torch.cuda.synchronize()
-    log(f"weights: tier1 {param_count(v1) / 1e9:.3f}B params, tier2 {param_count(v2) / 1e9:.3f}B params, "
+    log(f"[{name}] weights: tier1 {param_count(v1) / 1e9:.3f}B params, tier2 {param_count(v2) / 1e9:.3f}B params, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, init {time.perf_counter() - t0:.1f}s")
     rng = np.random.default_rng(seed)
     vocab = min(c1.vocab_size, c2.vocab_size)
@@ -487,21 +838,18 @@ def main_path(dev, seed):
         cal = rng.integers(0, vocab, (32, 256)).astype(np.int32)
         s = agree_ops.agreement(ens.ensemble_last_logits(v1, {"tokens": cal}, c1))["mean_score"]
         theta = float(s.median())
-        log(f"calibration: tier-1 mean_score median theta={theta:.6g} (min {s.min().item():.4g}, max {s.max().item():.4g})")
-        tier2 = CascadeTier(c2, v2, TierSpec("internlm2-1.8b", "confidence", -1.0, k=1, cost=1.0), device=dev)
+        log(f"[{name}] calibration: tier-1 mean_score median theta={theta:.6g} (min {s.min().item():.4g}, max {s.max().item():.4g})")
+        tier2 = CascadeTier(c2, v2, TierSpec(a2, "confidence", -1.0, k=1, cost=1.0), device=dev)
         servers = {  # generate votes on answer digests: defer unless 2 of 3 members agree
             "classify": CascadeServer([
-                CascadeTier(c1, v1, TierSpec("qwen2.5-3b-x3", "score", theta, k=3, cost=3.0), device=dev), tier2,
+                CascadeTier(c1, v1, TierSpec(f"{a1}-x3", "score", theta, k=3, cost=3.0), device=dev), tier2,
             ], device=dev),
             "generate": CascadeServer([
-                CascadeTier(c1, v1, TierSpec("qwen2.5-3b-x3", "vote", 0.5, k=3, cost=3.0), device=dev), tier2,
+                CascadeTier(c1, v1, TierSpec(f"{a1}-x3", "vote", 0.5, k=3, cost=3.0), device=dev), tier2,
             ], device=dev),
         }
-        results, launches = {}, {}
-        for mode, B, S, args, need in (
-            ("classify", 32, 256, (), CLASSIFY_KERNELS),
-            ("generate", 8, 128, (16,), GENERATE_KERNELS),
-        ):
+        results, launches = {"tier1": a1, "tier2": a2, "theta": theta}, {}
+        for mode, B, S, args in (("classify", 32, 256, ()), ("generate", 8, 128, (16,))):
             server = servers[mode]
             toks = rng.integers(0, vocab, (B, S)).astype(np.int32)
             getattr(server, mode)(toks[:8, :16], *args)  # warm-up at a small shape
@@ -515,8 +863,8 @@ def main_path(dev, seed):
             wall = time.perf_counter() - t0
             counts = kernels.launch_counts()
             launches[mode] = counts
-            for name in need:
-                require(counts[name] > 0, f"{mode}: kernel {name} was not launched on the main path")
+            for kname in spec["need"][mode]:
+                require(counts[kname] > 0, f"{name} {mode}: kernel {kname} was not launched on the main path")
             require(res.tier_counts.sum() == B and res.pred.shape == (B,), f"{mode}: bad result shapes")
             require(np.isfinite(res.scores).all(), f"{mode}: non-finite scores")
             require(set(np.unique(res.tier_of)) <= {0, 1}, f"{mode}: bad tier_of")
@@ -527,17 +875,17 @@ def main_path(dev, seed):
                 cost=res.cost, host_fetch=host_fetch_stats(), launches=counts,
                 max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30,
             )
-            log(f"{mode}: {json.dumps(results[mode])}")
+            log(f"[{name}] {mode}: {json.dumps(results[mode])}")
         results["serve_continuous"], launches["serve_continuous"] = serve_continuous_path(
-            servers["generate"], rng, vocab,
+            servers["generate"], rng, vocab, name, spec["need"]["serve_continuous"],
         )
     return results, launches
 
 
-def serve_continuous_path(server, rng, vocab):
+def serve_continuous_path(server, rng, vocab, name, need):
     """``serve_continuous`` at published widths: 32 requests of 16-384
-    prompt tokens (8 sharing a 128-token prefix, 8 full pages), 16 new
-    tokens each, after a warm-up at a small shape."""
+    prompt tokens (8 sharing a 128-token prefix, 8 full pages where the
+    tier pages), 16 new tokens each, after a warm-up at a small shape."""
     from repro_torch import kernels
     from repro_torch.core.cascade import host_fetch_stats, reset_host_fetch_stats
     from repro_torch.obs import Observability
@@ -556,13 +904,16 @@ def serve_continuous_path(server, rng, vocab):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = kernels.launch_counts()
-    for name in SERVE_KERNELS:
-        require(counts[name] > 0, f"serve_continuous: kernel {name} was not launched on the main path")
+    for kname in need:
+        require(counts[kname] > 0, f"{name} serve_continuous: kernel {kname} was not launched on the main path")
     require(sorted(r.rid for r in done) == sorted(r.rid for r in reqs), "serve_continuous: a request was lost or doubled")
+    require(len({id(r) for r in done}) == len(reqs), "serve_continuous: a request completed twice")
     reg = ob.registry
     n_tiers = len(server.tiers)
+    paged = [reg.get(f"paging.tier{i}.pool_occupancy") is not None for i in range(n_tiers)]
     for i in range(n_tiers):
-        require(reg.get(f"paging.tier{i}.pool_occupancy").value == 0, f"tier {i}: pool pages still in use")
+        if paged[i]:
+            require(reg.get(f"paging.tier{i}.pool_occupancy").value == 0, f"tier {i}: pool pages still in use")
     out_tokens = 0
     for r in done:
         require(r.tier in range(n_tiers) and r.output.ndim == 1, f"request {r.rid}: bad tier or output")
@@ -573,7 +924,7 @@ def serve_continuous_path(server, rng, vocab):
     tiers = [r.tier for r in done]
     st = server.last_stream_stats
     result = dict(
-        config=SERVE_CONFIG,
+        config=SERVE_CONFIG, paged=paged,
         n_pages=SERVE_CONFIG["n_slots"] * SERVE_CONFIG["max_seq"] // SERVE_CONFIG["page_size"] + 1,
         requests=len(reqs), prompt_tokens=int(sum(len(r.tokens) for r in reqs)),
         wall_s=wall, output_tokens=out_tokens, output_tokens_per_s=out_tokens / wall,
@@ -583,19 +934,19 @@ def serve_continuous_path(server, rng, vocab):
             decode_steps=reg.get(f"slot_stream.tier{i}.decode.dispatch_s").count,
             decode_tokens=st[i]["decode_tokens"], chunk_calls=st[i]["chunk_calls"],
             chunk_tokens=st[i]["chunk_tokens"], shared_tokens=st[i]["shared_tokens"],
-            peak_pages=reg.get(f"paging.tier{i}.pool_occupancy").peak,
+            peak_pages=reg.get(f"paging.tier{i}.pool_occupancy").peak if paged[i] else None,
             # host clock: admission (page claims + chunked-prefill launches)
             # and decode (launches + the one token fetch, which waits for
             # the device); each step's host->device copies of positions and
             # tables wait for the stream too
             admit_s=st[i]["admit_time"], decode_s=st[i]["decode_time"],
-            shared_hits=reg.value(f"paging.tier{i}.shared_hits"),
+            shared_hits=reg.value(f"paging.tier{i}.shared_hits") if paged[i] else None,
             forced_completions=st[i]["forced_completions"],
         ) for i in range(n_tiers)],
         host_fetch=host_fetch_stats(), launches=counts,
         max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30,
     )
-    log(f"serve_continuous: {json.dumps(result)}")
+    log(f"[{name}] serve_continuous: {json.dumps(result)}")
     return result, counts
 
 
@@ -625,15 +976,31 @@ def main(argv=None):
 
     g = torch.Generator(device=dev).manual_seed(args.seed)
     checks = []
-    for fn in (check_agreement, check_compaction, check_flash, check_decode, check_decode_paged):
+    for fn in (check_agreement, check_compaction, check_flash, check_decode, check_decode_paged, check_ssd, check_wkv6):
         r = fn(dev, g)
         log(f"kernel {r['name']}: {json.dumps(r)}")
         checks.append(r)
     ref = check_reference(dev, args.seed)
+    ref.update(check_reference_recurrent(dev, args.seed))
     log(f"reference (card vs cpu, normwise, tol {REF_TOL}): {json.dumps(ref)}")
     ref["serve_continuous_paged_vs_dense"] = check_serving_paged_vs_dense(dev, args.seed)
     log(f"serve_continuous on the card, paged vs dense: {json.dumps(ref['serve_continuous_paged_vs_dense'])}")
-    results, launches = main_path(dev, args.seed)
+    results, launches = {}, {}
+    # each cascade's weights and caches must be freed by reference counting
+    # alone when it returns, before the next is built: the cyclic collector
+    # is off meanwhile, so a reference cycle that holds device memory fails
+    gc.collect()
+    gc.disable()
+    for name in CASCADES:
+        before = torch.cuda.memory_allocated()
+        results[name], per_mode = main_path(dev, args.seed, name)
+        launches.update({f"{name}/{mode}": c for mode, c in per_mode.items()})
+        left = (torch.cuda.memory_allocated() - before) / 2**30
+        log(f"[{name}] device memory still allocated after the run: {left:.4f} GiB")
+        require(left < 0.25, f"{name}: {left:.2f} GiB of device memory outlived the cascade")
+        results[name]["memory_left_gib"] = left
+        torch.cuda.empty_cache()
+    gc.enable()
 
     sources = {
         "agreement": ("src/repro_torch/csrc/agreement.cu", "src/repro/kernels/agreement/kernel.py:67"),
@@ -641,6 +1008,8 @@ def main(argv=None):
         "flash_attention": ("src/repro_torch/csrc/flash_attention.cu", "src/repro/kernels/flash_attention/kernel.py:179"),
         "decode_attention": ("src/repro_torch/csrc/decode_attention.cu", "src/repro/kernels/decode_attention/kernel.py:226"),
         "decode_attention_paged": ("src/repro_torch/csrc/decode_attention.cu", "src/repro/kernels/decode_attention/kernel.py:110"),
+        "mamba2_ssd": ("src/repro_torch/csrc/mamba2_ssd.cu", "src/repro/kernels/mamba2_ssd/kernel.py:88"),
+        "rwkv6_wkv": ("src/repro_torch/csrc/rwkv6_wkv.cu", "src/repro/kernels/rwkv6_wkv/kernel.py:92"),
     }
     line = {"kernels": [
         {

@@ -30,7 +30,9 @@ def _leaf(a, device) -> torch.Tensor:
 def params_from_numpy(tree, cfg: ModelConfig, device=None):
     """Nested dict of numpy leaves -> nested dict of torch tensors on
     ``device``.  ``tree['layers']`` leaves must carry the stacked layer
-    axis (``cfg.n_layers``) first, or second behind an ensemble axis."""
+    axis (``cfg.n_layers``) first, or second behind an ensemble axis; the
+    hybrid's ``shared_attn`` block has no layer axis and passes through
+    as it is (behind the ensemble axis where there is one)."""
     device = resolve_device(device)
     lead = tree["embed"].ndim - 2  # 1 when the tree is a stacked ensemble
 
@@ -47,19 +49,27 @@ def params_from_numpy(tree, cfg: ModelConfig, device=None):
     return conv(tree, ())
 
 
-def pool_from_numpy(pool, device=None, *, members: bool = True):
-    """Carry a JAX KV pool (or dense slot cache) into the port's layout.
+def cache_from_numpy(cache, device=None, *, members: bool = True):
+    """Carry a JAX cache tree — a KV pool, a dense slot cache or a
+    recurrent state tree — into the port's layout.
 
-    ``pool`` is a dict of numpy leaves.  With ``members`` they are
-    member-stacked as the JAX ``TierBackend`` holds them, (E, L, ...), and
-    come out layer-major, (L, E, ...) — (L, E, P, KVH, page_size, hd) for a
-    pool — so one layer's slab of every member is contiguous for the
-    kernels.  Without, single-model leaves (L, ...) pass through.  The page
+    ``cache`` is a dict of numpy leaves, or of lists of them (the hybrid's
+    per-invocation ``attn_k``/``attn_v``).  With ``members`` the leaves are
+    member-stacked as the JAX ``TierBackend`` holds them: stacked leaves
+    (E, L, ...) come out layer-major, (L, E, ...) — (L, E, P, KVH,
+    page_size, hd) for a pool, (L, E, n_slots, nh, N, P) for an SSM state —
+    so one layer's slab of every member is contiguous for the kernels; the
+    per-invocation leaves (E, n_slots, KVH, S, hd) are already the port's
+    layout.  Without, single-model leaves (L, ...) pass through.  The page
     table needs no conversion: the port's API takes the same (n_slots,
     n_pg) int32 numpy array and moves it to the device once per step."""
     device = resolve_device(device)
     out = {}
-    for k, a in pool.items():
+    for k, a in cache.items():
+        if isinstance(a, (list, tuple)):
+            out[k] = [_leaf(x, device) for x in a]
+            continue
         t = _leaf(a, device)
         out[k] = t.transpose(0, 1).contiguous() if members else t
     return out
+

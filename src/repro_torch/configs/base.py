@@ -70,6 +70,18 @@ class ModelConfig:
         if self.n_heads and not self.head_dim:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
 
+    @property
+    def attention_free(self) -> bool:
+        return self.family in ("ssm_rwkv6",)
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_nheads(self) -> int:
+        return self.d_inner // self.ssm_head_dim if self.ssm_head_dim else 0
+
     def reduced(self) -> "ModelConfig":
         """Smoke-test variant: 2 layers, d_model<=256, vocab<=512 — the same
         reduction rule as the JAX package's ``ModelConfig.reduced``."""
@@ -100,7 +112,7 @@ class ModelConfig:
         return replace(self, **changes)
 
 
-ARCH_IDS = ("internlm2-1.8b", "qwen2.5-3b")
+ARCH_IDS = ("internlm2-1.8b", "qwen2.5-3b", "rwkv6-7b", "zamba2-2.7b")
 
 _MODULE_FOR = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
 

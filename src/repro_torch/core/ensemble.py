@@ -1,9 +1,11 @@
 """Stacked-weight ensembles with the member axis E explicit (port of
 ``repro.core.ensemble``).  Every parameter leaf carries a leading E axis;
 the members run as one batched program (E-batched weight products, E
-folded into the batch around the attention kernels) where the JAX package
-``vmap``s.  Member caches are (L, E, B, KVH, S, hd); member pools are
-(L, E, P, KVH, page_size, hd) under one page table."""
+folded into the batch around the attention, SSD and WKV kernels) where the
+JAX package ``vmap``s.  Member caches are layer-major, (L, E, B, ...):
+dense (L, E, B, KVH, S, hd), recurrent state leaves (L, E, B, ...) and the
+hybrid's per-invocation attention leaves (E, B, KVH, S, hd); member pools
+are (L, E, P, KVH, page_size, hd) under one page table."""
 from __future__ import annotations
 
 import torch
@@ -23,7 +25,8 @@ def ensemble_last_logits(values, batch, cfg: ModelConfig):
 
 
 def ensemble_prefill(values, batch, cfg: ModelConfig):
-    """(logits (E, B, V), caches (L, E, B, KVH, S, hd))."""
+    """(logits (E, B, V), member caches as ``api.init_cache_members`` lays
+    them out, with S KV rows)."""
     return api.prefill_members(values, batch, cfg)
 
 
@@ -35,8 +38,8 @@ def ensemble_decode_step(values, token, caches, pos, cfg: ModelConfig):
 
 
 def ensemble_prefill_into_slot(values, tokens, caches, slot: int, start: int, cfg: ModelConfig):
-    """Chunked prefill of one slot for every member (dense slot caches
-    (L, E, n_slots, KVH, S, hd), in place)."""
+    """Chunked prefill of one slot for every member (member slot caches
+    from ``api.init_cache_members``, in place)."""
     return api.prefill_into_slot_members(values, tokens, caches, slot, start, cfg)
 
 

@@ -8,7 +8,10 @@
 //                               (-1 = unmapped) shared by the E member planes,
 //                               cur_len (B,) i32; no starts
 //
-// Window and tanh softcap optional on both; hd in {64, 128}, G in {1, 2, 4, 8, 16}.
+// Window and tanh softcap optional on both; hd in {64, 128}, G in {1, 2, 4, 8, 16};
+// the dense entry also takes hd 80 with G = 1 (zamba2's shared attention:
+// 32 heads of 80, as many KV heads).  The paged entry stays at hd {64, 128}:
+// the only hd-80 family (hybrid) keeps dense slot caches.
 //
 // Replaces: src/repro/kernels/decode_attention/kernel.py
 // decode_attention_bkgd (dense, body _decode_kernel), which needs
@@ -223,6 +226,10 @@ int dispatch(int hd, int G, const void* q, const void* k, const void* v, void* o
     return dispatch_g<128, PAGED>(G, q, k, v, o, cur, cur_scalar, st, pg, rows, KVH, S, window, softcap, scale, s);
   if (hd == 64)
     return dispatch_g<64, PAGED>(G, q, k, v, o, cur, cur_scalar, st, pg, rows, KVH, S, window, softcap, scale, s);
+  if constexpr (!PAGED) {
+    if (hd == 80 && G == 1)
+      return launch<80, 1, false>(q, k, v, o, cur, cur_scalar, st, pg, rows, KVH, S, window, softcap, scale, s);
+  }
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,5 +1,7 @@
 // Flash attention forward (prefill) for bf16 q (B, Sq, H, hd) and k, v
-// (B, Sk, KVH, hd), GQA by h / (H / KVH), hd in {64, 128}.
+// (B, Sk, KVH, hd), GQA by h / (H / KVH), hd in {64, 80, 128} (80: zamba2's
+// shared attention, 5 k-steps and 10 n-tiles of the m16n8k16 product; its
+// rows are 160 bytes, so the 16-byte row loads hold).
 //
 // Replaces: src/repro/kernels/flash_attention/kernel.py flash_attention_bhsd
 // (body _flash_kernel), which needs Sq % block_q == 0 and Sk % block_k == 0.
@@ -235,6 +237,8 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   cudaStream_t s = (cudaStream_t)stream;
   if (hd == 128)
     return launch<128>(q, k, v, o, starts, B, Sq, Sk, H, KVH, causal, window, softcap, scale, s);
+  if (hd == 80)
+    return launch<80>(q, k, v, o, starts, B, Sq, Sk, H, KVH, causal, window, softcap, scale, s);
   if (hd == 64)
     return launch<64>(q, k, v, o, starts, B, Sq, Sk, H, KVH, causal, window, softcap, scale, s);
   return (int)cudaErrorInvalidValue;

@@ -29,7 +29,7 @@ from repro_torch.obs import global_registry
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-SOURCES = ("agreement", "compaction", "flash_attention", "decode_attention")
+SOURCES = ("agreement", "compaction", "flash_attention", "decode_attention", "mamba2_ssd", "rwkv6_wkv")
 KERNELS = SOURCES + ("decode_attention_paged",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -49,6 +49,8 @@ SIGNATURES = {
         "decode_attention_fwd": [_P] * 5 + [_I, _P] + [_I] * 6 + [_F] * 2 + [_P],
         "decode_attention_paged_fwd": [_P] * 6 + [_I] * 9 + [_F] * 2 + [_P],
     },
+    "mamba2_ssd": {"mamba2_ssd_fwd": [_P] * 7 + [_I] * 7 + [_P]},
+    "rwkv6_wkv": {"rwkv6_wkv_fwd": [_P] * 8 + [_I] * 6 + [_P]},
 }
 
 _LOCK = threading.Lock()

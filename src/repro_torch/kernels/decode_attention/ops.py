@@ -15,7 +15,8 @@ and the ONE table serves every plane.  No ``starts``.
 
 On a CUDA tensor each launches its kernel of ``csrc/decode_attention.cu``
 (bf16, hd in {64, 128}, G = H / KVH in {1, 2, 4, 8, 16}, any S or
-page_size), which replace ``src/repro/kernels/decode_attention/kernel.py``
+page_size; the dense kernel also takes hd 80 at G = 1, zamba2's shared
+attention), which replace ``src/repro/kernels/decode_attention/kernel.py``
 ``decode_attention_bkgd`` and ``decode_attention_paged_bkgd``; both are
 bound by the cache bytes they read.  On a CPU tensor the plain versions
 run — the JAX package's ``_xla_decode_bksd`` and ``_xla_decode_paged``
@@ -71,7 +72,8 @@ def _decode_cuda(q, k_cache, v_cache, cur_len, *, window, softcap, starts):
     B, _, H, hd = q.shape
     KVH, S = k_cache.shape[1], k_cache.shape[2]
     G = H // KVH
-    if (hd not in (64, 128) or G not in (1, 2, 4, 8, 16) or H % KVH
+    shapes_ok = (hd in (64, 128) and G in (1, 2, 4, 8, 16)) or (hd == 80 and G == 1)
+    if (not shapes_ok or H % KVH
             or k_cache.shape != v_cache.shape or k_cache.shape[0] != B):
         raise ValueError(
             f"decode_attention: unsupported shapes q {tuple(q.shape)} cache {tuple(k_cache.shape)}"

@@ -6,7 +6,7 @@ tanh softcap and per-row ``starts`` (the left-pad carve-out: row b attends
 no column < starts[b]; rows that are pure padding emit zeros).
 
 On a CUDA tensor it launches ``csrc/flash_attention.cu`` (bf16, hd in
-{64, 128}, any Sq and Sk), which replaces
+{64, 80, 128}, any Sq and Sk), which replaces
 ``src/repro/kernels/flash_attention/kernel.py`` ``flash_attention_bhsd``;
 its bound is the tensor-core operations for long prompts and the q/k/v/out
 bytes for short ones.  On a CPU tensor the plain version runs — the same
@@ -58,7 +58,7 @@ def _flash_cuda(q, k, v, *, causal, window, softcap, starts):
         build.require_cuda(t, f"flash_attention {name}", (torch.bfloat16,))
     B, Sq, H, hd = q.shape
     Sk, KVH = k.shape[1], k.shape[2]
-    if hd not in (64, 128) or H % KVH or k.shape != v.shape or k.shape[0] != B:
+    if hd not in (64, 80, 128) or H % KVH or k.shape != v.shape or k.shape[0] != B:
         raise ValueError(f"flash_attention: unsupported shapes q {tuple(q.shape)} k {tuple(k.shape)}")
     if starts is not None:
         starts = starts.to(device=q.device, dtype=torch.int32).contiguous()

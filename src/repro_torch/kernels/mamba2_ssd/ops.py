@@ -1,0 +1,125 @@
+"""Chunked Mamba2 SSD (state-space dual): ``ssd(x, dt, A, Bm, Cm)`` with x
+(B, S, H, P), dt (B, S, H), Bm and Cm (B, S, G, N) — the JAX package's
+public layout — and the decay ``A`` as (H,) or (E, H) for E members folded
+member-major into the batch (row b reads member b // (B / E)).
+
+Both paths start from the Pallas wrapper's pre-scaling, in plain PyTorch:
+x~ = dt·x and l = A·dt <= 0 (so a per-member A needs no kernel argument).
+On a CUDA tensor ``ssd`` then launches ``csrc/mamba2_ssd.cu`` (N in
+{8, 16, 32, 64}, P <= 128, any G dividing H, any S), which replaces
+``src/repro/kernels/mamba2_ssd/kernel.py`` ``ssd_pallas``; on a CPU tensor
+the plain version runs: the JAX package's ``_xla_ssd``, chunk 128, with
+intra-chunk (C·Bᵀ ⊙ exp(cum_t - cum_s))·x~, inter-chunk C·e^cum·h and the
+state update h·e^total + (B·e^(total-cum))ᵀ·x~ (every exponent <= 0), and
+zero padding of a ragged last chunk.  ``ssd_step`` (one decode step) is
+plain PyTorch on every device, as in the JAX package.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import build
+from repro_torch.kernels.mamba2_ssd.ref import a_rows, ssd_step_ref
+
+_LAUNCHES = build.launch_counter("mamba2_ssd")
+
+
+def prescale(x, dt, A):
+    """(x~ = dt·x (B, S, H, P) f32, l = A·dt (B, S, H) f32)."""
+    dtf = dt.float()
+    return x.float() * dtf[..., None], a_rows(A, x.shape[0])[:, None, :] * dtf
+
+
+def ssd_plain(x, dt, A, Bm, Cm, *, chunk: int = 128, initial_state=None):
+    """The chunked dual form.  Returns (y (B, S, H, P) x.dtype, hT
+    (B, H, N, P) f32)."""
+    B, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    rep = H // G
+    L = min(chunk, S)
+    pad = (-S) % L
+    nc = (S + pad) // L
+    xf, lf = prescale(x, dt, A)
+    # zero x~ / zero l padding is exact: decay exp(0) = 1 and zero input
+    # leave the state untouched; padded outputs are discarded
+    ch = lambda a: F.pad(a, (0, 0) * (a.ndim - 2) + (0, pad)).reshape(B, nc, L, *a.shape[2:]).transpose(0, 1)
+    xc, lc, Bc, Cc = ch(xf), ch(lf), ch(Bm.float()), ch(Cm.float())
+    h = torch.zeros((B, H, N, P), device=x.device) if initial_state is None else initial_state.float()
+    tri = torch.tril(torch.ones((L, L), dtype=torch.bool, device=x.device))
+    ys = []
+    for i in range(nc):
+        cum = torch.cumsum(lc[i].transpose(1, 2), -1)  # (B, H, L)
+        total = cum[..., -1:]
+        gmat = torch.einsum("blgn,bsgn->bgls", Cc[i], Bc[i]).repeat_interleave(rep, 1)  # (B, H, L, L)
+        diff = cum[..., :, None] - cum[..., None, :]
+        decay = torch.where(tri, torch.exp(torch.where(tri, diff, 0.0)), 0.0)
+        xh = xc[i].transpose(1, 2)  # (B, H, L, P)
+        y = torch.einsum("bhls,bhsp->bhlp", gmat * decay, xh)
+        crep = Cc[i].repeat_interleave(rep, 2).transpose(1, 2)  # (B, H, L, N)
+        y = y + torch.einsum("bhln,bhnp->bhlp", crep * torch.exp(cum)[..., None], h)
+        brep = Bc[i].repeat_interleave(rep, 2).transpose(1, 2)
+        h = h * torch.exp(total)[..., None] + torch.einsum(
+            "bhln,bhlp->bhnp", brep * torch.exp(total - cum)[..., None], xh)
+        ys.append(y.transpose(1, 2))  # (B, L, H, P)
+    y = torch.stack(ys, 1).reshape(B, nc * L, H, P)[:, :S]
+    return y.to(x.dtype), h
+
+
+def _ssd_cuda(x, dt, A, Bm, Cm, *, initial_state):
+    B, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    if N not in (8, 16, 32, 64) or P > 128 or H % G or Bm.shape != Cm.shape or Bm.shape[:2] != (B, S):
+        raise ValueError(f"ssd: unsupported shapes x {tuple(x.shape)} B {tuple(Bm.shape)} C {tuple(Cm.shape)}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"ssd: x dtype {x.dtype} not in (bf16, f32)")
+    xt, l = (t.contiguous() for t in prescale(x, dt, A))
+    bt, ct = (t.to(torch.float32).contiguous() for t in (Bm, Cm))
+    for name, t in (("x~", xt), ("l", l), ("B", bt), ("C", ct)):
+        build.require_cuda(t, f"ssd {name}", (torch.float32,))
+    if initial_state is not None:
+        initial_state = initial_state.to(torch.float32).contiguous()
+        build.require_cuda(initial_state, "ssd initial_state", (torch.float32,))
+        if initial_state.shape != (B, H, N, P):
+            raise ValueError(f"ssd: initial_state {tuple(initial_state.shape)} != {(B, H, N, P)}")
+    y = torch.empty((B, S, H, P), dtype=x.dtype, device=x.device)
+    hT = torch.empty((B, H, N, P), dtype=torch.float32, device=x.device)
+    lib = build.library("mamba2_ssd")
+    rc = lib.mamba2_ssd_fwd(
+        build.ptr(xt), build.ptr(l), build.ptr(bt), build.ptr(ct),
+        ctypes.c_void_p(None if initial_state is None else initial_state.data_ptr()),
+        build.ptr(y), build.ptr(hT),
+        ctypes.c_int(B), ctypes.c_int(S), ctypes.c_int(H), ctypes.c_int(P), ctypes.c_int(G),
+        ctypes.c_int(N), ctypes.c_int(int(x.dtype == torch.bfloat16)), build.stream_ptr(x),
+    )
+    build.check(lib, rc, "mamba2_ssd_fwd")
+    _LAUNCHES.add(1)
+    return y, hT
+
+
+def ssd(
+    x: torch.Tensor,
+    dt: torch.Tensor,
+    A: torch.Tensor,
+    Bm: torch.Tensor,
+    Cm: torch.Tensor,
+    *,
+    initial_state: Optional[torch.Tensor] = None,
+    return_final_state: bool = False,
+):
+    """y (B, S, H, P) in x's dtype, and with ``return_final_state`` the
+    final (B, H, N, P) f32 state."""
+    if x.device.type == "cpu":
+        y, hT = ssd_plain(x, dt, A, Bm, Cm, initial_state=initial_state)
+    else:
+        y, hT = _ssd_cuda(x, dt, A, Bm, Cm, initial_state=initial_state)
+    return (y, hT) if return_final_state else y
+
+
+def ssd_step(x, dt, A, Bm, Cm, state):
+    """Single decode step, plain on every device: x (B, H, P), dt (B, H),
+    Bm/Cm (B, G, N), state (B, H, N, P) -> (y (B, H, P), new state)."""
+    return ssd_step_ref(x, dt, A, Bm, Cm, state)

@@ -1,4 +1,7 @@
-"""Model API for the dense family (port of ``repro.models.api``).
+"""Model API (port of ``repro.models.api``) for the dense family and the
+three constant-state families: ``ssm_rwkv6``, ``ssm_mamba2`` and
+``hybrid`` (a Mamba2 backbone with one shared attention block applied
+every ``attn_every`` layers).
 
     params = init_params(cfg, generator, device)
     logits, cache = prefill(params, batch, cfg)          # (B, V), caches
@@ -8,20 +11,25 @@
 and the slot surface of continuous batching:
 
     cache = prefill_into_slot(params, tokens, cache, slot, start, cfg)
-    pool = init_paged_pool(cfg, n_pages, page_size, device)
+    cache = reset_slot(cache, slot, cfg)                 # state families
+    pool = init_paged_pool(cfg, n_pages, page_size, device)   # dense only
     logits, pool = decode_step_paged(params, token, pool, pos, pages, cfg)
     pool = prefill_into_slot_paged(params, tokens, pool, pages_row, start, cfg)
     pool = copy_pool_page(pool, src, dst)
 
 The single-model functions take the JAX package's parameter tree and cache
-layouts (k, v: (L, B, KVH, S, hd); pools (L, P, KVH, page_size, hd)).  Each
-is a thin wrapper over a ``*_members`` function that carries the ensemble
-axis E explicitly: parameters (E, ...) with the stacked layer axis second,
-caches (L, E, B, KVH, S, hd) and pools (L, E, P, KVH, page_size, hd) —
-layer-major, so one layer's slab is contiguous for the decode kernels, and
-one page table serves all E member planes.  A Python loop over layers
-takes the place of ``lax.scan``.  Caches and pools are updated IN PLACE
-(and returned, so call sites read like the JAX package's).
+layouts: dense k, v (L, B, KVH, S, hd); mamba2 conv (L, B, K-1, conv_dim)
+and ssm (L, B, nh, N, P) f32; rwkv6 tm_x, cm_x (L, B, D) and wkv (L, B, H,
+hd, hd) f32; hybrid the mamba2 leaves plus ``attn_k``/``attn_v``, one
+(B, KVH, S, hd) leaf per shared-attention invocation; dense pools (L,
+n_pages, KVH, page_size, hd).  Each is a thin wrapper over a ``*_members``
+function that carries the ensemble axis E explicitly: parameters (E, ...)
+with the stacked layer axis second, caches layer-major with E second —
+(L, E, B, ...) — so one layer's slab is contiguous for the kernels, the
+hybrid's per-invocation leaves (E, B, KVH, S, hd), and pools (L, E, P,
+KVH, page_size, hd) under one page table.  A Python loop over layers takes
+the place of ``lax.scan``.  Caches and pools are updated IN PLACE (and
+returned, so call sites read like the JAX package's).
 """
 from __future__ import annotations
 
@@ -32,21 +40,33 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks_dense as BD
+from repro_torch.models import blocks_mamba2 as BM
+from repro_torch.models import blocks_rwkv6 as BR
 from repro_torch.models import layers as L
 from repro_torch.models.params import Initializer, torch_dtype, tree_map
 
+PORTED_FAMILIES = ("dense", "ssm_mamba2", "ssm_rwkv6", "hybrid")
 
-def _require_dense(cfg: ModelConfig):
-    if cfg.family != "dense" or cfg.is_encoder or cfg.n_vision_tokens:
+
+def _require_ported(cfg: ModelConfig):
+    if cfg.family not in PORTED_FAMILIES or cfg.is_encoder or cfg.n_vision_tokens:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device, *, lead=()):
     """Seeded parameters; ``lead=(k,)`` stacks k ensemble members."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     ini = Initializer(generator, cfg.dtype, device, lead)
     p = {"embed": ini.normal((cfg.vocab_size, cfg.d_model), std=0.02)}
-    p["layers"] = BD.init_dense_layer(ini.stacked(cfg.n_layers), cfg)
+    layers = ini.stacked(cfg.n_layers)
+    if cfg.family == "dense":
+        p["layers"] = BD.init_dense_layer(layers, cfg)
+    elif cfg.family == "ssm_rwkv6":
+        p["layers"] = BR.init_rwkv6_block(layers, cfg)
+    else:
+        p["layers"] = BM.init_mamba2_block(layers, cfg)
+    if cfg.family == "hybrid" and cfg.attn_every:
+        p["shared_attn"] = BD.init_dense_layer(ini, cfg)  # one block, shared by depth
     p["final_norm"] = L.init_norm(ini, cfg, cfg.d_model)
     if not cfg.tie_embeddings:
         p["lm_head"] = ini.normal((cfg.d_model, cfg.vocab_size), std=0.02)
@@ -74,59 +94,133 @@ def embed_inputs(params, tokens: torch.Tensor) -> torch.Tensor:
     return emb[torch.arange(emb.shape[0], device=emb.device)[:, None, None], tokens]
 
 
-def _pad_carveout(batch, S: int, device):
+def _pad_carveout(batch, S: int, cfg: ModelConfig, device):
     """(positions, starts) for a left-padded batch, or (None, None):
-    positions are taken relative to each row's prompt start."""
+    positions are taken relative to each row's prompt start.  Recurrent
+    families sweep the sequence unconditionally, so the carve-out cannot
+    apply there."""
     starts = batch.get("starts")
     if starts is None:
         return None, None
+    _require_carveout(cfg)
     starts = torch.as_tensor(starts, device=device).to(torch.int32)
     return torch.arange(S, device=device)[None, :] - starts[:, None], starts
 
 
+def _require_carveout(cfg: ModelConfig):
+    if cfg.family != "dense":
+        raise ValueError(f"left-pad carve-out unsupported for family {cfg.family}")
+
+
+def _state_keys(cfg: ModelConfig):
+    """The constant-size recurrent state leaves: everything that is not
+    position-masked, so a slot that admits a new request must zero them."""
+    return ("tm_x", "cm_x", "wkv") if cfg.family == "ssm_rwkv6" else ("conv", "ssm")
+
+
+def _attn_after(cfg: ModelConfig, l: int) -> bool:
+    """True where the hybrid applies its shared attention block, after
+    layer l; invocation ``l // attn_every`` owns that call's KV leaf."""
+    return cfg.family == "hybrid" and bool(cfg.attn_every) and (l + 1) % cfg.attn_every == 0
+
+
+def _recurrent_layer(params, l: int, x, cfg: ModelConfig, state, *, step: bool = False):
+    """Layer l of a constant-state family over a sequence or chunk x
+    (E, B, S, D), continuing ``state`` (None at a sequence start); with
+    ``step`` the single-token decode form (x (E, B, 1, D)).  Returns
+    (x, new state)."""
+    lp = _layer(params, l)
+    if cfg.family == "ssm_rwkv6":
+        if step:
+            return BR.rwkv6_step(lp, x, cfg, state)
+        return BR.rwkv6_layer_fwd(lp, x, cfg, state=state)
+    if step:
+        out, state = BM.mamba2_step(lp, x, cfg, state)
+    else:
+        out, state = BM.mamba2_fwd(lp, x, cfg, initial=state)
+    return x + out, state
+
+
+def _write_kv(k_cache, v_cache, k, v):
+    """Prefill K/V (E, B, S, KVH, hd) into rows [0, S) of (E, B, KVH, S', hd)."""
+    S = k.shape[2]
+    k_cache[:, :, :, :S] = k.permute(0, 1, 3, 2, 4)
+    v_cache[:, :, :, :S] = v.permute(0, 1, 3, 2, 4)
+
+
 def backbone_fwd(params, x, cfg: ModelConfig, *, positions=None, starts=None, cache=None):
-    """Runs every layer over x (E, B, S, D).  With ``cache`` (k, v tensors
-    (L, E, B, KVH, S', hd), S' >= S) each layer's K/V are written into
-    rows [0, S)."""
+    """Runs every layer over x (E, B, S, D).  With ``cache`` (from
+    ``init_cache_members``, KV rows S' >= S) each dense layer's K/V are
+    written into rows [0, S), each recurrent layer's final state into its
+    layer slab, and each hybrid attention invocation's K/V into its
+    leaf."""
+    if cfg.family == "dense":
+        for l in range(cfg.n_layers):
+            x, (k, v) = BD.dense_layer_fwd(
+                _layer(params, l), x, cfg, causal=True, sliding_window=cfg.sliding_window,
+                positions=positions, starts=starts,
+            )
+            if cache is not None:
+                _write_kv(cache["k"][l], cache["v"][l], k, v)
+        return x
     for l in range(cfg.n_layers):
-        x, (k, v) = BD.dense_layer_fwd(
-            _layer(params, l), x, cfg, causal=True, sliding_window=cfg.sliding_window,
-            positions=positions, starts=starts,
-        )
+        x, st = _recurrent_layer(params, l, x, cfg, None)
         if cache is not None:
-            S = k.shape[2]
-            cache["k"][l, :, :, :, :S] = k.permute(0, 1, 3, 2, 4)
-            cache["v"][l, :, :, :, :S] = v.permute(0, 1, 3, 2, 4)
+            for name, t in st.items():
+                cache[name][l] = t
+        if _attn_after(cfg, l):
+            x, (k, v) = BD.dense_layer_fwd(
+                params["shared_attn"], x, cfg, causal=True, sliding_window=cfg.sliding_window,
+            )
+            if cache is not None:
+                inv = l // cfg.attn_every
+                _write_kv(cache["attn_k"][inv], cache["attn_v"][inv], k, v)
     return x
 
 
 def forward_logits_members(params, batch, cfg: ModelConfig):
     """Full logits (E, B, S, V)."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     device = params["embed"].device
     x = embed_inputs(params, _tokens(batch, device))
-    positions, starts = _pad_carveout(batch, x.shape[2], device)
+    positions, starts = _pad_carveout(batch, x.shape[2], cfg, device)
     x = backbone_fwd(params, x, cfg, positions=positions, starts=starts)
     return L.project_logits(params, x, cfg)
 
 
 def init_cache_members(cfg: ModelConfig, E: int, batch: int, max_seq: int, device, dtype=None):
-    shape = (cfg.n_layers, E, batch, cfg.n_kv_heads, max_seq, cfg.head_dim)
+    """Zero member caches, layer-major: dense k, v (L, E, B, KVH, max_seq,
+    hd); mamba2 conv (L, E, B, K-1, conv_dim) and ssm (L, E, B, nh, N, P)
+    f32; rwkv6 tm_x, cm_x (L, E, B, D) and wkv (L, E, B, H, hd, hd) f32;
+    hybrid the mamba2 leaves plus ``attn_k``/``attn_v`` lists of one
+    (E, B, KVH, max_seq, hd) leaf per shared-attention invocation."""
+    _require_ported(cfg)
     dtype = dtype or torch_dtype(cfg.dtype)
-    return {
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device),
-    }
+    Lyr = cfg.n_layers
+    zeros = lambda *shape: torch.zeros(shape, dtype=dtype, device=device)
+    if cfg.family == "dense":
+        shape = (Lyr, E, batch, cfg.n_kv_heads, max_seq, cfg.head_dim)
+        return {"k": zeros(*shape), "v": zeros(*shape)}
+    init_state = BR.init_rwkv6_state if cfg.family == "ssm_rwkv6" else BM.init_mamba2_state
+    layer = init_state(cfg, E, batch, dtype, device)  # one layer's state, for its shapes
+    cache = {name: t.new_zeros((Lyr,) + tuple(t.shape)) for name, t in layer.items()}
+    if cfg.family == "hybrid":
+        n_inv = Lyr // cfg.attn_every
+        kv = (E, batch, cfg.n_kv_heads, max_seq, cfg.head_dim)
+        cache["attn_k"] = [zeros(*kv) for _ in range(n_inv)]
+        cache["attn_v"] = [zeros(*kv) for _ in range(n_inv)]
+    return cache
 
 
 def prefill_members(params, batch, cfg: ModelConfig, *, collect_kv=True):
     """Prompt prefill for E members sharing the batch.  Returns
-    (last-token logits (E, B, V), caches (L, E, B, KVH, S, hd) or None)."""
-    _require_dense(cfg)
+    (last-token logits (E, B, V), member caches as ``init_cache_members``
+    lays them out with S KV rows, or None)."""
+    _require_ported(cfg)
     device = params["embed"].device
     x = embed_inputs(params, _tokens(batch, device))
     E, B, S, _ = x.shape
-    positions, starts = _pad_carveout(batch, S, device)
+    positions, starts = _pad_carveout(batch, S, cfg, device)
     cache = (
         init_cache_members(cfg, E, B, S, device, dtype=x.dtype) if collect_kv else None
     )
@@ -145,19 +239,32 @@ def _positions(pos, device):
 def decode_step_members(params, token, cache, pos, cfg: ModelConfig, *, starts=None):
     """One new token per member.  ``pos`` is the shared scalar position or
     a (B,) vector of per-slot positions (continuous batching).  token
-    (E, B, 1); cache (L, E, B, KVH, S, hd), updated in place.  Returns
-    (logits (E, B, V), cache)."""
-    _require_dense(cfg)
+    (E, B, 1); cache from ``init_cache_members``/``prefill_members``,
+    updated in place.  Returns (logits (E, B, V), cache)."""
+    _require_ported(cfg)
     device = params["embed"].device
     pos = _positions(pos, device)
     if starts is not None:
+        _require_carveout(cfg)
         starts = torch.as_tensor(starts, device=device).to(torch.int32)
     x = embed_inputs(params, torch.as_tensor(token, device=device).to(torch.int64))
+    if cfg.family == "dense":
+        for l in range(cfg.n_layers):
+            x = BD.dense_layer_decode(
+                _layer(params, l), x, cfg, cache["k"][l], cache["v"][l], pos,
+                sliding_window=cfg.sliding_window, starts=starts,
+            )
+        return L.project_logits(params, x[:, :, 0], cfg), cache
     for l in range(cfg.n_layers):
-        x = BD.dense_layer_decode(
-            _layer(params, l), x, cfg, cache["k"][l], cache["v"][l], pos,
-            sliding_window=cfg.sliding_window, starts=starts,
-        )
+        x, st = _recurrent_layer(params, l, x, cfg, {n: cache[n][l] for n in _state_keys(cfg)}, step=True)
+        for name, t in st.items():
+            cache[name][l] = t
+        if _attn_after(cfg, l):
+            inv = l // cfg.attn_every
+            x = BD.dense_layer_decode(
+                params["shared_attn"], x, cfg, cache["attn_k"][inv], cache["attn_v"][inv], pos,
+                sliding_window=cfg.sliding_window,
+            )
     return L.project_logits(params, x[:, :, 0], cfg), cache
 
 
@@ -168,45 +275,77 @@ def decode_step_members(params, token, cache, pos, cfg: ModelConfig, *, starts=N
 
 def has_slot_state(cfg: ModelConfig) -> bool:
     """True for families whose slot cache carries state the position mask
-    does not hide (SSM/RWKV, hybrid); none of them is ported yet."""
+    does not hide: SSM/RWKV and hybrid."""
     return cfg.family in ("ssm_mamba2", "ssm_rwkv6", "hybrid")
 
 
-def reset_slot(cache, slot, cfg: ModelConfig):
-    """Zero one slot's constant-state leaves at admission.  Attention KV
-    rows need nothing (the per-slot position mask hides a previous
-    occupant's rows), so for the dense family this returns ``cache``."""
+def _zero_slot(cache, slot, cfg: ModelConfig, axis: int):
     if has_slot_state(cfg):
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+        for name in _state_keys(cfg):
+            cache[name].select(axis, int(slot)).zero_()
     return cache
 
 
+def reset_slot(cache, slot, cfg: ModelConfig):
+    """Zero one slot's constant-state leaves at admission, in place, in a
+    single-model slot cache (slot axis 1 of every stacked leaf).  Attention
+    KV rows need nothing (the per-slot position mask hides a previous
+    occupant's rows), so the dense family's cache and the hybrid's
+    ``attn_k``/``attn_v`` leaves are left as they are.  Returns ``cache``."""
+    return _zero_slot(cache, slot, cfg, 1)
+
+
+def reset_slot_members(cache, slot, cfg: ModelConfig):
+    """``reset_slot`` over member caches (L, E, n_slots, ...): the slot of
+    every member."""
+    return _zero_slot(cache, slot, cfg, 2)
+
+
 def supports_chunked_prefill(cfg: ModelConfig) -> bool:
-    """Chunked-prefill admission: every ported (dense, decoder) family."""
-    return cfg.family == "dense" and not cfg.is_encoder
+    """Chunked-prefill admission: every ported decoder family."""
+    return cfg.family in PORTED_FAMILIES and not cfg.is_encoder
 
 
 def supports_paging(cfg: ModelConfig) -> bool:
-    """Block-paged KV pools serve the attention-cache families; of those,
-    the port has the dense family."""
+    """Block-paged KV pools serve the dense family.  Constant-state
+    families have O(1) per-slot state, nothing to page, and the hybrid's
+    per-invocation KV leaves keep the dense slot layout, as in the JAX
+    package."""
     return cfg.family == "dense" and not cfg.is_encoder
 
 
 def prefill_into_slot_members(params, tokens, cache, slot: int, start: int, cfg: ModelConfig):
     """Consume a C-token chunk of one slot's prompt, positions
-    [start, start+C), into every member's slot rows of the dense slot cache
-    (L, E, n_slots, KVH, S, hd), in place.  No logits: the last prompt
-    token always goes through the decode step, whose logits pick the first
-    output token — which keeps chunked and decode-only admission
-    token-identical.  Returns the cache."""
-    _require_dense(cfg)
+    [start, start+C), into every member's slot of the member slot cache
+    (``init_cache_members`` with batch = n_slots), in place.  Attention
+    layers write K/V rows at the slot's offset; constant-state layers
+    continue the slot's recurrent state through the full-sequence block
+    forwards.  No logits: the last prompt token always goes through the
+    decode step, whose logits pick the first output token — which keeps
+    chunked and decode-only admission token-identical.  Returns the
+    cache."""
+    _require_ported(cfg)
     device = params["embed"].device
+    slot, start = int(slot), int(start)
     x = embed_inputs(params, torch.as_tensor(tokens, device=device).to(torch.int64)[None])
+    if cfg.family == "dense":
+        for l in range(cfg.n_layers):
+            x = BD.dense_layer_prefill_chunk(
+                _layer(params, l), x, cfg, cache["k"][l], cache["v"][l], slot, start,
+                sliding_window=cfg.sliding_window,
+            )
+        return cache
+    row = slice(slot, slot + 1)
     for l in range(cfg.n_layers):
-        x = BD.dense_layer_prefill_chunk(
-            _layer(params, l), x, cfg, cache["k"][l], cache["v"][l], int(slot), int(start),
-            sliding_window=cfg.sliding_window,
-        )
+        x, st = _recurrent_layer(params, l, x, cfg, {n: cache[n][l][:, row] for n in _state_keys(cfg)})
+        for name, t in st.items():
+            cache[name][l][:, row] = t
+        if _attn_after(cfg, l):
+            inv = l // cfg.attn_every
+            x = BD.dense_layer_prefill_chunk(
+                params["shared_attn"], x, cfg, cache["attn_k"][inv], cache["attn_v"][inv], slot, start,
+                sliding_window=cfg.sliding_window,
+            )
     return cache
 
 
@@ -241,7 +380,7 @@ def decode_step_paged_members(params, token, pool, pos, pages, cfg: ModelConfig)
     table (-1 = unmapped), shared by the E member planes; pool from
     ``init_paged_pool_members``, updated in place.  Positions and table go
     to the device once for all layers.  Returns (logits (E, B, V), pool)."""
-    _require_dense(cfg)
+    assert supports_paging(cfg), cfg.family
     device = params["embed"].device
     _, E, P = pool["k"].shape[:3]
     step = L.paged_step(pos, pages, E=E, n_pages=P, page_size=pool["k"].shape[-2], device=device)
@@ -258,7 +397,7 @@ def prefill_into_slot_paged_members(params, tokens, pool, pages_row, start: int,
     """Paged counterpart of ``prefill_into_slot_members``: the chunk's K/V
     rows land in the pool pages the slot's (n_pg,) table row maps.  Returns
     the pool (updated in place)."""
-    _require_dense(cfg)
+    assert supports_paging(cfg), cfg.family
     device = params["embed"].device
     pages_row = torch.as_tensor(pages_row, device=device).to(torch.int32)
     x = embed_inputs(params, torch.as_tensor(tokens, device=device).to(torch.int64)[None])
@@ -281,16 +420,16 @@ def forward_logits(params, batch, cfg: ModelConfig):
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device, dtype=None):
-    """Zero caches, k and v (L, B, KVH, max_seq, hd)."""
-    c = init_cache_members(cfg, 1, batch, max_seq, device, dtype)
-    return {k: v[:, 0] for k, v in c.items()}
+    """Zero caches in the JAX package's layout (see the module docstring)."""
+    return _single_cache(init_cache_members(cfg, 1, batch, max_seq, device, dtype))
 
 
 def prefill(params, batch, cfg: ModelConfig):
-    """Returns (last-token logits (B, V), cache {k, v: (L, B, KVH, S, hd)}).
-    ``batch['starts']`` (B,), optional, is the left-pad carve-out."""
+    """Returns (last-token logits (B, V), cache in the JAX layout, with S KV
+    rows).  ``batch['starts']`` (B,), optional, is the left-pad carve-out
+    (dense family only)."""
     logits, cache = prefill_members(_members(params), batch, cfg)
-    return logits[0], {k: v[:, 0] for k, v in cache.items()}
+    return logits[0], _single_cache(cache)
 
 
 def decode_step(params, token, cache, pos, cfg: ModelConfig, *,
@@ -307,22 +446,27 @@ def decode_step(params, token, cache, pos, cfg: ModelConfig, *,
 
 def _member_cache(cache):
     """A single-model cache or pool as a one-member view (writes go
-    through)."""
-    return {k: v[:, None] for k, v in cache.items()}
+    through): E enters at axis 1 of stacked leaves, axis 0 of the hybrid's
+    per-invocation leaves."""
+    return {k: [t[None] for t in v] if isinstance(v, list) else v[:, None] for k, v in cache.items()}
+
+
+def _single_cache(cache):
+    """The inverse of ``_member_cache`` for a one-member cache."""
+    return {k: [t[0] for t in v] if isinstance(v, list) else v[:, 0] for k, v in cache.items()}
 
 
 def prefill_into_slot(params, tokens, cache, slot: int, start: int, cfg: ModelConfig):
     """tokens (C,) for positions [start, start+C) of ``slot``; cache the
-    (L, n_slots, KVH, S, hd) slot cache (updated in place).  Returns the
-    cache."""
+    single-model slot cache (``init_cache`` with batch = n_slots, updated
+    in place).  Returns the cache."""
     prefill_into_slot_members(_members(params), tokens, _member_cache(cache), slot, start, cfg)
     return cache
 
 
 def init_paged_pool(cfg: ModelConfig, n_pages: int, page_size: int, device, dtype=None):
     """Zero pools, k and v (L, n_pages, KVH, page_size, hd)."""
-    pool = init_paged_pool_members(cfg, 1, n_pages, page_size, device, dtype)
-    return {k: v[:, 0] for k, v in pool.items()}
+    return _single_cache(init_paged_pool_members(cfg, 1, n_pages, page_size, device, dtype))
 
 
 def decode_step_paged(params, token, pool, pos, pages, cfg: ModelConfig):

@@ -47,6 +47,11 @@ class Initializer:
     def ones(self, shape, dtype=None) -> torch.Tensor:
         return torch.ones(self.lead + tuple(shape), dtype=dtype or self.dtype, device=self.device)
 
+    def const(self, value, dtype=None) -> torch.Tensor:
+        """A fixed per-layer value, repeated over the lead axes."""
+        v = torch.as_tensor(value, dtype=dtype or self.dtype, device=self.device)
+        return v.expand(self.lead + tuple(v.shape)).clone()
+
 
 def tree_map(fn, tree):
     if isinstance(tree, dict):

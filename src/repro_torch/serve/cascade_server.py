@@ -10,8 +10,9 @@
   (``vote_rule_from_preds``).
 * ``serve_continuous`` — cascade-aware continuous batching: each tier runs
   a ``SlotStream`` (the same slot state machine the single-model engine
-  drives at E=1, here at E=k) over block-paged KV pools with chunked
-  prefill admission; a slot that finishes votes on its member generations,
+  drives at E=1, here at E=k) over block-paged KV pools (dense slot caches
+  for the constant-state families, whose slots are zeroed at admission)
+  with chunked prefill admission; a slot that finishes votes on its member generations,
   and a disagreement re-queues the request on the next tier.  Tier streams
   are stepped round-robin, so tier i+1 starts while tier i still decodes.
 
@@ -76,7 +77,8 @@ def tier_programs(cfg: ModelConfig, temperature: float) -> SimpleNamespace:
     ``decode_slots(values, tok, caches, pos) -> (tok, caches)`` (per-slot
         (B,) ``pos``, continuous batching over the dense slot cache)
     ``prefill_chunk(values, caches, tokens, slot, start) -> caches``
-    ``reset_slot`` (None: the dense family has no slot state)."""
+    ``reset_slot(caches, slot) -> caches`` (zero every member's recurrent
+        state in the slot; None for the dense family, which has none)."""
     _require_greedy(temperature)
 
     def last_logits(values, batch):
@@ -96,7 +98,7 @@ def tier_programs(cfg: ModelConfig, temperature: float) -> SimpleNamespace:
     return SimpleNamespace(
         last_logits=last_logits, prefill=prefill, decode=decode, decode_slots=decode,
         prefill_chunk=prefill_chunk if api.supports_chunked_prefill(cfg) else None,
-        reset_slot=None if not api.has_slot_state(cfg) else functools.partial(api.reset_slot, cfg=cfg),
+        reset_slot=functools.partial(api.reset_slot_members, cfg=cfg) if api.has_slot_state(cfg) else None,
     )
 
 

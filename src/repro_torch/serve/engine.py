@@ -36,7 +36,8 @@ from repro_torch.serve.config import ServeConfig
 def model_programs(cfg: ModelConfig) -> SimpleNamespace:
     """The single-model functions for one config: ``prefill``/``decode``
     (batch), ``prefill_chunk`` (chunked prefill into a slot) and
-    ``reset_slot`` (None: the dense family has no slot state)."""
+    ``reset_slot`` (zero a slot's recurrent state at admission; None for
+    the dense family, which has none)."""
     return SimpleNamespace(
         prefill=functools.partial(api.prefill, cfg=cfg),
         decode=functools.partial(api.decode_step, cfg=cfg),
@@ -61,14 +62,20 @@ def paged_model_programs(cfg: ModelConfig) -> SimpleNamespace:
 
 
 def grow_cache(cache, pad: int, cfg: ModelConfig):
-    """Pad the sequence axis (second to last) of an attention KV cache by
+    """Pad the sequence axis (second to last) of the attention KV leaves by
     ``pad`` zero rows — any leading axes (layers, members, batch) pass
-    through, so single-model and member caches grow alike."""
+    through, so single-model and member caches grow alike.  The hybrid's
+    per-invocation ``attn_k``/``attn_v`` leaves grow one by one; recurrent
+    state is constant-size, so ``ssm_mamba2``/``ssm_rwkv6`` caches come
+    back as they are."""
     if pad <= 0:
         return cache
-    if cfg.family != "dense":
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
-    return {k: F.pad(v, (0, 0, 0, pad)) for k, v in cache.items()}
+    grow = lambda t: F.pad(t, (0, 0, 0, pad))
+    if cfg.family == "dense":
+        return {k: grow(v) for k, v in cache.items()}
+    if cfg.family == "hybrid":
+        return {k: [grow(t) for t in v] if k in ("attn_k", "attn_v") else v for k, v in cache.items()}
+    return cache
 
 
 class ServingEngine:
@@ -106,9 +113,9 @@ class ServingEngine:
         self._c_decode = sc.counter("decode_tokens")
         self._c_batches = sc.counter("batches")
         self.stats = StatsView({
-            "prefill_tokens": lambda: self._c_prefill.value,
-            "decode_tokens": lambda: self._c_decode.value,
-            "batches": lambda: self._c_batches.value,
+            "prefill_tokens": lambda m=self._c_prefill: m.value,
+            "decode_tokens": lambda m=self._c_decode: m.value,
+            "batches": lambda m=self._c_batches: m.value,
         })
 
     # -- low-level --------------------------------------------------------

@@ -102,12 +102,12 @@ class PagePool:
         self._g_occupancy = sc.gauge("pool_occupancy")
         self._g_sharing = sc.gauge("shared_pages_saved")
         self.stats = StatsView({
-            "allocated": lambda: self._c_allocated.value,
-            "freed": lambda: self._c_freed.value,
-            "shared_hits": lambda: self._c_shared_hits.value,
-            "cow_copies": lambda: self._c_cow.value,
-            "admit_failures": lambda: self._c_admit_failures.value,
-            "peak_pages_in_use": lambda: self._g_occupancy.peak,
+            "allocated": lambda m=self._c_allocated: m.value,
+            "freed": lambda m=self._c_freed: m.value,
+            "shared_hits": lambda m=self._c_shared_hits: m.value,
+            "cow_copies": lambda m=self._c_cow: m.value,
+            "admit_failures": lambda m=self._c_admit_failures: m.value,
+            "peak_pages_in_use": lambda m=self._g_occupancy: m.peak,
         })
 
     # -- accounting --------------------------------------------------------

@@ -42,8 +42,12 @@ rather than dedicated (the block-paged KV pools, ``serve/paging.py``):
         the stream force-completes with ``truncated=True``.
 
 ``EngineBackend`` (E=1) and ``TierBackend`` (a cascade tier's ensemble)
-default to block-paged pools where ``api.supports_paging`` allows and keep
-the dense slot cache behind ``paged=False`` as the parity oracle.  Every
+default to block-paged pools where ``api.supports_paging`` allows (the
+dense family) and keep the dense slot cache behind ``paged=False`` as the
+parity oracle.  The constant-state families (``ssm_mamba2``,
+``ssm_rwkv6``, ``hybrid``) always run the dense slot cache: their
+``begin_slot`` zeroes the admitted slot's recurrent state through the
+backend's ``reset_slot``.  Every
 decode step makes exactly one device-to-host read: the metered
 ``host_fetch`` of the next tokens.
 
@@ -110,15 +114,15 @@ class SlotStream:
         self._h_prefill_dispatch = sc.histogram("admit.prefill_dispatch_s")
         self._h_decode_dispatch = sc.histogram("decode.dispatch_s")
         self.stats = StatsView({
-            "admitted": lambda: self._c_admitted.value,
-            "admit_failures": lambda: self._c_admit_failures.value,
-            "forced_completions": lambda: self._c_forced.value,
-            "chunk_calls": lambda: self._c_chunk_calls.value,
-            "chunk_tokens": lambda: self._c_chunk_tokens.value,
-            "shared_tokens": lambda: self._c_shared_tokens.value,
-            "decode_tokens": lambda: self._c_decode_tokens.value,
-            "admit_time": lambda: self._h_begin_slot.sum + self._h_prefill_dispatch.sum,
-            "decode_time": lambda: self._h_decode_dispatch.sum,
+            "admitted": lambda m=self._c_admitted: m.value,
+            "admit_failures": lambda m=self._c_admit_failures: m.value,
+            "forced_completions": lambda m=self._c_forced: m.value,
+            "chunk_calls": lambda m=self._c_chunk_calls: m.value,
+            "chunk_tokens": lambda m=self._c_chunk_tokens: m.value,
+            "shared_tokens": lambda m=self._c_shared_tokens: m.value,
+            "decode_tokens": lambda m=self._c_decode_tokens: m.value,
+            "admit_time": lambda b=self._h_begin_slot, p=self._h_prefill_dispatch: b.sum + p.sum,
+            "decode_time": lambda m=self._h_decode_dispatch: m.sum,
         })
 
     # -- admission ---------------------------------------------------------

@@ -8,7 +8,17 @@ where only PyTorch is installed:
 Tolerances: argmax, max, index maps and compacted payloads exact; sumexp
 rel 1e-5; bf16 attention outputs abs 2e-2 (inputs ~N(0, 1); the flash
 kernel rounds P to bf16 before the PV product); the paged decode kernel
-bitwise equal to the dense one on the gathered view."""
+bitwise equal to the dense one on the gathered view.  The SSD and WKV6
+scans (the kernels run the per-step recurrence, the plain versions the
+chunked form: the same f32 function summed in another order): outputs
+normwise 1e-5 in f32 and 2**-7 in bf16 (two f32 results each rounded to
+bf16 may land one bf16 step apart: at most 2**-7 of the element),
+final states normwise 1e-3; against the per-step ref, which shares the
+kernels' arithmetic, the same output bounds and states normwise 1e-5.
+Under strong decay (log-decay down to -exp(6) and beyond) the chunked
+form's exponents ecum_t - cum_s are differences of two large sums that
+lose up to ~|cum| * 6e-8: there the WKV6 kernel is held to the plain
+version at normwise 2e-2 and to the per-step ref as above."""
 import numpy as np
 import pytest
 import torch
@@ -18,6 +28,10 @@ from repro_torch.kernels.agreement import ops as agree
 from repro_torch.kernels.compaction import ops as compact
 from repro_torch.kernels.decode_attention import ops as decode
 from repro_torch.kernels.flash_attention import ops as flash
+from repro_torch.kernels.mamba2_ssd import ops as ssd
+from repro_torch.kernels.mamba2_ssd import ref as ssd_ref
+from repro_torch.kernels.rwkv6_wkv import ops as wkv
+from repro_torch.kernels.rwkv6_wkv import ref as wkv_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -70,10 +84,10 @@ FLASH_CASES = [
 ]
 
 
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd,heads", [(64, (8, 2)), (128, (8, 2)), (80, (4, 4))])
 @pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "-".join(f"{k}={v}" for k, v in c.items() if v))
-def test_flash_attention(cuda, case, hd):
-    q, k, v = (_randn(3, 100, h, hd, seed=i).to(cuda, torch.bfloat16) for i, h in enumerate((8, 2, 2)))
+def test_flash_attention(cuda, case, hd, heads):
+    q, k, v = (_randn(3, 100, h, hd, seed=i).to(cuda, torch.bfloat16) for i, h in enumerate(heads + heads[1:]))
     starts = None if case["starts"] is None else torch.tensor(case["starts"], dtype=torch.int32, device=cuda)
     kw = dict(causal=case["causal"], window=case["window"], softcap=case["softcap"], starts=starts)
     got = flash.flash_attention(q, k, v, **kw).float()
@@ -92,7 +106,7 @@ DECODE_CASES = [
 ]
 
 
-@pytest.mark.parametrize("G,hd", [(8, 128), (2, 64), (1, 128)])
+@pytest.mark.parametrize("G,hd", [(8, 128), (2, 64), (1, 128), (1, 80)])
 @pytest.mark.parametrize("case", DECODE_CASES, ids=lambda c: "-".join(f"{k}={v}" for k, v in c.items() if v))
 def test_decode_attention(cuda, case, G, hd):
     B, KVH, S = 3, 2, 130
@@ -154,3 +168,80 @@ def test_decode_attention_paged_wants_device_table(cuda):
     with pytest.raises(ValueError, match="CUDA tensor"):
         decode.decode_attention_paged(q, kp, kp, torch.zeros((2, 1), dtype=torch.int32),
                                       torch.ones(2, dtype=torch.int32, device=cuda))
+
+
+def _normwise(got, ref, tol):
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= tol * ref.float().abs().max().item(), (err, tol)
+
+
+SSD_CASES = [  # (B, S, H, P, G, N, E, h0, out dtype)
+    (2, 128, 4, 32, 2, 16, 1, False, torch.float32),
+    (1, 256, 2, 64, 1, 64, 1, True, torch.float32),
+    (2, 96, 4, 32, 4, 16, 2, True, torch.bfloat16),  # ragged vs the plain chunk, per-member A
+    (3, 200, 3, 16, 3, 8, 3, True, torch.float32),
+    (6, 1, 4, 64, 1, 64, 3, True, torch.bfloat16),  # one step
+    (4, 300, 8, 64, 1, 64, 2, False, torch.bfloat16),  # zamba2 widths, ragged
+]
+
+
+@pytest.mark.parametrize("B,S,H,P,G,N,E,h0,dtype", SSD_CASES)
+def test_mamba2_ssd(cuda, B, S, H, P, G, N, E, h0, dtype):
+    gen = torch.Generator().manual_seed(S + N)
+    x = torch.randn(B, S, H, P, generator=gen).to(cuda, dtype)
+    dt = torch.nn.functional.softplus(torch.randn(B, S, H, generator=gen)).mul(0.5).to(cuda)
+    A = (-torch.exp(torch.randn(E, H, generator=gen) * 0.3)).to(cuda)
+    Bm, Cm = (torch.randn(B, S, G, N, generator=gen).mul(0.5).to(cuda) for _ in range(2))
+    s0 = torch.randn(B, H, N, P, generator=gen).mul(0.2).to(cuda) if h0 else None
+    before = kernels.launch_counts()["mamba2_ssd"]
+    y, hT = ssd.ssd(x, dt, A, Bm, Cm, initial_state=s0, return_final_state=True)
+    assert kernels.launch_counts()["mamba2_ssd"] == before + 1
+    py, ph = ssd.ssd_plain(x, dt, A, Bm, Cm, initial_state=s0)
+    assert y.dtype == dtype and torch.isfinite(y.float()).all()
+    _normwise(y, py, 1e-5 if dtype == torch.float32 else 2**-7)
+    _normwise(hT, ph, 1e-3)
+    if dtype == torch.float32:
+        ry, rh = ssd_ref.ssd_ref(x, dt, A, Bm, Cm, initial_state=s0, return_final_state=True)
+        _normwise(y, ry, 1e-5)
+        _normwise(hT, rh, 1e-5)
+
+
+WKV_CASES = [  # (B, S, H, D, E, logw scale, dtype)
+    (2, 128, 3, 32, 1, 0.5, torch.float32),
+    (1, 64, 2, 64, 1, 0.5, torch.float32),
+    (2, 80, 2, 32, 2, 0.5, torch.bfloat16),  # ragged, per-member u
+    (8, 1, 4, 64, 1, 0.5, torch.bfloat16),  # a decode step with a state
+    (3, 45, 2, 16, 3, 2.0, torch.float32),  # strong decay: exp(logw) underflows
+    (4, 70, 4, 64, 2, 3.0, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("B,S,H,D,E,scale,dtype", WKV_CASES)
+def test_rwkv6_wkv(cuda, B, S, H, D, E, scale, dtype):
+    gen = torch.Generator().manual_seed(S + D)
+    r, k, v = (torch.randn(B, S, H, D, generator=gen).to(cuda, dtype) for _ in range(3))
+    logw = (-torch.exp(torch.randn(B, S, H, D, generator=gen) * scale)).to(cuda)
+    u = torch.randn(E, H, D, generator=gen).mul(0.5).to(cuda)
+    s0 = torch.randn(B, H, D, D, generator=gen).mul(0.1).to(cuda)
+    before = kernels.launch_counts()["rwkv6_wkv"]
+    y, sT = wkv.wkv6(r, k, v, logw, u, initial_state=s0, return_final_state=True)
+    assert kernels.launch_counts()["rwkv6_wkv"] == before + 1
+    py, ps = wkv.wkv6_plain(r, k, v, logw, u, initial_state=s0)
+    assert y.dtype == dtype and torch.isfinite(y.float()).all() and torch.isfinite(sT).all()
+    out_tol = 1e-5 if dtype == torch.float32 else 2**-7
+    strong = scale >= 2.0  # the chunked plain version's exponents lose digits
+    _normwise(y, py, 2e-2 if strong else out_tol)
+    _normwise(sT, ps, 2e-2 if strong else 1e-3)
+    ry, rs = wkv_ref.wkv6_ref(r, k, v, logw, u, initial_state=s0, return_final_state=True)
+    _normwise(y, ry, out_tol)
+    _normwise(sT, rs, 1e-5)
+
+
+def test_recurrent_kernels_refuse_what_they_do_not_take(cuda):
+    x = torch.zeros(1, 4, 2, 16, device=cuda)
+    with pytest.raises(ValueError, match="ssd"):
+        ssd.ssd(x, torch.ones(1, 4, 2, device=cuda), -torch.ones(2, device=cuda),
+                torch.zeros(1, 4, 1, 12, device=cuda), torch.zeros(1, 4, 1, 12, device=cuda))
+    r = torch.zeros(1, 4, 2, 48, device=cuda)
+    with pytest.raises(ValueError, match="wkv6"):
+        wkv.wkv6(r, r, r, r, torch.zeros(2, 48, device=cuda))

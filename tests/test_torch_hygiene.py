@@ -36,6 +36,12 @@ res = server.classify(np.random.default_rng(0).integers(0, 512, (8, 16)).astype(
 assert res.tier_counts.sum() == 8, res
 reqs = [Request(tokens=np.arange(3 + i, dtype=np.int32), max_new_tokens=2) for i in range(4)]
 assert len(server.serve_continuous(reqs, ServeConfig(n_slots=2, max_seq=32, page_size=8))) == 4
+c3, c4 = get_config("zamba2-2.7b").reduced(), get_config("rwkv6-7b").reduced()
+server = CascadeServer([
+    CascadeTier(c3, ens.init_ensemble(c3, 3, g, "cpu"), TierSpec("h", "vote", 0.5, k=3), device="cpu"),
+    CascadeTier(c4, ens.init_ensemble(c4, 1, g, "cpu"), TierSpec("r", "confidence", -1.0), device="cpu"),
+], device="cpu")
+assert len(server.serve_continuous(reqs, ServeConfig(n_slots=2, max_seq=32))) == 4
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "repro.")) or m == "repro")
 assert not bad, bad
 print("OK")
@@ -57,8 +63,8 @@ def test_source_has_no_jax_or_repro_import(path):
     assert not FORBIDDEN.search(text), FORBIDDEN.search(text).group(0)
 
 
-def _tiny_server(device_kw):
-    cfg = dataclasses.replace(get_config("internlm2-1.8b").reduced(), n_layers=1)
+def _tiny_server(device_kw, arch="internlm2-1.8b"):
+    cfg = dataclasses.replace(get_config(arch).reduced(), n_layers=1)
     vals = ens.init_ensemble(cfg, 1, torch.Generator().manual_seed(0), "cpu")
     tier = CascadeTier(cfg, vals, TierSpec("only", "confidence", -1.0), device="cpu")
     return CascadeServer([tier], **device_kw)
@@ -75,14 +81,16 @@ def test_no_gpu_means_no_silent_cpu(monkeypatch):
 
 def test_cpu_call_launches_no_kernel():
     kernels.reset_launch_counts()
-    server = _tiny_server({"device": "cpu"})
     toks = np.random.default_rng(0).integers(0, 512, (8, 8)).astype(np.int32)
-    server.classify(toks)
-    server.generate(toks, 2)
     reqs = [Request(tokens=toks[i], max_new_tokens=2) for i in range(3)]
-    for paged in (True, False):
-        server.serve_continuous(reqs, ServeConfig(n_slots=2, max_seq=32, page_size=8, paged=paged))
+    for arch, modes in (("internlm2-1.8b", (True, False)), ("zamba2-2.7b", (False,)), ("rwkv6-7b", (False,))):
+        server = _tiny_server({"device": "cpu"}, arch)
+        server.classify(toks)
+        server.generate(toks, 2)
+        for paged in modes:
+            server.serve_continuous(reqs, ServeConfig(n_slots=2, max_seq=32, page_size=8, paged=paged))
     assert set(kernels.launch_counts()) == {
         "agreement", "compaction", "flash_attention", "decode_attention", "decode_attention_paged",
+        "mamba2_ssd", "rwkv6_wkv",
     }
     assert kernels.launch_counts() == {n: 0 for n in kernels.launch_counts()}

@@ -27,7 +27,7 @@ from repro.models import api as j_api
 from repro.models.params import unbox
 from repro.serve.paging import PagePool as JPagePool
 from repro.serve.paging import prefix_page_keys as j_prefix_page_keys
-from repro_torch.bridge import params_from_numpy, pool_from_numpy
+from repro_torch.bridge import cache_from_numpy, params_from_numpy
 from repro_torch.configs import ModelConfig
 from repro_torch.core import ensemble as t_ens
 from repro_torch.kernels.compaction.ops import gather_rows_plain
@@ -223,7 +223,7 @@ def test_decode_step_paged(model):
     ref_logits, ref_pool = jax.jit(j_api.decode_step_paged, static_argnames="cfg")(
         jp, jnp.asarray(tok), jax.tree.map(jnp.asarray, pool), jnp.asarray(POS), jnp.asarray(TABLE), cfg=cfg,
     )
-    logits, tpool = t_api.decode_step_paged(tp, tok, pool_from_numpy(pool, "cpu", members=False), POS, TABLE, tcfg)
+    logits, tpool = t_api.decode_step_paged(tp, tok, cache_from_numpy(pool, "cpu", members=False), POS, TABLE, tcfg)
     _close(logits, ref_logits)
     _close_tree(tpool, ref_pool)
     np.testing.assert_array_equal(logits.argmax(-1).numpy(), np.asarray(ref_logits).argmax(-1))
@@ -236,7 +236,7 @@ def test_prefill_into_slot_paged(model):
     ref = jax.jit(j_api.prefill_into_slot_paged, static_argnames="cfg")(
         jp, jnp.asarray(toks), jax.tree.map(jnp.asarray, pool), jnp.asarray(TABLE[1]), jnp.int32(5), cfg=cfg,
     )
-    got = t_api.prefill_into_slot_paged(tp, toks, pool_from_numpy(pool, "cpu", members=False), TABLE[1], 5, tcfg)
+    got = t_api.prefill_into_slot_paged(tp, toks, cache_from_numpy(pool, "cpu", members=False), TABLE[1], 5, tcfg)
     _close_tree(got, ref)
 
 
@@ -251,7 +251,7 @@ def test_prefill_into_slot_and_vector_decode(model):
     ref = jax.jit(j_api.prefill_into_slot, static_argnames="cfg")(
         jp, jnp.asarray(toks), jax.tree.map(jnp.asarray, cache), jnp.int32(1), jnp.int32(12), cfg=cfg,
     )
-    got = t_api.prefill_into_slot(tp, toks, pool_from_numpy(cache, "cpu", members=False), 1, 12, tcfg)
+    got = t_api.prefill_into_slot(tp, toks, cache_from_numpy(cache, "cpu", members=False), 1, 12, tcfg)
     _close_tree(got, ref)
     ref_logits, ref = jax.jit(j_api.decode_step, static_argnames="cfg")(
         jp, jnp.asarray(tok), ref, jnp.asarray(POS), cfg=cfg,
@@ -285,7 +285,7 @@ def test_member_stacked_paged_step():
 
     ref_logits, ref_pool = ref_step(jv, jnp.asarray(tok), jax.tree.map(jnp.asarray, pool))
     ref_pool = ref_chunk(jv, ref_pool)
-    tpool = pool_from_numpy(pool, "cpu")
+    tpool = cache_from_numpy(pool, "cpu")
     logits, tpool = t_ens.ensemble_decode_step_paged(tv, tok, tpool, POS, TABLE, tcfg)
     tpool = t_ens.ensemble_prefill_into_slot_paged(tv, toks, tpool, TABLE[0], 16, tcfg)
     _close(logits, ref_logits)
@@ -297,10 +297,10 @@ def test_copy_pool_page_matches_jax():
     cfg = dataclasses.replace(SMALL, dtype="float32")
     pool = _rand_tree(unbox(j_api.init_paged_pool(cfg, N_PAGES, PS))[0], 30)
     ref = j_api.copy_pool_page(jax.tree.map(jnp.asarray, pool), jnp.int32(3), jnp.int32(7))
-    got = t_api.copy_pool_page(pool_from_numpy(pool, "cpu", members=False), 3, 7)
+    got = t_api.copy_pool_page(cache_from_numpy(pool, "cpu", members=False), 3, 7)
     for k in ref:
         np.testing.assert_array_equal(got[k].numpy(), np.asarray(ref[k]))
-    stacked = pool_from_numpy(jax.tree.map(lambda t: np.stack([t, 2 * t]), pool), "cpu")  # (L, E, P, ...)
+    stacked = cache_from_numpy(jax.tree.map(lambda t: np.stack([t, 2 * t]), pool), "cpu")  # (L, E, P, ...)
     t_api.copy_pool_page(stacked, 1, 4)
     assert torch.equal(stacked["k"][:, :, 4], stacked["k"][:, :, 1])
 
