@@ -24,7 +24,16 @@ Phases, in order; any failure raises and exits non-zero:
    64; both scans also at serve_continuous's chunked-admission shape), with
    the tolerance stated beside each check; times kernel, plain
    version and one library call where one computes the same function (the
-   yardstick; the port never calls it) with CUDA events.
+   yardstick; the port never calls it) with CUDA events (``ms``), and by
+   device time with a cold L2 (``device_ms``: a CUDA graph of 20 calls,
+   each after a read of twice the L2's size, replayed, less a graph of the
+   reads alone; for a library call that waits on the device,
+   torch.profiler's kernel durations, the reads' taken off the same way),
+   host cost a call (``host_us``) and device kernels a call.
+   The redesigned attention kernels are also held at long ragged shapes:
+   flash with Sq, Sk of 1000 and more and a single K tile, dense decode at
+   S 512, 2048 and 4096 with window/starts edges across split boundaries,
+   and paged decode bitwise the dense kernel at S 4096.
 3. reference — the port on the card (kernels) against the port on the CPU
    (plain versions) with the same bf16 weights at reduced width: prefill and
    decode, paged decode and paged chunked prefill for the dense tiers;
@@ -59,6 +68,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -90,6 +100,127 @@ def time_ms(fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+@functools.cache
+def l2_flush():
+    """A call that reads a buffer twice the card's L2 size, leaving in the L2
+    nothing a timed call uses: the main path's kernels find their inputs in
+    HBM (each layer's cache and weights are read once a step), so a timed
+    call must too."""
+    l2 = getattr(torch.cuda.get_device_properties(0), "L2_cache_size", 50 << 20)
+    buf, sink = torch.ones(2 * l2 // 4, device="cuda"), torch.empty((), device="cuda")
+    return lambda: torch.sum(buf, dim=0, out=sink)
+
+
+def _graph(fn, iters):
+    """``iters`` calls of ``fn`` captured in one CUDA graph (the wrappers'
+    ctypes launches go on the current stream, which is the capture stream)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return graph
+
+
+def device_ms(fn, iters=20, reps=5):
+    """Device time of one call with a cold L2: a graph of ``iters`` calls,
+    each after an L2 flush, and a graph of the flushes alone are replayed in
+    turn ``reps`` times between CUDA events; the difference over ``iters``.
+    Host issue is out of the measurement; the gaps between a call's own
+    kernels are in it."""
+    flush = l2_flush()
+    fn()
+    torch.cuda.synchronize()
+    both, alone = _graph(lambda: (flush(), fn()), iters), _graph(flush, iters)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    t_both = t_alone = 0.0
+    for _ in range(reps):
+        ev[0].record()
+        both.replay()
+        ev[1].record()
+        alone.replay()
+        ev[2].record()
+        torch.cuda.synchronize()
+        t_both += ev[0].elapsed_time(ev[1])
+        t_alone += ev[1].elapsed_time(ev[2])
+    del both, alone
+    return (t_both - t_alone) / (iters * reps)
+
+
+def profiled(fn, iters=20):
+    """(device ms, kernel launches) of one call from torch.profiler's CUDA
+    records: the summed durations of the call's kernels and copies, and the
+    count of its kernels.  None, None when the profiler records no device
+    activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not dev:
+        return None, None
+    kernels = [e for e in dev if not e.name.lower().startswith(("memcpy", "memset"))]
+    return sum(e.time_range.elapsed_us() for e in dev) / iters / 1e3, len(kernels) / iters
+
+
+def profiled_cold_ms(fn):
+    """Device time of one call with a cold L2 by the profiler, for a call that
+    a graph cannot hold (one that waits on the device, like ``nonzero``):
+    each call after an L2 flush, less the flushes alone."""
+    flush = l2_flush()
+    both, alone = profiled(lambda: (flush(), fn()))[0], profiled(flush)[0]
+    return None if both is None or alone is None else both - alone
+
+
+def host_us(fn, calls=100, batches=3):
+    """Host cost of one call: the median over batches of the mean wall time
+    of ``calls`` back-to-back calls, with no synchronisation inside a batch
+    (the device runs behind; the queue does not fill at this count)."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(batches):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        out.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return sorted(out)[len(out) // 2]
+
+
+def timings(kernel, plain, library, *, plain_iters=20, library_graph=True):
+    """Every time phase 2 records for a kernel: CUDA-event ``ms`` over 20
+    back-to-back calls (as in earlier slices), ``device_ms`` (cold L2),
+    ``host_us``, device launches a call (profiler), the plain version's event
+    time and the library call's event and device times (``library`` None:
+    no single PyTorch call computes the function)."""
+    _, per_call = profiled(kernel)
+    out = dict(
+        ms=time_ms(kernel), device_ms=device_ms(kernel), host_us=host_us(kernel),
+        device_launches_per_call=per_call, plain_ms=time_ms(plain, iters=plain_iters),
+        library_ms=None, library_device_ms=None, library_device_method=None,
+    )
+    if library is not None:
+        out["library_ms"] = time_ms(library)
+        if library_graph:
+            out["library_device_ms"], out["library_device_method"] = device_ms(library), "graph"
+        else:
+            out["library_device_ms"], out["library_device_method"] = profiled_cold_ms(library), "profiler"
+    return out
 
 
 def bound(n_bytes, n_ops, peak_ops):
@@ -138,9 +269,8 @@ def check_agreement(dev, g):
     return dict(
         name="agreement", tol="argmax and max exact, sumexp rel 1e-5",
         shape=[E, B, V], max_abs_err=err,
-        ms=time_ms(lambda: ops.member_stats(x)),
-        plain_ms=time_ms(lambda: ops.member_stats_plain(x)),
-        library_ms=time_ms(lambda: (torch.max(x, -1), torch.logsumexp(x, -1))),
+        **timings(lambda: ops.member_stats(x), lambda: ops.member_stats_plain(x),
+                  lambda: (torch.max(x, -1), torch.logsumexp(x, -1))),
         bound_ms=b_ms, bound_by=b_by,
     )
 
@@ -188,8 +318,8 @@ def check_compaction(dev, g):
     return dict(
         name="compaction", tol="exact", shape={"tokens": [B, 256], "__idx": [B], "deferred": n},
         max_abs_err=0.0,
-        ms=time_ms(lambda: ops.compact_tree(tree, mask)),
-        plain_ms=time_ms(plain), library_ms=time_ms(library),
+        # nonzero waits for the device (a graph cannot hold it): its device time is the profiler's
+        **timings(lambda: ops.compact_tree(tree, mask), plain, library, library_graph=False),
         bound_ms=b_ms, bound_by=b_by,
     )
 
@@ -211,7 +341,7 @@ def check_flash(dev, g):
         ref = ops.flash_attention_plain(q, k, v, **kw).float()
         err = (got - ref).abs().max().item()
         require(math.isfinite(err) and err <= FLASH_TOL, f"flash err {err} > {FLASH_TOL} ({kw})")
-        if kw.get("starts") is not None:
+        if kw.get("starts") is not None and kw.get("causal"):  # causal rows before the start see nothing
             for b, s in enumerate(kw["starts"].tolist()):
                 require(not got[b, :s].any(), "flash pure-pad rows not zero")
         return err
@@ -224,6 +354,16 @@ def check_flash(dev, g):
     run(*qkv(16, 256, 256, 16, 8, 128), causal=True)  # tier 2 prefill
     run(*qkv(4, 200, 200, 8, 8, 80), causal=True, starts=st)  # hd 80, G 1
     run(*qkv(3, 77, 150, 4, 4, 80), causal=False)
+    # long and ragged: Sq, Sk of 1000 and more, not multiples of the tiles, so
+    # the two-stage ring wraps many times; starts mid-ring; a single K tile
+    st2 = torch.tensor([500, 3], dtype=torch.int32, device=dev)
+    run(*qkv(2, 1100, 1100, 8, 2, 128), causal=True)
+    run(*qkv(2, 1037, 1100, 8, 2, 128), causal=False, starts=st2)
+    run(*qkv(2, 1100, 1100, 8, 2, 64), causal=True, starts=st2, window=300)
+    run(*qkv(2, 1000, 1000, 4, 4, 80), causal=True, starts=st2)
+    run(*qkv(2, 1000, 1037, 4, 4, 80), causal=False, window=77)
+    run(*qkv(3, 50, 20, 8, 2, 128), causal=False)  # one K tile
+    run(*qkv(3, 20, 20, 4, 4, 80), causal=True, softcap=5.0)
 
     def timed(q, k, v):
         B, S, H, hd = q.shape
@@ -231,9 +371,10 @@ def check_flash(dev, g):
         b_ms, b_by = bound(nbytes(q, k, v, q), 4 * hd * pairs, BF16_FLOPS)  # q, k, v read; out written
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         return dict(
-            ms=time_ms(lambda: ops.flash_attention(q, k, v, causal=True)),
-            plain_ms=time_ms(lambda: ops.flash_attention_plain(q, k, v, causal=True), iters=5),
-            library_ms=time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)),
+            **timings(lambda: ops.flash_attention(q, k, v, causal=True),
+                      lambda: ops.flash_attention_plain(q, k, v, causal=True),
+                      lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True),
+                      plain_iters=5),
             bound_ms=b_ms, bound_by=b_by,
         )
 
@@ -265,6 +406,9 @@ def check_decode(dev, g):
         ref = ops.decode_attention_plain(q, kc, vc, cur, **kw).float()
         err = (got - ref).abs().max().item()
         require(math.isfinite(err) and err <= DECODE_TOL, f"decode err {err} > {DECODE_TOL} ({kw})")
+        if kw.get("starts") is not None:  # rows with nothing visible are exact zeros
+            pad = kw["starts"] >= torch.as_tensor(cur, device=dev).expand(q.shape[0])
+            require(not got[pad].any(), "decode pure-pad rows not zero")
         return err
 
     q, kc, vc = inputs(4, 16, 2, 300, 128)
@@ -277,6 +421,15 @@ def check_decode(dev, g):
     run(*inputs(3, 4, 4, 100, 80), 100, window=30, starts=torch.tensor([5, 0, 99], dtype=torch.int32, device=dev))
     # zamba2 serve_continuous decode: 3*8 slots of max_seq 512, per-slot cur_len
     run(*inputs(24, 32, 32, 512, 80), torch.randint(1, 513, (24,), device=dev, generator=g, dtype=torch.int32))
+    # long caches, split across a cluster: window and starts edges inside and
+    # across split boundaries, splits with nothing visible, cur_len 1, pure pad
+    T = lambda *xs: torch.tensor(xs, dtype=torch.int32, device=dev)
+    for S in (512, 2048, 4096):
+        run(*inputs(3, 16, 2, S, 128), T(1, S // 2 + 7, S), starts=T(0, 100, S - 3))
+        run(*inputs(3, 16, 2, S, 128), T(S, S - 1, 65), window=S // 3)
+        run(*inputs(3, 16, 2, S, 128), T(S, 129, 1), starts=T(S - 1, 128, 1))  # row 2: pure pad
+        run(*inputs(3, 4, 2, S, 64), T(513, S, 1), starts=T(0, 513, 0), softcap=20.0)
+        run(*inputs(2, 4, 4, S, 80), T(S, 300), window=200)
 
     def timed(q, kc, vc, cur):
         B, _, H, hd = q.shape
@@ -285,9 +438,9 @@ def check_decode(dev, g):
         b_ms, b_by = bound(n_bytes, 4 * B * H * cur * hd, BF16_FLOPS)
         qt, ks, vs = q.transpose(1, 2), kc[:, :, :cur], vc[:, :, :cur]
         return dict(
-            ms=time_ms(lambda: ops.decode_attention_bksd(q, kc, vc, cur)),
-            plain_ms=time_ms(lambda: ops.decode_attention_plain(q, kc, vc, cur)),
-            library_ms=time_ms(lambda: F.scaled_dot_product_attention(qt, ks, vs, enable_gqa=True)),
+            **timings(lambda: ops.decode_attention_bksd(q, kc, vc, cur),
+                      lambda: ops.decode_attention_plain(q, kc, vc, cur),
+                      lambda: F.scaled_dot_product_attention(qt, ks, vs, enable_gqa=True)),
             bound_ms=b_ms, bound_by=b_by,
         )
 
@@ -346,6 +499,8 @@ def check_decode_paged(dev, g):
     run(3, 3, 8, 8, 128, 20, 64, 4, [200, 64, 1])  # page_size 64
     run(1, 4, 16, 2, 128, 40, 16, 8, [120, 33, 128, 9], window=40, softcap=20.0)
     run(2, 3, 4, 4, 64, 30, 16, 8, [17, 128, 60])  # hd 64, G = 1
+    run(2, 3, 16, 2, 128, 3 * 256 + 1, 16, 256, [4096, 1000, 2049])  # S 4096: an 8-split cluster
+    run(1, 3, 16, 8, 128, 3 * 256 + 1, 16, 256, [1, 4095, 2048], window=1000)
     # the main path's shapes, 8 slots of max_seq 512 in 16-row pages: tier 2
     # (internlm2-1.8b, E = 1, G = 2), then tier 1 (3 x qwen2.5-3b, G = 8), timed
     E, B, n_pg, ps = 3, 8, 32, 16
@@ -374,9 +529,8 @@ def check_decode_paged(dev, g):
         shape={"q": list(q.shape), "pool": list(kp.shape), "pages": list(pages.shape), "cur_len": cur,
                "tier2_cur_len": cur2},
         max_abs_err=max(err, err2), tier1_err=err, tier2_err=err2,
-        ms=time_ms(lambda: ops.decode_attention_paged(q, kp, vp, pages, cur_t)),
-        plain_ms=time_ms(lambda: ops.decode_attention_paged_plain(q, kp, vp, pages, cur_t)),
-        library_ms=time_ms(library),
+        **timings(lambda: ops.decode_attention_paged(q, kp, vp, pages, cur_t),
+                  lambda: ops.decode_attention_paged_plain(q, kp, vp, pages, cur_t), library),
         bound_ms=b_ms, bound_by=b_by,
     )
 
@@ -456,9 +610,9 @@ def check_ssd(dev, g):
         b_ms, b_by = bound(nbytes(*ins, y, hT), 5 * B * S * H * N * P, F32_FLOPS)
         return dict(
             shape={"x": list(x.shape), "B": list(Bm.shape), "E": A.shape[0], "initial_state": s0 is not None},
-            ms=time_ms(lambda: ops.ssd(*args, initial_state=s0, return_final_state=True)),
-            plain_ms=time_ms(lambda: ops.ssd_plain(*args, initial_state=s0), iters=5),
-            library_ms=None,  # no single PyTorch call computes the scan
+            **timings(lambda: ops.ssd(*args, initial_state=s0, return_final_state=True),
+                      lambda: ops.ssd_plain(*args, initial_state=s0), None,  # no single PyTorch call computes the scan
+                      plain_iters=5),
             bound_ms=b_ms, bound_by=b_by,
         )
 
@@ -501,9 +655,9 @@ def check_wkv6(dev, g):
         b_ms, b_by = bound(nbytes(*ins, y, sT), 4 * B * S * H * D * D, F32_FLOPS)
         return dict(
             shape={"r": list(r.shape), "initial_state": s0 is not None},
-            ms=time_ms(lambda: ops.wkv6(*args, initial_state=s0, return_final_state=True)),
-            plain_ms=time_ms(lambda: ops.wkv6_plain(*args, initial_state=s0), iters=5),
-            library_ms=None,  # no single PyTorch call computes the scan
+            **timings(lambda: ops.wkv6(*args, initial_state=s0, return_final_state=True),
+                      lambda: ops.wkv6_plain(*args, initial_state=s0), None,  # no single PyTorch call computes the scan
+                      plain_iters=5),
             bound_ms=b_ms, bound_by=b_by,
         )
 
@@ -1018,6 +1172,8 @@ def main(argv=None):
             "launches": sum(launches[m][c["name"]] for m in launches),
             "max_abs_err": c["max_abs_err"], "ms": c["ms"], "plain_ms": c["plain_ms"],
             "bound_ms": c["bound_ms"], "bound_by": c["bound_by"], "library_ms": c["library_ms"],
+            "device_ms": c["device_ms"], "library_device_ms": c["library_device_ms"],
+            "host_us": c["host_us"], "device_launches_per_call": c["device_launches_per_call"],
         }
         for c in checks
     ]}

@@ -9,9 +9,9 @@
 //                               cur_len (B,) i32; no starts
 //
 // Window and tanh softcap optional on both; hd in {64, 128}, G in {1, 2, 4, 8, 16};
-// the dense entry also takes hd 80 with G = 1 (zamba2's shared attention:
-// 32 heads of 80, as many KV heads).  The paged entry stays at hd {64, 128}:
-// the only hd-80 family (hybrid) keeps dense slot caches.
+// the dense entry also takes hd 80 (zamba2's shared attention: 32 heads of
+// 80, as many KV heads).  The paged entry stays at hd {64, 128}: the only
+// hd-80 family (hybrid) keeps dense slot caches.
 //
 // Replaces: src/repro/kernels/decode_attention/kernel.py
 // decode_attention_bkgd (dense, body _decode_kernel), which needs
@@ -20,37 +20,64 @@
 // table), which needs page_size % 8 == 0 (a TPU sublane rule; here any
 // page_size that divides max_seq will do).
 //
-// Bound on the H100: bytes — the visible K and V rows are read once and
-// each cache element feeds only G multiply-adds; for the paged kernel these
-// are the visible rows of the mapped pages.  Design: one block of 128
-// threads per (row, kv-head) handles all G query heads, so each cache row is
-// read once for the whole group.  The block sweeps 64-row cache tiles from
-// the first visible row (max of starts, cur_len - window) up to cur_len:
-// tiles outside that range are never read, and rows past cur_len load as
-// zeros.  Each tile goes through shared memory (rows padded to an odd
-// number of 4-byte words, so column reads are conflict-free); a thread
-// scores one row for its share of the heads, one warp per head runs the
-// f32 online softmax, and each thread accumulates a fixed slice of the
-// (G, hd) output in registers.  A row with no visible column emits zeros.
+// Bound on the H100: bytes — the visible K and V rows are read once and each
+// cache element feeds only G multiply-adds; for the paged kernel these are
+// the visible rows of the mapped pages.  At the main path's shapes a call
+// reads 1-10 MB, a few microseconds of bandwidth, so the time is set by the
+// latency of one block's chain: copy, products, softmax, merge.  Design
+// (split-K, in the manner of flash-decoding):
+//   - each (row, kv head) pair's cache rows are shared out evenly among
+//     n_split blocks of 8 warps (as many splits as 128-row tiles, aiming at
+//     4 * 132 blocks, at most 8); a block sweeps its rows in 128-row tiles
+//     and masks the rows of its neighbours.  The plan is a function of
+//     (rows, KVH, S) alone, never of cur_len, and is the same for both
+//     entries;
+//   - inside a block, 16-byte cp.async copies bring the q row and the
+//     split's tiles into shared memory (a two-stage ring when a split has
+//     more than one tile), zero-filling rows outside the split's visible
+//     range and unmapped pages; a split with no visible row reads no cache;
+//   - the G query heads, padded to 16, are the M rows of mma.sync m16n8k16.
+//     Each warp scores 16 keys of the tile (S = Q K^T, K fragments through
+//     ldmatrix); the block's row maxima and sums go through shared memory,
+//     so the whole tile shares one running max; P (bf16) goes to shared
+//     memory and each warp then accumulates O += P V for its own 8-column
+//     slices of hd over all the tile's keys (V through ldmatrix.trans).  A
+//     block thus ends with one partial (m, l, O) and needs no merge of its
+//     warps; with one split it writes the output from registers;
+//   - with several splits the n_split blocks of a pair form one thread-block
+//     cluster.  Block sp owns a chunk of the (G, hd) outputs; every block
+//     pushes its m, l and its O on that chunk into the owner's shared memory
+//     (distributed shared memory, posted stores), and after one cluster
+//     barrier each block merges its chunk locally in log-sum-exp form, in
+//     split order: no atomics, no scratch, one launch, deterministic.  A
+//     chunk with no visible row gives the empty partial (m = -inf, l = 0);
+//     a row with no visible column emits zeros.
 //
-// Paged: the only change is where a tile row comes from.  Row t of slot b
-// lives at offset t % ps of page table[b, t / ps] in member plane r / B
-// (row r of q); the tiles, their order and every reduction are the dense
-// kernel's, so for a given gathered view (unmapped pages as zero rows) the
-// paged output is bitwise the dense kernel's on that view.  No gathered copy
-// is made, and the (B, n_pg) table serves all E planes.  An unmapped (-1)
-// or out-of-range entry reads as zero rows — never an out-of-bounds load;
-// the JAX kernel clamps such an entry to page 0 instead, which differs only
-// on inactive slots whose output the server discards.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
+// Paged: the only change is where a cache row comes from.  Row t of slot b
+// lives at offset t % ps of page table[b, t / ps] in member plane r / B (row
+// r of q); the split plan, tiles, their order and every reduction are the
+// dense kernel's, so for a given gathered view (unmapped pages as zero rows)
+// the paged output is bitwise the dense kernel's on that view.  No gathered
+// copy is made, and the (B, n_pg) table serves all E planes.  An unmapped
+// (-1) or out-of-range entry reads as zero rows — never an out-of-bounds
+// load; the JAX kernel clamps such an entry to page 0 instead, which differs
+// only on inactive slots whose output the server discards.
+#include <cooperative_groups.h>
 
-typedef __nv_bfloat16 bf16;
+#include <algorithm>
+
+#include "attention_common.cuh"
+
+namespace cg = cooperative_groups;
+using namespace attn;
 
 namespace {
 
-constexpr int DT = 128, DBK = 64;
+constexpr int NW = 8, NT = 32 * NW;      // warps, threads
+constexpr int KW = 16, BK = KW * NW;     // keys a warp scores in a tile, rows a tile
+constexpr int GM = 16;                   // the product's M: the G heads, padded
+constexpr int MAX_SPLITS = 8;            // the portable thread-block cluster size
+constexpr int TARGET_BLOCKS = 4 * 132;   // four blocks for each of the H100's SMs
 
 // Page-table geometry of the paged entry point (unused by the dense one).
 struct Paged {
@@ -58,163 +85,326 @@ struct Paged {
   int B, P, n_pg, ps;
 };
 
-template <int HD, int G, bool PAGED>
-__global__ void __launch_bounds__(DT)
+template <int HD, int ST>
+struct Cfg {
+  static constexpr int LD = HD + 8, CH = HD / 8;
+  static constexpr int q_elems = GM * LD;                // bf16
+  // floats the cluster's merge receives: a slot of m, l and an output chunk per split
+  static constexpr int recv = (MAX_SPLITS * (2 * GM + 1) + GM * HD + 3) / 4 * 4;  // 16-byte multiple
+  static constexpr int stage_elems = 2 * BK * LD;        // bf16: a K tile and a V tile
+  static constexpr size_t bytes =
+      sizeof(bf16) * q_elems + sizeof(float) * recv + sizeof(bf16) * ST * stage_elems;
+};
+
+template <int HD, int ST, bool PAGED, bool CAP>
+__global__ void __launch_bounds__(NT, 1)
     decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kc,
                   const bf16* __restrict__ vc, bf16* __restrict__ out,
                   const int* __restrict__ cur_len, int cur_scalar, const int* __restrict__ starts,
-                  Paged pg, int KVH, int S, int window, float softcap, float scale) {
-  constexpr int LK = HD + 2;               // bf16 row stride: HD/2 + 1 words (odd)
-  constexpr int NO = (G * HD + DT - 1) / DT;  // outputs per thread
-  constexpr int HSTEP = DT / DBK;          // heads interleave for the scoring phase
-  __shared__ float qs[G][HD];
-  __shared__ __align__(16) bf16 Ks[DBK * LK];
-  __shared__ __align__(16) bf16 Vs[DBK * LK];
-  __shared__ float Ps[G][DBK];
-  __shared__ float alpha_s[G], m_s[G], l_s[G];
+                  Paged pg, int G, int KVH, int S, int rows_per_split, int window, float softcap,
+                  float scale) {
+  using C = Cfg<HD, ST>;
+  constexpr int LD = C::LD, CH = C::CH;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  float* Rv = reinterpret_cast<float*>(smem + sizeof(bf16) * C::q_elems);  // the merge's inbox
+  bf16* ring = reinterpret_cast<bf16*>(Rv + C::recv);
+  constexpr int NTW = (HD / 8 + NW - 1) / NW;  // 8-column n-tiles of the output a warp owns
+  constexpr int PLD = BK + 8;                  // padded bf16 row stride of P
+  __shared__ __align__(16) bf16 Ps[GM * PLD];  // the tile's probabilities, bf16
+  __shared__ float mx_s[NW][GM], sum_s[NW][GM];
 
-  const int kvh = blockIdx.x, b = blockIdx.y;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int split = blockIdx.x, n_split = gridDim.x;  // the cluster spans blockIdx.x
+  // the first half of a barrier whose wait, before the merge, shows every peer has started
+  if (n_split > 1) asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  const int kvh = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const long row0 = ((long)b * KVH + kvh);
+  const int g = lane >> 2, t = lane & 3;
+  const long row0 = (long)b * KVH + kvh;
+  // the q row (heads past G as zeros) first: it depends on nothing the block reads
+  for (int c = tid; c < GM * CH; c += NT) {
+    const int r = c / CH, cc = (c % CH) * 8;
+    cp_async16(Qs + r * LD + cc, q + (row0 * G + (r < G ? r : 0)) * HD + cc, r < G);
+  }
   // paged: row b of q is slot b % B of member plane b / B
   const int slot = PAGED ? b % pg.B : b;
   const int cur = min(cur_len ? cur_len[slot] : cur_scalar, S);
   int lo = starts ? max(starts[b], 0) : 0;
   if (window > 0) lo = max(lo, cur - window);
+  const ScoreMap<CAP> score(scale, softcap);
 
-  for (int i = tid; i < G * HD; i += DT)
-    qs[i / HD][i % HD] = __bfloat162float(q[row0 * G * HD + i]) * scale;
-  if (tid < G) {
-    m_s[tid] = -INFINITY;
-    l_s[tid] = 0.f;
-  }
-  float acc[NO];
-#pragma unroll
-  for (int i = 0; i < NO; ++i) acc[i] = 0.f;
+  // this split's rows [sa, sz) and the visible ones among them [va, vz), swept
+  // in BK-row tiles from `origin` (rows outside [va, vz) load as zeros and
+  // are masked, so no row is counted by two splits)
+  const int sa = split * rows_per_split, sz = min(S, sa + rows_per_split);
+  const int va = max(sa, lo), vz = min(sz, cur);
+  const int origin = va < vz ? sa + (va - sa) / BK * BK : sa;
+  const int n_tiles = va < vz ? (vz - origin + BK - 1) / BK : 0;
 
   const long base = PAGED ? (long)(b / pg.B) * pg.P * KVH * pg.ps * HD : row0 * (long)S * HD;
   const bf16* kb = kc + base;
   const bf16* vb = vc + base;
   const int* table = PAGED ? pg.pages + (long)slot * pg.n_pg : nullptr;
-  for (int k0 = (lo / DBK) * DBK; k0 < cur; k0 += DBK) {
-    __syncthreads();  // previous tile consumed (and q / m / l initialised)
-    constexpr int W = HD / 2;  // 4-byte words per row
-    for (int c = tid; c < DBK * W; c += DT) {
-      const int r = c / W, w = c % W;
-      const int t = k0 + r;
-      unsigned kw = 0u, vw = 0u;
-      long off = -1;  // element offset of cache row t, -1 = reads as zeros
-      if (t < cur) {
+  auto load_tile = [&](int i) {  // tile i into stage i % ST
+    const int k0 = origin + i * BK;
+    bf16* ks = ring + (i % ST) * C::stage_elems;
+    bf16* vs = ks + BK * LD;
+    for (int c = tid; c < BK * CH; c += NT) {
+      const int r = c / CH, cc = (c % CH) * 8, row = k0 + r;
+      long off = -1;  // element offset of cache row `row`, -1 = reads as zeros
+      if (row >= va && row < vz) {
         if (PAGED) {
-          const int page = table[t / pg.ps];
-          if (page >= 0 && page < pg.P) off = (((long)page * KVH + kvh) * pg.ps + t % pg.ps) * HD;
+          const int page = table[row / pg.ps];
+          if (page >= 0 && page < pg.P) off = (((long)page * KVH + kvh) * pg.ps + row % pg.ps) * HD;
         } else {
-          off = (long)t * HD;
+          off = (long)row * HD;
         }
       }
-      if (off >= 0) {
-        kw = reinterpret_cast<const unsigned*>(kb + off)[w];
-        vw = reinterpret_cast<const unsigned*>(vb + off)[w];
-      }
-      reinterpret_cast<unsigned*>(Ks + r * LK)[w] = kw;
-      reinterpret_cast<unsigned*>(Vs + r * LK)[w] = vw;
+      const long src = (off < 0 ? 0 : off) + cc;
+      cp_async16(ks + r * LD + cc, kb + src, off >= 0);
+      cp_async16(vs + r * LD + cc, vb + src, off >= 0);
     }
-    __syncthreads();
+  };
 
-    // scores: thread -> one cache row, heads g = tid / DBK (+ HSTEP ...)
-    {
-      const int j = tid % DBK, col = k0 + j;
-      const bool valid = col >= lo && col < cur;
-      for (int g = tid / DBK; g < G; g += HSTEP) {
-        float s = 0.f;
-#pragma unroll 8
-        for (int d = 0; d < HD; d += 2) {
-          const float2 kk = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(Ks + j * LK + d));
-          s += qs[g][d] * kk.x + qs[g][d + 1] * kk.y;
+  // prologue: the first ST tiles, one commit group each (the q row rides in the first)
+#pragma unroll
+  for (int i = 0; i < ST; ++i) {
+    if (i < n_tiles) load_tile(i);
+    cp_async_commit();
+  }
+
+  // the f32 online softmax state of this lane's rows g and g + 8, the same in every warp
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  // this warp's output columns, n-tiles warp, warp + NW, ...; the odd key
+  // steps accumulate apart (acc2) so the products form two short chains
+  float acc[NTW][4], acc2[NTW][4];
+#pragma unroll
+  for (int j = 0; j < NTW; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = acc2[j][e] = 0.f;
+  uint32_t qa[HD / 16][4];
+
+  for (int i = 0; i < n_tiles; ++i) {
+    // groups committed: ST in the prologue, one per iteration from the second
+    if (i == 0) cp_async_wait<ST - 1>(); else cp_async_wait<(ST >= 2 ? ST - 2 : 0)>();  // ST 1: one tile
+    __syncthreads();  // tile i landed; every warp is done with tile i - 1
+    if (i >= 1) {
+      if (i - 1 + ST < n_tiles) load_tile(i - 1 + ST);  // into tile i - 1's stage
+      cp_async_commit();
+    }
+    if (i == 0) {
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) load_a<LD>(qa[kk], Qs, kk * 16, lane);
+    }
+    const bf16* ks = ring + (i % ST) * C::stage_elems;
+    const bf16* vs = ks + BK * LD;
+
+    // S = Q K^T over this warp's KW keys (two 8-key n-tiles); every head sees the same columns
+    constexpr int NJ = KW / 8;
+    const int k0 = origin + i * BK + warp * KW;
+    float s[NJ][4];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    if (k0 < vz && k0 + KW > va) {
+      float s2[NJ][4];  // the odd k-steps: two short dependent chains, not one long one
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) s2[j][0] = s2[j][1] = s2[j][2] = s2[j][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        uint32_t kf[4];
+        load_b_keys<LD>(kf, ks, warp * KW, kk * 16, lane);
+        mma(kk % 2 ? s2[0] : s[0], qa[kk], kf[0], kf[1]);
+        mma(kk % 2 ? s2[1] : s[1], qa[kk], kf[2], kf[3]);
+      }
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] += s2[j][e];
+    }
+    // the tile's max of each head row over this warp's keys, then over the block's
+    const int base[2] = {k0 + 2 * t - va, k0 + 2 * t - va}, width[2] = {vz - va, vz - va};
+    float mx[2];
+    tile_max<NJ, CAP>(&s[0][0], mx, score, true, base, width);
+    if (t == 0) mx_s[warp][g] = mx[0], mx_s[warp][g + 8] = mx[1];
+    __syncthreads();  // the tile's row maxima, warp by warp
+    float m_new[2], alpha[2], psum[2];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      m_new[rr] = m[rr];
+#pragma unroll
+      for (int w = 0; w < NW; ++w) m_new[rr] = fmaxf(m_new[rr], mx_s[w][g + 8 * rr]);
+    }
+    tile_exp<NJ, CAP>(&s[0][0], m, m_new, alpha, psum, score);
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      psum[rr] += __shfl_xor_sync(0xffffffffu, psum[rr], 1);
+      psum[rr] += __shfl_xor_sync(0xffffffffu, psum[rr], 2);
+      if (t == 0) sum_s[warp][g + 8 * rr] = psum[rr];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+        *reinterpret_cast<uint32_t*>(Ps + (g + 8 * rr) * PLD + warp * KW + j * 8 + 2 * t) =
+            pack(s[j][2 * rr], s[j][2 * rr + 1]);
+    }
+    __syncthreads();  // P of the whole tile and its row sums
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      float ps = 0.f;
+#pragma unroll
+      for (int w = 0; w < NW; ++w) ps += sum_s[w][g + 8 * rr];
+      l[rr] = l[rr] * alpha[rr] + ps;
+    }
+    // O += P V over the whole tile, this warp's columns only
+#pragma unroll
+    for (int j = 0; j < NTW; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc[j][e] *= alpha[e >> 1];
+        acc2[j][e] *= alpha[e >> 1];
+      }
+#pragma unroll
+    for (int kp = 0; kp < BK / 32; ++kp) {
+      uint32_t pa0[4], pa1[4];
+      load_a<PLD>(pa0, Ps, kp * 32, lane);
+      load_a<PLD>(pa1, Ps, kp * 32 + 16, lane);
+#pragma unroll
+      for (int j = 0; j < NTW; ++j) {
+        const int n = warp + NW * j;
+        if (n < HD / 8) {
+          uint32_t vf[4];  // keys kp * 32 + lane: two k-steps of one 8-column n-tile
+          ldsm_x4_t(vf, vs + (kp * 32 + lane) * LD + n * 8);
+          mma(acc[j], pa0, vf[0], vf[1]);
+          mma(acc2[j], pa1, vf[2], vf[3]);
         }
-        if (softcap > 0.f) s = softcap * tanhf(s / softcap);
-        Ps[g][j] = valid ? s : -INFINITY;
-      }
-    }
-    __syncthreads();
-
-    // online softmax: one warp per head
-    for (int g = warp; g < G; g += DT / 32) {
-      float sv[DBK / 32];
-      float mx = -INFINITY;
-#pragma unroll
-      for (int u = 0; u < DBK / 32; ++u) {
-        sv[u] = Ps[g][lane + 32 * u];
-        mx = fmaxf(mx, sv[u]);
-      }
-      for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_old = m_s[g];
-      const float m_new = fmaxf(m_old, mx);
-      const float alpha = m_new == -INFINITY ? 1.f : (m_old == -INFINITY ? 0.f : expf(m_old - m_new));
-      float psum = 0.f;
-#pragma unroll
-      for (int u = 0; u < DBK / 32; ++u) {
-        const float p = sv[u] == -INFINITY ? 0.f : expf(sv[u] - m_new);
-        Ps[g][lane + 32 * u] = p;
-        psum += p;
-      }
-      for (int off = 16; off > 0; off >>= 1) psum += __shfl_xor_sync(0xffffffffu, psum, off);
-      if (lane == 0) {
-        alpha_s[g] = alpha;
-        m_s[g] = m_new;
-        l_s[g] = l_s[g] * alpha + psum;
-      }
-    }
-    __syncthreads();
-
-    // acc = acc * alpha + P V
-#pragma unroll
-    for (int i = 0; i < NO; ++i) {
-      const int oi = tid + DT * i;
-      if (oi < G * HD) {
-        const int g = oi / HD, d = oi % HD;
-        float a = acc[i] * alpha_s[g];
-        for (int j = 0; j < DBK; ++j) a += Ps[g][j] * __bfloat162float(Vs[j * LK + d]);
-        acc[i] = a;
       }
     }
   }
-  __syncthreads();
 #pragma unroll
-  for (int i = 0; i < NO; ++i) {
-    const int oi = tid + DT * i;
-    if (oi < G * HD) {
-      const float l = l_s[oi / HD];
-      out[row0 * G * HD + oi] = __float2bfloat16(acc[i] / (l == 0.f ? 1.f : l));
+  for (int j = 0; j < NTW; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] += acc2[j][e];
+  cp_async_commit();
+  cp_async_wait<0>();  // no copy is in flight (a block with no visible row issued the q row)
+
+  // with one split the output leaves from registers; otherwise this block's
+  // partial (m, l per head row, unnormalised O) goes to shared memory
+  if (n_split == 1) {
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int r = g + 8 * rr;
+      const float inv = 1.f / (l[rr] == 0.f ? 1.f : l[rr]);
+#pragma unroll
+      for (int j = 0; j < NTW; ++j) {
+        const int n = warp + NW * j;
+        if (r < G && n < HD / 8)
+          *reinterpret_cast<uint32_t*>(out + (row0 * G + r) * HD + n * 8 + 2 * t) =
+              pack(acc[j][2 * rr] * inv, acc[j][2 * rr + 1] * inv);
+      }
     }
+    return;
+  }
+  // The cluster's merge.  Block sp owns outputs [sp * chunk, (sp + 1) * chunk)
+  // of the row's G * hd, and every block pushes into the owner's shared
+  // memory, box `split`, its m and l of every head row and its unnormalised
+  // O on those outputs (posted remote stores); after one cluster barrier each
+  // block merges its outputs from local memory, in split order.
+  const int E = G * HD, chunk = (E + n_split - 1) / n_split, box = 2 * GM + chunk;
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");  // every peer has started
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int r = g + 8 * rr;
+    if (warp == 0 && t == 0)
+      for (int dst = 0; dst < n_split; ++dst) {
+        float* rv = cluster.map_shared_rank(Rv, dst) + split * box;
+        rv[r] = m[rr];
+        rv[GM + r] = l[rr];
+      }
+    if (r < G) {
+#pragma unroll
+      for (int j = 0; j < NTW; ++j) {
+        const int n = warp + NW * j;
+        if (n >= HD / 8) continue;
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int e = r * HD + n * 8 + 2 * t + c, dst = e / chunk;
+          cluster.map_shared_rank(Rv, dst)[split * box + 2 * GM + e - dst * chunk] = acc[j][2 * rr + c];
+        }
+      }
+    }
+  }
+  cluster.sync();  // every block's pushes have landed
+  for (int e = split * chunk + tid; e < min(E, (split + 1) * chunk); e += NT) {
+    const int r = e / HD, off = e - split * chunk;
+    float ms[MAX_SPLITS], mx = -INFINITY;
+#pragma unroll
+    for (int sp = 0; sp < MAX_SPLITS; ++sp)
+      if (sp < n_split) mx = fmaxf(mx, ms[sp] = Rv[sp * box + r]);
+    float ov = 0.f, lv = 0.f;
+#pragma unroll
+    for (int sp = 0; sp < MAX_SPLITS; ++sp)
+      if (sp < n_split) {
+        const float a = ms[sp] == -INFINITY ? 0.f : ex2((ms[sp] - mx) * score.k);
+        ov += a * Rv[sp * box + 2 * GM + off];
+        lv += a * Rv[sp * box + GM + r];
+      }
+    out[row0 * E + e] = __float2bfloat16(ov / (lv == 0.f ? 1.f : lv));
   }
 }
 
-template <int HD, int G, bool PAGED>
-int launch(const void* q, const void* k, const void* v, void* o, const void* cur, int cur_scalar,
-           const void* st, Paged pg, int rows, int KVH, int S, int window, float softcap, float scale,
-           cudaStream_t stream) {
-  decode_kernel<HD, G, PAGED><<<dim3(KVH, rows), DT, 0, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (const int*)cur, cur_scalar,
-      (const int*)st, pg, KVH, S, window, softcap, scale);
+// The split plan: a function of the shapes alone, shared by both entries.
+// As many splits as tiles, the grid wants and a cluster holds; the rows are
+// shared out evenly (not in whole tiles), so no block of a cluster carries
+// much more than the others.
+int plan_splits(int pairs, int S, int* rows_per_split) {
+  const int rows = std::max(1, S), n_tiles = (rows + BK - 1) / BK;
+  const int want = std::max(1, (TARGET_BLOCKS + pairs - 1) / pairs);
+  const int n = std::min(std::min(MAX_SPLITS, n_tiles), want);
+  *rows_per_split = (rows + n - 1) / n;
+  return (rows + *rows_per_split - 1) / *rows_per_split;
+}
+
+template <int HD, int ST, bool PAGED, bool CAP>
+int launch_cap(const void* q, const void* k, const void* v, void* o, const void* cur, int cur_scalar,
+           const void* st, Paged pg, int G, int rows, int KVH, int S, int n_split, int rps, int window,
+           float softcap, float scale, cudaStream_t stream) {
+  using C = Cfg<HD, ST>;
+  auto kernel = decode_kernel<HD, ST, PAGED, CAP>;
+  static int attr_set_on = -1;  // the device whose attribute is set: once, not per call
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (attr_set_on != dev) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::bytes);
+    if (e != cudaSuccess) return (int)e;
+    attr_set_on = dev;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_split, KVH, rows);
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = C::bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = n_split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = n_split > 1 ? 1 : 0;  // one split: a plain launch, no cluster
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, kernel, (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (const int*)cur,
+      cur_scalar, (const int*)st, pg, G, KVH, S, rps, window, softcap, scale);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
-template <int HD, bool PAGED>
-int dispatch_g(int G, const void* q, const void* k, const void* v, void* o, const void* cur,
-               int cur_scalar, const void* st, Paged pg, int rows, int KVH, int S, int window,
-               float softcap, float scale, cudaStream_t s) {
-#define DA_CASE(g) \
-  case g: return launch<HD, g, PAGED>(q, k, v, o, cur, cur_scalar, st, pg, rows, KVH, S, window, softcap, scale, s);
-  switch (G) {
-    DA_CASE(1)
-    DA_CASE(2)
-    DA_CASE(4)
-    DA_CASE(8)
-    DA_CASE(16)
-  }
-#undef DA_CASE
-  return (int)cudaErrorInvalidValue;
+template <int HD, int ST, bool PAGED>
+int launch(const void* q, const void* k, const void* v, void* o, const void* cur, int cur_scalar,
+           const void* st, Paged pg, int G, int rows, int KVH, int S, int n_split, int rps, int window,
+           float softcap, float scale, cudaStream_t stream) {
+  return softcap > 0.f ? launch_cap<HD, ST, PAGED, true>(q, k, v, o, cur, cur_scalar, st, pg, G, rows, KVH, S,
+                                                         n_split, rps, window, softcap, scale, stream)
+                       : launch_cap<HD, ST, PAGED, false>(q, k, v, o, cur, cur_scalar, st, pg, G, rows, KVH,
+                                                          S, n_split, rps, window, softcap, scale, stream);
 }
 
 template <bool PAGED>
@@ -222,14 +412,20 @@ int dispatch(int hd, int G, const void* q, const void* k, const void* v, void* o
              int cur_scalar, const void* st, Paged pg, int rows, int KVH, int S, int window,
              float softcap, float scale, cudaStream_t s) {
   if (rows == 0) return (int)cudaGetLastError();
-  if (hd == 128)
-    return dispatch_g<128, PAGED>(G, q, k, v, o, cur, cur_scalar, st, pg, rows, KVH, S, window, softcap, scale, s);
-  if (hd == 64)
-    return dispatch_g<64, PAGED>(G, q, k, v, o, cur, cur_scalar, st, pg, rows, KVH, S, window, softcap, scale, s);
+  if (G != 1 && G != 2 && G != 4 && G != 8 && G != 16) return (int)cudaErrorInvalidValue;
+  int rps = 1;
+  const int n_split = plan_splits(rows * KVH, S, &rps);
+#define DA_LAUNCH(HD_)                                                                              \
+  return rps <= BK ? launch<HD_, 1, PAGED>(q, k, v, o, cur, cur_scalar, st, pg, G, rows, KVH, S,    \
+                                           n_split, rps, window, softcap, scale, s)                 \
+                   : launch<HD_, 2, PAGED>(q, k, v, o, cur, cur_scalar, st, pg, G, rows, KVH, S,    \
+                                           n_split, rps, window, softcap, scale, s);
+  if (hd == 128) DA_LAUNCH(128)
+  if (hd == 64) DA_LAUNCH(64)
   if constexpr (!PAGED) {
-    if (hd == 80 && G == 1)
-      return launch<80, 1, false>(q, k, v, o, cur, cur_scalar, st, pg, rows, KVH, S, window, softcap, scale, s);
+    if (hd == 80) DA_LAUNCH(80)
   }
+#undef DA_LAUNCH
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,227 +1,304 @@
 // Flash attention forward (prefill) for bf16 q (B, Sq, H, hd) and k, v
-// (B, Sk, KVH, hd), GQA by h / (H / KVH), hd in {64, 80, 128} (80: zamba2's
-// shared attention, 5 k-steps and 10 n-tiles of the m16n8k16 product; its
-// rows are 160 bytes, so the 16-byte row loads hold).
+// (B, Sk, KVH, hd), GQA by h / (H / KVH), hd in {64, 80, 128}, any Sq and Sk.
 //
 // Replaces: src/repro/kernels/flash_attention/kernel.py flash_attention_bhsd
 // (body _flash_kernel), which needs Sq % block_q == 0 and Sk % block_k == 0.
 //
-// Bound on the H100: operations for long sequences (4*Sq*Sk*hd per head,
-// halved when causal, on the bf16 tensor cores), bytes for short ones.
-// Design (the FlashAttention-2 register layout): one block of 4 warps per
-// (b, h, 64-row q tile); each warp owns 16 q rows.  Q fragments stay in
-// registers; 64-row K and V tiles are staged through shared memory one
-// after another.  S = Q K^T and O += P V run as mma.sync m16n8k16 (bf16 in,
-// f32 accumulate) with S, P and O held in registers in the accumulator
-// layout, so the f32 online softmax (scale, tanh softcap, causal / window /
-// starts masks as one visible key range per row, ragged Sk) rescales O in
-// place and P feeds the second product without touching shared memory.
-// K tiles that are wholly acausal, wholly outside the window, or wholly
-// below the row's start are never loaded.  Rows with no visible key (pure
-// left padding) end with l == 0 and emit zeros.  Rows and keys past the
-// end load as zeros.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+// Bound on the H100: bytes at the main path's shapes (256-token prompts:
+// q and out dominate, about 64 multiply-adds a byte), operations for long
+// prompts.  Short prompts make short blocks, so what decides the time is
+// how few instructions a tile costs and how much of a block's life the
+// copies leave idle.  FlashAttention-2's register layout on an asynchronous
+// ring:
+//   - rows are (query position, head of the GQA group) pairs, position-major,
+//     so the G heads that share a KV head share its K/V tiles; one block of
+//     4 warps takes BM = 64 * MT rows of one (b, kv head), each warp MT
+//     16-row m-tiles (two at hd 64 and 128: every K/V fragment feeds two
+//     products); the row tiles of a (b, kv head) run back to back, the last
+//     (which see the most keys when causal) first;
+//   - Q and the first K/V tiles are requested together, then K/V stream
+//     through a two-stage ring of BK-key tiles with 16-byte cp.async copies
+//     (zero-filled past the visible range), a tile's copy overlapping the
+//     products on the one before;
+//   - S = Q K^T and O += P V run as mma.sync m16n8k16 (bf16 in, f32
+//     accumulate), every fragment read with ldmatrix (K as is, V
+//     transposed; Q re-read per tile to keep registers); S, P and O stay in
+//     registers in the accumulator layout;
+//   - the f32 online softmax (attention_common.cuh softmax_tile) keeps the
+//     row max in raw-score units and folds scale * log2(e) into one FFMA
+//     before ex2.approx; masks (causal / window / starts, one visible key
+//     range a row) cost one unsigned compare an element and only on tiles
+//     that some row of the warp sees in part;
+//   - a warp skips the products of a tile none of its rows sees;
+//   - the output goes through shared memory (each warp's own Q rows) and
+//     leaves as 16-byte coalesced row stores.
+// K tiles wholly acausal, wholly outside the window or wholly below the row's
+// start are never loaded.  Rows with no visible key (pure left padding) end
+// with l == 0 and emit zeros.  Rows and keys past the end read as zeros.
+// hd 80 has 160-byte rows: 10 ldmatrix columns of 16 bytes, on the same ring.
+#include "attention_common.cuh"
 
-typedef __nv_bfloat16 bf16;
+using namespace attn;
 
 namespace {
 
-constexpr int BQ = 64, BK = 64, NT = 128;
-
+// Per head size, measured on the H100 at the main path's shapes: two m-tiles
+// a warp and 32-key tiles at hd 64 and 128; hd 80 (zamba2, G = 1) is faster
+// with one m-tile and 64-key tiles.
 template <int HD>
-struct Layout {
-  static constexpr int LQ = HD + 8;  // bf16 row stride of Q, K, V: conflict-free fragment loads
-  static constexpr size_t bytes = sizeof(bf16) * (BQ + 2 * BK) * LQ;
+struct Tune {
+  static constexpr int MT = HD == 80 ? 1 : 2, BK = HD == 80 ? 64 : 32, MINB = HD == 80 ? 4 : 2;
 };
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) { return *reinterpret_cast<const uint32_t*>(p); }
-
-__device__ __forceinline__ uint32_t pack(bf16 lo, bf16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  return pack(__float2bfloat16(lo), __float2bfloat16(hi));
-}
-
-// d += a (16x16, row) * b (16x8, col); the PTX fragment layouts:
-// lane = 4 g + t; a regs: (g, 2t..), (g+8, 2t..), (g, 2t+8..), (g+8, 2t+8..);
-// b regs: (k 2t.., n g), (k 2t+8.., n g); d: (g, 2t..), (g+8, 2t..).
-__device__ __forceinline__ void mma(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 template <int HD>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, long row_stride, int rows,
-                                          int n_valid) {
-  constexpr int CH = HD / 8;  // 16-byte chunks per row
-  for (int c = threadIdx.x; c < rows * CH; c += NT) {
-    const int r = c / CH, cc = c % CH;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < n_valid) val = *reinterpret_cast<const uint4*>(src + r * row_stride + cc * 8);
-    *reinterpret_cast<uint4*>(dst + r * Layout<HD>::LQ + cc * 8) = val;
-  }
-}
+struct Cfg {
+  static constexpr int NW = 4, NT = 32 * NW, ST = 2;  // warps, threads, ring stages
+  static constexpr int MT = Tune<HD>::MT, BK = Tune<HD>::BK;
+  static constexpr int WM = 16 * MT, BM = WM * NW;
+  static constexpr int LD = HD + 8;  // padded bf16 row stride: conflict-free ldmatrix
+  static constexpr int CH = HD / 8;  // 16-byte chunks a row
+  static constexpr int q_elems = BM * LD, kv_elems = BK * LD;
+  static constexpr size_t bytes = sizeof(bf16) * (q_elems + 2 * ST * kv_elems);
+  static constexpr int MINB = Tune<HD>::MINB;  // blocks an SM must hold: caps the registers
+};
 
-template <int HD>
-__global__ void __launch_bounds__(NT)
+template <int HD, bool CAP>
+__global__ void __launch_bounds__(Cfg<HD>::NT, Cfg<HD>::MINB)
     flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ o,
                      const int* __restrict__ starts, int Sq, int Sk, int H, int KVH, int causal,
                      int window, float softcap, float scale) {
-  constexpr int LQ = Layout<HD>::LQ;
+  using C = Cfg<HD>;
+  constexpr int MT = C::MT, BM = C::BM, WM = C::WM, BK = C::BK, ST = C::ST, NT = C::NT, LD = C::LD,
+                CH = C::CH;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + BQ * LQ;
-  bf16* Vs = Ks + BK * LQ;
+  bf16* Ks = Qs + C::q_elems;        // ST stages
+  bf16* Vs = Ks + ST * C::kv_elems;  // ST stages
+  __shared__ long rbase[BM];         // each row's element offset in q and o, -1 past the end
 
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (H / KVH);
+  // rows are (position, head of the group) pairs, position-major: row m is
+  // query position m / G of head kvh * G + m % G
+  const int G = H / KVH, n_rows = Sq * G;
+  const int m0 = (gridDim.x - 1 - blockIdx.x) * BM, kvh = blockIdx.y, b = blockIdx.z;
   const int start = starts ? max(starts[b], 0) : 0;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3, r0 = warp * 16;
+  const int g = lane >> 2, t = lane & 3, wr = warp * WM;
   const long q_row = (long)H * HD, kv_row = (long)KVH * HD;
+  const ScoreMap<CAP> score(scale, softcap);
 
-  load_rows<HD>(Qs, q + ((long)b * Sq + q0) * q_row + (long)h * HD, q_row, BQ, Sq - q0);
-  __syncthreads();
-  uint32_t qa[HD / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    const bf16* p = Qs + (r0 + g) * LQ + kk * 16 + 2 * t;
-    qa[kk][0] = ld32(p);
-    qa[kk][1] = ld32(p + 8 * LQ);
-    qa[kk][2] = ld32(p + 8);
-    qa[kk][3] = ld32(p + 8 * LQ + 8);
-  }
+  // visible keys of position p: [pos_lo(p), pos_hi(p)), both non-decreasing in p
+  auto pos_lo = [&](int p) { return window > 0 ? max(start, p - window + 1) : start; };
+  auto pos_hi = [&](int p) { return p < Sq ? min(Sk, causal ? p + 1 : Sk) : pos_lo(p); };
 
-  // this lane's two rows (g and g + 8 of the warp's 16): visible keys [lo, hi)
-  int lo[2], hi[2];
-#pragma unroll
-  for (int rr = 0; rr < 2; ++rr) {
-    const int qi = q0 + r0 + g + 8 * rr;
-    lo[rr] = window > 0 ? max(start, qi - window + 1) : start;
-    hi[rr] = qi < Sq ? min(Sk, causal ? qi + 1 : Sk) : lo[rr];
-  }
-  float acc[HD / 8][4];
-#pragma unroll
-  for (int n = 0; n < HD / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  // the block's key range, in whole tiles
+  const int p_first = m0 / G, p_last = (min(m0 + BM, n_rows) - 1) / G;
+  const int k_lo = pos_lo(p_first);
+  const int k_hi = causal ? min(Sk, p_last + 1) : Sk;
+  const int t0 = k_lo / BK;
+  const int n_tiles = k_hi > t0 * BK ? (k_hi - t0 * BK + BK - 1) / BK : 0;
 
-  const int q_last = min(q0 + BQ, Sq) - 1;
-  int k_lo = start;
-  if (window > 0) k_lo = max(k_lo, q0 - window + 1);
-  const int k_hi = causal ? min(Sk, q_last + 1) : Sk;
-
-  for (int k0 = (k_lo / BK) * BK; k0 < k_hi; k0 += BK) {
-    __syncthreads();  // the previous tile's K and V are consumed
-    const long kv_off = ((long)b * Sk + k0) * kv_row + (long)kvh * HD;
-    load_rows<HD>(Ks, k + kv_off, kv_row, BK, k_hi - k0);
-    load_rows<HD>(Vs, v + kv_off, kv_row, BK, k_hi - k0);
-    __syncthreads();
-
-    // S = Q K^T: 8 tiles of 16 rows x 8 keys
-    float s[BK / 8][4];
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      const bf16* kp = Ks + (j * 8 + g) * LQ + 2 * t;
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) mma(s[j], qa[kk], ld32(kp + kk * 16), ld32(kp + kk * 16 + 8));
+  const bf16* kb = k + (long)b * Sk * kv_row + (long)kvh * HD;
+  const bf16* vb = v + (long)b * Sk * kv_row + (long)kvh * HD;
+  auto load_tile = [&](int i) {  // tile i of the range into stage i % ST
+    const int k0 = (t0 + i) * BK;
+    bf16* ks = Ks + (i % ST) * C::kv_elems;
+    bf16* vs = Vs + (i % ST) * C::kv_elems;
+    for (int c = tid; c < BK * CH; c += NT) {
+      const int r = c / CH, cc = (c % CH) * 8;
+      const bool ok = k0 + r < k_hi;
+      const long off = (long)(ok ? k0 + r : k0) * kv_row + cc;
+      cp_async16(ks + r * LD + cc, kb + off, ok);
+      cp_async16(vs + r * LD + cc, vb + off, ok);
     }
+  };
 
-    // online softmax; a row's 64 scores live in the 4 lanes of its group
-    float mx[2] = {-INFINITY, -INFINITY};
+  // the row offsets once (a division by G a row), then Q with the first
+  // ST - 1 tiles, one commit group per tile
+  for (int r = tid; r < BM; r += NT) {
+    const int m = m0 + r;
+    rbase[r] = m < n_rows ? ((long)b * Sq + m / G) * q_row + (long)(kvh * G + m % G) * HD : -1;
+  }
+  __syncthreads();
+  for (int c = tid; c < BM * CH; c += NT) {
+    const int r = c / CH, cc = (c % CH) * 8;
+    const long off = rbase[r];
+    cp_async16(Qs + r * LD + cc, q + (off >= 0 ? off : rbase[0]) + cc, off >= 0);
+  }
 #pragma unroll
-    for (int j = 0; j < BK / 8; ++j)
+  for (int i = 0; i < ST - 1; ++i) {
+    if (i < n_tiles) load_tile(i);
+    cp_async_commit();
+  }
+
+  // this lane's rows: g and g + 8 of each of the warp's m-tiles; the warp's span
+  int lo[MT][2], hi[MT][2];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int rr = e >> 1, kj = k0 + j * 8 + 2 * t + (e & 1);
-        float x = s[j][e] * scale;
-        if (softcap > 0.f) x = softcap * tanhf(x / softcap);
-        x = (kj >= lo[rr] && kj < hi[rr]) ? x : -INFINITY;
-        s[j][e] = x;
-        mx[rr] = fmaxf(mx[rr], x);
-      }
-    float alpha[2];
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
     for (int rr = 0; rr < 2; ++rr) {
-      mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 1));
-      mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 2));
-      const float m_new = fmaxf(m[rr], mx[rr]);
-      alpha[rr] = m_new == -INFINITY ? 1.f : (m[rr] == -INFINITY ? 0.f : expf(m[rr] - m_new));
-      m[rr] = m_new;
+      const int m = m0 + wr + mt * 16 + g + 8 * rr;
+      const int p = m < n_rows ? m / G : Sq;
+      lo[mt][rr] = pos_lo(p);
+      hi[mt][rr] = pos_hi(p);
     }
-    float psum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int rr = e >> 1;
-        const float p = s[j][e] == -INFINITY ? 0.f : expf(s[j][e] - m[rr]);
-        s[j][e] = p;
-        psum[rr] += p;
-      }
-#pragma unroll
-    for (int rr = 0; rr < 2; ++rr) l[rr] = l[rr] * alpha[rr] + psum[rr];  // lane-partial sums
-#pragma unroll
-    for (int n = 0; n < HD / 8; ++n) {
-      acc[n][0] *= alpha[0];
-      acc[n][1] *= alpha[0];
-      acc[n][2] *= alpha[1];
-      acc[n][3] *= alpha[1];
-    }
+  const int wa = m0 + wr, wz = min(m0 + wr + WM, n_rows) - 1;  // first and last valid row
+  const bool w_rows = wa < n_rows;
+  const int pa_ = wa / G, pz = w_rows ? wz / G : 0;
+  const int w_lo = pos_lo(pa_), w_hi = w_rows ? pos_hi(pz) : 0;          // keys any row sees
+  const int w_lo_all = pos_lo(pz), w_hi_all = w_rows ? pos_hi(pa_) : 0;  // keys every row sees
 
-    // O += P V: P's accumulator layout is the A layout of the next product
+  float acc[MT][HD / 8][4];
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t pa[4] = {pack(s[2 * kk][0], s[2 * kk][1]), pack(s[2 * kk][2], s[2 * kk][3]),
-                              pack(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      const bf16* vp = Vs + (kk * 16 + 2 * t) * LQ + g;
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int n = 0; n < HD / 8; ++n) {
-        const bf16* c = vp + n * 8;
-        mma(acc[n], pa, pack(c[0], c[LQ]), pack(c[8 * LQ], c[9 * LQ]));
+    for (int n = 0; n < HD / 8; ++n) acc[mt][n][0] = acc[mt][n][1] = acc[mt][n][2] = acc[mt][n][3] = 0.f;
+  float m_run[MT][2], l_run[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) m_run[mt][0] = m_run[mt][1] = -INFINITY, l_run[mt][0] = l_run[mt][1] = 0.f;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    if (i + ST - 1 < n_tiles) load_tile(i + ST - 1);  // into the stage freed last iteration
+    cp_async_commit();
+    cp_async_wait<ST - 1>();  // tile i (and Q) landed, for this thread's copies
+    __syncthreads();          // ... and for every thread's
+
+    const int k0 = (t0 + i) * BK;
+    if (w_rows && k0 < w_hi && k0 + BK > w_lo) {
+      const bf16* ks = Ks + (i % ST) * C::kv_elems;
+      const bf16* vs = Vs + (i % ST) * C::kv_elems;
+      // S = Q K^T: per m-tile, BK / 8 tiles of 16 rows x 8 keys; each K fragment serves every m-tile
+      float s[MT][BK / 8][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j) s[mt][j][0] = s[mt][j][1] = s[mt][j][2] = s[mt][j][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        uint32_t qa[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) load_a<LD>(qa[mt], Qs + (wr + mt * 16) * LD, kk * 16, lane);
+#pragma unroll
+        for (int j2 = 0; j2 < BK / 16; ++j2) {
+          uint32_t kf[4];
+          load_b_keys<LD>(kf, ks, j2 * 16, kk * 16, lane);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma(s[mt][2 * j2], qa[mt], kf[0], kf[1]);
+            mma(s[mt][2 * j2 + 1], qa[mt], kf[2], kf[3]);
+          }
+        }
+      }
+
+      // online softmax; a row's scores live in the 4 lanes of its group
+      const bool masked = !(k0 >= w_lo_all && k0 + BK <= w_hi_all);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        int base[2], width[2];
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          base[rr] = k0 + 2 * t - lo[mt][rr];
+          width[rr] = max(hi[mt][rr] - lo[mt][rr], 0);
+        }
+        float alpha[2];
+        softmax_tile<BK / 8, CAP>(&s[mt][0][0], m_run[mt], l_run[mt], alpha, score, masked, base, width);
+#pragma unroll
+        for (int n = 0; n < HD / 8; ++n) {
+          acc[mt][n][0] *= alpha[0];
+          acc[mt][n][1] *= alpha[0];
+          acc[mt][n][2] *= alpha[1];
+          acc[mt][n][3] *= alpha[1];
+        }
+      }
+
+      // O += P V: P's accumulator layout is the A layout of the next product
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        uint32_t pa[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          pa[mt][0] = pack(s[mt][2 * kk][0], s[mt][2 * kk][1]);
+          pa[mt][1] = pack(s[mt][2 * kk][2], s[mt][2 * kk][3]);
+          pa[mt][2] = pack(s[mt][2 * kk + 1][0], s[mt][2 * kk + 1][1]);
+          pa[mt][3] = pack(s[mt][2 * kk + 1][2], s[mt][2 * kk + 1][3]);
+        }
+#pragma unroll
+        for (int n2 = 0; n2 < HD / 16; ++n2) {
+          uint32_t vf[4];
+          load_b_values<LD>(vf, vs, kk * 16, n2 * 16, lane);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma(acc[mt][2 * n2], pa[mt], vf[0], vf[1]);
+            mma(acc[mt][2 * n2 + 1], pa[mt], vf[2], vf[3]);
+          }
+        }
       }
     }
+    __syncthreads();  // every warp is done with stage i % ST
   }
 
+  // epilogue: each warp stages its rows in its own Q rows (no other warp reads
+  // them), then stores them as 16-byte row chunks; with a tile every copy has
+  // landed, so a warp does not wait for the others
+  if (n_tiles == 0) {  // the Q copies may still be in flight
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+  bf16* os = Qs + wr * LD;
 #pragma unroll
-  for (int rr = 0; rr < 2; ++rr) {
-    l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 1);
-    l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 2);
-    const int qi = q0 + r0 + g + 8 * rr;
-    if (qi < Sq) {
-      const float inv = 1.f / (l[rr] == 0.f ? 1.f : l[rr]);
-      bf16* op = o + ((long)b * Sq + qi) * q_row + (long)h * HD + 2 * t;
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      float l = l_run[mt][rr];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const float inv = 1.f / (l == 0.f ? 1.f : l);
 #pragma unroll
       for (int n = 0; n < HD / 8; ++n)
-        *reinterpret_cast<__nv_bfloat162*>(op + n * 8) =
-            __floats2bfloat162_rn(acc[n][2 * rr] * inv, acc[n][2 * rr + 1] * inv);
+        *reinterpret_cast<uint32_t*>(os + (mt * 16 + g + 8 * rr) * LD + n * 8 + 2 * t) =
+            pack(acc[mt][n][2 * rr] * inv, acc[mt][n][2 * rr + 1] * inv);
     }
+  __syncwarp();
+  for (int c = lane; c < WM * CH; c += 32) {
+    const int r = c / CH, cc = (c % CH) * 8;
+    const long off = rbase[wr + r];
+    if (off >= 0) *reinterpret_cast<uint4*>(o + off + cc) = *reinterpret_cast<const uint4*>(os + r * LD + cc);
   }
 }
 
-template <int HD>
+template <int HD, bool CAP>
 int launch(const void* q, const void* k, const void* v, void* o, const void* starts, int B, int Sq,
            int Sk, int H, int KVH, int causal, int window, float softcap, float scale,
            cudaStream_t stream) {
-  const size_t bytes = Layout<HD>::bytes;
-  cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<HD>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<HD><<<grid, NT, bytes, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (const int*)starts, Sq, Sk, H, KVH,
-      causal, window, softcap, scale);
+  using C = Cfg<HD>;
+  auto kernel = flash_fwd_kernel<HD, CAP>;
+  static int attr_set_on = -1;  // the device whose attribute is set: once, not per call
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (attr_set_on != dev) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::bytes);
+    if (e != cudaSuccess) return (int)e;
+    attr_set_on = dev;
+  }
+  // the row tile varies fastest, last first: the blocks of one (b, kv head)
+  // run together and share its K/V tiles in L2
+  const long n_rows = (long)Sq * (H / KVH);
+  dim3 grid((unsigned)((n_rows + C::BM - 1) / C::BM), KVH, B);
+  kernel<<<grid, C::NT, C::bytes, stream>>>((const bf16*)q, (const bf16*)k, (const bf16*)v,
+                                            (bf16*)o, (const int*)starts, Sq, Sk, H, KVH, causal,
+                                            window, softcap, scale);
   return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch_hd(const void* q, const void* k, const void* v, void* o, const void* starts, int B, int Sq,
+              int Sk, int H, int KVH, int causal, int window, float softcap, float scale,
+              cudaStream_t stream) {
+  return softcap > 0.f
+             ? launch<HD, true>(q, k, v, o, starts, B, Sq, Sk, H, KVH, causal, window, softcap, scale, stream)
+             : launch<HD, false>(q, k, v, o, starts, B, Sq, Sk, H, KVH, causal, window, softcap, scale, stream);
 }
 
 }  // namespace
@@ -235,11 +312,8 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
                                    void* stream) {
   if (B == 0 || Sq == 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
-  if (hd == 128)
-    return launch<128>(q, k, v, o, starts, B, Sq, Sk, H, KVH, causal, window, softcap, scale, s);
-  if (hd == 80)
-    return launch<80>(q, k, v, o, starts, B, Sq, Sk, H, KVH, causal, window, softcap, scale, s);
-  if (hd == 64)
-    return launch<64>(q, k, v, o, starts, B, Sq, Sk, H, KVH, causal, window, softcap, scale, s);
+  if (hd == 128) return launch_hd<128>(q, k, v, o, starts, B, Sq, Sk, H, KVH, causal, window, softcap, scale, s);
+  if (hd == 80) return launch_hd<80>(q, k, v, o, starts, B, Sq, Sk, H, KVH, causal, window, softcap, scale, s);
+  if (hd == 64) return launch_hd<64>(q, k, v, o, starts, B, Sq, Sk, H, KVH, causal, window, softcap, scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
 with a plain C interface (loaded with ``ctypes``), so the build needs no
 PyTorch headers and takes seconds.  All sources compile in parallel on the
 first ``library()`` call, into ``build/torch_kernels/`` under the repo root
-(git-ignored); a library whose source hash matches is reused.
+(git-ignored); a library whose hash (its source and the ``csrc`` headers it
+includes, such as ``attention_common.cuh``) matches is reused.
 
 Launch counting: each wrapper owns a ``kernels.<name>.launches`` counter on
 the process-wide registry and adds one where it launches a kernel — never
@@ -17,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -77,9 +79,30 @@ def _nvcc() -> str:
     return exe
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _sources_of(name: str) -> list:
+    """``csrc/<name>.cu`` and every ``csrc`` header it includes, directly or
+    through another header, in a fixed order."""
+    seen, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [CSRC / inc.decode() for inc in _INCLUDE.findall(path.read_bytes())
+                 if (CSRC / inc.decode()).exists()]
+    return seen
+
+
 def _target(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    """The library path for ``name``: named by a hash of its source and the
+    headers it includes, so an edited shared header rebuilds every user."""
+    h = hashlib.sha256()
+    for path in _sources_of(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all() -> Dict[str, Path]:

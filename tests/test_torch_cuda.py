@@ -97,6 +97,35 @@ def test_flash_attention(cuda, case, hd, heads):
             assert not got[b, :s].any()
 
 
+# long and ragged: Sq, Sk of 1000 and more (not multiples of the tiles, so the
+# two-stage ring wraps many times), starts mid-ring, a single K tile, hd 80 and 64
+FLASH_LONG_CASES = [
+    dict(B=2, Sq=1100, Sk=1100, H=8, KVH=2, hd=128, causal=True, window=None, starts=None),
+    dict(B=2, Sq=1037, Sk=1100, H=8, KVH=2, hd=128, causal=False, window=None, starts=[500, 3]),
+    dict(B=2, Sq=1100, Sk=1100, H=8, KVH=2, hd=64, causal=True, window=300, starts=[500, 3]),
+    dict(B=2, Sq=1000, Sk=1000, H=4, KVH=4, hd=80, causal=True, window=None, starts=[500, 3]),
+    dict(B=2, Sq=1000, Sk=1037, H=4, KVH=4, hd=80, causal=False, window=77, starts=None),
+    dict(B=3, Sq=50, Sk=20, H=8, KVH=2, hd=128, causal=False, window=None, starts=None),
+    dict(B=3, Sq=20, Sk=20, H=4, KVH=4, hd=64, causal=True, window=None, starts=[0, 5, 20]),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_LONG_CASES, ids=lambda c: f"Sq{c['Sq']}-Sk{c['Sk']}-hd{c['hd']}")
+def test_flash_attention_long_and_ragged(cuda, case):
+    c = case
+    q = _randn(c["B"], c["Sq"], c["H"], c["hd"], seed=0).to(cuda, torch.bfloat16)
+    k, v = (_randn(c["B"], c["Sk"], c["KVH"], c["hd"], seed=i).to(cuda, torch.bfloat16) for i in (1, 2))
+    starts = None if c["starts"] is None else torch.tensor(c["starts"], dtype=torch.int32, device=cuda)
+    kw = dict(causal=c["causal"], window=c["window"], starts=starts)
+    before = kernels.launch_counts()["flash_attention"]
+    got = flash.flash_attention(q, k, v, **kw).float()
+    assert kernels.launch_counts()["flash_attention"] == before + 1
+    torch.testing.assert_close(got, flash.flash_attention_plain(q, k, v, **kw).float(), rtol=0, atol=2e-2)
+    if starts is not None and c["causal"]:
+        for b, s in enumerate(c["starts"]):
+            assert not got[b, :s].any()
+
+
 DECODE_CASES = [
     dict(cur_len=90, window=None, softcap=None, starts=None),
     dict(cur_len=[3, 130, 77], window=None, softcap=None, starts=None),
@@ -118,6 +147,70 @@ def test_decode_attention(cuda, case, G, hd):
     kw = dict(window=case["window"], softcap=case["softcap"], starts=starts)
     got = decode.decode_attention_bksd(q, kc, vc, cur, **kw).float()
     torch.testing.assert_close(got, decode.decode_attention_plain(q, kc, vc, cur, **kw).float(), rtol=0, atol=2e-2)
+
+
+# long caches split across a thread-block cluster (128-row tiles, up to 8
+# splits): window and starts edges inside and across split boundaries, splits
+# with nothing visible, cur_len 1, pure-pad rows (exact zeros)
+DECODE_LONG_CASES = [
+    dict(cur="half", window=None, softcap=None, starts=[0, 100, -3]),
+    dict(cur="tail", window="third", softcap=None, starts=None),
+    dict(cur="pad", window=None, softcap=None, starts=[-1, 128, 1]),
+    dict(cur="half", window=None, softcap=20.0, starts=[0, 129, 0]),
+]
+
+
+def _long_cur(kind, S):
+    return {"half": [1, S // 2 + 7, S], "tail": [S, S - 1, 65], "pad": [S, 129, 1]}[kind]
+
+
+@pytest.mark.parametrize("S", [512, 2048, 4096])
+@pytest.mark.parametrize("G,hd", [(8, 128), (2, 64), (1, 80)])
+@pytest.mark.parametrize("case", DECODE_LONG_CASES, ids=lambda c: f"{c['cur']}-w={c['window']}-cap={c['softcap']}")
+def test_decode_attention_long(cuda, case, G, hd, S):
+    B, KVH = 3, 2
+    q = _randn(B, 1, KVH * G, hd, seed=0).to(cuda, torch.bfloat16)
+    kc = _randn(B, KVH, S, hd, seed=1).to(cuda, torch.bfloat16)
+    vc = _randn(B, KVH, S, hd, seed=2).to(cuda, torch.bfloat16)
+    cur_l = _long_cur(case["cur"], S)
+    cur = torch.tensor(cur_l, dtype=torch.int32, device=cuda)
+    starts = None
+    if case["starts"] is not None:
+        starts = torch.tensor([x if x >= 0 else S + x for x in case["starts"]], dtype=torch.int32, device=cuda)
+    kw = dict(window=S // 3 if case["window"] else None, softcap=case["softcap"], starts=starts)
+    got = decode.decode_attention_bksd(q, kc, vc, cur, **kw).float()
+    torch.testing.assert_close(got, decode.decode_attention_plain(q, kc, vc, cur, **kw).float(), rtol=0, atol=2e-2)
+    if starts is not None:
+        pad = starts >= cur
+        assert not got[pad].any()
+
+
+@pytest.mark.parametrize("G,KVH", [(8, 2), (2, 8)])
+@pytest.mark.parametrize("S", [512, 4096])
+def test_decode_attention_paged_bitwise_dense(cuda, G, KVH, S):
+    """The serving shapes (3 members x 8 slots, G 8 and G 2, 16-row pages)
+    and S 4096: the paged kernel is bitwise the dense kernel on the gathered
+    view, with the same split plan."""
+    E, B, ps, hd = 3, 8, 16, 128
+    n_pg = S // ps
+    gen = torch.Generator().manual_seed(S + G)
+    cur_l = torch.randint(1, S + 1, (B,), generator=gen).tolist()
+    P = sum(-(-c // ps) for c in cur_l) + 1
+    pages = torch.full((B, n_pg), -1, dtype=torch.int32)
+    perm, used = torch.randperm(P - 1, generator=gen), 0
+    for b, c in enumerate(cur_l):
+        n = -(-c // ps)
+        pages[b, :n] = perm[used:used + n].to(torch.int32)
+        used += n
+    q = _randn(E * B, 1, KVH * G, hd, seed=3).to(cuda, torch.bfloat16)
+    kp = _randn(E, P, KVH, ps, hd, seed=4).to(cuda, torch.bfloat16)
+    vp = _randn(E, P, KVH, ps, hd, seed=5).to(cuda, torch.bfloat16)
+    pages, cur = pages.to(cuda), torch.tensor(cur_l, dtype=torch.int32, device=cuda)
+    got = decode.decode_attention_paged(q, kp, vp, pages, cur)
+    view_k, view_v = (decode.paged_pool_view(t, pages, compact.gather_rows_plain) for t in (kp, vp))
+    assert torch.equal(got, decode.decode_attention_bksd(q, view_k, view_v, cur.repeat(E)))
+    ref = decode.decode_attention_paged_plain(q, kp, vp, pages, cur)
+    torch.testing.assert_close(got.float(), ref.float(), rtol=0, atol=2e-2)
 
 
 PAGED_CASES = [

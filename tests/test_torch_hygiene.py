@@ -94,3 +94,22 @@ def test_cpu_call_launches_no_kernel():
         "mamba2_ssd", "rwkv6_wkv",
     }
     assert kernels.launch_counts() == {n: 0 for n in kernels.launch_counts()}
+
+
+def test_kernel_library_name_hashes_included_headers(tmp_path, monkeypatch):
+    """A library is named by a hash of its source and every csrc header the
+    source includes (directly or through a header), so editing a shared
+    header rebuilds each library that uses it and no other."""
+    from repro_torch.kernels import build
+
+    assert [p.name for p in build._sources_of("flash_attention")] == ["flash_attention.cu", "attention_common.cuh"]
+    assert [p.name for p in build._sources_of("decode_attention")] == ["decode_attention.cu", "attention_common.cuh"]
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    (tmp_path / "a.cu").write_text('#include <cuda_runtime.h>\n#include "outer.cuh"\n')
+    (tmp_path / "b.cu").write_text("#include <cuda_runtime.h>\n")
+    (tmp_path / "outer.cuh").write_text('#pragma once\n#include "inner.cuh"\n')
+    (tmp_path / "inner.cuh").write_text("#pragma once\n")
+    a, b = build._target("a"), build._target("b")
+    (tmp_path / "inner.cuh").write_text("#pragma once\n// edited\n")
+    assert build._target("a") != a and build._target("b") == b
+
