@@ -18,10 +18,13 @@ Phases, in order; any failure raises and exits non-zero:
    ``cur_len`` off the page grid, page sizes 16 and 64, hd 64 with G = 1,
    both tiers' serving shapes (G = 8 and G = 2 at hd 128), and bitwise
    equality with the dense decode kernel on the gathered view; for the SSD
-   scan (``check_ssd``) ragged S, an initial state, G > 1, per-member A and
-   P/N at 64/64 and 32/16; for the WKV6 scan (``check_wkv6``) S = 1 with a
-   state, ragged S, strongly negative log-decay, per-member u and D 32 and
-   64; both scans also at serve_continuous's chunked-admission shape), with
+   scan (``check_ssd``) ragged S, an initial state, G > 1, per-member A,
+   P/N at 64/64 and 32/16, the f32 route and x, B, C as views of one xBC
+   tensor, and at most 2 device launches a call; for the WKV6 scan
+   (``check_wkv6``) S = 1 with a state, ragged S, strongly negative
+   log-decay, per-member u and D 32 and 64; both scans also at
+   serve_continuous's chunked-admission shapes, a full 256-token chunk and a
+   16-token one), with
    the tolerance stated beside each check; times kernel, plain
    version and one library call where one computes the same function (the
    yardstick; the port never calls it) with CUDA events (``ms``), and by
@@ -82,6 +85,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS = 989e12  # dense tensor-core bf16
+TF32_FLOPS = 495e12  # dense tensor-core TF32
 F32_FLOPS = 67e12  # f32 outside the tensor cores
 
 
@@ -166,12 +170,15 @@ def profiled(fn, iters=20):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not dev:
+    for _ in range(3):  # a trace now and then holds no device records: take another
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if dev:
+            break
+    else:
         return None, None
     kernels = [e for e in dev if not e.name.lower().startswith(("memcpy", "memset"))]
     return sum(e.time_range.elapsed_us() for e in dev) / iters / 1e3, len(kernels) / iters
@@ -535,12 +542,13 @@ def check_decode_paged(dev, g):
     )
 
 
-# The scans: each kernel runs the per-step recurrence, its plain version the
-# chunked form (the JAX package's XLA route) — one f32 function summed in
-# another order.  Outputs normwise: 1e-5 in f32; 2**-7 in bf16, where the
-# two f32 results each round to bf16 and may land one bf16 step apart (at
-# most 2**-7 of the element, so of the largest value).  Final states
-# normwise 1e-3.
+# The scans: the WKV6 kernel and the SSD's f32 route run the per-step
+# recurrence, the SSD's bf16 route the chunked dual form on TF32 tensor
+# cores (bf16 x, B, C exact; the decayed tiles round once, 2**-11), the plain
+# versions the chunked form in f32 (the JAX package's XLA route).  Outputs
+# normwise: 1e-5 in f32; 2**-7 in bf16, where the two results each round to
+# bf16 and may land one bf16 step apart (at most 2**-7 of the element, so of
+# the largest value).  Final states normwise 1e-3.
 SCAN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0**-7}
 STATE_TOL = 1e-3
 # Under strong decay (log-decay down to -exp(9)) the chunked plain version's
@@ -568,16 +576,33 @@ def check_scan(name, got, ref, tol=None):
     return ey, es, (y.float() - py.float()).abs().max().item()
 
 
+def ssd_dual_flops(B, S, H, N, P, L=64):
+    """Operations of the chunked dual form the bf16 SSD kernel runs, for
+    chunks of L steps at this run's length: per chunk of m steps and head the
+    causal C·Bᵀ and M·x (m(m+1)/2 · (N + P) multiply-adds), C·h and the state
+    update (2·m·N·P)."""
+    macs = 0
+    for t0 in range(0, S, L):
+        m = min(L, S - t0)
+        macs += m * (m + 1) // 2 * (N + P) + 2 * m * N * P
+    return 2 * B * H * macs
+
+
 def check_ssd(dev, g):
     import torch.nn.functional as F
 
     from repro_torch.kernels.mamba2_ssd import ops
 
-    def inputs(B, S, H, P, G, N, E, dtype, h0, dt_shift=0.0):
-        x = torch.randn(B, S, H, P, device=dev, generator=g).to(dtype)
+    def inputs(B, S, H, P, G, N, E, dtype, h0, dt_shift=0.0, xbc=False):
+        if xbc:  # views of one (B, S, H P + 2 G N) tensor, as the Mamba2 block hands them over
+            t = torch.randn(B, S, H * P + 2 * G * N, device=dev, generator=g).to(dtype)
+            x, Bm, Cm = (t[..., :H * P].reshape(B, S, H, P), t[..., H * P:H * P + G * N].reshape(B, S, G, N),
+                         t[..., H * P + G * N:].reshape(B, S, G, N))
+        else:
+            x = torch.randn(B, S, H, P, device=dev, generator=g).to(dtype)
+            Bm, Cm = (torch.randn(B, S, G, N, device=dev, generator=g).mul(0.5).to(dtype) for _ in range(2))
         dt = F.softplus(torch.randn(B, S, H, device=dev, generator=g) + dt_shift)
         A = -torch.exp(torch.randn(E, H, device=dev, generator=g) * 0.3)
-        Bm, Cm = (torch.randn(B, S, G, N, device=dev, generator=g).mul(0.5).to(dtype) for _ in range(2))
         s0 = torch.randn(B, H, N, P, device=dev, generator=g).mul(0.2) if h0 else None
         return (x, dt, A, Bm, Cm), s0
 
@@ -590,36 +615,49 @@ def check_ssd(dev, g):
         run(*inputs(3, 130, 8, 32, 2, 16, 3, torch.float32, True)),  # G > 1, P/N 32/16
         run(*inputs(4, 77, 4, 32, 4, 16, 1, torch.bfloat16, False)),
         run(*inputs(6, 1, 8, 64, 1, 64, 3, torch.bfloat16, True)),  # a single step
+        run(*inputs(2, 65, 8, 64, 2, 64, 2, torch.float32, True, xbc=True)),  # the f32 route on views
     ]
     # the main path: zamba2-2.7b tier-1 classify, E*B = 3*32 rows, S 256, 80
-    # heads of P 64, G 1, N 64; bf16 x, B and C as the block gives them, dt
-    # near softplus(dt_bias) as initialised
-    args, _ = inputs(96, 256, 80, 64, 1, 64, 3, torch.bfloat16, False, dt_shift=-4.0)
+    # heads of P 64, G 1, N 64; bf16 x, B and C as views of xBC, as the block
+    # gives them, dt near softplus(dt_bias) as initialised
+    args, _ = inputs(96, 256, 80, 64, 1, 64, 3, torch.bfloat16, False, dt_shift=-4.0, xbc=True)
     errs.append(run(args, None))
     # and serve_continuous's chunked admission: one slot of each of the 3
-    # members, a full 256-token chunk (max_chunk) continuing the slot's state
-    adm, adm_s0 = inputs(3, 256, 80, 64, 1, 64, 3, torch.bfloat16, True, dt_shift=-4.0)
-    errs.append(run(adm, adm_s0))
+    # members continuing the slot's state, a full 256-token chunk (max_chunk)
+    # and a short one (most of a tier's chunk calls are short)
+    adm, adm_s0 = inputs(3, 256, 80, 64, 1, 64, 3, torch.bfloat16, True, dt_shift=-4.0, xbc=True)
+    adm16, adm16_s0 = inputs(3, 16, 80, 64, 1, 64, 3, torch.bfloat16, True, dt_shift=-4.0, xbc=True)
+    errs += [run(adm, adm_s0), run(adm16, adm16_s0)]
 
     def timed(args, s0):
         x, dt, A, Bm, Cm = args
         B, S, H, P = x.shape
         N = Bm.shape[-1]
         y, hT = ops.ssd(*args, initial_state=s0, return_final_state=True)
-        ins = (x, dt, A, Bm, Cm) + (() if s0 is None else (s0,))
-        b_ms, b_by = bound(nbytes(*ins, y, hT), 5 * B * S * H * N * P, F32_FLOPS)
-        return dict(
+        # bytes the kernel reads and writes: x, B, C in their own dtype, dt f32 (the prescale is fused)
+        n_bytes = nbytes(*args, y, hT, *(() if s0 is None else (s0,)))
+        if x.dtype == torch.bfloat16:  # the dual form on TF32 tensor cores
+            b_ms, b_by = bound(n_bytes, ssd_dual_flops(B, S, H, N, P), TF32_FLOPS)
+        else:  # the per-step form on the f32 cores
+            b_ms, b_by = bound(n_bytes, 5 * B * S * H * N * P, F32_FLOPS)
+        out = dict(
             shape={"x": list(x.shape), "B": list(Bm.shape), "E": A.shape[0], "initial_state": s0 is not None},
             **timings(lambda: ops.ssd(*args, initial_state=s0, return_final_state=True),
                       lambda: ops.ssd_plain(*args, initial_state=s0), None,  # no single PyTorch call computes the scan
                       plain_iters=5),
             bound_ms=b_ms, bound_by=b_by,
+            # the per-step form's f32 operations alone, the yardstick of a per-step kernel
+            f32_step_bound_ms=5 * B * S * H * N * P / F32_FLOPS * 1e3,
         )
+        launches = out["device_launches_per_call"]
+        require(launches is not None and launches <= 2, f"ssd: {launches} device launches a call (at most 2)")
+        return out
 
     return dict(
         name="mamba2_ssd", tol=SCAN_TOL_TEXT,
         max_abs_err=max(e[2] for e in errs), normwise_err=max(e[0] for e in errs),
         state_normwise_err=max(e[1] for e in errs), **timed(args, None), admission=timed(adm, adm_s0),
+        admission_s16=timed(adm16, adm16_s0),
     )
 
 
@@ -645,6 +683,9 @@ def check_wkv6(dev, g):
         run(*inputs(3, 77, 8, 32, 3, torch.float32, True)),  # ragged S, per-member u, D 32
         run(*inputs(4, 70, 4, 64, 2, torch.bfloat16, True, scale=3.0), strong=True),  # strongly negative logw
         run(*inputs(2, 45, 4, 32, 1, torch.float32, False, scale=2.0), strong=True),
+        # 320 (row, head) pairs take the kernel's larger tile (the cases above its smaller one)
+        run(*inputs(5, 70, 64, 64, 5, torch.bfloat16, True, scale=3.0), strong=True),
+        run(*inputs(5, 77, 64, 32, 1, torch.float32, True)),
     ]
 
     def timed(args, s0):
@@ -652,7 +693,8 @@ def check_wkv6(dev, g):
         B, S, H, D = r.shape
         y, sT = ops.wkv6(*args, initial_state=s0, return_final_state=True)
         ins = (r, k, v, logw, u) + (() if s0 is None else (s0,))
-        b_ms, b_by = bound(nbytes(*ins, y, sT), 4 * B * S * H * D * D, F32_FLOPS)
+        # the per-step form on the f32 cores: k v, S w + k v, r S (5 operations a state element a step)
+        b_ms, b_by = bound(nbytes(*ins, y, sT), 5 * B * S * H * D * D, F32_FLOPS)
         return dict(
             shape={"r": list(r.shape), "initial_state": s0 is not None},
             **timings(lambda: ops.wkv6(*args, initial_state=s0, return_final_state=True),
@@ -663,18 +705,19 @@ def check_wkv6(dev, g):
 
     # the main path: rwkv6-7b tier-2 prefill (16 deferred rows of 256
     # tokens, 64 heads of 64), its decode step (8 rows, S = 1, a state) and
-    # serve_continuous's chunked admission (one slot, a full 256-token chunk
-    # continuing the slot's state); log-decay near -exp(decay_base) as
-    # initialised
+    # serve_continuous's chunked admission (one slot continuing its state, a
+    # full 256-token chunk and a short one); log-decay near
+    # -exp(decay_base) as initialised
     pre, _ = inputs(16, 256, 64, 64, 1, torch.bfloat16, False, shift=-4.0)
     dec, dec_s0 = inputs(8, 1, 64, 64, 1, torch.bfloat16, True, shift=-4.0)
     adm, adm_s0 = inputs(1, 256, 64, 64, 1, torch.bfloat16, True, shift=-4.0)
-    errs += [run(pre, None), run(dec, dec_s0), run(adm, adm_s0)]
+    adm16, adm16_s0 = inputs(1, 16, 64, 64, 1, torch.bfloat16, True, shift=-4.0)
+    errs += [run(pre, None), run(dec, dec_s0), run(adm, adm_s0), run(adm16, adm16_s0)]
     return dict(
         name="rwkv6_wkv", tol=SCAN_TOL_TEXT,
         max_abs_err=max(e[2] for e in errs), normwise_err=max(e[0] for e in errs),
         state_normwise_err=max(e[1] for e in errs), **timed(pre, None), decode=timed(dec, dec_s0),
-        admission=timed(adm, adm_s0),
+        admission=timed(adm, adm_s0), admission_s16=timed(adm16, adm16_s0),
     )
 
 

@@ -51,7 +51,7 @@ SIGNATURES = {
         "decode_attention_fwd": [_P] * 5 + [_I, _P] + [_I] * 6 + [_F] * 2 + [_P],
         "decode_attention_paged_fwd": [_P] * 6 + [_I] * 9 + [_F] * 2 + [_P],
     },
-    "mamba2_ssd": {"mamba2_ssd_fwd": [_P] * 7 + [_I] * 7 + [_P]},
+    "mamba2_ssd": {"mamba2_ssd_fwd": [_P] * 8 + [_I] * 7 + [_L] * 6 + [_I, _P]},
     "rwkv6_wkv": {"rwkv6_wkv_fwd": [_P] * 8 + [_I] * 6 + [_P]},
 }
 

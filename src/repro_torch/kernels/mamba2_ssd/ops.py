@@ -3,16 +3,19 @@
 public layout — and the decay ``A`` as (H,) or (E, H) for E members folded
 member-major into the batch (row b reads member b // (B / E)).
 
-Both paths start from the Pallas wrapper's pre-scaling, in plain PyTorch:
-x~ = dt·x and l = A·dt <= 0 (so a per-member A needs no kernel argument).
-On a CUDA tensor ``ssd`` then launches ``csrc/mamba2_ssd.cu`` (N in
-{8, 16, 32, 64}, P <= 128, any G dividing H, any S), which replaces
-``src/repro/kernels/mamba2_ssd/kernel.py`` ``ssd_pallas``; on a CPU tensor
-the plain version runs: the JAX package's ``_xla_ssd``, chunk 128, with
-intra-chunk (C·Bᵀ ⊙ exp(cum_t - cum_s))·x~, inter-chunk C·e^cum·h and the
-state update h·e^total + (B·e^(total-cum))ᵀ·x~ (every exponent <= 0), and
-zero padding of a ragged last chunk.  ``ssd_step`` (one decode step) is
-plain PyTorch on every device, as in the JAX package.
+On a CUDA tensor ``ssd`` launches ``csrc/mamba2_ssd.cu``, which replaces
+``src/repro/kernels/mamba2_ssd/kernel.py`` ``ssd_pallas`` and reads x, B
+and C in place with their strides (views of the block's xBC tensor), dt and
+A as they come: the pre-scaling x~ = dt·x, l = A·dt is fused into it, so a
+call is one device launch.  x, B and C share one dtype.  bf16 takes the
+chunked dual form on the tensor cores (TF32, P in {32, 64}, N in {16, 32,
+64}); f32 the exact per-step recurrence (P <= 128, N in {8, 16, 32, 64});
+any G dividing H, any S.  On a CPU tensor the plain version runs: the JAX
+package's ``_xla_ssd``, chunk 128, with intra-chunk (C·Bᵀ ⊙ exp(cum_t -
+cum_s))·x~, inter-chunk C·e^cum·h and the state update h·e^total +
+(B·e^(total-cum))ᵀ·x~ (every exponent <= 0), and zero padding of a ragged
+last chunk.  ``ssd_step`` (one decode step) is plain PyTorch on every
+device, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -69,17 +72,40 @@ def ssd_plain(x, dt, A, Bm, Cm, *, chunk: int = 128, initial_state=None):
     return y.to(x.dtype), h
 
 
+def _aligned(t):
+    """True when every row the dual kernel copies by 16-byte cp.async starts
+    on a 16-byte boundary: the data pointer and every stride but the last."""
+    return t.data_ptr() % 16 == 0 and all(st * t.element_size() % 16 == 0 for st in t.stride()[:-1])
+
+
 def _ssd_cuda(x, dt, A, Bm, Cm, *, initial_state):
     B, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
-    if N not in (8, 16, 32, 64) or P > 128 or H % G or Bm.shape != Cm.shape or Bm.shape[:2] != (B, S):
-        raise ValueError(f"ssd: unsupported shapes x {tuple(x.shape)} B {tuple(Bm.shape)} C {tuple(Cm.shape)}")
-    if x.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"ssd: x dtype {x.dtype} not in (bf16, f32)")
-    xt, l = (t.contiguous() for t in prescale(x, dt, A))
-    bt, ct = (t.to(torch.float32).contiguous() for t in (Bm, Cm))
-    for name, t in (("x~", xt), ("l", l), ("B", bt), ("C", ct)):
-        build.require_cuda(t, f"ssd {name}", (torch.float32,))
+    dual = x.dtype == torch.bfloat16  # the chunked dual form on the tensor cores; f32: per step
+    fits = (P in (32, 64) and N in (16, 32, 64)) if dual else (P <= 128 and N in (8, 16, 32, 64))
+    if not fits or H % G or Bm.shape != Cm.shape or Bm.shape[:2] != (B, S) or dt.shape != (B, S, H):
+        raise ValueError(f"ssd: unsupported shapes x {tuple(x.shape)} ({x.dtype}) dt {tuple(dt.shape)} "
+                         f"B {tuple(Bm.shape)} C {tuple(Cm.shape)}")
+    for name, t in (("x", x), ("B", Bm), ("C", Cm)):
+        if t.device.type != "cuda":
+            raise ValueError(f"ssd {name}: expected a CUDA tensor, got {t.device}")
+    # the Mamba2 block hands x, B and C over as views of one xBC tensor
+    if x.dtype not in (torch.bfloat16, torch.float32) or not (Bm.dtype == Cm.dtype == x.dtype):
+        raise TypeError(f"ssd: x, B, C dtypes {x.dtype}, {Bm.dtype}, {Cm.dtype}: one of (bf16, f32) for all three")
+    # x, B and C are read in place with their strides (the Mamba2 block hands
+    # over views of one xBC tensor); a view whose innermost dim is strided,
+    # whose B and C strides differ, or (dual form) whose rows miss 16-byte
+    # boundaries is copied first, in its own dtype
+    if x.stride(-1) != 1 or (dual and not _aligned(x)):
+        x = x.contiguous()
+    if Bm.stride() != Cm.stride() or Bm.stride(-1) != 1 or (dual and not (_aligned(Bm) and _aligned(Cm))):
+        Bm, Cm = Bm.contiguous(), Cm.contiguous()
+    dt = dt.float().contiguous()
+    A = (A[None] if A.ndim == 1 else A).to(device=x.device, dtype=torch.float32).contiguous()
+    E = A.shape[0]
+    if A.shape[1] != H or B % E:
+        raise ValueError(f"ssd: A {tuple(A.shape)} does not fit batch {B}, heads {H}")
+    build.require_cuda(dt, "ssd dt", (torch.float32,))
     if initial_state is not None:
         initial_state = initial_state.to(torch.float32).contiguous()
         build.require_cuda(initial_state, "ssd initial_state", (torch.float32,))
@@ -89,11 +115,12 @@ def _ssd_cuda(x, dt, A, Bm, Cm, *, initial_state):
     hT = torch.empty((B, H, N, P), dtype=torch.float32, device=x.device)
     lib = build.library("mamba2_ssd")
     rc = lib.mamba2_ssd_fwd(
-        build.ptr(xt), build.ptr(l), build.ptr(bt), build.ptr(ct),
+        build.ptr(x), build.ptr(dt), build.ptr(A), build.ptr(Bm), build.ptr(Cm),
         ctypes.c_void_p(None if initial_state is None else initial_state.data_ptr()),
         build.ptr(y), build.ptr(hT),
-        ctypes.c_int(B), ctypes.c_int(S), ctypes.c_int(H), ctypes.c_int(P), ctypes.c_int(G),
-        ctypes.c_int(N), ctypes.c_int(int(x.dtype == torch.bfloat16)), build.stream_ptr(x),
+        *(ctypes.c_int(n) for n in (B, S, H, P, G, N, B // E)),
+        *(ctypes.c_long(n) for n in (*x.stride()[:3], *Bm.stride()[:3])),
+        ctypes.c_int(int(dual)), build.stream_ptr(x),
     )
     build.check(lib, rc, "mamba2_ssd_fwd")
     _LAUNCHES.add(1)

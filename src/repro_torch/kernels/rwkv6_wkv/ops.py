@@ -5,13 +5,16 @@
 
 On a CUDA tensor it launches ``csrc/rwkv6_wkv.cu`` (r, k, v bf16 or f32,
 logw f32, D in {16, 32, 64}, any S including 1), which replaces
-``src/repro/kernels/rwkv6_wkv/kernel.py`` ``wkv6_pallas``; it is bound by
-the bytes it streams (each element feeds ~3·D multiply-adds at most).  On
-a CPU tensor the plain version runs: the JAX package's ``_xla_wkv6``,
-chunk 32, exact pairwise decay exp(ecum_t - cum_s) (every exponent <= 0)
-and zero padding of a ragged last chunk.  ``wkv6_step`` (one decode step)
-is plain PyTorch on every device, as in the JAX package; the models'
-decode goes through ``wkv6`` at S = 1 instead, as the TPU path does.
+``src/repro/kernels/rwkv6_wkv/kernel.py`` ``wkv6_pallas``: the exact
+per-step recurrence, register-tiled (a thread owns 16 keys of 4 value
+columns, or 8 of 2 when the call has few (row, head) pairs) and bound by
+its f32 operations at S > 1, by the state's bytes at S = 1.  Its inputs
+are read with 16-byte loads, so a view off a 16-byte boundary is copied
+first.  On a CPU tensor the plain version runs: the JAX package's
+``_xla_wkv6``, chunk 32, exact pairwise decay exp(ecum_t - cum_s) (every
+exponent <= 0) and zero padding of a ragged last chunk.  ``wkv6_step`` (one
+decode step) is plain PyTorch on every device, as in the JAX package; the
+models' decode goes through ``wkv6`` at S = 1 instead, as the TPU path does.
 """
 from __future__ import annotations
 
@@ -65,20 +68,27 @@ def wkv6_plain(r, k, v, logw, u, *, chunk: int = 32, initial_state=None):
     return y.to(r.dtype), s
 
 
+def _aligned_or_copy(t):
+    """``t`` contiguous and on a 16-byte boundary, as the kernel's 16-byte
+    loads need: a view at an odd storage offset is copied."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _wkv6_cuda(r, k, v, logw, u, *, initial_state):
     B, S, H, D = r.shape
-    r, k, v, logw = (t.contiguous() for t in (r, k, v, logw))
+    r, k, v, logw = (_aligned_or_copy(t) for t in (r, k, v, logw))
     for name, t in (("r", r), ("k", k), ("v", v)):
         build.require_cuda(t, f"wkv6 {name}", (torch.bfloat16, torch.float32))
     build.require_cuda(logw, "wkv6 logw", (torch.float32,))
     if D not in (16, 32, 64) or not (k.shape == v.shape == logw.shape == r.shape) or not (k.dtype == v.dtype == r.dtype):
         raise ValueError(f"wkv6: unsupported shapes r {tuple(r.shape)} logw {tuple(logw.shape)} or dtypes")
-    uu = (u[None] if u.ndim == 2 else u).to(device=r.device, dtype=torch.float32).contiguous()
+    uu = _aligned_or_copy((u[None] if u.ndim == 2 else u).to(device=r.device, dtype=torch.float32))
     E = uu.shape[0]
     if uu.shape[1:] != (H, D) or B % E:
         raise ValueError(f"wkv6: u {tuple(u.shape)} does not fit batch {B}, heads {H}, D {D}")
     if initial_state is not None:
-        initial_state = initial_state.to(torch.float32).contiguous()
+        initial_state = _aligned_or_copy(initial_state.to(torch.float32))
         build.require_cuda(initial_state, "wkv6 initial_state", (torch.float32,))
         if initial_state.shape != (B, H, D, D):
             raise ValueError(f"wkv6: initial_state {tuple(initial_state.shape)} != {(B, H, D, D)}")

@@ -9,8 +9,9 @@ Tolerances: argmax, max, index maps and compacted payloads exact; sumexp
 rel 1e-5; bf16 attention outputs abs 2e-2 (inputs ~N(0, 1); the flash
 kernel rounds P to bf16 before the PV product); the paged decode kernel
 bitwise equal to the dense one on the gathered view.  The SSD and WKV6
-scans (the kernels run the per-step recurrence, the plain versions the
-chunked form: the same f32 function summed in another order): outputs
+scans (the WKV6 kernel and the SSD's f32 route run the per-step
+recurrence, the SSD's bf16 route the chunked dual form on TF32 tensor
+cores, the plain versions the chunked form in f32): outputs
 normwise 1e-5 in f32 and 2**-7 in bf16 (two f32 results each rounded to
 bf16 may land one bf16 step apart: at most 2**-7 of the element),
 final states normwise 1e-3; against the per-step ref, which shares the
@@ -268,13 +269,20 @@ def _normwise(got, ref, tol):
     assert err <= tol * ref.float().abs().max().item(), (err, tol)
 
 
-SSD_CASES = [  # (B, S, H, P, G, N, E, h0, out dtype)
+SSD_CASES = [  # (B, S, H, P, G, N, E, h0, dtype of x, B, C and y)
     (2, 128, 4, 32, 2, 16, 1, False, torch.float32),
     (1, 256, 2, 64, 1, 64, 1, True, torch.float32),
     (2, 96, 4, 32, 4, 16, 2, True, torch.bfloat16),  # ragged vs the plain chunk, per-member A
     (3, 200, 3, 16, 3, 8, 3, True, torch.float32),
     (6, 1, 4, 64, 1, 64, 3, True, torch.bfloat16),  # one step
     (4, 300, 8, 64, 1, 64, 2, False, torch.bfloat16),  # zamba2 widths, ragged
+    # the dual form's chunks of 64 at zamba2's P/N: within one chunk, on a
+    # boundary and past it, ragged
+    *((2, S, 8, 64, 1, 64, 2, True, torch.bfloat16) for S in (1, 16, 63, 64, 65, 256, 300)),
+    (2, 130, 8, 32, 2, 32, 2, True, torch.bfloat16),  # G 2: four heads a group
+    (3, 77, 8, 64, 4, 16, 3, False, torch.bfloat16),
+    (2, 100, 4, 32, 1, 64, 1, True, torch.bfloat16),
+    *((2, S, 8, 64, 2, 64, 2, True, torch.float32) for S in (65, 300)),  # the f32 route
 ]
 
 
@@ -284,7 +292,7 @@ def test_mamba2_ssd(cuda, B, S, H, P, G, N, E, h0, dtype):
     x = torch.randn(B, S, H, P, generator=gen).to(cuda, dtype)
     dt = torch.nn.functional.softplus(torch.randn(B, S, H, generator=gen)).mul(0.5).to(cuda)
     A = (-torch.exp(torch.randn(E, H, generator=gen) * 0.3)).to(cuda)
-    Bm, Cm = (torch.randn(B, S, G, N, generator=gen).mul(0.5).to(cuda) for _ in range(2))
+    Bm, Cm = (torch.randn(B, S, G, N, generator=gen).mul(0.5).to(cuda, dtype) for _ in range(2))
     s0 = torch.randn(B, H, N, P, generator=gen).mul(0.2).to(cuda) if h0 else None
     before = kernels.launch_counts()["mamba2_ssd"]
     y, hT = ssd.ssd(x, dt, A, Bm, Cm, initial_state=s0, return_final_state=True)
@@ -299,6 +307,43 @@ def test_mamba2_ssd(cuda, B, S, H, P, G, N, E, h0, dtype):
         _normwise(hT, rh, 1e-5)
 
 
+@pytest.mark.parametrize("pad", [0, 1])
+def test_mamba2_ssd_reads_xbc_views_in_one_launch(cuda, pad):
+    """x, B and C as the Mamba2 block hands them over: strided views of one
+    xBC tensor, read in place — one wrapper call, one device kernel.  With
+    a padding column the rows leave 16-byte boundaries and the wrapper
+    copies the views first (same result)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    B, S, H, P, G, N, E = 3, 200, 16, 64, 1, 64, 3
+    gen = torch.Generator().manual_seed(7)
+    xBC = torch.randn(B, S, H * P + 2 * G * N + pad, generator=gen).to(cuda, torch.bfloat16)
+    x = xBC[..., :H * P].reshape(B, S, H, P)
+    Bm = xBC[..., H * P:H * P + G * N].reshape(B, S, G, N)
+    Cm = xBC[..., H * P + G * N:H * P + 2 * G * N].reshape(B, S, G, N)
+    dt = torch.nn.functional.softplus(torch.randn(B, S, H, generator=gen) - 2.0).to(cuda)
+    A = (-torch.exp(torch.randn(E, H, generator=gen) * 0.3)).to(cuda)
+    s0 = torch.randn(B, H, N, P, generator=gen).mul(0.2).to(cuda)
+    ssd.ssd(x, dt, A, Bm, Cm, initial_state=s0)  # build and load outside the profile
+    torch.cuda.synchronize()
+    for _ in range(3):  # a trace now and then holds no device records: take another
+        before = kernels.launch_counts()["mamba2_ssd"]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            y, hT = ssd.ssd(x, dt, A, Bm, Cm, initial_state=s0, return_final_state=True)
+            torch.cuda.synchronize()
+        assert kernels.launch_counts()["mamba2_ssd"] == before + 1
+        device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if device:
+            break
+    assert device, "no trace recorded the device"
+    if not pad:  # the call is one kernel, no copies
+        assert len(device) == 1, [e.name for e in device]
+    py, ph = ssd.ssd_plain(x, dt, A, Bm, Cm, initial_state=s0)
+    _normwise(y, py, 2**-7)
+    _normwise(hT, ph, 1e-3)
+
+
 WKV_CASES = [  # (B, S, H, D, E, logw scale, dtype)
     (2, 128, 3, 32, 1, 0.5, torch.float32),
     (1, 64, 2, 64, 1, 0.5, torch.float32),
@@ -306,6 +351,16 @@ WKV_CASES = [  # (B, S, H, D, E, logw scale, dtype)
     (8, 1, 4, 64, 1, 0.5, torch.bfloat16),  # a decode step with a state
     (3, 45, 2, 16, 3, 2.0, torch.float32),  # strong decay: exp(logw) underflows
     (4, 70, 4, 64, 2, 3.0, torch.bfloat16),
+    # the register-tiled kernel: a decode step, a short admission chunk, a
+    # ragged pass, a full prefill; per-member u
+    *((3, S, 4, D, 3, 0.5, torch.bfloat16) for S in (1, 16, 77, 256) for D in (32, 64)),
+    (2, 77, 4, 64, 2, 3.0, torch.float32),  # strong decay in f32
+    # 320 (row, head) pairs: the kernel's larger tile (fewer pairs take the smaller one)
+    (5, 1, 64, 64, 5, 0.5, torch.bfloat16),
+    (5, 77, 64, 64, 1, 0.5, torch.bfloat16),
+    (5, 16, 64, 32, 5, 0.5, torch.float32),
+    (5, 70, 64, 64, 1, 3.0, torch.bfloat16),
+    (5, 45, 64, 16, 1, 2.0, torch.float32),
 ]
 
 
@@ -330,11 +385,50 @@ def test_rwkv6_wkv(cuda, B, S, H, D, E, scale, dtype):
     _normwise(sT, rs, 1e-5)
 
 
+def test_rwkv6_wkv_copies_views_off_16_byte_boundaries(cuda):
+    """Views at an odd storage offset (r, k, v, logw, u and the state each
+    one element into a larger buffer) give what aligned copies give: the
+    kernel's 16-byte loads read a copy, in one launch."""
+    B, S, H, D, E = 3, 20, 4, 64, 3
+    gen = torch.Generator().manual_seed(11)
+    r, k, v = (torch.randn(B, S, H, D, generator=gen).to(cuda, torch.bfloat16) for _ in range(3))
+    logw = (-torch.exp(torch.randn(B, S, H, D, generator=gen) * 0.5)).to(cuda)
+    u = torch.randn(E, H, D, generator=gen).mul(0.5).to(cuda)
+    s0 = torch.randn(B, H, D, D, generator=gen).mul(0.1).to(cuda)
+
+    def offset(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    views = [offset(t) for t in (r, k, v, logw, u, s0)]
+    assert all(t.data_ptr() % 16 for t in views)
+    before = kernels.launch_counts()["rwkv6_wkv"]
+    y, sT = wkv.wkv6(*views[:5], initial_state=views[5], return_final_state=True)
+    assert kernels.launch_counts()["rwkv6_wkv"] == before + 1
+    ry, rs = wkv.wkv6(r, k, v, logw, u, initial_state=s0, return_final_state=True)
+    assert torch.equal(y, ry) and torch.equal(sT, rs)
+
+
 def test_recurrent_kernels_refuse_what_they_do_not_take(cuda):
+    before = kernels.launch_counts()["mamba2_ssd"], kernels.launch_counts()["rwkv6_wkv"]
     x = torch.zeros(1, 4, 2, 16, device=cuda)
     with pytest.raises(ValueError, match="ssd"):
         ssd.ssd(x, torch.ones(1, 4, 2, device=cuda), -torch.ones(2, device=cuda),
                 torch.zeros(1, 4, 1, 12, device=cuda), torch.zeros(1, 4, 1, 12, device=cuda))
+    xb = torch.zeros(1, 4, 2, 48, device=cuda, dtype=torch.bfloat16)  # the dual form takes P in {32, 64}
+    bb = torch.zeros(1, 4, 1, 16, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="ssd"):
+        ssd.ssd(xb, torch.ones(1, 4, 2, device=cuda), -torch.ones(2, device=cuda), bb, bb)
+    with pytest.raises(TypeError, match="ssd"):  # B and C in x's dtype, as the block hands them over
+        ssd.ssd(xb[..., :32], torch.ones(1, 4, 2, device=cuda), -torch.ones(2, device=cuda),
+                torch.zeros(1, 4, 1, 16, device=cuda), torch.zeros(1, 4, 1, 16, device=cuda))
+    x3 = torch.zeros(1, 4, 3, 32, device=cuda)  # 3 heads do not split into 2 groups
+    with pytest.raises(ValueError, match="ssd"):
+        ssd.ssd(x3, torch.ones(1, 4, 3, device=cuda), -torch.ones(3, device=cuda),
+                torch.zeros(1, 4, 2, 16, device=cuda), torch.zeros(1, 4, 2, 16, device=cuda))
     r = torch.zeros(1, 4, 2, 48, device=cuda)
     with pytest.raises(ValueError, match="wkv6"):
         wkv.wkv6(r, r, r, r, torch.zeros(2, 48, device=cuda))
+    assert (kernels.launch_counts()["mamba2_ssd"], kernels.launch_counts()["rwkv6_wkv"]) == before
