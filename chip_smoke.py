@@ -10,8 +10,13 @@ Phases, in order; any failure raises and exits non-zero:
    scans included) and prints the build seconds and the card's name and
    power limit.
 2. kernels — holds each kernel against its plain PyTorch version on the card,
-   at the main path's shapes and at edge cases (ragged vocabulary, forced
-   argmax ties, all/none deferred, left-pad ``starts`` with pure-pad rows,
+   at the main path's shapes and at edge cases (ragged vocabulary, rows
+   off 16 bytes, forced argmax ties, also across the agreement kernel's
+   cluster slices; all/none deferred, B up to 5000, 11 leaves of mixed
+   dtypes and the paged K/V view of chunked admission at both tiers'
+   shapes, with compaction, agreement and the view held to 1 device launch
+   a call, the view also timed against the two ``paged_pool_view`` calls
+   it replaced; left-pad ``starts`` with pure-pad rows,
    window/softcap, ragged Sk, vector ``cur_len``, hd 80 with G = 1 at
    zamba2's shapes for flash and dense decode; for the paged decode kernel
    shuffled page tables, unmapped pages past and inside ``cur_len``,
@@ -61,7 +66,11 @@ Phases, in order; any failure raises and exits non-zero:
    prefill; 16-token pages where the family pages, dense slot caches for
    the recurrent tiers) on 32 requests of 16-384 prompt tokens, 8 of them
    sharing a 128-token prefix, 16 new tokens each; each run with the
-   launch counters zeroed just before and read just after.
+   launch counters zeroed just before and read just after.  Then one
+   chunked-admission call of each paged tier under torch.profiler: its
+   host operators, device kernels and compaction launches, with the
+   one-launch K/V view and with the two ``paged_pool_view`` calls it
+   replaced.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -73,6 +82,7 @@ import argparse
 import dataclasses
 import functools
 import gc
+import hashlib
 import json
 import math
 import subprocess
@@ -239,6 +249,15 @@ def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def outputs_digest(*arrays):
+    """sha256 (16 hex digits) of the arrays as int64: equal digests, equal
+    outputs — a run's tokens compared with another tree's run."""
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(np.asarray(a, np.int64).tobytes())
+    return h.hexdigest()[:16]
+
+
 def require(cond, what):
     if not cond:
         raise AssertionError(what)
@@ -249,40 +268,63 @@ def require(cond, what):
 # ---------------------------------------------------------------------------
 
 
-def check_agreement(dev, g):
+def slice_edges(V, clusters=(2, 4, 8)):
+    """Element indices where the agreement kernel's V slices meet (a row
+    over a cluster of C blocks, ceil(V / 4 / C) float4s a block)."""
+    n4 = V // 4
+    return sorted({4 * -(-n4 // C) * r for C in clusters for r in range(1, C)} - {V})
+
+
+def check_agreement(dev, g, gx):
     from repro_torch.kernels.agreement import ops
 
-    def run(E, B, V, ties):
-        x = torch.randn(E, B, V, device=dev, generator=g)
+    def run(E, B, V, ties, gen=g):
+        x = torch.randn(E, B, V, device=dev, generator=gen)
         if ties:  # the max hit twice in a row (first index wins) incl. the ragged tail
             x[:, : B // 2, V // 3] = x[:, : B // 2, V - 1] = 40.0
+            for r, edge in enumerate(slice_edges(V)):  # and on both sides of every slice edge
+                x[:, B // 2 + r % (B - B // 2), edge - 1] = x[:, B // 2 + r % (B - B // 2), edge] = 20.0 + r
             x[0, -1, 11] = x[1, -1, 11] = x[2 % E, -1, 5] = 60.0  # vote tie: smallest id
         m, idx, l = ops.member_stats(x)
         pm, pidx, pl = ops.member_stats_plain(x)
-        require(torch.equal(idx, pidx), f"agreement argmax differs at V={V}")
-        require(torch.equal(m, pm), f"agreement max differs at V={V}")
+        require(torch.equal(idx, pidx), f"agreement argmax differs at {(E, B, V)}")
+        require(torch.equal(m, pm), f"agreement max differs at {(E, B, V)}")
         rel = ((l - pl).abs() / pl).max().item()
-        require(rel <= 1e-5, f"agreement sumexp rel err {rel} > 1e-5 at V={V}")
+        require(rel <= 1e-5, f"agreement sumexp rel err {rel} > 1e-5 at {(E, B, V)}")
         got, ref = ops._epilogue(x, m, idx, l), ops._epilogue(x, pm, pidx, pl)
         require(torch.equal(got["pred"], ref["pred"]), "agreement vote differs")
         return x, (l - pl).abs().max().item()
 
     for V in (500, 92544):
         run(4, 8, V, ties=True)
-    x, err = run(3, 32, 151936, ties=True)  # tier-1 classify logits
+    # E*B 24 (clusters of 8 at long V), V ragged (151937 starts rows off 16 bytes)
+    for E, B, V in ((3, 8, 151936), (3, 8, 151937), (3, 32, 151937)):
+        run(E, B, V, ties=True, gen=gx)
+    x, err = run(3, 32, 151936, ties=True)  # tier-1 classify logits (clusters of 4)
     E, B, V = x.shape
     n_bytes = nbytes(x) + E * B * 12
     b_ms, b_by = bound(n_bytes, 4 * x.numel(), F32_FLOPS)
-    return dict(
+    out = dict(
         name="agreement", tol="argmax and max exact, sumexp rel 1e-5",
         shape=[E, B, V], max_abs_err=err,
         **timings(lambda: ops.member_stats(x), lambda: ops.member_stats_plain(x),
                   lambda: (torch.max(x, -1), torch.logsumexp(x, -1))),
         bound_ms=b_ms, bound_by=b_by,
     )
+    require(out["device_launches_per_call"] == 1, f"agreement: {out['device_launches_per_call']} device launches a call")
+    # the card's read rate at this size: one PyTorch reduction over the same logits
+    out["sum_device_ms"] = device_ms(lambda: torch.sum(x))
+    return out
 
 
-def check_compaction(dev, g):
+def path_times(fn):
+    """``ms`` by events, cold-L2 ``device_ms``, ``host_us`` and device
+    launches a call of a call that is not a kernel's wrapper."""
+    return dict(ms=time_ms(fn), device_ms=device_ms(fn), host_us=host_us(fn),
+                device_launches_per_call=profiled(fn)[1])
+
+
+def check_compaction(dev, g, gx):
     from repro_torch.kernels.compaction import ops
 
     def run(tree, mask):
@@ -293,15 +335,19 @@ def check_compaction(dev, g):
             require(torch.equal(out[k], ops.gather_rows_plain(v, p_im)), f"compaction payload {k} differs")
         return int(cnt)
 
-    for B in (32, 1500):
+    for B in (1, 32, 1500, 5000):
+        gen = g if B in (32, 1500) else gx
         for kind in ("all", "none", "random"):
-            mask = (torch.rand(B, device=dev, generator=g) < 0.5) if kind == "random" else torch.full((B,), kind == "all", device=dev)
+            mask = (torch.rand(B, device=dev, generator=gen) < 0.5) if kind == "random" else torch.full((B,), kind == "all", device=dev)
             tree = {
-                "f32": torch.randn(B, 33, device=dev, generator=g),
-                "bf16": torch.randn(B, 7, device=dev, generator=g).to(torch.bfloat16),
-                "i32": torch.randint(-2**31, 2**31 - 1, (B, 3), device=dev, generator=g, dtype=torch.int32),
+                "f32": torch.randn(B, 33, device=dev, generator=gen),
+                "bf16": torch.randn(B, 7, device=dev, generator=gen).to(torch.bfloat16),
+                "i32": torch.randint(-2**31, 2**31 - 1, (B, 3), device=dev, generator=gen, dtype=torch.int32),
             }
+            tree["u8"] = torch.randint(0, 256, (B, 5), device=dev, generator=gx, dtype=torch.uint8)
             run(tree, mask)
+            # 11 leaves: a second launch for the last three
+            run({f"{k}{i}": v for i in range(3) for k, v in tree.items() if i < 2 or k != "u8"}, mask)
     # the classify transition: {tokens (32, 256) i32, __idx (32,) i32}
     B = 32
     tree = {
@@ -322,13 +368,60 @@ def check_compaction(dev, g):
         return {k: ops.gather_rows_plain(v, im) for k, v in tree.items()}
 
     b_ms, b_by = bound(n_bytes, 0, F32_FLOPS)
-    return dict(
+    out = dict(
         name="compaction", tol="exact", shape={"tokens": [B, 256], "__idx": [B], "deferred": n},
         max_abs_err=0.0,
         # nonzero waits for the device (a graph cannot hold it): its device time is the profiler's
         **timings(lambda: ops.compact_tree(tree, mask), plain, library, library_graph=False),
         bound_ms=b_ms, bound_by=b_by,
     )
+    require(out["device_launches_per_call"] == 1, f"compaction: {out['device_launches_per_call']} device launches a call")
+    out["paged_kv_view"] = check_paged_kv_view(dev, gx)
+    return out
+
+
+def check_paged_kv_view(dev, g):
+    """The K/V view one layer of a chunked-admission call reads, at both
+    tiers' shapes (8 slots of max_seq 512 in 16-row pages: n_pg 32, a pool
+    of 257 pages; the slot maps 24 shuffled pages, a 384-token prompt, -1
+    past them): exact against the plain version, timed beside the bytes
+    bound, ``index_select`` + ``.contiguous()`` (the yardstick) and the two
+    ``paged_pool_view`` calls through ``gather_rows`` it replaced."""
+    from repro_torch.kernels.compaction import ops
+
+    res = {}
+    for tier, E, KVH in (("qwen2.5-3b", 3, 2), ("internlm2-1.8b", 1, 8)):
+        ps, hd, n_pg, P = 16, 128, 32, 8 * 32 + 1
+        kp, vp = (torch.randn(E, P, KVH, ps, hd, device=dev, generator=g).to(torch.bfloat16) for _ in range(2))
+        pages = torch.full((1, n_pg), -1, dtype=torch.int32, device=dev)
+        pages[0, :24] = torch.randperm(P - 1, device=dev, generator=g)[:24].to(torch.int32)
+        views = ops.paged_kv_view(kp, vp, pages)
+        plain = ops.paged_kv_view_plain(kp, vp, pages)
+
+        def two_calls():
+            return ops.paged_pool_view(kp, pages, ops.gather_rows), ops.paged_pool_view(vp, pages, ops.gather_rows)
+
+        require(all(torch.equal(a, b) for a, b in zip(views, plain)), f"paged K/V view differs ({tier})")
+        require(all(torch.equal(a, b) for a, b in zip(two_calls(), plain)), f"paged_pool_view differs ({tier})")
+        mapped = int((pages >= 0).sum())
+        tile = ps * hd * 2
+        n_bytes = 2 * (E * mapped * KVH * tile + E * n_pg * KVH * tile) + nbytes(pages)
+        b_ms, b_by = bound(n_bytes, 0, F32_FLOPS)
+        idx = ops.pool_row_index(pages, E, P).clamp(min=0).long()
+
+        def library():
+            return tuple(t.reshape(E * P, KVH, ps, hd).index_select(0, idx).reshape(E, n_pg, KVH, ps, hd)
+                         .transpose(1, 2).contiguous() for t in (kp, vp))
+
+        r = dict(
+            shape={"pool": list(kp.shape), "pages": list(pages.shape), "mapped": mapped},
+            **timings(lambda: ops.paged_kv_view(kp, vp, pages), lambda: ops.paged_kv_view_plain(kp, vp, pages),
+                      library),
+            bound_ms=b_ms, bound_by=b_by, two_paged_view_calls=path_times(two_calls),
+        )
+        require(r["device_launches_per_call"] == 1, f"paged K/V view: {r['device_launches_per_call']} device launches a call")
+        res[tier] = r
+    return res
 
 
 FLASH_TOL = 2e-2  # bf16 in/out, P rounded to bf16 before the PV product
@@ -467,7 +560,7 @@ def check_decode(dev, g):
 def check_decode_paged(dev, g):
     import torch.nn.functional as F
 
-    from repro_torch.kernels.compaction.ops import gather_rows_plain
+    from repro_torch.kernels.compaction.ops import gather_rows_plain, pool_row_index
     from repro_torch.kernels.decode_attention import ops
 
     mk = lambda *s: torch.randn(*s, device=dev, generator=g).to(torch.bfloat16)
@@ -519,7 +612,7 @@ def check_decode_paged(dev, g):
     visible = E * sum(cur)  # K/V rows the kernel must read
     n_bytes = 2 * nbytes(q) + 2 * visible * KVH * hd * 2 + nbytes(pages, cur_t)
     b_ms, b_by = bound(n_bytes, 4 * H * hd * visible, BF16_FLOPS)
-    idx = ops.pool_row_index(pages, E, kp.shape[1]).clamp(min=0).long()
+    idx = pool_row_index(pages, E, kp.shape[1]).clamp(min=0).long()
     S = n_pg * ps
     valid = (torch.arange(S, device=dev)[None, :] < cur_t.repeat(E)[:, None])[:, None, None, :]
     qt = q.transpose(1, 2)
@@ -1015,6 +1108,7 @@ def main_path(dev, seed, name):
     from repro_torch.core import ensemble as ens
     from repro_torch.core.cascade import TierSpec, host_fetch_stats, reset_host_fetch_stats
     from repro_torch.kernels.agreement import ops as agree_ops
+    from repro_torch.models import api
     from repro_torch.models.params import param_count
     from repro_torch.serve import CascadeServer, CascadeTier
 
@@ -1069,6 +1163,7 @@ def main_path(dev, seed, name):
                 require(((res.pred >= 0) & (res.pred < max(c1.vocab_size, c2.vocab_size))).all(), "classify: bad class ids")
             results[mode] = dict(
                 batch=[B, S], wall_s=wall, tier_counts=res.tier_counts.tolist(), evaluated=res.evaluated.tolist(),
+                outputs_digest=outputs_digest(res.pred, res.tier_of),
                 cost=res.cost, host_fetch=host_fetch_stats(), launches=counts,
                 max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30,
             )
@@ -1076,7 +1171,78 @@ def main_path(dev, seed, name):
         results["serve_continuous"], launches["serve_continuous"] = serve_continuous_path(
             servers["generate"], rng, vocab, name, spec["need"]["serve_continuous"],
         )
+        results["chunk_call"] = {
+            tier.spec.name: chunk_call_profile(tier, rng) for tier in servers["generate"].tiers
+            if api.supports_paging(tier.cfg)
+        }
+        log(f"[{name}] one paged chunk call: {json.dumps(results['chunk_call'])}")
     return results, launches
+
+
+def chunk_call_profile(tier, rng):
+    """One chunked-admission call of a paged tier at its published width
+    (a 256-token chunk at position 0 into a slot that maps 24 shuffled
+    pages of a 257-page pool, as ``SERVE_CONFIG`` sizes it), under
+    torch.profiler: host operators (top-level ``aten::`` calls, and all of
+    them), device kernels and the compaction launches, with the one-launch
+    K/V view and again with the two ``paged_pool_view`` calls through
+    ``gather_rows`` that it replaced (patched in for that run); and each
+    call's wall (median of 5, host clock to a synchronize)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import kernels
+    from repro_torch.core import ensemble as ens
+    from repro_torch.kernels.compaction import ops as cops
+
+    cfg, values, dev = tier.cfg, tier.values, tier.device
+    ps = SERVE_CONFIG["page_size"]
+    n_pg = SERVE_CONFIG["max_seq"] // ps
+    P = SERVE_CONFIG["n_slots"] * n_pg + 1
+    pools = ens.init_ensemble_paged_pool(values, cfg, P, ps)
+    pages = np.full(n_pg, -1, np.int32)
+    pages[:24] = rng.permutation(P - 1)[:24]
+    pages_row = torch.as_tensor(pages, device=dev)
+    tokens = rng.integers(0, cfg.vocab_size, SERVE_CONFIG["max_chunk"]).astype(np.int32)
+
+    def call():
+        ens.ensemble_prefill_into_slot_paged(values, tokens, pools, pages_row, 0, cfg)
+
+    def two_views(k_pool, v_pool, pages):
+        return (cops.paged_pool_view(k_pool, pages, cops.gather_rows),
+                cops.paged_pool_view(v_pool, pages, cops.gather_rows))
+
+    out = {}
+    one_view = cops.paged_kv_view
+    try:
+        for variant, view in (("one_launch_view", one_view), ("two_paged_view_calls", two_views)):
+            cops.paged_kv_view = view
+            call()
+            torch.cuda.synchronize()
+            walls = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                call()
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            kernels.reset_launch_counts()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                call()
+                torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            ev = prof.events()
+            aten = [e for e in ev if e.device_type == DeviceType.CPU and e.name.startswith("aten::")]
+            out[variant] = dict(
+                aten_ops_top_level=sum(e.cpu_parent is None for e in aten), aten_ops_all=len(aten),
+                device_kernels=sum(e.device_type == DeviceType.CUDA
+                                   and not e.name.lower().startswith(("memcpy", "memset")) for e in ev),
+                compaction_launches=counts["compaction"], wall_s=sorted(walls)[2],
+            )
+    finally:
+        cops.paged_kv_view = one_view
+    require(out["one_launch_view"]["compaction_launches"] == cfg.n_layers,
+            f"{cfg.name}: {out['one_launch_view']['compaction_launches']} compaction launches in a chunk call")
+    return out
 
 
 def serve_continuous_path(server, rng, vocab, name, need):
@@ -1119,11 +1285,15 @@ def serve_continuous_path(server, rng, vocab, name, need):
         require(((r.output >= 0) & (r.output < v)).all(), f"request {r.rid}: bad token ids")
         out_tokens += len(r.output)
     tiers = [r.tier for r in done]
+    by_rid = {r.rid: r for r in done}
     st = server.last_stream_stats
     result = dict(
         config=SERVE_CONFIG, paged=paged,
         n_pages=SERVE_CONFIG["n_slots"] * SERVE_CONFIG["max_seq"] // SERVE_CONFIG["page_size"] + 1,
         requests=len(reqs), prompt_tokens=int(sum(len(r.tokens) for r in reqs)),
+        # tier, truncation flag and tokens of every request, in submission order
+        outputs_digest=outputs_digest(*(np.concatenate([[by_rid[q.rid].tier, by_rid[q.rid].truncated],
+                                                        by_rid[q.rid].output]) for q in reqs)),
         wall_s=wall, output_tokens=out_tokens, output_tokens_per_s=out_tokens / wall,
         tier_counts=[tiers.count(i) for i in range(n_tiers)],
         truncated=sum(r.truncated for r in done),
@@ -1172,8 +1342,12 @@ def main(argv=None):
     log(f"build: {len(libs)} kernels in {build_s:.1f}s -> {sorted(str(p.name) for p in libs.values())}")
 
     g = torch.Generator(device=dev).manual_seed(args.seed)
+    # the cases added with the compaction and agreement redesign draw from
+    # their own stream, so every other check sees the inputs it always had
+    gx = torch.Generator(device=dev).manual_seed(args.seed + 1)
     checks = []
-    for fn in (check_agreement, check_compaction, check_flash, check_decode, check_decode_paged, check_ssd, check_wkv6):
+    for fn in (functools.partial(check_agreement, gx=gx), functools.partial(check_compaction, gx=gx),
+               check_flash, check_decode, check_decode_paged, check_ssd, check_wkv6):
         r = fn(dev, g)
         log(f"kernel {r['name']}: {json.dumps(r)}")
         checks.append(r)

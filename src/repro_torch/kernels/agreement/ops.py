@@ -5,13 +5,12 @@ paper's deferral rules r_v (Eq. 3) and r_s (Eq. 4).
 ``member_stats`` is the V sweep (max, first-index argmax, sum exp(x-max)
 per member).  On a CUDA tensor it launches ``csrc/agreement.cu``, which
 replaces ``src/repro/kernels/agreement/kernel.py`` ``member_stats_pallas``
-and is bound by the E*B*V*4 bytes it reads; on a CPU tensor it runs the
-plain version below.  The O(E^2 B) vote epilogue is plain PyTorch on
+and is bound by the E*B*V*4 bytes it reads (each row split over a cluster
+of up to 8 blocks, one launch); on a CPU tensor it runs the plain version
+below.  The O(E^2 B) vote epilogue is plain PyTorch on
 either device, as in the JAX package.
 """
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
@@ -29,17 +28,18 @@ def member_stats_plain(logits: torch.Tensor):
 
 
 def _member_stats_cuda(logits: torch.Tensor):
-    build.require_cuda(logits, "member_stats logits", (torch.float32,))
+    build.require_cuda(logits, "member_stats logits", (torch.float32,), align=4)
+    if logits.ndim != 3:
+        raise ValueError(f"member_stats: expected logits (E, B, V), got {tuple(logits.shape)}")
     E, B, V = logits.shape
     m = torch.empty((E, B), dtype=torch.float32, device=logits.device)
     l = torch.empty_like(m)
     idx = torch.empty((E, B), dtype=torch.int32, device=logits.device)
-    lib = build.library("agreement")
-    rc = lib.agreement_member_stats(
-        build.ptr(logits), build.ptr(m), build.ptr(idx), build.ptr(l),
-        ctypes.c_int(E * B), ctypes.c_int(V), build.stream_ptr(logits),
+    rc = build.entry("agreement", "agreement_member_stats")(
+        logits.data_ptr(), m.data_ptr(), idx.data_ptr(), l.data_ptr(), E * B, V, build.stream_ptr(logits),
     )
-    build.check(lib, rc, "agreement_member_stats")
+    if rc:
+        build.check(build.library("agreement"), rc, "agreement_member_stats")
     _LAUNCHES.add(1)
     return m, idx, l
 

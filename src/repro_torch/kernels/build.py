@@ -16,6 +16,7 @@ decode kernels).
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -38,13 +39,14 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
+_P, _I, _L, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_longlong, ctypes.c_float
 # argtypes of every exported entry point (all return a cudaError_t as int)
 SIGNATURES = {
     "agreement": {"agreement_member_stats": [_P, _P, _P, _P, _I, _I, _P]},
     "compaction": {
-        "compaction_scan": [_P, _P, _P, _I, _P],
-        "compaction_gather": [_P, _P, _P, _I, _L, _I, _P],
+        "compaction_compact": [_P, _I, _P, _P, _P, _I, _P],
+        "compaction_gather": [_P, _I, _P, _I, _P],
+        "compaction_paged_kv_view": [_P] * 5 + [_I] * 5 + [_LL, _I, _P],
     },
     "flash_attention": {"flash_attention_fwd": [_P] * 5 + [_I] * 8 + [_F] * 2 + [_P]},
     "decode_attention": {
@@ -148,8 +150,19 @@ def library(name: str) -> ctypes.CDLL:
         return _LIBS[name]
 
 
-def stream_ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+@functools.cache
+def entry(name: str, fn: str):
+    """The ctypes function ``fn`` of ``csrc/<name>.cu``, looked up once, so
+    a wrapper's later calls skip ``library()``'s lock."""
+    return getattr(library(name), fn)
+
+
+def stream_ptr(t: torch.Tensor) -> int:
+    """PyTorch's current stream on ``t``'s device, as the raw handle a
+    launch takes.  The raw getter (the one Triton's launcher uses) skips
+    building a ``torch.cuda.Stream`` object, which cost several µs of host
+    time a launch."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

@@ -32,7 +32,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.compaction.ops import gather_rows_plain
+from repro_torch.kernels.compaction.ops import gather_rows_plain, member_pool, paged_pool_view
 
 _LAUNCHES = build.launch_counter("decode_attention")
 _PAGED_LAUNCHES = build.launch_counter("decode_attention_paged")
@@ -122,38 +122,8 @@ def decode_attention_bksd(
 # ---------------------------------------------------------------------------
 
 
-def pool_row_index(pages: torch.Tensor, E: int, P: int) -> torch.Tensor:
-    """(E * B * n_pg,) row index into a member-stacked pool flattened to
-    (E * P, ...): member e's copy of table entry p is row e * P + p; -1
-    (unmapped) stays -1."""
-    flat = pages.reshape(-1).to(torch.int32)
-    off = torch.arange(E, dtype=torch.int32, device=pages.device)[:, None] * P
-    return torch.where(flat >= 0, flat[None, :] + off, -1).reshape(-1)
-
-
-def _member_pool(pool: torch.Tensor) -> torch.Tensor:
-    return pool[None] if pool.ndim == 4 else pool
-
-
-def paged_pool_view(pool: torch.Tensor, pages: torch.Tensor, gather) -> torch.Tensor:
-    """(E*B, KVH, n_pg * page_size, hd) per-slot contiguous view of an
-    (E, P, KVH, page_size, hd) pool (or a 4-D pool, E = 1) through the
-    (B, n_pg) table; unmapped entries come out as zero rows.  ``gather`` is
-    the row gather: ``compaction.ops.gather_rows`` (the kernel on a CUDA
-    tensor) or its plain version."""
-    pool = _member_pool(pool)
-    E, P, KVH, ps, hd = pool.shape
-    B, n_pg = pages.shape
-    rows = gather(pool.reshape(E * P, KVH, ps, hd), pool_row_index(pages, E, P))
-    return (
-        rows.reshape(E * B, n_pg, KVH, ps, hd)
-        .permute(0, 2, 1, 3, 4)
-        .reshape(E * B, KVH, n_pg * ps, hd)
-    )
-
-
 def decode_attention_paged_plain(q, k_pool, v_pool, pages, cur_len, *, window=None, softcap=None):
-    E = _member_pool(k_pool).shape[0]
+    E = member_pool(k_pool).shape[0]
     cur = torch.as_tensor(cur_len, device=q.device).reshape(-1).repeat(E)
     return decode_attention_plain(
         q, paged_pool_view(k_pool, pages, gather_rows_plain),
@@ -168,7 +138,7 @@ def _paged_cuda(q, k_pool, v_pool, pages, cur_len, *, window, softcap):
     # them once per decode step, not once per layer
     build.require_cuda(pages, "decode_attention_paged pages", (torch.int32,), align=4)
     build.require_cuda(cur_len, "decode_attention_paged cur_len", (torch.int32,), align=4)
-    pool = _member_pool(k_pool)
+    pool = member_pool(k_pool)
     E, P, KVH, ps, hd = pool.shape
     B, n_pg = pages.shape
     H = q.shape[2]
@@ -206,7 +176,7 @@ def decode_attention_paged(
     docstring for the layouts."""
     if k_pool.shape != v_pool.shape:
         raise ValueError(f"pool mismatch: k {tuple(k_pool.shape)} v {tuple(v_pool.shape)}")
-    if q.shape[0] != _member_pool(k_pool).shape[0] * pages.shape[0] or cur_len.shape != pages.shape[:1]:
+    if q.shape[0] != member_pool(k_pool).shape[0] * pages.shape[0] or cur_len.shape != pages.shape[:1]:
         raise ValueError(
             f"decode_attention_paged: q {tuple(q.shape)}, pool {tuple(k_pool.shape)}, page table "
             f"{tuple(pages.shape)} and cur_len {tuple(cur_len.shape)} do not agree"

@@ -266,17 +266,6 @@ def _chunk_attend(q, k_view, v_view, positions, cfg: ModelConfig, sliding_window
 # ---------------------------------------------------------------------------
 
 
-def paged_view(pool, pages):
-    """Gather per-slot contiguous cache views out of a paged pool.
-
-    pool: (E, P, KVH, page_size, hd) (or (P, ...), E = 1); pages: (B, n_pg)
-    int32 table on the pool's device, -1 = unmapped (zero rows).  Returns
-    (E*B, KVH, n_pg * page_size, hd) — by construction exactly the dense
-    cache's rows.  The rows move through ``compaction.ops.gather_rows``, the
-    compaction kernel on a CUDA tensor."""
-    return dec_ops.paged_pool_view(pool, pages, compaction_ops.gather_rows)
-
-
 class PagedStep(NamedTuple):
     """One decode step's addressing of the paged pools, built once per step
     by ``paged_step`` and shared by every layer: nothing here is re-sent to
@@ -346,8 +335,7 @@ def attention_prefill_chunk_paged(p, x, cfg: ModelConfig, k_pool, v_pool, start:
     members = torch.arange(E, device=x.device)[:, None]
     k_pool[members, pg, :, off] = k[:, 0].to(k_pool.dtype)
     v_pool[members, pg, :, off] = v[:, 0].to(v_pool.dtype)
-    k_view = paged_view(k_pool, pages_row[None])  # (E, KVH, S, hd)
-    v_view = paged_view(v_pool, pages_row[None])
+    k_view, v_view = compaction_ops.paged_kv_view(k_pool, v_pool, pages_row[None])  # (E, KVH, S, hd)
     ctx = _chunk_attend(_fold(q), k_view, v_view, positions, cfg, sliding_window)
     return attn_output(p, ctx.reshape(q.shape), cfg)
 

@@ -5,10 +5,10 @@ where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
-Tolerances: argmax, max, index maps and compacted payloads exact; sumexp
-rel 1e-5; bf16 attention outputs abs 2e-2 (inputs ~N(0, 1); the flash
-kernel rounds P to bf16 before the PV product); the paged decode kernel
-bitwise equal to the dense one on the gathered view.  The SSD and WKV6
+Tolerances: argmax, max, index maps, compacted payloads and paged K/V
+views exact; sumexp rel 1e-5; bf16 attention outputs abs 2e-2 (inputs
+~N(0, 1); the flash kernel rounds P to bf16 before the PV product); the
+paged decode kernel bitwise equal to the dense one on the gathered view.  The SSD and WKV6
 scans (the WKV6 kernel and the SSD's f32 route run the per-step
 recurrence, the SSD's bf16 route the chunked dual form on TF32 tensor
 cores, the plain versions the chunked form in f32): outputs
@@ -73,6 +73,152 @@ def test_compact_exact(cuda, dtype, kind):
     p_im, p_cnt = compact.compact_indices_plain(mask)
     assert torch.equal(im, p_im) and int(cnt) == int(p_cnt)
     assert torch.equal(out, compact.gather_rows_plain(x, p_im))
+
+
+def _device_kernels(fn):
+    """Device kernels one call of ``fn`` launches, from torch.profiler (a
+    trace now and then holds no device records: take another)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if dev:
+            return len([e for e in dev if not e.name.lower().startswith(("memcpy", "memset"))])
+    pytest.fail("torch.profiler recorded no device activity")
+
+
+def _mixed_leaves(B, n, cuda):
+    """``n`` leaves of mixed dtypes and row widths (20, 14, 12, 5, 32, 1024
+    bytes, and the (B,) row index), as the tier transition hands them over."""
+    g = torch.Generator().manual_seed(B + n)
+    makers = [
+        lambda: torch.randn(B, 5, generator=g),
+        lambda: torch.randn(B, 7, generator=g).to(torch.bfloat16),
+        lambda: torch.randint(-2**31, 2**31 - 1, (B, 3), generator=g, dtype=torch.int32),
+        lambda: torch.randint(0, 256, (B, 5), generator=g, dtype=torch.uint8),
+        lambda: torch.randn(B, 2, 4, generator=g),
+        lambda: torch.randint(0, 151936, (B, 256), generator=g, dtype=torch.int32),
+    ]
+    tree = {f"leaf{i}": makers[i % len(makers)]().to(cuda) for i in range(n - 1)}
+    tree["__idx"] = torch.arange(B, dtype=torch.int32, device=cuda)
+    return tree
+
+
+@pytest.mark.parametrize("n_leaves", [1, 3, 8, 11])
+@pytest.mark.parametrize("B", [1, 32, 1500, 5000])
+@pytest.mark.parametrize("kind", ["all", "none", "random"])
+def test_compact_tree_one_launch(cuda, kind, B, n_leaves):
+    """The scan and up to 8 leaves in one launch (a further one for leaves
+    9-11), every leaf exact; B 5000 spans many scan steps and blocks."""
+    tree = _mixed_leaves(B, n_leaves, cuda)
+    mask = {"all": torch.ones(B, dtype=torch.bool), "none": torch.zeros(B, dtype=torch.bool),
+            "random": _randn(B, seed=B) > 0}[kind].to(cuda)
+    before = kernels.launch_counts()["compaction"]
+    out, im, cnt = compact.compact_tree(tree, mask)
+    launches = 1 if n_leaves <= compact.MAX_LEAVES else 2
+    assert kernels.launch_counts()["compaction"] == before + launches
+    p_im, p_cnt = compact.compact_indices_plain(mask)
+    assert torch.equal(im, p_im) and int(cnt) == int(p_cnt) == int(mask.sum())
+    for k, v in tree.items():
+        assert out[k].dtype == v.dtype and torch.equal(out[k], compact.gather_rows_plain(v, p_im)), k
+    if B == 1500 and kind == "random":
+        assert _device_kernels(lambda: compact.compact_tree(tree, mask)) == launches
+
+
+def test_compact_indices_and_gather_rows_one_launch_each(cuda):
+    mask = (_randn(777, seed=3) > 0.3).to(cuda)
+    before = kernels.launch_counts()["compaction"]
+    im, cnt = compact.compact_indices(mask)
+    p_im, p_cnt = compact.compact_indices_plain(mask)
+    assert torch.equal(im, p_im) and int(cnt) == int(p_cnt)
+    x = _randn(500, 9, seed=4).to(cuda, torch.bfloat16)
+    idx = torch.tensor([499, -1, 0, 7, 7, -1, 3], dtype=torch.int32, device=cuda)  # fewer rows than x, repeats
+    assert torch.equal(compact.gather_rows(x, idx), compact.gather_rows_plain(x, idx))
+    assert kernels.launch_counts()["compaction"] == before + 2
+    assert _device_kernels(lambda: compact.compact_indices(mask)) == 1
+
+
+def _pools_and_table(E, P, KVH, ps, hd, B, n_pg, dtype, cuda, seed):
+    """Two pools and a shuffled (B, n_pg) table: slot b maps a random number
+    of distinct pages, -1 past it and at a hole inside it."""
+    g = torch.Generator().manual_seed(seed)
+    kp, vp = (torch.randn(E, P, KVH, ps, hd, generator=g).to(dtype) for _ in range(2))
+    perm = torch.randperm(P - 1, generator=g).to(torch.int32)
+    pages = torch.full((B, n_pg), -1, dtype=torch.int32)
+    used = 0
+    for b in range(B):
+        n = int(torch.randint(1, n_pg + 1, (1,), generator=g))
+        pages[b, :n] = perm[used:used + n]
+        used += n
+        if n > 2:
+            pages[b, n // 2] = -1
+    return kp.to(cuda), vp.to(cuda), pages.to(cuda)
+
+
+# chunked admission's shapes: qwen2.5-3b (E 3, KVH 2) and internlm2-1.8b
+# (E 1, KVH 8), hd 128, 16-row pages, n_pg 32; then page size 64, several
+# slots, hd 80 and a tile that is not a multiple of 16 bytes (f32, hd 3)
+VIEW_CASES = [
+    dict(E=3, KVH=2, ps=16, hd=128, B=1, n_pg=32, dtype=torch.bfloat16),
+    dict(E=1, KVH=8, ps=16, hd=128, B=1, n_pg=32, dtype=torch.bfloat16),
+    dict(E=3, KVH=2, ps=64, hd=128, B=4, n_pg=8, dtype=torch.bfloat16),
+    dict(E=2, KVH=4, ps=16, hd=80, B=3, n_pg=5, dtype=torch.bfloat16),
+    dict(E=1, KVH=2, ps=16, hd=3, B=2, n_pg=6, dtype=torch.float32),
+]
+
+
+@pytest.mark.parametrize("case", VIEW_CASES, ids=lambda c: f"E{c['E']}-KVH{c['KVH']}-ps{c['ps']}-hd{c['hd']}-B{c['B']}")
+def test_paged_kv_view_bitwise_one_launch(cuda, case):
+    c = dict(case)
+    B, n_pg = c.pop("B"), c.pop("n_pg")
+    kp, vp, pages = _pools_and_table(c["E"], B * n_pg + 1, c["KVH"], c["ps"], c["hd"], B, n_pg,
+                                     c["dtype"], cuda, seed=B * n_pg)
+    before = kernels.launch_counts()["compaction"]
+    k_view, v_view = compact.paged_kv_view(kp, vp, pages)
+    assert kernels.launch_counts()["compaction"] == before + 1
+    p_k, p_v = compact.paged_kv_view_plain(kp, vp, pages)
+    assert torch.equal(k_view, p_k) and torch.equal(v_view, p_v)
+    assert k_view.is_contiguous() and v_view.is_contiguous()
+    if c["E"] == 1:  # a 4-D pool is one member plane
+        k4, v4 = compact.paged_kv_view(kp[0], vp[0], pages)
+        assert torch.equal(k4, k_view) and torch.equal(v4, v_view)
+    assert _device_kernels(lambda: compact.paged_kv_view(kp, vp, pages)) == 1
+
+
+def _slice_edges(V, clusters=(2, 4, 8)):
+    """Element indices where the kernel's V slices meet (a row over a
+    cluster of C blocks, ceil(V / 4 / C) float4s a block)."""
+    n4 = V // 4
+    return sorted({4 * -(-n4 // C) * r for C in clusters for r in range(1, C)})
+
+
+@pytest.mark.parametrize("V", [500, 92544, 151936, 151937])
+@pytest.mark.parametrize("EB", [(3, 8), (3, 32)])
+def test_agreement_clusters_ties_across_slices(cuda, EB, V):
+    """E*B 24 and 96 rows (clusters of 8 and 4 blocks at the long
+    vocabularies), the max tied across every candidate slice edge, at the
+    ragged tail and between head and tail; V 151937 starts most rows off a
+    16-byte boundary.  Argmax and max exact, sumexp rel 1e-5, one launch."""
+    E, B = EB
+    x = _randn(E, B, V, seed=V + B)
+    for r, edge in enumerate(e for e in _slice_edges(V) if e < V):
+        x[:, r % B, edge - 1] = x[:, r % B, edge] = 30.0 + r
+    x[1, 0, V - 1] = x[1, 0, V - 2] = 90.0
+    x[2, B - 1, 0] = x[2, B - 1, V - 1] = 95.0
+    x = x.to(cuda)
+    before = kernels.launch_counts()["agreement"]
+    m, idx, l = agree.member_stats(x)
+    assert kernels.launch_counts()["agreement"] == before + 1
+    pm, pidx, pl = agree.member_stats_plain(x)
+    assert torch.equal(idx, pidx) and torch.equal(m, pm)
+    torch.testing.assert_close(l, pl, rtol=1e-5, atol=0)
+    assert idx[1, 0] == V - 2 and idx[2, B - 1] == 0
 
 
 FLASH_CASES = [

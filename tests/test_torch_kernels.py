@@ -2,8 +2,8 @@
 CPU) with the JAX package's ``impl='xla'`` paths, on the same numpy
 inputs.  Float outputs: rtol 1e-5 / atol 1e-6 for f32 (two frameworks sum
 in different orders); discrete outputs (argmax, votes, index maps, counts,
-compacted payloads) must be equal.  ``test_torch_cuda.py`` holds the CUDA
-kernels against these plain versions on the card."""
+compacted payloads, paged K/V views) must be equal.  ``test_torch_cuda.py``
+holds the CUDA kernels against these plain versions on the card."""
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
@@ -14,6 +14,7 @@ from repro.kernels.agreement import ops as j_agree
 from repro.kernels.compaction import ops as j_compact
 from repro.kernels.decode_attention import ops as j_decode
 from repro.kernels.flash_attention import ops as j_flash
+from repro.models import layers as j_layers
 from repro_torch.kernels.agreement import ops as t_agree
 from repro_torch.kernels.agreement import ref as t_agree_ref
 from repro_torch.kernels.compaction import ops as t_compact
@@ -58,6 +59,35 @@ def test_agreement_matches_jax(E, B, V, ties):
     oracle = t_agree_ref.agreement_ref(torch.from_numpy(x))
     np.testing.assert_array_equal(got["pred"].numpy(), oracle["pred"].numpy())
     np.testing.assert_allclose(got["mean_score"].numpy(), oracle["mean_score"].numpy(), rtol=RTOL, atol=ATOL)
+
+
+def _slice_edges(V, clusters=(2, 4, 8)):
+    """Element indices where the card kernel's V slices meet (a row split
+    over a cluster of C blocks, ceil(V / 4 / C) float4s a block)."""
+    n4 = V // 4
+    return sorted({4 * -(-n4 // C) * r for C in clusters for r in range(1, C)})
+
+
+@pytest.mark.parametrize("V", [92544, 151936, 151937])
+def test_agreement_ties_across_slice_edges_match_jax(V):
+    """The max hit on both sides of every slice edge (and at the ragged
+    tail): the first index wins, in the port and in the JAX package."""
+    E, B = 3, 4
+    x = _logits(E, B, V, seed=V)
+    for r, edge in enumerate(_slice_edges(V)):
+        b = r % B
+        x[:, b, edge - 1] = x[:, b, edge] = 30.0 + r  # first index: edge - 1
+    x[1, 0, V - 1] = x[1, 0, V - 2] = 90.0  # a tie at the tail: V - 2 wins
+    x[2, 3, 0] = x[2, 3, V - 1] = 95.0  # head against tail: 0 wins
+    m, idx, l = t_agree.member_stats(torch.from_numpy(x))
+    j_m, j_idx, j_l = (np.asarray(a) for a in j_agree._xla_member_stats(jnp.asarray(x)))
+    np.testing.assert_array_equal(idx.numpy(), j_idx)
+    np.testing.assert_array_equal(m.numpy(), j_m)
+    np.testing.assert_allclose(l.numpy(), j_l, rtol=1e-5)
+    assert idx[1, 0] == V - 2 and idx[2, 3] == 0
+    got, ref = t_agree.agreement(torch.from_numpy(x)), j_agree.agreement(jnp.asarray(x))
+    np.testing.assert_array_equal(got["pred"].numpy(), np.asarray(ref["pred"]))
+    np.testing.assert_allclose(got["mean_score"].numpy(), np.asarray(ref["mean_score"]), rtol=RTOL, atol=ATOL)
 
 
 def test_member_stats_first_index_ties():
@@ -127,6 +157,98 @@ def test_gather_rows_more_rows_than_source():
     im = torch.tensor([3, -1, 0, 3, 1, -1], dtype=torch.int32)
     out = t_compact.gather_rows(x, im)
     np.testing.assert_array_equal(out.numpy(), np.asarray(j_compact.gather_rows(jnp.asarray(x.numpy()), jnp.asarray(im.numpy()))))
+
+
+def _mixed_tree(B, n_leaves, seed):
+    """Leaves of mixed dtypes whose rows are mostly not a multiple of 16
+    bytes (f32 x 5 = 20 B, bf16 x 7 = 14 B, i32 x 3 = 12 B, uint8 x 5),
+    plus a (B,) row index; more than 8 leaves spill into a second launch on
+    the card.  Returns (numpy tree for JAX, torch tree)."""
+    rng = np.random.default_rng(seed)
+    makers = [
+        lambda: rng.standard_normal((B, 5)).astype(np.float32),
+        lambda: rng.standard_normal((B, 7)).astype(np.float32).astype(ml_dtypes.bfloat16),
+        lambda: rng.integers(-2**31, 2**31 - 1, (B, 3)).astype(np.int32),
+        lambda: rng.integers(0, 256, (B, 5)).astype(np.uint8),
+        lambda: (rng.standard_normal((B, 2, 4)) * 1e4).astype(np.float32),
+    ]
+    j_tree = {f"leaf{i}": makers[i % len(makers)]() for i in range(n_leaves - 1)}
+    j_tree["__idx"] = np.arange(B, dtype=np.int32)
+    return j_tree, {k: _torch_of(v) for k, v in j_tree.items()}
+
+
+def _torch_of(a):
+    """A numpy array as a torch tensor; bf16 through f32, which is exact."""
+    if a.dtype == ml_dtypes.bfloat16:
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+@pytest.mark.parametrize("n_leaves", [3, 5, 11])
+@pytest.mark.parametrize("B", [1, 13, 40])
+@pytest.mark.parametrize("kind", ["all", "none", "random"])
+def test_compact_tree_mixed_dtypes_matches_jax_and_ref(kind, B, n_leaves):
+    j_tree, tree = _mixed_tree(B, n_leaves, seed=B + n_leaves)
+    mask = _mask(kind, B, seed=B)
+    out, im, cnt = t_compact.compact_tree(tree, torch.from_numpy(mask))
+    j_out, j_im, j_cnt = j_compact.compact_tree({k: jnp.asarray(v) for k, v in j_tree.items()}, jnp.asarray(mask))
+    np.testing.assert_array_equal(im.numpy(), np.asarray(j_im))
+    assert int(cnt) == int(j_cnt) == mask.sum()
+    for k, v in tree.items():
+        assert out[k].dtype == v.dtype and out[k].shape == v.shape
+        np.testing.assert_array_equal(_np(out[k]), np.asarray(j_out[k]).astype(_np(out[k]).dtype))
+        r_out, r_im, r_cnt = t_compact_ref.compact_ref(v, torch.from_numpy(mask))
+        assert torch.equal(out[k], r_out) and torch.equal(im, r_im) and int(r_cnt) == int(cnt)
+
+
+def _view_inputs(E, ps, dtype, seed, P=21, KVH=2, hd=8, B=3, n_pg=6):
+    """Pools (E, P, KVH, ps, hd) and a shuffled (B, n_pg) table: slot b maps
+    a prefix of distinct random pages, -1 past its length and at holes
+    inside it."""
+    rng = np.random.default_rng(seed)
+    pools = [rng.standard_normal((E, P, KVH, ps, hd)).astype(np.float32) for _ in range(2)]
+    if dtype == "bfloat16":
+        pools = [p.astype(ml_dtypes.bfloat16) for p in pools]
+    perm = rng.permutation(P - 1).astype(np.int32)
+    pages = np.full((B, n_pg), -1, np.int32)
+    used = 0
+    for b, n in enumerate((n_pg, 4, 1)[:B]):
+        pages[b, :n] = perm[used:used + n]
+        used += n
+    pages[0, 2] = pages[1, 1] = -1  # holes inside the used length
+    return pools, pages
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("ps", [16, 64])
+@pytest.mark.parametrize("E", [1, 3])
+def test_paged_kv_view_matches_jax_paged_view(E, ps, dtype):
+    """The K/V view chunked prefill reads (one launch on the card) is, plane
+    by plane, bitwise the JAX package's ``layers.paged_view``."""
+    (kp, vp), pages = _view_inputs(E, ps, dtype, seed=E * ps)
+    k_view, v_view = t_compact.paged_kv_view(_torch_of(kp), _torch_of(vp), torch.from_numpy(pages))
+    B, n_pg = pages.shape
+    assert k_view.shape == v_view.shape == (E * B, kp.shape[2], n_pg * ps, kp.shape[4])
+    for got, pool in ((k_view, kp), (v_view, vp)):
+        for e in range(E):
+            ref = np.asarray(j_layers.paged_view(jnp.asarray(pool[e]), jnp.asarray(pages)))
+            np.testing.assert_array_equal(_np(got[e * B:(e + 1) * B]), ref.astype(np.float32))
+    # unmapped entries are zero rows; a 4-D pool is one member plane
+    assert not k_view[:B].reshape(B, -1, n_pg, ps, kp.shape[4])[1, :, 1].any()
+    if E == 1:
+        k4, v4 = t_compact.paged_kv_view(_torch_of(kp[0]), _torch_of(vp[0]), torch.from_numpy(pages))
+        assert torch.equal(k4, k_view) and torch.equal(v4, v_view)
+
+
+@pytest.mark.parametrize("E", [1, 3])
+def test_paged_kv_view_is_the_decode_paths_view(E):
+    """Both views are bitwise ``paged_pool_view`` through the plain row
+    gather — the view the paged decode's plain version attends over."""
+    (kp, vp), pages = _view_inputs(E, 16, "bfloat16", seed=7)
+    kt, vt, pt = _torch_of(kp), _torch_of(vp), torch.from_numpy(pages)
+    k_view, v_view = t_compact.paged_kv_view(kt, vt, pt)
+    assert torch.equal(k_view, t_decode.paged_pool_view(kt, pt, t_compact.gather_rows_plain))
+    assert torch.equal(v_view, t_decode.paged_pool_view(vt, pt, t_compact.gather_rows_plain))
 
 
 # ---------------------------------------------------------------------------
