@@ -48,9 +48,11 @@ Phases, in order; any failure raises and exits non-zero:
    prefill, decode and chunked prefill into a slot followed by a decode step
    for rwkv6-7b and zamba2-2.7b, and the same again in float32 (rwkv6-7b,
    and zamba2-2.7b's Mamba2 backbone) at a tight tolerance, where only
-   summation order differs; then a short ``serve_continuous`` on the
-   card with block-paged pools and with the dense slot cache, which must
-   emit equal tokens.
+   summation order differs; then short ``serve_continuous`` runs on the
+   card, each with the eager oracle and with the graphed slot programs:
+   the dense cascade with block-paged pools and with the dense slot cache,
+   the recurrent cascade with dense slot caches; all must emit equal
+   tokens.
 4. main path — two cascades at published widths and full depth, bf16
    weights drawn from ``--seed``, the second built after the first one's
    tensors are freed by reference counting alone (the cyclic collector is
@@ -65,12 +67,19 @@ Phases, in order; any failure raises and exits non-zero:
    tokens, and ``serve_continuous`` (8 slots, max_seq 512, chunked
    prefill; 16-token pages where the family pages, dense slot caches for
    the recurrent tiers) on 32 requests of 16-384 prompt tokens, 8 of them
-   sharing a 128-token prefix, 16 new tokens each; each run with the
-   launch counters zeroed just before and read just after.  Then one
+   sharing a 128-token prefix, 16 new tokens each: once with the eager
+   oracle, then twice with each tier's decode step and chunk buckets
+   captured as CUDA graphs (the first graphed run captures, the second
+   must capture nothing: ``trace_counts()`` flat); the three runs must
+   emit bitwise equal tokens, tiers and pool counters, launch every kernel
+   as often, and a graphed run peak within 2 GiB of the eager run's device
+   memory.  Each run with the launch counters zeroed just before and read
+   just after; the kernels line takes the second graphed run's.  Then one
    chunked-admission call of each paged tier under torch.profiler: its
    host operators, device kernels and compaction launches, with the
-   one-launch K/V view and with the two ``paged_pool_view`` calls it
-   replaced.
+   one-launch K/V view, with the two ``paged_pool_view`` calls it
+   replaced, and as a CUDA-graph replay (device kernels equal to the eager
+   call's).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -904,8 +913,9 @@ def layer_by_layer(cfg, vals, gvals, dev, x, cache=None, *, step=False, slot=Non
                 y = BD.dense_layer_decode(shared, x, cfg, kc, vc, api._positions(pos, "cpu"))
                 gy = BD.dense_layer_decode(gshared, x.to(dev), cfg, gk, gv, api._positions(pos, dev))
             else:
-                y = BD.dense_layer_prefill_chunk(shared, x, cfg, kc, vc, slot, start)
-                gy = BD.dense_layer_prefill_chunk(gshared, x.to(dev), cfg, gk, gv, slot, start)
+                at = lambda d: (api.slot_index(slot, d), api.slot_index(start, d))  # noqa: E731
+                y = BD.dense_layer_prefill_chunk(shared, x, cfg, kc, vc, *at(x.device))
+                gy = BD.dense_layer_prefill_chunk(gshared, x.to(dev), cfg, gk, gv, *at(gk.device))
             hold(gk, kc, f"attention {inv} k")
             hold(gv, vc, f"attention {inv} v")
         hold(gy, y, f"attention after layer {l}")
@@ -1041,10 +1051,12 @@ def serve_requests(rng, n, vocab, lo, hi, max_new, *, n_prefix=0, prefix_len=0):
     return reqs
 
 
-def check_serving_paged_vs_dense(dev, seed):
-    """A short ``serve_continuous`` on the card at reduced width, with
-    block-paged pools and with the dense slot cache: equal tokens, tiers
-    and truncation flags for every request."""
+def check_serving_on_card(dev, seed):
+    """Short ``serve_continuous`` runs on the card at reduced width, each
+    with the eager oracle and with the graphed slot programs: the dense
+    cascade with block-paged pools and with the dense slot cache, and the
+    recurrent cascade (dense slot caches).  Equal tokens, tiers and
+    truncation flags for every request in every run."""
     import copy
 
     from repro_torch.configs import get_config
@@ -1052,22 +1064,33 @@ def check_serving_paged_vs_dense(dev, seed):
     from repro_torch.core.cascade import TierSpec
     from repro_torch.serve import CascadeServer, CascadeTier, ServeConfig
 
-    c1, c2 = get_config("qwen2.5-3b").reduced(), get_config("internlm2-1.8b").reduced()
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    server = CascadeServer([
-        CascadeTier(c1, ens.init_ensemble(c1, 3, gen, dev), TierSpec("s", "vote", 0.5, k=3), device=dev),
-        CascadeTier(c2, ens.init_ensemble(c2, 1, gen, dev), TierSpec("b", "confidence", -1.0), device=dev),
-    ], device=dev)
-    reqs = serve_requests(np.random.default_rng(seed), 12, 512, 4, 60, 6, n_prefix=4, prefix_len=20)
-    outs = {}
-    for paged in (True, False):
-        run = [copy.deepcopy(r) for r in reqs]
-        done = server.serve_continuous(run, ServeConfig(n_slots=4, max_seq=128, page_size=16, paged=paged))
-        require(sorted(r.rid for r in done) == sorted(r.rid for r in reqs), f"paged={paged}: requests lost or doubled")
-        outs[paged] = {r.rid: (r.tier, r.truncated, r.output.tolist()) for r in done}
-    require(outs[True] == outs[False], "serve_continuous: paged and dense slot caches emit different tokens")
-    tiers = [t for t, _, _ in outs[True].values()]
-    return {"requests": len(reqs), "tier_counts": [tiers.count(0), tiers.count(1)], "paged_equals_dense": True}
+    out = {}
+    for a1, a2, modes in (("qwen2.5-3b", "internlm2-1.8b", (True, False)), ("zamba2-2.7b", "rwkv6-7b", (None,))):
+        c1, c2 = get_config(a1).reduced(), get_config(a2).reduced()
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        server = CascadeServer([
+            CascadeTier(c1, ens.init_ensemble(c1, 3, gen, dev), TierSpec("s", "vote", 0.5, k=3), device=dev),
+            CascadeTier(c2, ens.init_ensemble(c2, 1, gen, dev), TierSpec("b", "confidence", -1.0), device=dev),
+        ], device=dev)
+        vocab = min(c1.vocab_size, c2.vocab_size)
+        reqs = serve_requests(np.random.default_rng(seed), 12, vocab, 4, 60, 6, n_prefix=4, prefix_len=20)
+        runs = {}
+        for paged in modes:
+            for eager in (True, False):
+                run = [copy.deepcopy(r) for r in reqs]
+                done = server.serve_continuous(
+                    run, ServeConfig(n_slots=4, max_seq=128, page_size=16, paged=paged), eager=eager)
+                require(sorted(r.rid for r in done) == sorted(r.rid for r in reqs),
+                        f"{a1}: paged={paged} eager={eager}: requests lost or doubled")
+                runs[paged, eager] = {r.rid: (r.tier, r.truncated, r.output.tolist()) for r in done}
+        first = runs[modes[0], True]
+        for key, got in runs.items():
+            require(got == first, f"serve_continuous {a1} -> {a2}: (paged, eager) {key} emits other tokens "
+                                  f"than {(modes[0], True)}")
+        tiers = [t for t, _, _ in first.values()]
+        out[f"{a1} x3 -> {a2}"] = {"requests": len(reqs), "tier_counts": [tiers.count(0), tiers.count(1)],
+                                   "runs_equal": [f"paged={p} eager={e}" for p, e in runs]}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1111,6 +1134,7 @@ def main_path(dev, seed, name):
     from repro_torch.models import api
     from repro_torch.models.params import param_count
     from repro_torch.serve import CascadeServer, CascadeTier
+    from repro_torch.serve.graphs import trace_counts
 
     spec = CASCADES[name]
     a1, a2 = spec["tier1"], spec["tier2"]
@@ -1171,6 +1195,10 @@ def main_path(dev, seed, name):
         results["serve_continuous"], launches["serve_continuous"] = serve_continuous_path(
             servers["generate"], rng, vocab, name, spec["need"]["serve_continuous"],
         )
+        counts = trace_counts()
+        results["decode_step"] = {tier.spec.name: decode_step_profile(tier) for tier in servers["generate"].tiers}
+        require(trace_counts() == counts, f"{name}: the profiled decode steps captured again")
+        log(f"[{name}] one graphed decode step: {json.dumps(results['decode_step'])}")
         results["chunk_call"] = {
             tier.spec.name: chunk_call_profile(tier, rng) for tier in servers["generate"].tiers
             if api.supports_paging(tier.cfg)
@@ -1179,21 +1207,64 @@ def main_path(dev, seed, name):
     return results, launches
 
 
-def chunk_call_profile(tier, rng):
-    """One chunked-admission call of a paged tier at its published width
-    (a 256-token chunk at position 0 into a slot that maps 24 shuffled
-    pages of a 257-page pool, as ``SERVE_CONFIG`` sizes it), under
-    torch.profiler: host operators (top-level ``aten::`` calls, and all of
-    them), device kernels and the compaction launches, with the one-launch
-    K/V view and again with the two ``paged_pool_view`` calls through
-    ``gather_rows`` that it replaced (patched in for that run); and each
-    call's wall (median of 5, host clock to a synchronize)."""
+def profile_call(fn, reps=3):
+    """One call of ``fn`` after a warm call: its wall (median of 5, host
+    clock to a synchronize), then ``reps`` calls each under torch.profiler,
+    of which the one with the median count of device kernels gives its
+    host operators (top-level ``aten::`` calls, and all of them), device
+    kernels, device busy time (the kernels' summed durations), six
+    costliest kernels by name and the launch counters' delta.  The profiler
+    now and then drops or adds a record at the edge of its window, so one
+    profile's count can be off by one or two: the median of three is not."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import kernels
+
+    fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    runs = []
+    for _ in range(reps):
+        kernels.reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        ev = prof.events()
+        aten = [e for e in ev if e.device_type == DeviceType.CPU and e.name.startswith("aten::")]
+        dev_ev = [e for e in ev if e.device_type == DeviceType.CUDA
+                  and not e.name.lower().startswith(("memcpy", "memset"))]
+        by_name = {}
+        for e in dev_ev:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+        runs.append(dict(
+            aten_ops_top_level=sum(e.cpu_parent is None for e in aten), aten_ops_all=len(aten),
+            device_kernels=len(dev_ev), wall_s=sorted(walls)[2], device_busy_ms=sum(by_name.values()),
+            top_kernels_ms=dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:6]),
+            launches={k: v for k, v in counts.items() if v},
+        ))
+    out = sorted(runs, key=lambda r: r["device_kernels"])[reps // 2]
+    return dict(out, device_kernels_runs=[r["device_kernels"] for r in runs])
+
+
+def chunk_call_profile(tier, rng):
+    """One chunked-admission call of a paged tier at its published width
+    (a 256-token chunk at position 0 into a slot that maps 24 shuffled
+    pages of a 257-page pool, as ``SERVE_CONFIG`` sizes it), profiled
+    (``profile_call``) with the one-launch K/V view, again with the two
+    ``paged_pool_view`` calls through ``gather_rows`` that it replaced
+    (patched in for that run), and as a replay of the call captured in a
+    CUDA graph (the serving path's form: its device kernels must be the
+    eager call's)."""
     from repro_torch.core import ensemble as ens
     from repro_torch.kernels.compaction import ops as cops
+    from repro_torch.serve.graphs import GraphSet
 
     cfg, values, dev = tier.cfg, tier.values, tier.device
     ps = SERVE_CONFIG["page_size"]
@@ -1208,6 +1279,13 @@ def chunk_call_profile(tier, rng):
     def call():
         ens.ensemble_prefill_into_slot_paged(values, tokens, pools, pages_row, 0, cfg)
 
+    graphs = GraphSet(dev)
+
+    def graphed_call():
+        graphs.run(f"{cfg.name}/chunk_call_profile",
+                   lambda t, p, s: ens.ensemble_prefill_into_slot_paged(values, t, pools, p, s, cfg),
+                   tokens, pages, np.array([0]), bucket=len(tokens))
+
     def two_views(k_pool, v_pool, pages):
         return (cops.paged_pool_view(k_pool, pages, cops.gather_rows),
                 cops.paged_pool_view(v_pool, pages, cops.gather_rows))
@@ -1215,60 +1293,100 @@ def chunk_call_profile(tier, rng):
     out = {}
     one_view = cops.paged_kv_view
     try:
-        for variant, view in (("one_launch_view", one_view), ("two_paged_view_calls", two_views)):
+        for variant, view, fn in (("one_launch_view", one_view, call), ("two_paged_view_calls", two_views, call),
+                                  ("graphed", one_view, graphed_call)):
             cops.paged_kv_view = view
-            call()
-            torch.cuda.synchronize()
-            walls = []
-            for _ in range(5):
-                t0 = time.perf_counter()
-                call()
-                torch.cuda.synchronize()
-                walls.append(time.perf_counter() - t0)
-            kernels.reset_launch_counts()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                call()
-                torch.cuda.synchronize()
-            counts = kernels.launch_counts()
-            ev = prof.events()
-            aten = [e for e in ev if e.device_type == DeviceType.CPU and e.name.startswith("aten::")]
-            out[variant] = dict(
-                aten_ops_top_level=sum(e.cpu_parent is None for e in aten), aten_ops_all=len(aten),
-                device_kernels=sum(e.device_type == DeviceType.CUDA
-                                   and not e.name.lower().startswith(("memcpy", "memset")) for e in ev),
-                compaction_launches=counts["compaction"], wall_s=sorted(walls)[2],
-            )
+            out[variant] = profile_call(fn)
     finally:
         cops.paged_kv_view = one_view
-    require(out["one_launch_view"]["compaction_launches"] == cfg.n_layers,
-            f"{cfg.name}: {out['one_launch_view']['compaction_launches']} compaction launches in a chunk call")
+    for variant in ("one_launch_view", "graphed"):
+        require(out[variant]["launches"].get("compaction") == cfg.n_layers,
+                f"{cfg.name}: {out[variant]['launches']} launches in a {variant} chunk call")
+    require(out["graphed"]["device_kernels"] == out["one_launch_view"]["device_kernels"],
+            f"{cfg.name}: a graphed chunk call runs {out['graphed']['device_kernels']} device kernels, "
+            f"the eager call {out['one_launch_view']['device_kernels']}")
     return out
+
+
+def decode_step_profile(tier):
+    """One graphed decode step of a tier at the serving geometry
+    (``SERVE_CONFIG``: 8 slots, every slot at position 300), replaying the
+    graph its ``serve_continuous`` captured, profiled (``profile_call``)."""
+    from repro_torch.serve import TierBackend
+
+    cfg = SERVE_CONFIG
+    backend = TierBackend(tier, n_slots=cfg["n_slots"], max_seq=cfg["max_seq"], page_size=cfg["page_size"])
+    pos = np.full(cfg["n_slots"], 300, np.int32)
+    if backend.paged:
+        for s in range(cfg["n_slots"]):
+            backend.pool.admit(s, np.arange(301, dtype=np.int32) % tier.cfg.vocab_size, share=False)
+    tok = np.zeros((tier.k, cfg["n_slots"], 1), np.int32)
+    return profile_call(lambda: backend.decode(tok, pos))
 
 
 def serve_continuous_path(server, rng, vocab, name, need):
     """``serve_continuous`` at published widths: 32 requests of 16-384
     prompt tokens (8 sharing a 128-token prefix, 8 full pages where the
-    tier pages), 16 new tokens each, after a warm-up at a small shape."""
-    from repro_torch import kernels
-    from repro_torch.core.cascade import host_fetch_stats, reset_host_fetch_stats
-    from repro_torch.obs import Observability
+    tier pages), 16 new tokens each, after an eager warm-up at a small
+    shape; run once with the eager oracle, then graphed twice (the first
+    graphed run captures each tier's decode step and chunk buckets, the
+    second must capture nothing).  The three runs must emit bitwise the same
+    tokens, tiers and pool counters and launch each kernel as often, and a
+    graphed run's peak device memory stay within 2 GiB of the eager run's.
+    Returns (results, the second graphed run's launches)."""
     from repro_torch.serve import ServeConfig
 
     cfg = ServeConfig(**SERVE_CONFIG)
-    server.serve_continuous(serve_requests(rng, 4, vocab, 8, 40, 2, n_prefix=2, prefix_len=16), cfg)
-    reqs = serve_requests(rng, 32, vocab, 16, 384, 16, n_prefix=8, prefix_len=128)
+    server.serve_continuous(serve_requests(rng, 4, vocab, 8, 40, 2, n_prefix=2, prefix_len=16), cfg, eager=True)
+    state = rng.bit_generator.state
+    runs = {}
+    for run in ("eager", "graphed_1", "graphed_2"):
+        rng.bit_generator.state = state  # the same requests in every run
+        reqs = serve_requests(rng, 32, vocab, 16, 384, 16, n_prefix=8, prefix_len=128)
+        runs[run] = serve_continuous_run(server, reqs, cfg, name, run, need)
+    eager, g1, g2 = runs["eager"], runs["graphed_1"], runs["graphed_2"]
+    for run in ("graphed_1", "graphed_2"):
+        r = runs[run]
+        require(r["outputs_digest"] == eager["outputs_digest"] and r["pool_digest"] == eager["pool_digest"],
+                f"{name}: {run} serve_continuous emits other tokens, tiers or pool counters than the eager run")
+        require(r["launches"] == eager["launches"], f"{name}: {run} launches {r['launches']} != eager {eager['launches']}")
+        require(r["max_memory_allocated_gib"] <= eager["max_memory_allocated_gib"] + 2.0,
+                f"{name}: {run} peak device memory {r['max_memory_allocated_gib']:.2f} GiB against eager "
+                f"{eager['max_memory_allocated_gib']:.2f}")
+    require(g2["trace_counts"] == g1["trace_counts"], f"{name}: the second graphed serve_continuous captured again")
+    require(g1["trace_counts"] != eager["trace_counts"], f"{name}: the first graphed serve_continuous captured nothing")
+    captures = {k: v - eager["trace_counts"].get(k, 0) for k, v in g1["trace_counts"].items()
+                if v != eager["trace_counts"].get(k, 0)}
+    result = dict(runs, captures_graphed_1=captures,
+                  wall_speedup_graphed_2=eager["wall_s"] / g2["wall_s"])
+    log(f"[{name}] serve_continuous captures in the first graphed run: {json.dumps(captures)}; "
+        f"walls eager {eager['wall_s']:.4f}s, graphed {g1['wall_s']:.4f}s, {g2['wall_s']:.4f}s")
+    return result, g2["launches"]
+
+
+def serve_continuous_run(server, reqs, cfg, name, run, need):
+    """One timed ``serve_continuous`` (``run`` "eager" takes the oracle
+    route) with the launch counters, host fetches and peak memory reset
+    just before and read just after; checks its outputs and returns its
+    numbers."""
+    from repro_torch import kernels
+    from repro_torch.core.cascade import host_fetch_stats, reset_host_fetch_stats
+    from repro_torch.obs import Observability
+    from repro_torch.serve.graphs import capture_seconds, trace_counts
+
     ob = Observability()
+    cap0 = capture_seconds()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_host_fetch_stats()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    done = server.serve_continuous(reqs, dataclasses.replace(cfg, obs=ob))
+    done = server.serve_continuous(reqs, dataclasses.replace(cfg, obs=ob), eager=run == "eager")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = kernels.launch_counts()
     for kname in need:
-        require(counts[kname] > 0, f"{name} serve_continuous: kernel {kname} was not launched on the main path")
+        require(counts[kname] > 0, f"{name} serve_continuous ({run}): kernel {kname} was not launched on the main path")
     require(sorted(r.rid for r in done) == sorted(r.rid for r in reqs), "serve_continuous: a request was lost or doubled")
     require(len({id(r) for r in done}) == len(reqs), "serve_continuous: a request completed twice")
     reg = ob.registry
@@ -1287,34 +1405,38 @@ def serve_continuous_path(server, rng, vocab, name, need):
     tiers = [r.tier for r in done]
     by_rid = {r.rid: r for r in done}
     st = server.last_stream_stats
+    names = {t.cfg.name for t in server.tiers}
+    tier_stats = [dict(
+        decode_steps=reg.get(f"slot_stream.tier{i}.decode.dispatch_s").count,
+        decode_tokens=st[i]["decode_tokens"], chunk_calls=st[i]["chunk_calls"],
+        chunk_tokens=st[i]["chunk_tokens"], shared_tokens=st[i]["shared_tokens"],
+        peak_pages=reg.get(f"paging.tier{i}.pool_occupancy").peak if paged[i] else None,
+        shared_hits=reg.value(f"paging.tier{i}.shared_hits") if paged[i] else None,
+        forced_completions=st[i]["forced_completions"],
+    ) for i in range(n_tiers)]
     result = dict(
-        config=SERVE_CONFIG, paged=paged,
+        run=run, config=SERVE_CONFIG, paged=paged,
         n_pages=SERVE_CONFIG["n_slots"] * SERVE_CONFIG["max_seq"] // SERVE_CONFIG["page_size"] + 1,
         requests=len(reqs), prompt_tokens=int(sum(len(r.tokens) for r in reqs)),
         # tier, truncation flag and tokens of every request, in submission order
         outputs_digest=outputs_digest(*(np.concatenate([[by_rid[q.rid].tier, by_rid[q.rid].truncated],
                                                         by_rid[q.rid].output]) for q in reqs)),
+        # every tier's stream and pool counters
+        pool_digest=outputs_digest(*([-1 if v is None else v for v in t.values()] for t in tier_stats)),
         wall_s=wall, output_tokens=out_tokens, output_tokens_per_s=out_tokens / wall,
         tier_counts=[tiers.count(i) for i in range(n_tiers)],
         truncated=sum(r.truncated for r in done),
-        tiers=[dict(
-            decode_steps=reg.get(f"slot_stream.tier{i}.decode.dispatch_s").count,
-            decode_tokens=st[i]["decode_tokens"], chunk_calls=st[i]["chunk_calls"],
-            chunk_tokens=st[i]["chunk_tokens"], shared_tokens=st[i]["shared_tokens"],
-            peak_pages=reg.get(f"paging.tier{i}.pool_occupancy").peak if paged[i] else None,
-            # host clock: admission (page claims + chunked-prefill launches)
-            # and decode (launches + the one token fetch, which waits for
-            # the device); each step's host->device copies of positions and
-            # tables wait for the stream too
-            admit_s=st[i]["admit_time"], decode_s=st[i]["decode_time"],
-            shared_hits=reg.value(f"paging.tier{i}.shared_hits") if paged[i] else None,
-            forced_completions=st[i]["forced_completions"],
-        ) for i in range(n_tiers)],
+        # host clock: admission (page claims + chunked-prefill launches or
+        # replays) and decode (launches or a replay, and the one token fetch,
+        # which waits for the device); with graphs both are dispatch
+        tiers=[dict(t, admit_s=st[i]["admit_time"], decode_s=st[i]["decode_time"]) for i, t in enumerate(tier_stats)],
         host_fetch=host_fetch_stats(), launches=counts,
+        trace_counts={k: v for k, v in trace_counts().items() if k.split("@")[0].split("/")[0] in names},
+        capture_s=capture_seconds() - cap0,
         max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30,
     )
-    log(f"[{name}] serve_continuous: {json.dumps(result)}")
-    return result, counts
+    log(f"[{name}] serve_continuous ({run}): {json.dumps(result)}")
+    return result
 
 
 def main(argv=None):
@@ -1354,8 +1476,8 @@ def main(argv=None):
     ref = check_reference(dev, args.seed)
     ref.update(check_reference_recurrent(dev, args.seed))
     log(f"reference (card vs cpu, normwise, tol {REF_TOL}): {json.dumps(ref)}")
-    ref["serve_continuous_paged_vs_dense"] = check_serving_paged_vs_dense(dev, args.seed)
-    log(f"serve_continuous on the card, paged vs dense: {json.dumps(ref['serve_continuous_paged_vs_dense'])}")
+    ref["serve_continuous_on_card"] = check_serving_on_card(dev, args.seed)
+    log(f"serve_continuous on the card, paged == dense, graphed == eager: {json.dumps(ref['serve_continuous_on_card'])}")
     results, launches = {}, {}
     # each cascade's weights and caches must be freed by reference counting
     # alone when it returns, before the next is built: the cyclic collector

@@ -37,9 +37,11 @@ def ensemble_decode_step(values, token, caches, pos, cfg: ModelConfig):
     return api.decode_step_members(values, token, caches, pos, cfg)
 
 
-def ensemble_prefill_into_slot(values, tokens, caches, slot: int, start: int, cfg: ModelConfig):
+def ensemble_prefill_into_slot(values, tokens, caches, slot, start, cfg: ModelConfig):
     """Chunked prefill of one slot for every member (member slot caches
-    from ``api.init_cache_members``, in place)."""
+    from ``api.init_cache_members``, in place); ``slot`` and ``start`` ints
+    or (1,) device tensors, as ``api.prefill_into_slot_members`` takes
+    them."""
     return api.prefill_into_slot_members(values, tokens, caches, slot, start, cfg)
 
 
@@ -55,8 +57,9 @@ def ensemble_decode_step_paged(values, token, pools, pos, pages, cfg: ModelConfi
     return api.decode_step_paged_members(values, token, pools, pos, pages, cfg)
 
 
-def ensemble_prefill_into_slot_paged(values, tokens, pools, pages_row, start: int, cfg: ModelConfig):
-    """Chunked prefill of one slot into every member plane of the pools."""
+def ensemble_prefill_into_slot_paged(values, tokens, pools, pages_row, start, cfg: ModelConfig):
+    """Chunked prefill of one slot into every member plane of the pools;
+    ``start`` an int or a (1,) device tensor."""
     return api.prefill_into_slot_paged_members(values, tokens, pools, pages_row, start, cfg)
 
 

@@ -240,7 +240,9 @@ def decode_step_members(params, token, cache, pos, cfg: ModelConfig, *, starts=N
     """One new token per member.  ``pos`` is the shared scalar position or
     a (B,) vector of per-slot positions (continuous batching).  token
     (E, B, 1); cache from ``init_cache_members``/``prefill_members``,
-    updated in place.  Returns (logits (E, B, V), cache)."""
+    updated in place.  Token and a vector ``pos`` already on the device
+    are used as they are (no copy), as a captured decode step needs.
+    Returns (logits (E, B, V), cache)."""
     _require_ported(cfg)
     device = params["embed"].device
     pos = _positions(pos, device)
@@ -257,6 +259,8 @@ def decode_step_members(params, token, cache, pos, cfg: ModelConfig, *, starts=N
         return L.project_logits(params, x[:, :, 0], cfg), cache
     for l in range(cfg.n_layers):
         x, st = _recurrent_layer(params, l, x, cfg, {n: cache[n][l] for n in _state_keys(cfg)}, step=True)
+        # written in place into the stacked leaf (never rebound): a
+        # captured decode step writes the same addresses at every replay
         for name, t in st.items():
             cache[name][l] = t
         if _attn_after(cfg, l):
@@ -314,19 +318,31 @@ def supports_paging(cfg: ModelConfig) -> bool:
     return cfg.family == "dense" and not cfg.is_encoder
 
 
-def prefill_into_slot_members(params, tokens, cache, slot: int, start: int, cfg: ModelConfig):
+def slot_index(v, device) -> torch.Tensor:
+    """A slot index or chunk offset as a (1,) int64 tensor on ``device``: a
+    device tensor passes through without a copy (a captured chunk program
+    reads it at every replay); a Python or numpy int is sent once."""
+    if isinstance(v, torch.Tensor) and v.device == torch.device(device):
+        return v.reshape(1).to(torch.int64)
+    return torch.tensor([int(v)], dtype=torch.int64, device=device)
+
+
+def prefill_into_slot_members(params, tokens, cache, slot, start, cfg: ModelConfig):
     """Consume a C-token chunk of one slot's prompt, positions
     [start, start+C), into every member's slot of the member slot cache
-    (``init_cache_members`` with batch = n_slots), in place.  Attention
+    (``init_cache_members`` with batch = n_slots), in place.  ``slot`` and
+    ``start`` are ints or (1,) device tensors (``slot_index``), ``tokens``
+    (C,) host or device: with device inputs nothing is copied from the host
+    and no value is read back, so the call can be captured.  Attention
     layers write K/V rows at the slot's offset; constant-state layers
-    continue the slot's recurrent state through the full-sequence block
-    forwards.  No logits: the last prompt token always goes through the
-    decode step, whose logits pick the first output token — which keeps
-    chunked and decode-only admission token-identical.  Returns the
-    cache."""
+    continue the slot's recurrent state (its rows selected and written back
+    by index) through the full-sequence block forwards.  No logits: the
+    last prompt token always goes through the decode step, whose logits
+    pick the first output token — which keeps chunked and decode-only
+    admission token-identical.  Returns the cache."""
     _require_ported(cfg)
     device = params["embed"].device
-    slot, start = int(slot), int(start)
+    slot, start = slot_index(slot, device), slot_index(start, device)
     x = embed_inputs(params, torch.as_tensor(tokens, device=device).to(torch.int64)[None])
     if cfg.family == "dense":
         for l in range(cfg.n_layers):
@@ -335,11 +351,10 @@ def prefill_into_slot_members(params, tokens, cache, slot: int, start: int, cfg:
                 sliding_window=cfg.sliding_window,
             )
         return cache
-    row = slice(slot, slot + 1)
     for l in range(cfg.n_layers):
-        x, st = _recurrent_layer(params, l, x, cfg, {n: cache[n][l][:, row] for n in _state_keys(cfg)})
+        x, st = _recurrent_layer(params, l, x, cfg, {n: cache[n][l].index_select(1, slot) for n in _state_keys(cfg)})
         for name, t in st.items():
-            cache[name][l][:, row] = t
+            cache[name][l].index_copy_(1, slot, t.to(cache[name].dtype))
         if _attn_after(cfg, l):
             inv = l // cfg.attn_every
             x = BD.dense_layer_prefill_chunk(
@@ -393,17 +408,20 @@ def decode_step_paged_members(params, token, pool, pos, pages, cfg: ModelConfig)
     return L.project_logits(params, x[:, :, 0], cfg), pool
 
 
-def prefill_into_slot_paged_members(params, tokens, pool, pages_row, start: int, cfg: ModelConfig):
+def prefill_into_slot_paged_members(params, tokens, pool, pages_row, start, cfg: ModelConfig):
     """Paged counterpart of ``prefill_into_slot_members``: the chunk's K/V
-    rows land in the pool pages the slot's (n_pg,) table row maps.  Returns
-    the pool (updated in place)."""
+    rows land in the pool pages the slot's (n_pg,) table row maps.
+    ``start`` an int or (1,) device tensor; tokens and table row host or
+    device (device inputs are used without a copy).  Returns the pool
+    (updated in place)."""
     assert supports_paging(cfg), cfg.family
     device = params["embed"].device
     pages_row = torch.as_tensor(pages_row, device=device).to(torch.int32)
+    start = slot_index(start, device)
     x = embed_inputs(params, torch.as_tensor(tokens, device=device).to(torch.int64)[None])
     for l in range(cfg.n_layers):
         x = BD.dense_layer_prefill_chunk_paged(
-            _layer(params, l), x, cfg, pool["k"][l], pool["v"][l], int(start), pages_row,
+            _layer(params, l), x, cfg, pool["k"][l], pool["v"][l], start, pages_row,
             sliding_window=cfg.sliding_window,
         )
     return pool
@@ -456,7 +474,7 @@ def _single_cache(cache):
     return {k: [t[0] for t in v] if isinstance(v, list) else v[:, 0] for k, v in cache.items()}
 
 
-def prefill_into_slot(params, tokens, cache, slot: int, start: int, cfg: ModelConfig):
+def prefill_into_slot(params, tokens, cache, slot, start, cfg: ModelConfig):
     """tokens (C,) for positions [start, start+C) of ``slot``; cache the
     single-model slot cache (``init_cache`` with batch = n_slots, updated
     in place).  Returns the cache."""
@@ -477,7 +495,7 @@ def decode_step_paged(params, token, pool, pos, pages, cfg: ModelConfig):
     return logits[0], pool
 
 
-def prefill_into_slot_paged(params, tokens, pool, pages_row, start: int, cfg: ModelConfig):
+def prefill_into_slot_paged(params, tokens, pool, pages_row, start, cfg: ModelConfig):
     """tokens (C,) for positions [start, start+C); pages_row the slot's
     (n_pg,) table row.  Returns the pool (updated in place)."""
     prefill_into_slot_paged_members(_members(params), tokens, _member_cache(pool), pages_row, start, cfg)

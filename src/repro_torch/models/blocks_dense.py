@@ -44,10 +44,11 @@ def dense_layer_decode(p, x, cfg: ModelConfig, k_cache, v_cache, cur_index, *,
     return _mlp_residual(p, x, cfg)
 
 
-def dense_layer_prefill_chunk(p, x, cfg: ModelConfig, k_cache, v_cache, slot: int, start: int, *,
+def dense_layer_prefill_chunk(p, x, cfg: ModelConfig, k_cache, v_cache, slot, start, *,
                               sliding_window: Optional[int] = None):
     """Chunked prefill for one slot.  x (E, 1, C, D); the layer's
-    (E, n_slots, KVH, S_max, hd) caches are written in place."""
+    (E, n_slots, KVH, S_max, hd) caches are written in place; ``slot`` and
+    ``start`` (1,) int64 device tensors."""
     x = x + L.attention_prefill_chunk(
         p["attn"], L.apply_norm(p["ln1"], x, cfg), cfg, k_cache, v_cache, slot, start,
         sliding_window=sliding_window,
@@ -55,10 +56,11 @@ def dense_layer_prefill_chunk(p, x, cfg: ModelConfig, k_cache, v_cache, slot: in
     return _mlp_residual(p, x, cfg)
 
 
-def dense_layer_prefill_chunk_paged(p, x, cfg: ModelConfig, k_pool, v_pool, start: int, pages_row, *,
+def dense_layer_prefill_chunk_paged(p, x, cfg: ModelConfig, k_pool, v_pool, start, pages_row, *,
                                     sliding_window: Optional[int] = None):
     """Chunked prefill for one slot against the layer's (E, P, KVH,
-    page_size, hd) pools, through the slot's (n_pg,) table row."""
+    page_size, hd) pools, through the slot's (n_pg,) table row; ``start`` a
+    (1,) int64 device tensor."""
     x = x + L.attention_prefill_chunk_paged(
         p["attn"], L.apply_norm(p["ln1"], x, cfg), cfg, k_pool, v_pool, start, pages_row,
         sliding_window=sliding_window,

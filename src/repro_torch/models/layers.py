@@ -211,26 +211,37 @@ def attention_decode(p, x, cfg: ModelConfig, k_cache, v_cache, cur_index, *,
     return attn_output(p, ctx.reshape(q.shape), cfg)
 
 
-def attention_prefill_chunk(p, x, cfg: ModelConfig, k_cache, v_cache, slot: int, start: int, *,
+def chunk_positions(start: torch.Tensor, C: int) -> torch.Tensor:
+    """(1, C) int64 positions [start, start + C) of a chunk whose first
+    position is the (1,) device tensor ``start``: built on the device, so a
+    captured chunk program reads a new offset at every replay."""
+    return start.reshape(1, 1).to(torch.int64) + torch.arange(C, device=start.device)[None, :]
+
+
+def attention_prefill_chunk(p, x, cfg: ModelConfig, k_cache, v_cache, slot: torch.Tensor, start: torch.Tensor, *,
                             sliding_window: Optional[int] = None):
     """Chunked-prefill attention for one slot (continuous batching).
 
     x: (E, 1, C, D) — a C-token chunk of one request's prompt; caches are
-    the layer's (E, n_slots, KVH, S_max, hd) slabs; ``start`` is the
-    absolute position of the chunk's first token.  Writes the chunk's K/V
-    at rows [start, start+C) of ``slot`` IN PLACE and attends each chunk
-    token causally over the slot's rows — row t is visible to chunk token j
-    iff t <= start+j, so stale rows of a slot's previous occupant stay
+    the layer's (E, n_slots, KVH, S_max, hd) slabs; ``slot`` and ``start``
+    (the absolute position of the chunk's first token) are (1,) int64
+    tensors on the cache's device, so nothing here is a Python int a graph
+    would freeze.  Writes the chunk's K/V at rows [start, start+C) of
+    ``slot`` IN PLACE (an index write) and attends each chunk token
+    causally over the slot's rows — row t is visible to chunk token j iff
+    t <= start+j, so stale rows of a slot's previous occupant stay
     invisible.  Returns out (E, 1, C, D)."""
     E, _, C, _ = x.shape
-    positions = start + torch.arange(C, device=x.device)[None, :]  # (1, C)
+    positions = chunk_positions(start, C)  # (1, C)
     q, k, v = qkv_project(p, x, cfg, positions)
-    k_cache[:, slot, :, start:start + C] = k[:, 0].transpose(1, 2).to(k_cache.dtype)
-    v_cache[:, slot, :, start:start + C] = v[:, 0].transpose(1, 2).to(v_cache.dtype)
-    # contiguous, like the paged path's gathered view, so both reach the
-    # same matmuls and stay bitwise equal
-    k_view = k_cache[:, slot].contiguous()
-    v_view = v_cache[:, slot].contiguous()
+    # (n_slots, S_max, E, KVH, hd) views: rows (slot, start + j) take token j
+    at = (slot, positions[0])
+    k_cache.permute(1, 3, 0, 2, 4).index_put_(at, k[:, 0].transpose(0, 1).to(k_cache.dtype))
+    v_cache.permute(1, 3, 0, 2, 4).index_put_(at, v[:, 0].transpose(0, 1).to(v_cache.dtype))
+    # the slot's (E, KVH, S_max, hd) rows, contiguous like the paged path's
+    # gathered view, so both reach the same matmuls and stay bitwise equal
+    k_view = k_cache.index_select(1, slot)[:, 0]
+    v_view = v_cache.index_select(1, slot)[:, 0]
     ctx = _chunk_attend(_fold(q), k_view, v_view, positions, cfg, sliding_window)
     return attn_output(p, ctx.reshape(q.shape), cfg)
 
@@ -315,19 +326,20 @@ def attention_decode_paged(p, x, cfg: ModelConfig, k_pool, v_pool, step: PagedSt
     return attn_output(p, ctx.reshape(q.shape), cfg)
 
 
-def attention_prefill_chunk_paged(p, x, cfg: ModelConfig, k_pool, v_pool, start: int, pages_row, *,
+def attention_prefill_chunk_paged(p, x, cfg: ModelConfig, k_pool, v_pool, start: torch.Tensor, pages_row, *,
                                   sliding_window: Optional[int] = None):
     """Chunked-prefill attention for one slot against the paged pool.
 
-    x: (E, 1, C, D); pools (E, P, KVH, page_size, hd); ``pages_row`` the
-    slot's (n_pg,) int32 table row on the pool's device.  The chunk's K/V
+    x: (E, 1, C, D); pools (E, P, KVH, page_size, hd); ``start`` the (1,)
+    int64 position of the chunk's first token and ``pages_row`` the slot's
+    (n_pg,) int32 table row, both on the pool's device.  The chunk's K/V
     rows scatter IN PLACE into the mapped pages at their in-page offsets,
     then the chunk attends over the slot's gathered view through the same
     ``_chunk_attend`` as the dense path — bitwise what the dense slot row
     computes.  Returns out (E, 1, C, D)."""
     E, _, C, _ = x.shape
     ps = k_pool.shape[-2]
-    positions = start + torch.arange(C, device=x.device)[None, :]  # (1, C)
+    positions = chunk_positions(start, C)  # (1, C)
     q, k, v = qkv_project(p, x, cfg, positions)
     pg = pages_row[positions[0] // ps].to(torch.int64)
     pg = torch.where(pg >= 0, pg, k_pool.shape[1] - 1)[None, :]  # overflow sink

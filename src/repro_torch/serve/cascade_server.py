@@ -41,6 +41,7 @@ from repro_torch.obs import UNIT_BUCKETS, Observability
 from repro_torch.serve.batching import Request
 from repro_torch.serve.config import ServeConfig
 from repro_torch.serve.engine import grow_cache
+from repro_torch.serve.graphs import Program
 from repro_torch.serve.slot_stream import SlotStream, TierBackend
 
 
@@ -78,8 +79,13 @@ def tier_programs(cfg: ModelConfig, temperature: float) -> SimpleNamespace:
         (B,) ``pos``, continuous batching over the dense slot cache)
     ``prefill_chunk(values, caches, tokens, slot, start) -> caches``
     ``reset_slot(caches, slot) -> caches`` (zero every member's recurrent
-        state in the slot; None for the dense family, which has none)."""
+        state in the slot; None for the dense family, which has none).
+
+    Each is a ``Program`` keyed ``"<cfg.name>@T<temperature>/ens_<name>"``,
+    the JAX package's keys; ``decode_slots`` and ``prefill_chunk`` are the
+    ones a tier's slot stream captures (``serve/graphs.py``)."""
     _require_greedy(temperature)
+    key = f"{cfg.name}@T{temperature:g}"
 
     def last_logits(values, batch):
         return ens.ensemble_last_logits(values, batch, cfg)
@@ -96,9 +102,17 @@ def tier_programs(cfg: ModelConfig, temperature: float) -> SimpleNamespace:
         return ens.ensemble_prefill_into_slot(values, tokens, caches, slot, start, cfg)
 
     return SimpleNamespace(
-        last_logits=last_logits, prefill=prefill, decode=decode, decode_slots=decode,
-        prefill_chunk=prefill_chunk if api.supports_chunked_prefill(cfg) else None,
-        reset_slot=functools.partial(api.reset_slot_members, cfg=cfg) if api.has_slot_state(cfg) else None,
+        last_logits=Program(f"{key}/ens_last_logits", last_logits),
+        prefill=Program(f"{key}/ens_prefill", prefill),
+        decode=Program(f"{key}/ens_decode", decode),
+        decode_slots=Program(f"{key}/ens_decode_slots", decode),
+        prefill_chunk=(
+            Program(f"{key}/ens_prefill_chunk", prefill_chunk) if api.supports_chunked_prefill(cfg) else None
+        ),
+        reset_slot=(
+            Program(f"{key}/ens_slot_reset", functools.partial(api.reset_slot_members, cfg=cfg))
+            if api.has_slot_state(cfg) else None
+        ),
     )
 
 
@@ -108,6 +122,7 @@ def tier_paged_programs(cfg: ModelConfig, temperature: float) -> SimpleNamespace
     planes advance under ONE shared (n_slots, n_pg) page table."""
     assert api.supports_paging(cfg), cfg.family
     _require_greedy(temperature)
+    key = f"{cfg.name}@T{temperature:g}"
 
     def decode_slots(values, tok, pools, pos, pages):
         logits, pools = ens.ensemble_decode_step_paged(values, tok, pools, pos, pages, cfg)
@@ -116,20 +131,28 @@ def tier_paged_programs(cfg: ModelConfig, temperature: float) -> SimpleNamespace
     def prefill_chunk(values, pools, tokens, pages_row, start):
         return ens.ensemble_prefill_into_slot_paged(values, tokens, pools, pages_row, start, cfg)
 
-    return SimpleNamespace(decode_slots=decode_slots, prefill_chunk=prefill_chunk, copy_page=api.copy_pool_page)
+    return SimpleNamespace(
+        decode_slots=Program(f"{key}/ens_decode_paged", decode_slots),
+        prefill_chunk=Program(f"{key}/ens_prefill_chunk_paged", prefill_chunk),
+        copy_page=Program(f"{key}/ens_copy_pool_page", api.copy_pool_page),
+    )
 
 
 @dataclasses.dataclass
 class CascadeTier:
     """One cascade level: a stacked k-member ensemble (``values`` with a
     leading member axis) plus its ``TierSpec`` deferral rule.  ``device``
-    None means the card."""
+    None means the card.  ``slot_memory`` (slot geometry -> ``SlotMemory``)
+    holds the pools or slot caches of the tier's slot streams and the
+    graphs captured over them, so a later ``serve_continuous`` replays
+    what an earlier one captured; they go with the tier."""
 
     cfg: ModelConfig
     values: dict
     spec: TierSpec
     temperature: float = 0.0
     device: object = None
+    slot_memory: dict = dataclasses.field(default_factory=dict, init=False, repr=False, compare=False)
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -162,7 +185,7 @@ class _CascadeRun:
     over ``TierBackend``s, the vote / defer / complete routing and the
     telemetry scopes."""
 
-    def __init__(self, server: "CascadeServer", cfg: ServeConfig, ob: Observability):
+    def __init__(self, server: "CascadeServer", cfg: ServeConfig, ob: Observability, eager: bool):
         self.tiers = server.tiers
         self.device = server.device
         self.ob = ob
@@ -179,7 +202,7 @@ class _CascadeRun:
                 TierBackend(
                     t, n_slots=cfg.n_slots, max_seq=cfg.max_seq, paged=cfg.paged,
                     page_size=cfg.page_size, n_pages=cfg.n_pages,
-                    obs=ob, pool_name=f"paging.tier{i}",
+                    obs=ob, pool_name=f"paging.tier{i}", eager=eager,
                 ),
                 dataclasses.replace(cfg, obs=ob),
                 name=f"slot_stream.tier{i}",
@@ -281,7 +304,8 @@ class CascadeServer:
             pad_to=self.pad_to, device=self.device,
         )
 
-    def serve_continuous(self, requests: Sequence[Request], config: ServeConfig = ServeConfig()) -> List[Request]:
+    def serve_continuous(self, requests: Sequence[Request], config: ServeConfig = ServeConfig(), *,
+                         eager: bool = False) -> List[Request]:
         """Continuous-batching generate mode: every tier runs a
         ``SlotStream`` over its stacked-ensemble programs (block-paged
         pools and chunked-prefill admission by default); streams are
@@ -291,14 +315,17 @@ class CascadeServer:
         digests): agreement -> the request exits with the majority answer
         and ``r.tier`` set; disagreement -> it is re-queued, prompt intact,
         on the next tier.  Per-tier stream counters land in
-        ``last_stream_stats``.  Returns completed requests."""
+        ``last_stream_stats``.  Each tier's decode step and chunk buckets
+        are captured once per slot geometry and replayed after;
+        ``eager=True`` runs them eagerly, the oracle of the graphed path and
+        nothing else.  Returns completed requests."""
         cfg = config.with_max_seq_default(256)
         for r in requests:
             assert len(r.tokens) + r.max_new_tokens <= cfg.max_seq, (
                 f"request {r.rid}: prompt+budget {len(r.tokens)}+{r.max_new_tokens} "
                 f"exceeds max_seq={cfg.max_seq}"
             )
-        run = _CascadeRun(self, cfg, cfg.resolved_obs())
+        run = _CascadeRun(self, cfg, cfg.resolved_obs(), eager)
         run.submit(requests)
         while run.active:
             run.sweep()

@@ -1,11 +1,30 @@
 """Single-model serving engine (port of ``repro.serve.engine``, greedy).
 
-The JAX package keeps long-lived jitted programs per config; PyTorch runs
-eagerly, so the port's "programs" are plain functions bound to a config
-(``model_programs``, ``paged_model_programs``) and there is nothing to
-trace or count.  Prompts in a batch are left-padded to a common length and
-the per-row ``starts`` carve the padding out of attention (RoPE relative
-to each row's start), so padded generations match solo runs.
+Compile-once discipline: the JAX package jits every serving program once
+per shape and counts its traces.  The port's counterpart is the CUDA graph
+(``serve/graphs.py``): on the card, the slot-stream decode step and each
+chunked-admission bucket (one per pow2 chunk length) are captured the first
+time an engine (or a cascade tier) runs them at a slot geometry, over that
+owner's pools or slot caches, and replayed on every later call and every
+later ``serve_continuous`` of that geometry.  ``trace_count``/
+``trace_counts`` count those captures under the JAX package's
+``"<cfg.name>/<program>"`` keys; on the CPU, where nothing is captured,
+they count each program's first call on its owner, so the same
+flat-after-warm-up checks hold there.  Two slot programs stay eager and
+are counted at their first call: ``slot_reset`` (a strided fill of a slot's
+state leaves at admission) and ``copy_page`` (a copy-on-write page copy),
+each one launch a leaf.  ``eager=True`` on ``slot_stream`` and
+``serve_continuous`` runs the slot programs eagerly on the card: it exists
+only as the oracle the graphed path is held to.
+
+The function-level programs (``model_programs``, ``paged_model_programs``)
+stay shared per config, as in the JAX package; the graphs and the device
+memory they are captured over belong to the engine, and go with it.
+``classify``, the batch ``prefill`` and ``generate``'s decode stay eager:
+``generate`` grows a fresh cache each call (``grow_cache``), so graphing it
+needs static caches of its own.  Prompts in a batch are left-padded to a
+common length and the per-row ``starts`` carve the padding out of attention
+(RoPE relative to each row's start), so padded generations match solo runs.
 
 Continuous batching lives in ``serve/slot_stream.py``;
 ``ServingEngine.serve_continuous`` is its E=1 entry point, with chunked-prefill
@@ -30,34 +49,42 @@ from repro_torch.models.params import tree_map
 from repro_torch.obs import Observability, StatsView
 from repro_torch.serve.batching import Request, RequestQueue
 from repro_torch.serve.config import ServeConfig
+from repro_torch.serve.graphs import Program, trace_count, trace_counts  # noqa: F401  (the JAX names)
 
 
 @functools.lru_cache(maxsize=None)
 def model_programs(cfg: ModelConfig) -> SimpleNamespace:
-    """The single-model functions for one config: ``prefill``/``decode``
-    (batch), ``prefill_chunk`` (chunked prefill into a slot) and
-    ``reset_slot`` (zero a slot's recurrent state at admission; None for
-    the dense family, which has none)."""
+    """The single-model programs for one config, each a ``Program`` keyed
+    ``"<cfg.name>/<program>"``: ``prefill``/``decode`` (batch; ``decode``
+    is also the slot-stream decode step over the dense slot cache),
+    ``prefill_chunk`` (chunked prefill into a slot, one graph a pow2 chunk
+    length) and ``reset_slot`` (zero a slot's recurrent state at admission;
+    None for the dense family, which has none)."""
     return SimpleNamespace(
-        prefill=functools.partial(api.prefill, cfg=cfg),
-        decode=functools.partial(api.decode_step, cfg=cfg),
+        prefill=Program(f"{cfg.name}/prefill", functools.partial(api.prefill, cfg=cfg)),
+        decode=Program(f"{cfg.name}/decode", functools.partial(api.decode_step, cfg=cfg)),
         prefill_chunk=(
-            functools.partial(api.prefill_into_slot, cfg=cfg)
+            Program(f"{cfg.name}/prefill_chunk", functools.partial(api.prefill_into_slot, cfg=cfg))
             if api.supports_chunked_prefill(cfg) else None
         ),
-        reset_slot=functools.partial(api.reset_slot, cfg=cfg) if api.has_slot_state(cfg) else None,
+        reset_slot=(
+            Program(f"{cfg.name}/slot_reset", functools.partial(api.reset_slot, cfg=cfg))
+            if api.has_slot_state(cfg) else None
+        ),
     )
 
 
 @functools.lru_cache(maxsize=None)
 def paged_model_programs(cfg: ModelConfig) -> SimpleNamespace:
-    """The block-paged single-model functions: page-table decode, paged
-    chunked prefill and the copy-on-write page copy."""
+    """The block-paged single-model programs: page-table decode, paged
+    chunked prefill and the copy-on-write page copy (eager)."""
     assert api.supports_paging(cfg), cfg.family
     return SimpleNamespace(
-        decode=functools.partial(api.decode_step_paged, cfg=cfg),
-        prefill_chunk=functools.partial(api.prefill_into_slot_paged, cfg=cfg),
-        copy_page=api.copy_pool_page,
+        decode=Program(f"{cfg.name}/decode_paged", functools.partial(api.decode_step_paged, cfg=cfg)),
+        prefill_chunk=Program(
+            f"{cfg.name}/prefill_chunk_paged", functools.partial(api.prefill_into_slot_paged, cfg=cfg)
+        ),
+        copy_page=Program(f"{cfg.name}/copy_page", api.copy_pool_page),
     )
 
 
@@ -107,6 +134,9 @@ class ServingEngine:
         programs = model_programs(cfg)
         self._prefill = programs.prefill
         self._decode = programs.decode
+        # slot geometry -> SlotMemory: the pools or slot caches of
+        # ``serve_continuous`` and the graphs captured over them
+        self.slot_memory: dict = {}
         self.obs = obs if obs is not None else Observability.private()
         sc = self.obs.scope("engine")
         self._c_prefill = sc.counter("prefill_tokens")
@@ -156,13 +186,15 @@ class ServingEngine:
         return np.stack(out, axis=1)
 
     # -- continuous batching ----------------------------------------------
-    def slot_stream(self, config: ServeConfig = ServeConfig()):
+    def slot_stream(self, config: ServeConfig = ServeConfig(), *, eager: bool = False):
         """A fresh ``SlotStream`` over this engine's model — the E=1 case
         of the shared slot state machine.  ``paged`` selects block-paged KV
         pools (default: wherever the family supports them; ``paged=False``
         keeps the dense slot cache as the parity oracle); ``n_pages``
         bounds the pool (default: dense-equivalent capacity plus the
-        overflow sink)."""
+        overflow sink).  The stream runs over the engine's device memory
+        and graphs for its geometry; ``eager`` runs its programs eagerly on
+        the card (the oracle of the graphed path, nothing else)."""
         from repro_torch.serve.slot_stream import EngineBackend, SlotStream
 
         cfg = config.with_max_seq_default(self.max_seq)
@@ -171,11 +203,12 @@ class ServingEngine:
             n_slots=cfg.n_slots, max_seq=cfg.max_seq,
             prefill_counter=self._c_prefill,
             paged=cfg.paged, page_size=cfg.page_size, n_pages=cfg.n_pages,
-            obs=cfg.obs,
+            obs=cfg.obs, memory=self.slot_memory, eager=eager,
         )
         return SlotStream(backend, cfg)
 
-    def serve_continuous(self, requests: List[Request], config: ServeConfig = ServeConfig()) -> List[Request]:
+    def serve_continuous(self, requests: List[Request], config: ServeConfig = ServeConfig(), *,
+                         eager: bool = False) -> List[Request]:
         """Slot-based continuous batching, a thin loop over
         ``SlotStream``: one decode step advances every active slot by one
         token at its own position; freed slots admit new requests
@@ -184,11 +217,11 @@ class ServingEngine:
         ``chunked_prefill=False``).  Requests cut short by the cache wall
         come back with ``truncated=True``.  The stream records into
         ``config.obs`` or, without one, the engine's own registry; the run's
-        stream counters land in ``last_stream_stats``.  Returns the
-        completed requests."""
+        stream counters land in ``last_stream_stats``.  ``eager`` as in
+        ``slot_stream``.  Returns the completed requests."""
         cfg = config.with_max_seq_default(self.max_seq)
         ob = cfg.obs if cfg.obs is not None else self.obs
-        stream = self.slot_stream(dataclasses.replace(cfg, obs=ob))
+        stream = self.slot_stream(dataclasses.replace(cfg, obs=ob), eager=eager)
         clk = ob.clock
         h_lat = ob.registry.histogram("serve.request_latency_s")
         # counters in a shared registry are cumulative across serves: the

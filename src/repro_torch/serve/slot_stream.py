@@ -51,11 +51,21 @@ backend's ``reset_slot``.  Every
 decode step makes exactly one device-to-host read: the metered
 ``host_fetch`` of the next tokens.
 
+Compile-once: both backends run the decode step and each chunk bucket
+through their owner's ``GraphSet`` (``serve/graphs.py``): on the card each
+is captured as a CUDA graph at its first call and replayed after, with the
+step's tokens, positions and page table (or the chunk's tokens, slot,
+offset and table row) copied into the graph's static device buffers first.
+The pools or slot caches live on the owning engine or tier
+(``SlotMemory``, keyed by slot geometry), so a later run replays the graphs
+an earlier one captured.
+
 Not ported yet (the JAX package has them): the speculative draft-verify
 admission and in-flight (transport) admission.
 """
 from __future__ import annotations
 
+import weakref
 from collections import deque
 from typing import List, Optional, Sequence, Tuple
 
@@ -67,6 +77,7 @@ from repro_torch.models import api
 from repro_torch.obs import Observability, StatsView
 from repro_torch.serve.batching import Request
 from repro_torch.serve.config import ServeConfig
+from repro_torch.serve.graphs import GraphSet
 from repro_torch.serve.paging import PagePool
 
 
@@ -316,18 +327,65 @@ def _default_n_pages(n_slots: int, max_seq: int, page_size: int) -> int:
     return n_slots * (max_seq // page_size) + 1
 
 
-class _PagedSlots:
-    """The shared paged-backend half: host ``PagePool`` bookkeeping plus
-    the begin/release/prepare hooks.  ``self.pool_dev`` is the device pool
-    (engine pools (L, P, ...) and member-stacked tier pools (L, E, P, ...)
-    take the same ``api.copy_pool_page``)."""
+def _no_user():
+    return None
 
-    def _init_pool(self, n_slots, max_seq, page_size, n_pages, obs=None, pool_name="paging"):
-        if n_pages is None:
-            n_pages = _default_n_pages(n_slots, max_seq, page_size)
-        self.pool = PagePool(
-            n_pages, page_size, n_slots=n_slots, max_seq=max_seq, obs=obs, name=pool_name,
-        )
+
+class SlotMemory:
+    """One slot geometry's device memory of an engine or a cascade tier:
+    its pools or slot caches (``state``) and the graphs captured over them
+    (``graphs``).  A graph bakes in the addresses of what it reads and
+    writes, so both live on their owner (a dict keyed by geometry) and every
+    later run of that geometry reuses them; each run builds a fresh host
+    ``PagePool`` over the same device pages.  Stale contents stay invisible
+    by the stream's own contract: the per-slot position mask, unmapped
+    pages read as zero rows, and recurrent state zeroed at admission.
+    ``user`` (a weak reference) is the backend using it: a second live
+    backend of the same owner and geometry gets memory of its own."""
+
+    __slots__ = ("state", "graphs", "user")
+
+    def __init__(self, state, device):
+        self.state = state
+        self.graphs = GraphSet(device)
+        self.user = _no_user
+
+
+class _SlotBackend:
+    """The half both backends share: the owner's device memory for this
+    geometry, the host ``PagePool`` bookkeeping with the begin / release /
+    prepare hooks, and the graphed programs.  Decode and each chunk bucket
+    run through ``self.mem.graphs`` (captured on the card, replayed after);
+    ``reset_slot`` and ``copy_page`` stay eager: each is one strided copy or
+    fill a leaf, nothing for a graph to save, and they are counted as eager
+    programs.  ``eager=True`` runs everything eagerly: the oracle that the
+    graphed path is held to, and nothing else."""
+
+    def _init_slots(self, owner, device, cfg, *, n_slots, max_seq, paged, page_size, n_pages,
+                    obs, pool_name, eager):
+        """Host pool and device memory for this geometry: the owner's
+        (``owner`` its geometry -> ``SlotMemory`` dict, None for memory of
+        this backend's own), or new memory from ``_new_pool``/``_new_cache``."""
+        self.paged = api.supports_paging(cfg) if paged is None else bool(paged)
+        self.eager = bool(eager)
+        if self.paged:
+            if n_pages is None:
+                n_pages = _default_n_pages(n_slots, max_seq, page_size)
+            self.pool = PagePool(n_pages, page_size, n_slots=n_slots, max_seq=max_seq, obs=obs, name=pool_name)
+            geometry = (n_slots, max_seq, True, page_size, n_pages)
+        else:
+            geometry = (n_slots, max_seq, False, None, None)
+        mem = None if owner is None else owner.get(geometry)
+        if mem is None or mem.user() is not None:
+            state = self._new_pool(n_pages, page_size) if self.paged else self._new_cache(n_slots, max_seq)
+            mem = SlotMemory(state, device)
+            if owner is not None:
+                owner.setdefault(geometry, mem)
+        mem.user = weakref.ref(self)
+        self.mem = mem
+
+    def _run(self, program, fn, *inputs, bucket=None):
+        return self.mem.graphs.run(program.key, fn, *inputs, bucket=bucket, eager=self.eager)
 
     def begin_slot(self, slot, tokens, *, share=True):
         """Claim pages for a new occupant (see ``PagePool.admit``); dense
@@ -353,22 +411,51 @@ class _PagedSlots:
                 oom.append(s)
                 continue
             for src, dst in copies:
-                api.copy_pool_page(self.pool_dev, src, dst)
+                self.mem.graphs.eager(self._copy_page.key, self._copy_page, self.mem.state, src, dst)
         return oom
 
+    def decode(self, tok, pos):
+        """One decode step for every member x slot at its own ``pos``;
+        returns the next tokens (E, n_slots) on the host, in the step's one
+        device-to-host read."""
+        if self.paged:
+            out = self._run(self._decode_paged, self._decode_paged_fn, tok, pos, self.pool.table)
+        else:
+            out = self._run(self._decode, self._decode_fn, tok, pos)
+        return host_fetch(out)
 
-class EngineBackend(_PagedSlots):
-    """E=1 backend over a single model's functions (``model_programs``);
+    def prefill_chunk(self, tokens, slot, start):
+        """Write one pow2 prompt chunk into ``slot`` (every member's) at
+        offset ``start``; one program a chunk length."""
+        at = np.array([start], np.int64)
+        if self.paged:
+            self._run(self._chunk_paged, self._chunk_paged_fn, tokens, self.pool.table[slot], at,
+                      bucket=len(tokens))
+        else:
+            self._run(self._chunk, self._chunk_fn, tokens, np.array([slot], np.int64), at, bucket=len(tokens))
+
+    def reset_slot(self, slot):
+        """Zero the slot's constant-state leaves across all members
+        (nothing for position-masked families)."""
+        if self._reset is not None:
+            self.mem.graphs.eager(self._reset.key, self._reset, self.mem.state, slot)
+
+
+class EngineBackend(_SlotBackend):
+    """E=1 backend over a single model's programs (``model_programs``);
     ``sample`` turns logits into token ids (greedy).  ``paged`` selects
     block-paged KV pools (default wherever the family supports them);
-    ``paged=False`` keeps the dense slot cache as the parity oracle."""
+    ``paged=False`` keeps the dense slot cache as the parity oracle.
+    ``memory`` is the owning engine's geometry -> ``SlotMemory`` dict (None:
+    memory of this backend's own); ``eager`` the oracle route."""
 
     def __init__(self, cfg, params, programs, sample, *, n_slots, max_seq,
                  prefill_counter=None, paged=None, page_size: int = 16,
-                 n_pages=None, obs=None, pool_name="paging"):
+                 n_pages=None, obs=None, pool_name="paging", memory=None, eager=False):
         assert not cfg.is_encoder
         self.cfg = cfg
         self.params = params
+        self.E = 1
         self._decode = programs.decode
         self._chunk = programs.prefill_chunk
         self._reset = programs.reset_slot
@@ -376,91 +463,92 @@ class EngineBackend(_PagedSlots):
         # the owning engine's ``engine.prefill_tokens`` counter; None
         # outside an engine
         self._prefill_counter = prefill_counter
-        self.E = 1
-        self.paged = api.supports_paging(cfg) if paged is None else bool(paged)
+        self._init_slots(
+            memory, params["embed"].device, cfg, n_slots=n_slots, max_seq=max_seq, paged=paged,
+            page_size=page_size, n_pages=n_pages, obs=obs, pool_name=pool_name, eager=eager,
+        )
         if self.paged:
             from repro_torch.serve.engine import paged_model_programs
 
-            self._init_pool(n_slots, max_seq, page_size, n_pages, obs=obs, pool_name=pool_name)
-            self.pool_dev = api.init_paged_pool(cfg, self.pool.n_pages, page_size, params["embed"].device)
             progs = paged_model_programs(cfg)
             self._decode_paged = progs.decode
             self._chunk_paged = progs.prefill_chunk
-            self.cache = None
+            self._copy_page = progs.copy_page
             self.supports_chunked_prefill = True
         else:
-            self.cache = api.init_cache(cfg, n_slots, max_seq, params["embed"].device)
             self.supports_chunked_prefill = self._chunk is not None
 
-    def decode(self, tok, pos):
-        """One decode step for every slot at its own ``pos``; returns the
-        next tokens (1, n_slots) on the host."""
-        if self.paged:
-            logits, self.pool_dev = self._decode_paged(self.params, tok[0], self.pool_dev, pos, self.pool.table)
-        else:
-            logits, self.cache = self._decode(self.params, tok[0], self.cache, pos)
-        return host_fetch(self._sample(logits))[None]
+    def _new_pool(self, n_pages, page_size):
+        return api.init_paged_pool(self.cfg, n_pages, page_size, self.params["embed"].device)
+
+    def _new_cache(self, n_slots, max_seq):
+        return api.init_cache(self.cfg, n_slots, max_seq, self.params["embed"].device)
+
+    def _decode_fn(self, tok, pos):
+        logits, _ = self._decode(self.params, tok[0], self.mem.state, pos)
+        return self._sample(logits)[None]
+
+    def _decode_paged_fn(self, tok, pos, pages):
+        logits, _ = self._decode_paged(self.params, tok[0], self.mem.state, pos, pages)
+        return self._sample(logits)[None]
+
+    def _chunk_fn(self, tokens, slot, start):
+        self._chunk(self.params, tokens, self.mem.state, slot, start)
+
+    def _chunk_paged_fn(self, tokens, pages_row, start):
+        self._chunk_paged(self.params, tokens, self.mem.state, pages_row, start)
 
     def prefill_chunk(self, tokens, slot, start):
-        """Write one pow2 prompt chunk into ``slot`` at offset ``start``."""
-        if self.paged:
-            self.pool_dev = self._chunk_paged(self.params, tokens, self.pool_dev, self.pool.table[slot], start)
-        else:
-            self.cache = self._chunk(self.params, tokens, self.cache, slot, start)
+        super().prefill_chunk(tokens, slot, start)
         if self._prefill_counter is not None:
             self._prefill_counter.add(len(tokens))
 
-    def reset_slot(self, slot):
-        """Zero the slot's constant-state leaves (nothing for position-
-        masked families)."""
-        if self._reset is not None:
-            self.cache = self._reset(self.cache, slot)
 
-
-class TierBackend(_PagedSlots):
-    """E=k backend over a cascade tier's stacked-ensemble functions (one
+class TierBackend(_SlotBackend):
+    """E=k backend over a cascade tier's stacked-ensemble programs (one
     batched program advances every member; greedy tokens come back in one
     fetch).  Paged tiers stack E pool planes under ONE page table: members
     score the same tokens at the same positions, so every shared prefix
-    page is an E-fold memory saving."""
+    page is an E-fold memory saving.  Device memory and graphs live on the
+    tier (``CascadeTier.slot_memory``); ``eager`` is the oracle route."""
 
     def __init__(self, tier, *, n_slots, max_seq, paged=None, page_size: int = 16,
-                 n_pages=None, obs=None, pool_name="paging"):
+                 n_pages=None, obs=None, pool_name="paging", eager=False):
         assert not tier.cfg.is_encoder
         self.tier = tier
         self.E = tier.k
-        self.paged = api.supports_paging(tier.cfg) if paged is None else bool(paged)
+        self._decode = tier._decode_slots
+        self._chunk = tier._prefill_chunk
+        self._reset = tier._reset_slot
+        self._init_slots(
+            tier.slot_memory, tier.device, tier.cfg, n_slots=n_slots, max_seq=max_seq, paged=paged,
+            page_size=page_size, n_pages=n_pages, obs=obs, pool_name=pool_name, eager=eager,
+        )
         if self.paged:
             from repro_torch.serve.cascade_server import tier_paged_programs
 
-            self._init_pool(n_slots, max_seq, page_size, n_pages, obs=obs, pool_name=pool_name)
-            self.pool_dev = ens.init_ensemble_paged_pool(tier.values, tier.cfg, self.pool.n_pages, page_size)
             progs = tier_paged_programs(tier.cfg, float(tier.temperature))
             self._decode_paged = progs.decode_slots
             self._chunk_paged = progs.prefill_chunk
-            self.caches = None
+            self._copy_page = progs.copy_page
             self.supports_chunked_prefill = True
         else:
-            self.caches = api.init_cache_members(tier.cfg, self.E, n_slots, max_seq, tier.device)
-            self.supports_chunked_prefill = tier._prefill_chunk is not None
+            self.supports_chunked_prefill = self._chunk is not None
 
-    def decode(self, tok, pos):
-        """One batched decode step for every member x slot; returns the
-        next tokens (E, n_slots) on the host."""
-        if self.paged:
-            t, self.pool_dev = self._decode_paged(self.tier.values, tok, self.pool_dev, pos, self.pool.table)
-        else:
-            t, self.caches = self.tier._decode_slots(self.tier.values, tok, self.caches, pos)
-        return host_fetch(t)[..., 0]
+    def _new_pool(self, n_pages, page_size):
+        return ens.init_ensemble_paged_pool(self.tier.values, self.tier.cfg, n_pages, page_size)
 
-    def prefill_chunk(self, tokens, slot, start):
-        """Write one pow2 prompt chunk into every member's ``slot``."""
-        if self.paged:
-            self.pool_dev = self._chunk_paged(self.tier.values, self.pool_dev, tokens, self.pool.table[slot], start)
-        else:
-            self.caches = self.tier._prefill_chunk(self.tier.values, self.caches, tokens, slot, start)
+    def _new_cache(self, n_slots, max_seq):
+        return api.init_cache_members(self.tier.cfg, self.E, n_slots, max_seq, self.tier.device)
 
-    def reset_slot(self, slot):
-        """Zero the slot's constant-state leaves across all members."""
-        if self.tier._reset_slot is not None:
-            self.caches = self.tier._reset_slot(self.caches, slot)
+    def _decode_fn(self, tok, pos):
+        return self._decode(self.tier.values, tok, self.mem.state, pos)[0][..., 0]
+
+    def _decode_paged_fn(self, tok, pos, pages):
+        return self._decode_paged(self.tier.values, tok, self.mem.state, pos, pages)[0][..., 0]
+
+    def _chunk_fn(self, tokens, slot, start):
+        self._chunk(self.tier.values, self.mem.state, tokens, slot, start)
+
+    def _chunk_paged_fn(self, tokens, pages_row, start):
+        self._chunk_paged(self.tier.values, self.mem.state, tokens, pages_row, start)

@@ -578,3 +578,75 @@ def test_recurrent_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="wkv6"):
         wkv.wkv6(r, r, r, r, torch.zeros(2, 48, device=cuda))
     assert (kernels.launch_counts()["mamba2_ssd"], kernels.launch_counts()["rwkv6_wkv"]) == before
+
+
+# ---------------------------------------------------------------------------
+# compile-once serving: captured decode steps and chunk buckets
+# ---------------------------------------------------------------------------
+
+
+def test_graph_set_replays_read_new_inputs_and_count_launches(cuda):
+    """A captured paged decode replays on freshly staged inputs (each call
+    bitwise the kernel called directly), counts once as a capture, and adds
+    the capture's launches at every replay: 4 calls, 4 launches."""
+    from repro_torch.serve.graphs import GraphSet, trace_count
+
+    gen = torch.Generator().manual_seed(7)
+    E, B, P, KVH, ps, hd, n_pg, G = 2, 3, 13, 2, 16, 64, 4, 4
+    k_pool = torch.randn(E, P, KVH, ps, hd, generator=gen).to(cuda, torch.bfloat16)
+    v_pool = torch.randn(E, P, KVH, ps, hd, generator=gen).to(cuda, torch.bfloat16)
+    gs = GraphSet(cuda)
+    key = "cuda-test/decode_paged"
+
+    def fn(q, pages, cur):
+        return decode.decode_attention_paged(q, k_pool, v_pool, pages, cur)
+
+    before, count = kernels.launch_counts()["decode_attention_paged"], trace_count(key)
+    rng = np.random.default_rng(0)
+    for _ in range(4):
+        q = torch.randn(E * B, 1, KVH * G, hd, generator=gen).to(torch.bfloat16)
+        pages = np.stack([rng.permutation(P - 1)[:n_pg] for _ in range(B)]).astype(np.int32)
+        cur = rng.integers(1, n_pg * ps + 1, B).astype(np.int32)
+        out = gs.run(key, fn, q, pages, cur)
+        ref = decode.decode_attention_paged(q.to(cuda), k_pool, v_pool, torch.as_tensor(pages, device=cuda),
+                                            torch.as_tensor(cur, device=cuda))
+        assert torch.equal(out, ref)
+    assert trace_count(key) == count + 1
+    assert kernels.launch_counts()["decode_attention_paged"] == before + 4 + 4
+
+
+@pytest.mark.parametrize("arch,paged", [("qwen2.5-3b", True), ("qwen2.5-3b", False),
+                                        ("zamba2-2.7b", False), ("rwkv6-7b", False)])
+def test_graphed_serve_continuous_matches_eager(cuda, arch, paged):
+    """A one-tier k=3 cascade at reduced width: the graphed
+    ``serve_continuous`` (twice) emits bitwise the eager oracle's tokens
+    with the same launches per kernel, and the second graphed run captures
+    nothing."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import ensemble as ens
+    from repro_torch.core.cascade import TierSpec
+    from repro_torch.serve import CascadeServer, CascadeTier, Request, ServeConfig
+    from repro_torch.serve.graphs import trace_counts
+
+    cfg = get_config(arch).reduced()
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    server = CascadeServer([CascadeTier(cfg, ens.init_ensemble(cfg, 3, gen, cuda), TierSpec("t", "vote", 0.5, k=3),
+                                        device=cuda)], device=cuda)
+    config = ServeConfig(n_slots=3, max_seq=96, page_size=16, paged=paged)
+
+    def run(eager):
+        rng = np.random.default_rng(1)
+        reqs = [Request(tokens=rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32), max_new_tokens=5)
+                for n in rng.integers(2, 60, 7)]
+        kernels.reset_launch_counts()
+        done = {r.rid: r for r in server.serve_continuous(reqs, config, eager=eager)}
+        return [done[r.rid].output.tolist() for r in reqs], kernels.launch_counts()
+
+    eager, l_eager = run(True)
+    graphed, l_graphed = run(False)
+    counts = trace_counts()
+    again, l_again = run(False)
+    assert trace_counts() == counts
+    assert eager == graphed == again
+    assert l_eager == l_graphed == l_again
+    assert sum(l_eager.values()) > 0
