@@ -18,13 +18,15 @@ the same launch counters.
    turn ``rounds`` times, the first tree alternating.
 2. generate (left out with ``--kernels-only``) — the second cascade of
    ``chip_smoke.py`` phase 4 (3 x zamba2-2.7b -> rwkv6-7b) at published
-   widths and full depth, bf16 weights from ``--seed``, built once; its
-   ``generate`` call (8 prompts of 128 tokens, 16 new) with each of the four
-   pairings of the two trees' scans, in an order rotated every round,
-   ``rounds`` times each, with the host seconds spent inside the scans'
-   wrappers; then two ``generate`` calls of each tree's own pairing under
-   torch.profiler (in the order A B B A), and the operators whose host or
-   device time differs most between the two trees.
+   widths and full depth, bf16 weights from ``--seed``, made once and shared
+   by four servers, one for each pairing of the two trees' scans; each
+   server's ``generate`` (8 prompts of 128 tokens, 16 new) is graphed, its
+   prefill and decode step captured under its own pairing (a graph keeps
+   the kernels it captured whatever module attribute is swapped later),
+   then timed in an order rotated every round, ``rounds`` times each; then
+   two ``generate`` calls of each tree's own pairing under torch.profiler
+   (in the order A B B A), and the operators whose host or device time
+   differs most between the two trees.
 
 Prints one line per measurement and, last, a JSON summary; ``--out`` also
 writes everything to a file.  Needs a CUDA device.
@@ -168,73 +170,54 @@ def compare_generate(trees, dev, seed, rounds):
     v2 = ens.init_ensemble(c2, 1, g, dev)
     rng = np.random.default_rng(seed)
     vocab = min(c1.vocab_size, c2.vocab_size)
-    server = CascadeServer([
-        CascadeTier(c1, v1, TierSpec(f"{a1}-x3", "vote", 0.5, k=3, cost=3.0), device=dev),
-        CascadeTier(c2, v2, TierSpec(a2, "confidence", -1.0, k=1, cost=1.0), device=dev),
-    ], device=dev)
     toks = rng.integers(0, vocab, (8, 128)).astype(np.int32)
-
-    # host seconds inside each scan wrapper, whichever tree's it is
-    spent = {"ssd": 0.0, "wkv6": 0.0}
-
-    def metered(name, fn):
-        def call(*a, **k):
-            t0 = time.perf_counter()
-            try:
-                return fn(*a, **k)
-            finally:
-                spent[name] += time.perf_counter() - t0
-        return call
 
     names = list(trees)
     pairings = {f"ssd {s} + wkv6 {w}": (s, w) for s, w in itertools.product(names, names)}
     own = [f"ssd {t} + wkv6 {t}" for t in names]
     # the functions themselves, taken before this tree's module attributes are swapped
-    scans = {t: dict(ssd=metered("ssd", m["ssd"].ssd), wkv6=metered("wkv6", m["wkv6"].wkv6))
-             for t, m in trees.items()}
+    scans = {t: dict(ssd=m["ssd"].ssd, wkv6=m["wkv6"].wkv6) for t, m in trees.items()}
+    # one server (tiers, graphs, static caches) a pairing, all on the same weights
+    servers = {p: CascadeServer([
+        CascadeTier(c1, v1, TierSpec(f"{a1}-x3", "vote", 0.5, k=3, cost=3.0), device=dev),
+        CascadeTier(c2, v2, TierSpec(a2, "confidence", -1.0, k=1, cost=1.0), device=dev),
+    ], device=dev) for p in pairings}
 
     def use(pairing):
         s, w = pairings[pairing]
         ssd_ops.ssd, wkv_ops.wkv6 = scans[s]["ssd"], scans[w]["wkv6"]
 
-    def run():
-        for k in spent:
-            spent[k] = 0.0
+    def run(pairing):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = server.generate(toks, 16)
+        res = servers[pairing].generate(toks, 16)
         torch.cuda.synchronize()
         return time.perf_counter() - t0, res
 
     originals = ssd_ops.ssd, wkv_ops.wkv6
     walls = {p: [] for p in pairings}
-    scan_host = {p: {"ssd": [], "wkv6": []} for p in pairings}
     tokens = {}
     try:
         with torch.no_grad():
-            server.generate(toks[:8, :16], 16)  # warm-up at a small shape, as chip_smoke does
-            for p in pairings:  # and once at the timed shape with each pairing
+            for p in pairings:  # eager warm-up at a small shape, then the capture at the timed one
                 use(p)
-                run()
+                servers[p].generate(toks[:8, :16], 16, eager=True)
+                run(p)
+            use(own[0])  # graphs replay what they captured; nothing runs a swapped attribute now
             order = list(pairings)
             for i in range(rounds):
                 for p in order[i % len(order):] + order[:i % len(order)]:
-                    use(p)
-                    wall, res = run()
+                    wall, res = run(p)
                     walls[p].append(wall)
-                    for k in spent:
-                        scan_host[p][k].append(spent[k])
                     tokens[p] = (res.tier_counts.tolist(), res.pred.tolist())
-                    log(f"generate round {i} {p}: wall {wall:.4f} s, host in ssd {spent['ssd']:.4f} s, "
-                        f"in wkv6 {spent['wkv6']:.4f} s, tier counts {res.tier_counts.tolist()}")
+                    log(f"generate round {i} {p}: wall {wall:.4f} s, tier counts {res.tier_counts.tolist()}")
             # each tree profiled twice, in the order A B B A, so that neither
             # always meets the profiler first; a tree's two tables are summed
             tables, profiled = {p: {} for p in own}, []
             for p in own + own[::-1]:
-                use(p)
-                run()
+                run(p)
                 with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                    wall, _ = run()
+                    wall, _ = run(p)
                 t = op_table(prof)
                 for k, row in t.items():
                     tables[p][k] = tuple(x + y for x, y in zip(tables[p].get(k, (0, 0.0, 0.0)), row))
@@ -264,7 +247,6 @@ def compare_generate(trees, dev, seed, rounds):
                 f"device us {d['device_us'][0]:12.1f} {d['device_us'][1]:12.1f}")
     same_tokens = len({json.dumps(v) for v in tokens.values()}) == 1
     return dict(walls={p: summary(w) for p, w in walls.items()},
-                scan_host_s={p: {k: summary(v) for k, v in d.items()} for p, d in scan_host.items()},
                 same_tier_counts_and_preds=same_tokens, profiled=profiled, profiled_totals=totals,
                 by_host=by_host, by_device=by_dev)
 

@@ -52,7 +52,9 @@ Phases, in order; any failure raises and exits non-zero:
    card, each with the eager oracle and with the graphed slot programs:
    the dense cascade with block-paged pools and with the dense slot cache,
    the recurrent cascade with dense slot caches; all must emit equal
-   tokens.
+   tokens.  Then the batch programs (``check_batch_programs_on_card``) and
+   the single-model engine (``check_engine_on_card``: classify, generate
+   and a sampled serve_continuous, graphed == eager).
 4. main path — two cascades at published widths and full depth, bf16
    weights drawn from ``--seed``, the second built after the first one's
    tensors are freed by reference counting alone (the cyclic collector is
@@ -79,7 +81,9 @@ Phases, in order; any failure raises and exits non-zero:
    host operators, device kernels and compaction launches, with the
    one-launch K/V view, with the two ``paged_pool_view`` calls it
    replaced, and as a CUDA-graph replay (device kernels equal to the eager
-   call's).
+   call's).  Last, tier 1's generate over more (S, max_new) shapes than
+   the tier keeps batch buckets (``bucket_memory_check``): device memory
+   level once the tier is full.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -88,6 +92,7 @@ non-zero before printing any result.
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import functools
 import gc
@@ -910,8 +915,8 @@ def layer_by_layer(cfg, vals, gvals, dev, x, cache=None, *, step=False, slot=Non
             kc, vc = cache["attn_k"][inv], cache["attn_v"][inv]
             gk, gv = kc.to(dev), vc.to(dev)  # copies, before the CPU writes its rows
             if step:
-                y = BD.dense_layer_decode(shared, x, cfg, kc, vc, api._positions(pos, "cpu"))
-                gy = BD.dense_layer_decode(gshared, x.to(dev), cfg, gk, gv, api._positions(pos, dev))
+                y = BD.dense_layer_decode(shared, x, cfg, kc, vc, api._positions(pos, x.shape[1], "cpu"))
+                gy = BD.dense_layer_decode(gshared, x.to(dev), cfg, gk, gv, api._positions(pos, x.shape[1], dev))
             else:
                 at = lambda d: (api.slot_index(slot, d), api.slot_index(start, d))  # noqa: E731
                 y = BD.dense_layer_prefill_chunk(shared, x, cfg, kc, vc, *at(x.device))
@@ -1051,12 +1056,169 @@ def serve_requests(rng, n, vocab, lo, hi, max_new, *, n_prefix=0, prefix_len=0):
     return reqs
 
 
+def check_batch_programs_on_card(dev, seed):
+    """The batch programs at reduced width on the card: a decode step at a
+    (B,) position vector (the captured route) bitwise the step at the int
+    position, for qwen2.5-3b x3 with left-pad starts and zamba2-2.7b x3;
+    the sampler's integer draws bitwise the CPU's at qwen2.5-3b's
+    vocabulary; and both cascades' classify and generate (greedy, and
+    sampled at T = 0.8), eager and graphed twice: equal pred, tier_of and
+    member tokens, the second graphed call capturing nothing."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import ensemble as ens
+    from repro_torch.core.cascade import TierSpec
+    from repro_torch.models import api
+    from repro_torch.serve import CascadeServer, CascadeTier, sampling
+    from repro_torch.serve.graphs import trace_counts
+
+    out = {}
+    for arch in ("qwen2.5-3b", "zamba2-2.7b"):
+        cfg = get_config(arch).reduced()
+        vals = ens.init_ensemble(cfg, 3, torch.Generator(device=dev).manual_seed(seed), dev)
+        toks = np.random.default_rng(seed).integers(0, cfg.vocab_size, (4, 40)).astype(np.int32)
+        batch, kw = {"tokens": toks}, {}
+        if cfg.family == "dense":
+            batch["starts"] = np.array([0, 3, 17, 39], np.int32)
+            kw["starts"] = torch.as_tensor(batch["starts"], device=dev)
+        cache = api.init_cache_members(cfg, 3, 4, 48, dev)
+        ens.ensemble_prefill(vals, batch, cfg, cache=cache)
+        tok = torch.full((3, 4, 1), 7, dtype=torch.int32, device=dev)
+        steps = []
+        for pos in (40, torch.full((4,), 40, dtype=torch.int64, device=dev)):
+            c = {n: [t.clone() for t in v] if isinstance(v, list) else v.clone() for n, v in cache.items()}
+            logits, _ = api.decode_step_members(vals, tok, c, pos, cfg, **kw)
+            steps.append([logits] + [t for v in c.values() for t in (v if isinstance(v, list) else [v])])
+        require(all(torch.equal(a, b) for a, b in zip(*steps)),
+                f"{arch}: the decode step at a (B,) position differs from the step at the int position")
+        out[f"{arch}/vector_position_decode_bitwise"] = True
+    V = get_config("qwen2.5-3b").vocab_size
+    keys, pos = sampling.batch_keys(seed, 8), np.arange(300, 308)
+    card = sampling.draw_bits(torch.as_tensor(keys, device=dev), torch.as_tensor(pos, device=dev), 3, V)
+    cpu = sampling.draw_bits(torch.as_tensor(keys), torch.as_tensor(pos), 3, V)
+    require(torch.equal(card.cpu(), cpu), "the sampler's integer draws on the card differ from the CPU's")
+    out["sampler_draws_bitwise_cpu"] = list(card.shape)
+    for a1, a2 in (("qwen2.5-3b", "internlm2-1.8b"), ("zamba2-2.7b", "rwkv6-7b")):
+        c1, c2 = get_config(a1).reduced(), get_config(a2).reduced()
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        v1, v2 = ens.init_ensemble(c1, 3, gen, dev), ens.init_ensemble(c2, 1, gen, dev)
+        vocab = min(c1.vocab_size, c2.vocab_size)
+        toks = np.random.default_rng(seed).integers(0, vocab, (16, 24)).astype(np.int32)
+        for temperature in (0.0, 0.8):
+            server = CascadeServer([
+                CascadeTier(c1, v1, TierSpec("s", "vote", 0.5, k=3), temperature=temperature, device=dev),
+                CascadeTier(c2, v2, TierSpec("b", "confidence", -1.0), temperature=temperature, device=dev),
+            ], device=dev)
+            for mode, args in (("classify", ()), ("generate", (6, 3))):
+                digests = {}
+                for run in ("eager", "graphed_1", "graphed_2"):
+                    before = trace_counts()
+                    with recorded_generations(server) as gens:
+                        res = getattr(server, mode)(toks, *args, eager=run == "eager")
+                    digests[run] = outputs_digest(res.pred, res.tier_of, *gens)
+                    if run == "graphed_2":
+                        require(trace_counts() == before, f"{a1} {mode} T={temperature}: a repeat call captured again")
+                require(len(set(digests.values())) == 1,
+                        f"{a1} -> {a2} {mode} T={temperature}: eager and graphed runs differ: {digests}")
+                out[f"{a1} -> {a2}/{mode}@T{temperature:g}"] = digests["eager"]
+    return out
+
+
+def check_engine_on_card(dev, seed):
+    """The single-model ``ServingEngine`` at reduced width on the card:
+    classify and generate (left-pad starts on the dense model), greedy and
+    sampled at T = 0.8, graphed twice against an eager engine of the same
+    seed (the generators advance alike): bitwise equal logits and tokens,
+    launches per kernel equal, the second graphed call capturing nothing;
+    and a sampled ``serve_continuous``, paged and dense, graphed twice ==
+    eager twice, the second graphed run capturing nothing."""
+    import copy
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.serve import ServeConfig, ServingEngine
+    from repro_torch.serve.graphs import trace_counts
+
+    out = {}
+    for arch in ("qwen2.5-3b", "zamba2-2.7b"):
+        cfg = get_config(arch).reduced()
+        params = api.init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+        toks = np.random.default_rng(seed).integers(0, cfg.vocab_size, (4, 40)).astype(np.int32)
+        starts = np.array([0, 3, 17, 39], np.int32) if cfg.family == "dense" else None
+        for temperature in (0.0, 0.8):
+            engs = {e: ServingEngine(cfg, params, temperature=temperature, seed=seed, device=dev) for e in (True, False)}
+            digests = []
+            for call in range(2):
+                runs = {}
+                for eager in (True, False):
+                    before = trace_counts()
+                    kernels.reset_launch_counts()
+                    logits = engs[eager].classify(toks, starts, eager=eager)
+                    gen = engs[eager].generate(toks, 6, starts=starts, eager=eager)
+                    bits = np.ascontiguousarray(logits, np.float32).view(np.int32)
+                    runs[eager] = (outputs_digest(bits, gen), kernels.launch_counts())
+                    if call == 1 and not eager:
+                        require(trace_counts() == before, f"engine {arch} T={temperature}: a repeat call captured again")
+                require(runs[True] == runs[False], f"engine {arch} T={temperature} call {call}: graphed != eager "
+                                                   f"(digest, launches): {runs}")
+                digests.append(runs[True][0])
+            out[f"engine {arch}@T{temperature:g}"] = digests
+    cfg = get_config("qwen2.5-3b").reduced()
+    params = api.init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    reqs = serve_requests(np.random.default_rng(seed), 8, cfg.vocab_size, 4, 60, 6)
+    for paged in (True, False):
+        engs = {e: ServingEngine(cfg, params, temperature=0.8, seed=seed, device=dev) for e in (True, False)}
+        digests = []
+        for call in range(2):
+            runs = {}
+            for eager in (True, False):
+                before = trace_counts()
+                done = engs[eager].serve_continuous([copy.deepcopy(r) for r in reqs],
+                                                    ServeConfig(n_slots=3, max_seq=96, page_size=16, paged=paged),
+                                                    eager=eager)
+                by = {r.rid: r.output for r in done}
+                require(sorted(by) == sorted(r.rid for r in reqs), f"engine serve paged={paged}: requests lost")
+                runs[eager] = outputs_digest(*(by[r.rid] for r in reqs))
+                if call == 1 and not eager:
+                    require(trace_counts() == before, f"engine serve paged={paged}: a repeat run captured again")
+            require(runs[True] == runs[False], f"engine serve T=0.8 paged={paged} run {call}: graphed != eager")
+            digests.append(runs[True])
+        out[f"engine serve_continuous@T0.8 paged={paged}"] = digests
+    return out
+
+
+class recorded_generations:
+    """Within the block, every tier's ``generate`` output of ``server`` is
+    appended to the yielded list (an instance attribute over the method,
+    deleted on exit, so no reference cycle outlives the block)."""
+
+    def __init__(self, server):
+        self.tiers = server.tiers
+        self.gens = []
+
+    def __enter__(self):
+        for tier in self.tiers:
+            def rec(*a, _gen=tier.generate, **kw):
+                out = _gen(*a, **kw)
+                self.gens.append(out)
+                return out
+
+            tier.generate = rec
+        return self.gens
+
+    def __exit__(self, *exc):
+        for tier in self.tiers:
+            del tier.generate
+        return False
+
+
 def check_serving_on_card(dev, seed):
     """Short ``serve_continuous`` runs on the card at reduced width, each
     with the eager oracle and with the graphed slot programs: the dense
     cascade with block-paged pools and with the dense slot cache, and the
-    recurrent cascade (dense slot caches).  Equal tokens, tiers and
-    truncation flags for every request in every run."""
+    recurrent cascade (dense slot caches), greedy and sampled at T = 0.8
+    (per-slot keys from ``ServeConfig.seed``).  Equal tokens, tiers and
+    truncation flags for every request in every run of a temperature."""
     import copy
 
     from repro_torch.configs import get_config
@@ -1068,28 +1230,33 @@ def check_serving_on_card(dev, seed):
     for a1, a2, modes in (("qwen2.5-3b", "internlm2-1.8b", (True, False)), ("zamba2-2.7b", "rwkv6-7b", (None,))):
         c1, c2 = get_config(a1).reduced(), get_config(a2).reduced()
         gen = torch.Generator(device=dev).manual_seed(seed)
-        server = CascadeServer([
-            CascadeTier(c1, ens.init_ensemble(c1, 3, gen, dev), TierSpec("s", "vote", 0.5, k=3), device=dev),
-            CascadeTier(c2, ens.init_ensemble(c2, 1, gen, dev), TierSpec("b", "confidence", -1.0), device=dev),
-        ], device=dev)
+        v1, v2 = ens.init_ensemble(c1, 3, gen, dev), ens.init_ensemble(c2, 1, gen, dev)
         vocab = min(c1.vocab_size, c2.vocab_size)
         reqs = serve_requests(np.random.default_rng(seed), 12, vocab, 4, 60, 6, n_prefix=4, prefix_len=20)
-        runs = {}
-        for paged in modes:
-            for eager in (True, False):
-                run = [copy.deepcopy(r) for r in reqs]
-                done = server.serve_continuous(
-                    run, ServeConfig(n_slots=4, max_seq=128, page_size=16, paged=paged), eager=eager)
-                require(sorted(r.rid for r in done) == sorted(r.rid for r in reqs),
-                        f"{a1}: paged={paged} eager={eager}: requests lost or doubled")
-                runs[paged, eager] = {r.rid: (r.tier, r.truncated, r.output.tolist()) for r in done}
-        first = runs[modes[0], True]
-        for key, got in runs.items():
-            require(got == first, f"serve_continuous {a1} -> {a2}: (paged, eager) {key} emits other tokens "
-                                  f"than {(modes[0], True)}")
-        tiers = [t for t, _, _ in first.values()]
-        out[f"{a1} x3 -> {a2}"] = {"requests": len(reqs), "tier_counts": [tiers.count(0), tiers.count(1)],
-                                   "runs_equal": [f"paged={p} eager={e}" for p, e in runs]}
+        for temperature in (0.0, 0.8):
+            server = CascadeServer([
+                CascadeTier(c1, v1, TierSpec("s", "vote", 0.5, k=3), temperature=temperature, device=dev),
+                CascadeTier(c2, v2, TierSpec("b", "confidence", -1.0), temperature=temperature, device=dev),
+            ], device=dev)
+            runs = {}
+            for paged in modes:
+                for eager in (True, False):
+                    run = [copy.deepcopy(r) for r in reqs]
+                    done = server.serve_continuous(
+                        run, ServeConfig(n_slots=4, max_seq=128, page_size=16, paged=paged, seed=seed), eager=eager)
+                    require(sorted(r.rid for r in done) == sorted(r.rid for r in reqs),
+                            f"{a1}: paged={paged} eager={eager}: requests lost or doubled")
+                    runs[paged, eager] = {r.rid: (r.tier, r.truncated, r.output.tolist()) for r in done}
+            first = runs[modes[0], True]
+            for key, got in runs.items():
+                require(got == first, f"serve_continuous {a1} -> {a2} T={temperature}: (paged, eager) {key} emits "
+                                      f"other tokens than {(modes[0], True)}")
+            tiers = [t for t, _, _ in first.values()]
+            out[f"{a1} x3 -> {a2} @T{temperature:g}"] = {
+                "requests": len(reqs), "tier_counts": [tiers.count(0), tiers.count(1)],
+                "runs_equal": [f"paged={p} eager={e}" for p, e in runs],
+                "outputs_digest": outputs_digest(*(np.asarray(first[r.rid][2]) for r in reqs)),
+            }
     return out
 
 
@@ -1122,14 +1289,21 @@ CASCADES = {
 }
 
 
+# the cascade whose serve_continuous also runs sampled (T = 0.8), graphed
+SAMPLED_CASCADE = "qwen2.5-3b x3 -> internlm2-1.8b"
+
+
 def main_path(dev, seed, name):
     """One cascade of ``CASCADES`` at published widths and full depth: the
-    three modes, each with the launch counters zeroed just before and read
-    just after.  Returns (results, launches per mode)."""
-    from repro_torch import kernels
+    three modes, each run eager, then graphed twice, each run with the
+    launch counters zeroed just before and read just after; one replay of
+    each tier's graphed generate prefill and decode step, serve decode step
+    and chunk call, profiled; for ``SAMPLED_CASCADE`` a sampled graphed
+    serve_continuous.  Returns (results, launches per mode: the second
+    graphed run's)."""
     from repro_torch.configs import get_config
     from repro_torch.core import ensemble as ens
-    from repro_torch.core.cascade import TierSpec, host_fetch_stats, reset_host_fetch_stats
+    from repro_torch.core.cascade import TierSpec
     from repro_torch.kernels.agreement import ops as agree_ops
     from repro_torch.models import api
     from repro_torch.models.params import param_count
@@ -1165,33 +1339,13 @@ def main_path(dev, seed, name):
         }
         results, launches = {"tier1": a1, "tier2": a2, "theta": theta}, {}
         for mode, B, S, args in (("classify", 32, 256, ()), ("generate", 8, 128, (16,))):
-            server = servers[mode]
-            toks = rng.integers(0, vocab, (B, S)).astype(np.int32)
-            getattr(server, mode)(toks[:8, :16], *args)  # warm-up at a small shape
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            reset_host_fetch_stats()
-            kernels.reset_launch_counts()
-            t0 = time.perf_counter()
-            res = getattr(server, mode)(toks, *args)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            counts = kernels.launch_counts()
-            launches[mode] = counts
-            for kname in spec["need"][mode]:
-                require(counts[kname] > 0, f"{name} {mode}: kernel {kname} was not launched on the main path")
-            require(res.tier_counts.sum() == B and res.pred.shape == (B,), f"{mode}: bad result shapes")
-            require(np.isfinite(res.scores).all(), f"{mode}: non-finite scores")
-            require(set(np.unique(res.tier_of)) <= {0, 1}, f"{mode}: bad tier_of")
-            if mode == "classify":
-                require(((res.pred >= 0) & (res.pred < max(c1.vocab_size, c2.vocab_size))).all(), "classify: bad class ids")
-            results[mode] = dict(
-                batch=[B, S], wall_s=wall, tier_counts=res.tier_counts.tolist(), evaluated=res.evaluated.tolist(),
-                outputs_digest=outputs_digest(res.pred, res.tier_of),
-                cost=res.cost, host_fetch=host_fetch_stats(), launches=counts,
-                max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30,
-            )
-            log(f"[{name}] {mode}: {json.dumps(results[mode])}")
+            results[mode], launches[mode] = batch_path(servers[mode], mode, rng, vocab, B, S, args, name,
+                                                       spec["need"][mode], max(c1.vocab_size, c2.vocab_size))
+        counts = trace_counts()
+        results["generate_steps"] = {tier.spec.name: generate_step_profile(tier, 8, 128, 16)
+                                     for tier in servers["generate"].tiers}
+        require(trace_counts() == counts, f"{name}: the profiled generate programs captured again")
+        log(f"[{name}] one graphed generate prefill and decode step: {json.dumps(results['generate_steps'])}")
         results["serve_continuous"], launches["serve_continuous"] = serve_continuous_path(
             servers["generate"], rng, vocab, name, spec["need"]["serve_continuous"],
         )
@@ -1204,18 +1358,175 @@ def main_path(dev, seed, name):
             if api.supports_paging(tier.cfg)
         }
         log(f"[{name}] one paged chunk call: {json.dumps(results['chunk_call'])}")
+        if name == SAMPLED_CASCADE:
+            results["serve_continuous_sampled"] = sampled_serve_run(servers["generate"], rng, vocab, name,
+                                                                    spec["need"]["serve_continuous"], seed)
+        results["generate_buckets"] = bucket_memory_check(servers["generate"].tiers[0], rng, vocab, name)
     return results, launches
 
 
-def profile_call(fn, reps=3):
+def bucket_memory_check(tier, rng, vocab, name):
+    """A tier's generate at published width over two more (S, max_new)
+    shapes than it keeps batch buckets, all of (8, 144) cache rows, in two
+    passes, so every call meets an evicted bucket and captures again: the
+    tier never holds more than its ``graphs.max_buckets`` caches; once it holds
+    that many, the device memory held after a call stays level, and each
+    call of the second pass peaks no higher than the same shape's call in
+    the first pass once the tier was full (16 MiB allowed for the
+    allocator's rounding of the graphs' small outputs); the second pass
+    emits the first pass's tokens."""
+    from repro_torch.serve.graphs import trace_counts
+
+    cap = tier.graphs.max_buckets
+    shapes = [(120 - 8 * i, 24 + 8 * i) for i in range(cap + 2)]
+    toks = rng.integers(0, vocab, (8, 144)).astype(np.int32)
+    held, peaks, kept, out = [], [], [], []
+    for S, max_new in shapes * 2:
+        before = trace_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out.append(tier.generate(toks[:, :S], max_new, seed=0))
+        torch.cuda.synchronize()
+        held.append(torch.cuda.memory_allocated() / 2**30)
+        peaks.append(torch.cuda.max_memory_allocated() / 2**30)
+        kept.append(len(tier.batch_caches))
+        require(kept[-1] <= cap, f"{name}: {kept[-1]} static caches kept, cap {cap}")
+        require(trace_counts() != before, f"{name}: generate at an evicted bucket {(S, max_new)} captured nothing")
+    require(cap in kept, f"{name}: the tier never filled its {cap} buckets: {kept}")
+    full, n, slack = kept.index(cap), len(shapes), 16 / 1024  # full: the first call after which cap are held
+    require(max(held[full:]) <= held[full] + slack, f"{name}: device memory held grows past the bucket cap: {held}")
+    require(all(peaks[n + i] <= peaks[i] + slack for i in range(full, n)),
+            f"{name}: peak device memory grows past the bucket cap: {peaks}")
+    require(all(np.array_equal(out[n + i], out[i]) for i in range(n)),
+            f"{name}: a recaptured evicted bucket emits other tokens")
+    r = dict(cap=cap, shapes=shapes, caches_kept=kept, held_gib=held, peak_gib=peaks)
+    log(f"[{name}] generate over {n} shapes twice, cap {cap}: {json.dumps(r)}")
+    return r
+
+
+def batch_path(server, mode, rng, vocab, B, S, args, name, need, n_classes):
+    """``classify`` or ``generate`` at published widths on (B, S) prompts,
+    after an eager warm-up at a small shape: once with the eager oracle,
+    then twice graphed (the first captures each tier's programs at the
+    call's buckets, the second must capture nothing).  The three runs must
+    give the same pred, tier_of and member tokens, launch each kernel as
+    often, and a graphed run's peak device memory stay within 2 GiB of the
+    eager run's.  Returns (results, the second graphed run's launches)."""
+    from repro_torch import kernels
+    from repro_torch.core.cascade import host_fetch_stats, reset_host_fetch_stats
+    from repro_torch.serve.graphs import capture_seconds, trace_counts
+
+    toks = rng.integers(0, vocab, (B, S)).astype(np.int32)
+    getattr(server, mode)(toks[:8, :16], *args, eager=True)  # warm-up at a small shape
+    runs = {}
+    for run in ("eager", "graphed_1", "graphed_2"):
+        cap0, counts0 = capture_seconds(), trace_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_host_fetch_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with recorded_generations(server) as gens:
+            res = getattr(server, mode)(toks, *args, eager=run == "eager")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        for kname in need:
+            require(counts[kname] > 0, f"{name} {mode} ({run}): kernel {kname} was not launched on the main path")
+        require(res.tier_counts.sum() == B and res.pred.shape == (B,), f"{mode}: bad result shapes")
+        require(np.isfinite(res.scores).all(), f"{mode}: non-finite scores")
+        require(set(np.unique(res.tier_of)) <= {0, 1}, f"{mode}: bad tier_of")
+        if mode == "classify":
+            require(((res.pred >= 0) & (res.pred < n_classes)).all(), "classify: bad class ids")
+        for g in gens:
+            require(((g >= 0) & (g < n_classes)).all(), "generate: bad token ids")
+        runs[run] = dict(
+            batch=[B, S], wall_s=wall, tier_counts=res.tier_counts.tolist(), evaluated=res.evaluated.tolist(),
+            outputs_digest=outputs_digest(res.pred, res.tier_of),
+            tokens_digest=outputs_digest(*gens) if gens else None,
+            cost=res.cost, host_fetch=host_fetch_stats(), launches=counts,
+            captures={k: v - counts0.get(k, 0) for k, v in trace_counts().items() if v != counts0.get(k, 0)},
+            capture_s=capture_seconds() - cap0,
+            max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30,
+        )
+        log(f"[{name}] {mode} ({run}): {json.dumps(runs[run])}")
+    eager = runs["eager"]
+    for run in ("graphed_1", "graphed_2"):
+        r = runs[run]
+        require((r["outputs_digest"], r["tokens_digest"]) == (eager["outputs_digest"], eager["tokens_digest"]),
+                f"{name}: {run} {mode} gives other pred, tier_of or tokens than the eager run")
+        require(r["launches"] == eager["launches"], f"{name}: {run} {mode} launches {r['launches']} != eager "
+                                                    f"{eager['launches']}")
+        require(r["max_memory_allocated_gib"] <= eager["max_memory_allocated_gib"] + 2.0,
+                f"{name}: {run} {mode} peak device memory {r['max_memory_allocated_gib']:.2f} GiB against eager "
+                f"{eager['max_memory_allocated_gib']:.2f}")
+    require(runs["graphed_1"]["captures"], f"{name}: the first graphed {mode} captured nothing")
+    require(not runs["graphed_2"]["captures"], f"{name}: the second graphed {mode} captured "
+                                               f"{runs['graphed_2']['captures']}")
+    # the static caches generate keeps on each tier, one a (B, S, max_new)
+    caches = {f"{t.spec.name} {key}": nbytes(*(x for v in c.values() for x in (v if isinstance(v, list) else [v])))
+              / 2**30 for t in server.tiers for key, c in t.batch_caches.items()}
+    log(f"[{name}] {mode} walls: eager {eager['wall_s']:.4f}s, graphed {runs['graphed_1']['wall_s']:.4f}s, "
+        f"{runs['graphed_2']['wall_s']:.4f}s; static caches GiB {json.dumps(caches)}")
+    return dict(runs, wall_speedup_graphed_2=eager["wall_s"] / runs["graphed_2"]["wall_s"],
+                static_cache_gib=caches), runs["graphed_2"]["launches"]
+
+
+def generate_step_profile(tier, B, S, max_new):
+    """One replay of the prefill and of the decode step that a tier's
+    ``generate`` captured at (B, S, max_new), each profiled
+    (``profile_call``) over the tier's static cache."""
+    from repro_torch.serve import sampling
+
+    cache = tier.batch_caches[(B, S, max_new)]
+    keys, bucket = sampling.batch_keys(0, B), (B, S, max_new)
+    toks = np.zeros((B, S), np.int32)
+    tok = np.zeros((tier.k, B, 1), np.int32)
+    pos = np.full(B, S, np.int64)
+    return dict(
+        prefill=profile_call(lambda: tier.graphs.run(
+            tier._prefill.key, functools.partial(tier._prefill_into, cache), toks, keys, bucket=bucket)),
+        decode_step=profile_call(lambda: tier.graphs.run(
+            tier._decode.key, functools.partial(tier._decode_in, cache), tok, pos, keys, bucket=bucket)),
+    )
+
+
+def sampled_serve_run(server, rng, vocab, name, need, seed):
+    """One graphed ``serve_continuous`` at T = 0.8 over new tiers on the
+    same weights (per-slot keys from ``seed``), with no eager oracle:
+    phase 3 holds sampled graphed == eager and paged == dense at reduced
+    width.  Checks the outputs and returns its numbers, with one profiled
+    replay of each tier's sampled decode step (against the greedy one in
+    ``decode_step``, the sampler's cost)."""
+    from repro_torch.serve import CascadeServer, CascadeTier, ServeConfig
+    from repro_torch.serve.graphs import trace_counts
+
+    sampled = CascadeServer([CascadeTier(t.cfg, t.values, t.spec, temperature=0.8, device=t.device)
+                             for t in server.tiers], device=server.device)
+    cfg = ServeConfig(**SERVE_CONFIG, seed=seed)
+    reqs = serve_requests(rng, 32, vocab, 16, 384, 16, n_prefix=8, prefix_len=128)
+    result = serve_continuous_run(sampled, reqs, cfg, name, "sampled_graphed", need)
+    counts = trace_counts()
+    result["decode_step"] = {tier.spec.name: decode_step_profile(tier) for tier in sampled.tiers}
+    require(trace_counts() == counts, f"{name}: the profiled sampled decode steps captured again")
+    log(f"[{name}] one sampled graphed decode step: {json.dumps(result['decode_step'])}")
+    return result
+
+
+def profile_call(fn, reps=3, names=False):
     """One call of ``fn`` after a warm call: its wall (median of 5, host
     clock to a synchronize), then ``reps`` calls each under torch.profiler,
     of which the one with the median count of device kernels gives its
     host operators (top-level ``aten::`` calls, and all of them), device
     kernels, device busy time (the kernels' summed durations), six
-    costliest kernels by name and the launch counters' delta.  The profiler
-    now and then drops or adds a record at the edge of its window, so one
-    profile's count can be off by one or two: the median of three is not."""
+    costliest kernels by name and the launch counters' delta.  ``names``
+    adds that profile's kernel count by name (``kernel_names``).
+
+    The profiler drops or adds a record at the edge of its window, the same
+    way in every window of a process (one process missed the window's first
+    kernel in every profile, another saw one from before it), so the
+    kernels of a call, their count and their durations, are those of a
+    window of two calls less those of a window of one."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1229,26 +1540,38 @@ def profile_call(fn, reps=3):
         fn()
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
+
+    def window(calls):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        ev = prof.events()
+        dev_ev = [e for e in ev if e.device_type == DeviceType.CUDA
+                  and not e.name.lower().startswith(("memcpy", "memset"))]
+        n, ms = collections.Counter(), collections.Counter()
+        for e in dev_ev:
+            n[e.name] += 1
+            ms[e.name] += e.time_range.elapsed_us() / 1e3
+        return ev, n, ms
+
     runs = []
     for _ in range(reps):
         kernels.reset_launch_counts()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
+        ev, n_one, ms_one = window(1)
         counts = kernels.launch_counts()
-        ev = prof.events()
+        _, n_two, ms_two = window(2)
+        per_call = {k: n_two[k] - n_one[k] for k in n_two | n_one if n_two[k] != n_one[k]}
+        by_name = {k: ms_two[k] - ms_one[k] for k in ms_two | ms_one}
         aten = [e for e in ev if e.device_type == DeviceType.CPU and e.name.startswith("aten::")]
-        dev_ev = [e for e in ev if e.device_type == DeviceType.CUDA
-                  and not e.name.lower().startswith(("memcpy", "memset"))]
-        by_name = {}
-        for e in dev_ev:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
         runs.append(dict(
             aten_ops_top_level=sum(e.cpu_parent is None for e in aten), aten_ops_all=len(aten),
-            device_kernels=len(dev_ev), wall_s=sorted(walls)[2], device_busy_ms=sum(by_name.values()),
+            device_kernels=sum(per_call.values()), wall_s=sorted(walls)[2], device_busy_ms=sum(by_name.values()),
             top_kernels_ms=dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:6]),
             launches={k: v for k, v in counts.items() if v},
         ))
+        if names:
+            runs[-1]["kernel_names"] = collections.Counter(per_call)
     out = sorted(runs, key=lambda r: r["device_kernels"])[reps // 2]
     return dict(out, device_kernels_runs=[r["device_kernels"] for r in runs])
 
@@ -1296,15 +1619,20 @@ def chunk_call_profile(tier, rng):
         for variant, view, fn in (("one_launch_view", one_view, call), ("two_paged_view_calls", two_views, call),
                                   ("graphed", one_view, graphed_call)):
             cops.paged_kv_view = view
-            out[variant] = profile_call(fn)
+            out[variant] = profile_call(fn, names=variant != "two_paged_view_calls")
     finally:
         cops.paged_kv_view = one_view
     for variant in ("one_launch_view", "graphed"):
         require(out[variant]["launches"].get("compaction") == cfg.n_layers,
                 f"{cfg.name}: {out[variant]['launches']} launches in a {variant} chunk call")
+    eager_names, graphed_names = out["one_launch_view"].pop("kernel_names"), out["graphed"].pop("kernel_names")
+    if graphed_names != eager_names:
+        log(f"{cfg.name}: device kernels of a graphed chunk call less the eager call's, by name: "
+            f"{json.dumps({k: graphed_names[k] - eager_names[k] for k in graphed_names | eager_names if graphed_names[k] != eager_names[k]})}")
     require(out["graphed"]["device_kernels"] == out["one_launch_view"]["device_kernels"],
-            f"{cfg.name}: a graphed chunk call runs {out['graphed']['device_kernels']} device kernels, "
-            f"the eager call {out['one_launch_view']['device_kernels']}")
+            f"{cfg.name}: a graphed chunk call runs {out['graphed']['device_kernels']} device kernels "
+            f"({out['graphed']['device_kernels_runs']}), the eager call {out['one_launch_view']['device_kernels']} "
+            f"({out['one_launch_view']['device_kernels_runs']})")
     return out
 
 
@@ -1478,6 +1806,11 @@ def main(argv=None):
     log(f"reference (card vs cpu, normwise, tol {REF_TOL}): {json.dumps(ref)}")
     ref["serve_continuous_on_card"] = check_serving_on_card(dev, args.seed)
     log(f"serve_continuous on the card, paged == dense, graphed == eager: {json.dumps(ref['serve_continuous_on_card'])}")
+    ref["batch_programs_on_card"] = check_batch_programs_on_card(dev, args.seed)
+    log(f"batch programs on the card, vector == int position, draws == cpu, graphed == eager: "
+        f"{json.dumps(ref['batch_programs_on_card'])}")
+    ref["engine_on_card"] = check_engine_on_card(dev, args.seed)
+    log(f"engine on the card, graphed == eager: {json.dumps(ref['engine_on_card'])}")
     results, launches = {}, {}
     # each cascade's weights and caches must be freed by reference counting
     # alone when it returns, before the next is built: the cyclic collector

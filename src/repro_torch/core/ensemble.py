@@ -24,15 +24,17 @@ def ensemble_last_logits(values, batch, cfg: ModelConfig):
     return api.prefill_members(values, batch, cfg, collect_kv=False)[0]
 
 
-def ensemble_prefill(values, batch, cfg: ModelConfig):
+def ensemble_prefill(values, batch, cfg: ModelConfig, *, cache=None):
     """(logits (E, B, V), member caches as ``api.init_cache_members`` lays
-    them out, with S KV rows)."""
-    return api.prefill_members(values, batch, cfg)
+    them out, with S KV rows; or ``cache``, S' >= S rows, written in
+    place)."""
+    return api.prefill_members(values, batch, cfg, cache=cache)
 
 
 def ensemble_decode_step(values, token, caches, pos, cfg: ModelConfig):
-    """token (E, B, 1) per member; ``pos`` the shared scalar position or a
-    (B,) per-slot vector; caches updated in place.  Returns
+    """token (E, B, 1) per member; ``pos`` the shared scalar position (an
+    int) or a (B,) per-row vector on the device (a captured step's); caches
+    updated in place.  Returns
     (logits (E, B, V), caches)."""
     return api.decode_step_members(values, token, caches, pos, cfg)
 

@@ -212,40 +212,47 @@ def init_cache_members(cfg: ModelConfig, E: int, batch: int, max_seq: int, devic
     return cache
 
 
-def prefill_members(params, batch, cfg: ModelConfig, *, collect_kv=True):
+def prefill_members(params, batch, cfg: ModelConfig, *, collect_kv=True, cache=None):
     """Prompt prefill for E members sharing the batch.  Returns
     (last-token logits (E, B, V), member caches as ``init_cache_members``
-    lays them out with S KV rows, or None)."""
+    lays them out with S KV rows, or None).  With ``cache`` (from
+    ``init_cache_members``, KV rows S' >= S) the prompt's K/V land in rows
+    [0, S) and the recurrent state in its leaves, in place, and that cache
+    is returned: the static cache of a captured batch generation, whose
+    decode steps write rows S.. of the same memory."""
     _require_ported(cfg)
     device = params["embed"].device
     x = embed_inputs(params, _tokens(batch, device))
     E, B, S, _ = x.shape
     positions, starts = _pad_carveout(batch, S, cfg, device)
-    cache = (
-        init_cache_members(cfg, E, B, S, device, dtype=x.dtype) if collect_kv else None
-    )
+    if cache is None and collect_kv:
+        cache = init_cache_members(cfg, E, B, S, device, dtype=x.dtype)
     x = backbone_fwd(params, x, cfg, positions=positions, starts=starts, cache=cache)
     return L.project_logits(params, x[:, :, -1], cfg), cache
 
 
-def _positions(pos, device):
-    """A shared scalar position stays an int; a (B,) per-slot vector goes
-    to the device once, as int64."""
-    if isinstance(pos, (int, np.integer)) or (isinstance(pos, torch.Tensor) and pos.ndim == 0):
+def _positions(pos, B: int, device):
+    """A Python or numpy int stays an int (the shared scalar position); a
+    tensor or array, 0-d or (B,), becomes a (B,) int64 vector on the device
+    (sent once, or used in place when it is there already).  A tensor is
+    never read back to the host: inside a captured decode step that read
+    would freeze the position."""
+    if isinstance(pos, (int, np.integer)):
         return int(pos)
-    return torch.as_tensor(pos, device=device).to(torch.int64)
+    return torch.as_tensor(pos, device=device).to(torch.int64).reshape(-1).expand(B)
 
 
 def decode_step_members(params, token, cache, pos, cfg: ModelConfig, *, starts=None):
-    """One new token per member.  ``pos`` is the shared scalar position or
-    a (B,) vector of per-slot positions (continuous batching).  token
+    """One new token per member.  ``pos`` is the shared scalar position (a
+    Python int) or a (B,) vector of per-row positions (continuous batching,
+    and every captured decode step: a 0-d tensor broadcasts to it).  token
     (E, B, 1); cache from ``init_cache_members``/``prefill_members``,
     updated in place.  Token and a vector ``pos`` already on the device
     are used as they are (no copy), as a captured decode step needs.
     Returns (logits (E, B, V), cache)."""
     _require_ported(cfg)
     device = params["embed"].device
-    pos = _positions(pos, device)
+    pos = _positions(pos, token.shape[1], device)
     if starts is not None:
         _require_carveout(cfg)
         starts = torch.as_tensor(starts, device=device).to(torch.int32)
@@ -442,12 +449,22 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device, dtype=None):
     return _single_cache(init_cache_members(cfg, 1, batch, max_seq, device, dtype))
 
 
-def prefill(params, batch, cfg: ModelConfig):
+def prefill(params, batch, cfg: ModelConfig, *, cache=None):
     """Returns (last-token logits (B, V), cache in the JAX layout, with S KV
     rows).  ``batch['starts']`` (B,), optional, is the left-pad carve-out
-    (dense family only)."""
+    (dense family only).  ``cache`` (``init_cache`` with S' >= S rows): the
+    prompt is written into it in place and it is returned."""
+    if cache is not None:
+        logits, _ = prefill_members(_members(params), batch, cfg, cache=_member_cache(cache))
+        return logits[0], cache
     logits, cache = prefill_members(_members(params), batch, cfg)
     return logits[0], _single_cache(cache)
+
+
+def last_logits(params, batch, cfg: ModelConfig):
+    """Last-token logits (B, V) of a prompt batch, no cache kept (the
+    classifier head)."""
+    return prefill_members(_members(params), batch, cfg, collect_kv=False)[0][0]
 
 
 def decode_step(params, token, cache, pos, cfg: ModelConfig, *,

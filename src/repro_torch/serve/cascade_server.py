@@ -1,13 +1,17 @@
 """CascadeServer: ABC as a serving runtime (port of
-``repro.serve.cascade_server``, greedy).
+``repro.serve.cascade_server``).
 
-* ``classify`` — each tier's ensemble produces last-token logits; the
-  agreement rule (Eq. 3/4) selects or defers; deferred rows are compacted
-  on the device and re-batched for the next tier.
-* ``generate`` — black-box flavour: every member of a tier generates
-  greedily, all members in one batched program per decode step; answers
-  become stable crc32 digests and are compared by vote
-  (``vote_rule_from_preds``).
+* ``classify`` — each tier's ensemble produces last-token logits (one
+  captured program a tier and pow2 (B, S) bucket); the agreement rule
+  (Eq. 3/4) selects or defers; deferred rows are compacted on the device
+  and re-batched for the next tier.  Routing, agreement and compaction run
+  eagerly between the tiers' graphs, as they run between the JAX
+  package's jitted tier programs.
+* ``generate`` — black-box flavour: every member of a tier generates,
+  greedily or sampled, all members in one batched program per decode step
+  (the prefill and the decode step captured once a (B, S, max_new) over the
+  tier's static cache); answers become stable crc32 digests and are
+  compared by vote (``vote_rule_from_preds``).
 * ``serve_continuous`` — cascade-aware continuous batching: each tier runs
   a ``SlotStream`` (the same slot state machine the single-model engine
   drives at E=1, here at E=k) over block-paged KV pools (dense slot caches
@@ -16,8 +20,16 @@
   and a disagreement re-queues the request on the next tier.  Tier streams
   are stepped round-robin, so tier i+1 starts while tier i still decodes.
 
-Not ported yet: placement and transports, sampling (temperature > 0), the
-speculative (cascade-as-drafter) path and ``serve_open_loop``.
+Sampling at ``temperature > 0`` is the counter-based Gumbel-max draw of
+``serve/sampling.py``, inside the captured programs: batch generation keys
+row b on ``(seed, b)`` and the fed token's position, continuous batching
+keys each slot on ``(ServeConfig.seed + tier index, admission sequence)``.
+JAX's PRNG cannot be reproduced, so sampled tokens are held to the port's
+own invariants (paged == dense, graphed == eager, slot reuse, n_slots),
+and greedy ones to the JAX package's tokens.
+
+Not ported yet: placement and transports, the speculative
+(cascade-as-drafter) path and ``serve_open_loop``.
 """
 from __future__ import annotations
 
@@ -40,8 +52,9 @@ from repro_torch.models.params import tree_map
 from repro_torch.obs import UNIT_BUCKETS, Observability
 from repro_torch.serve.batching import Request
 from repro_torch.serve.config import ServeConfig
+from repro_torch.serve import sampling
 from repro_torch.serve.engine import grow_cache
-from repro_torch.serve.graphs import Program
+from repro_torch.serve.graphs import BATCH_BUCKETS, GraphPool, GraphSet, Program
 from repro_torch.serve.slot_stream import SlotStream, TierBackend
 
 
@@ -59,44 +72,45 @@ def digest_generations(out: np.ndarray) -> np.ndarray:
     return np.asarray([[stable_digest(out[e, b]) for b in range(B)] for e in range(E)], np.int32)
 
 
-def _greedy(logits):
-    return logits.argmax(-1).to(torch.int32)[..., None]
-
-
-def _require_greedy(temperature: float):
-    if temperature > 0.0:
-        raise NotImplementedError("sampling (temperature > 0) is not ported yet")
-
-
 @functools.lru_cache(maxsize=None)
 def tier_programs(cfg: ModelConfig, temperature: float) -> SimpleNamespace:
-    """The programs of one tier, greedy:
+    """The programs of one tier, with the JAX package's key inputs:
 
     ``last_logits(values, batch) -> (E, B, V)``
-    ``prefill(values, batch) -> (tok (E, B, 1), caches)``
-    ``decode(values, tok, caches, pos) -> (tok, caches)`` (scalar ``pos``)
-    ``decode_slots(values, tok, caches, pos) -> (tok, caches)`` (per-slot
-        (B,) ``pos``, continuous batching over the dense slot cache)
+    ``prefill(values, batch, rng, *, cache=None) -> (tok (E, B, 1), caches)``
+    ``decode(values, tok, caches, pos, rng) -> (tok, caches)``
+    ``decode_slots(values, tok, caches, pos, slot_keys) -> (tok, caches)``
+        (per-slot (B,) ``pos``, continuous batching over the dense slot
+        cache)
     ``prefill_chunk(values, caches, tokens, slot, start) -> caches``
     ``reset_slot(caches, slot) -> caches`` (zero every member's recurrent
         state in the slot; None for the dense family, which has none).
 
+    ``rng`` and ``slot_keys`` are (B,) int64 keys (``serve/sampling.py``):
+    a token is sampled from (key, position of the token whose logits pick
+    it, member), the argmax at ``temperature`` 0.  ``pos`` is an int or a
+    (B,) device tensor (a captured step's); ``prefill`` draws at S - 1 and
+    writes into ``cache`` when one is given (``api.prefill_members``).
+
     Each is a ``Program`` keyed ``"<cfg.name>@T<temperature>/ens_<name>"``,
-    the JAX package's keys; ``decode_slots`` and ``prefill_chunk`` are the
-    ones a tier's slot stream captures (``serve/graphs.py``)."""
-    _require_greedy(temperature)
+    the JAX package's keys; a tier captures ``last_logits``, ``prefill``
+    and ``decode`` per batch bucket and ``decode_slots`` and
+    ``prefill_chunk`` per slot geometry (``serve/graphs.py``)."""
     key = f"{cfg.name}@T{temperature:g}"
+
+    def _tokens(logits, keys, pos):
+        return sampling.sample(logits, keys, pos, temperature)[..., None]
 
     def last_logits(values, batch):
         return ens.ensemble_last_logits(values, batch, cfg)
 
-    def prefill(values, batch):
-        logits, caches = ens.ensemble_prefill(values, batch, cfg)
-        return _greedy(logits), caches
+    def prefill(values, batch, rng, *, cache=None):
+        logits, caches = ens.ensemble_prefill(values, batch, cfg, cache=cache)
+        return _tokens(logits, rng, batch["tokens"].shape[1] - 1), caches
 
-    def decode(values, tok, caches, pos):
+    def decode(values, tok, caches, pos, rng):
         logits, caches = ens.ensemble_decode_step(values, tok, caches, pos, cfg)
-        return _greedy(logits), caches
+        return _tokens(logits, rng, pos), caches
 
     def prefill_chunk(values, caches, tokens, slot, start):
         return ens.ensemble_prefill_into_slot(values, tokens, caches, slot, start, cfg)
@@ -119,14 +133,15 @@ def tier_programs(cfg: ModelConfig, temperature: float) -> SimpleNamespace:
 @functools.lru_cache(maxsize=None)
 def tier_paged_programs(cfg: ModelConfig, temperature: float) -> SimpleNamespace:
     """Block-paged counterparts of the continuous-mode programs: E pool
-    planes advance under ONE shared (n_slots, n_pg) page table."""
+    planes advance under ONE shared (n_slots, n_pg) page table, with the
+    per-slot admission keys for sampling:
+    ``decode_slots(values, tok, pools, pos, pages, slot_keys)``."""
     assert api.supports_paging(cfg), cfg.family
-    _require_greedy(temperature)
     key = f"{cfg.name}@T{temperature:g}"
 
-    def decode_slots(values, tok, pools, pos, pages):
+    def decode_slots(values, tok, pools, pos, pages, slot_keys):
         logits, pools = ens.ensemble_decode_step_paged(values, tok, pools, pos, pages, cfg)
-        return _greedy(logits), pools
+        return sampling.sample(logits, slot_keys, pos, temperature)[..., None], pools
 
     def prefill_chunk(values, pools, tokens, pages_row, start):
         return ens.ensemble_prefill_into_slot_paged(values, tokens, pools, pages_row, start, cfg)
@@ -142,21 +157,28 @@ def tier_paged_programs(cfg: ModelConfig, temperature: float) -> SimpleNamespace
 class CascadeTier:
     """One cascade level: a stacked k-member ensemble (``values`` with a
     leading member axis) plus its ``TierSpec`` deferral rule.  ``device``
-    None means the card.  ``slot_memory`` (slot geometry -> ``SlotMemory``)
-    holds the pools or slot caches of the tier's slot streams and the
-    graphs captured over them, so a later ``serve_continuous`` replays
-    what an earlier one captured; they go with the tier."""
+    None means the card.  The tier owns its graphs and the device memory
+    they are captured over, so later calls replay what earlier ones
+    captured, and all go with the tier: ``graphs`` (classify's last-token
+    logits a (B, S), generate's prefill and decode step and its static
+    cache of (B, S + max_new) rows a (B, S, max_new); at most
+    ``BATCH_BUCKETS`` buckets, the least recently used evicted) and
+    ``slot_memory`` (slot geometry -> ``SlotMemory``: the pools or slot
+    caches of the tier's slot streams and their graphs), all allocating
+    from ``graph_pool``."""
 
     cfg: ModelConfig
     values: dict
     spec: TierSpec
     temperature: float = 0.0
     device: object = None
+    graph_pool: GraphPool = dataclasses.field(default_factory=GraphPool, init=False, repr=False, compare=False)
     slot_memory: dict = dataclasses.field(default_factory=dict, init=False, repr=False, compare=False)
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
         self.values = tree_map(lambda t: t.to(self.device), self.values)
+        self.graphs = GraphSet(self.device, self.graph_pool, BATCH_BUCKETS)
         self.k = ens.member_count(self.values)
         programs = tier_programs(self.cfg, float(self.temperature))
         self._last_logits = programs.last_logits
@@ -166,18 +188,65 @@ class CascadeTier:
         self._prefill_chunk = programs.prefill_chunk
         self._reset_slot = programs.reset_slot
 
-    def generate(self, tokens: np.ndarray, max_new_tokens: int, seed: int = 0) -> np.ndarray:
-        """Greedy ensemble generation: tokens (B, S) -> (E, B, max_new).
-        ``seed`` is unused until sampling is ported."""
+    def last_logits(self, tokens, *, eager: bool = False) -> torch.Tensor:
+        """Member last-token logits (E, B, V) of tokens (B, S), host or
+        device: one captured program a (B, S).  The result of a replay is
+        the graph's output buffer: read it before the tier's next call."""
+        if eager:
+            return self._last_logits_fn(torch.as_tensor(tokens, device=self.device))
+        return self.graphs.run(self._last_logits.key, self._last_logits_fn, tokens,
+                               bucket=("classify", tuple(tokens.shape)))
+
+    def generate(self, tokens: np.ndarray, max_new_tokens: int, seed: int = 0, *,
+                 eager: bool = False) -> np.ndarray:
+        """Ensemble generation, greedy or sampled (``temperature``) under
+        ``seed``: tokens (B, S) -> (E, B, max_new).  The prefill writes into
+        the tier's static cache of (B, S + max_new) rows and the decode step
+        runs over it at a (B,) device position, each captured once a (B, S,
+        max_new) and replayed after; ``eager`` runs the oracle (a fresh
+        cache grown by ``grow_cache``, scalar positions)."""
         assert max_new_tokens >= 1, max_new_tokens
         B, S = tokens.shape
-        tok, caches = self._prefill(self.values, {"tokens": torch.as_tensor(tokens, device=self.device)})
+        keys = sampling.batch_keys(seed, B)
+        if eager:
+            return self._generate_eager(tokens, max_new_tokens, torch.as_tensor(keys, device=self.device))
+        bucket = (B, S, max_new_tokens)
+        cache = self.graphs.bucket(bucket, lambda: api.init_cache_members(
+            self.cfg, self.k, B, S + max_new_tokens, self.device))
+        tok = self.graphs.run(self._prefill.key, functools.partial(self._prefill_into, cache), tokens, keys,
+                              bucket=bucket)
+        out = [host_fetch(tok)[..., 0]]
+        pos = np.empty(B, np.int64)
+        for t in range(max_new_tokens - 1):
+            pos.fill(S + t)
+            tok = self.graphs.run(self._decode.key, functools.partial(self._decode_in, cache), tok, pos, keys,
+                                  bucket=bucket)
+            out.append(host_fetch(tok)[..., 0])
+        return np.stack(out, axis=2)  # (E, B, T)
+
+    def _generate_eager(self, tokens, max_new_tokens, keys):
+        S = tokens.shape[1]
+        tok, caches = self._prefill(self.values, {"tokens": torch.as_tensor(tokens, device=self.device)}, keys)
         caches = grow_cache(caches, max_new_tokens, self.cfg)
         out = [host_fetch(tok)[..., 0]]
         for t in range(max_new_tokens - 1):
-            tok, caches = self._decode(self.values, tok, caches, S + t)
+            tok, caches = self._decode(self.values, tok, caches, S + t, keys)
             out.append(host_fetch(tok)[..., 0])
-        return np.stack(out, axis=2)  # (E, B, T)
+        return np.stack(out, axis=2)
+
+    @property
+    def batch_caches(self) -> dict:
+        """generate's static caches kept now, by (B, S, max_new) bucket."""
+        return {b: m for b, m in self.graphs.buckets.items() if m is not None}
+
+    def _last_logits_fn(self, tokens):
+        return self._last_logits(self.values, {"tokens": tokens})
+
+    def _prefill_into(self, cache, tokens, keys):
+        return self._prefill(self.values, {"tokens": tokens}, keys, cache=cache)[0]
+
+    def _decode_in(self, cache, tok, pos, keys):
+        return self._decode(self.values, tok, cache, pos, keys)[0]
 
 
 class _CascadeRun:
@@ -200,7 +269,7 @@ class _CascadeRun:
         self.streams = [
             SlotStream(
                 TierBackend(
-                    t, n_slots=cfg.n_slots, max_seq=cfg.max_seq, paged=cfg.paged,
+                    t, n_slots=cfg.n_slots, max_seq=cfg.max_seq, seed=cfg.seed + i, paged=cfg.paged,
                     page_size=cfg.page_size, n_pages=cfg.n_pages,
                     obs=ob, pool_name=f"paging.tier{i}", eager=eager,
                 ),
@@ -272,12 +341,14 @@ class CascadeServer:
                 raise ValueError(f"tier {t.spec.name} lives on {t.device}, server on {self.device}")
         self.pad_to = pad_to
 
-    def classify(self, tokens: np.ndarray) -> CascadeResult:
-        """tokens (B, S) -> CascadeResult with per-tier routing stats."""
+    def classify(self, tokens: np.ndarray, *, eager: bool = False) -> CascadeResult:
+        """tokens (B, S) -> CascadeResult with per-tier routing stats.  Each
+        tier's logits are one captured program a bucket (``eager``: the
+        oracle route)."""
 
         def tier_fn(tier: CascadeTier):
             def fn(batch):
-                return tier._last_logits(tier.values, {"tokens": batch["tokens"]})
+                return tier.last_logits(batch["tokens"], eager=eager)
 
             return fn
 
@@ -286,14 +357,16 @@ class CascadeServer:
             {"tokens": tokens}, pad_to=self.pad_to, device=self.device,
         )
 
-    def generate(self, tokens: np.ndarray, max_new_tokens: int = 8, seed: int = 0) -> CascadeResult:
-        """Each tier's members generate greedily; answers are digested to
-        stable ids and vote-compared."""
+    def generate(self, tokens: np.ndarray, max_new_tokens: int = 8, seed: int = 0, *,
+                 eager: bool = False) -> CascadeResult:
+        """Each tier's members generate (``CascadeTier.generate``: greedy or
+        sampled under ``seed``, graphed unless ``eager``); answers are
+        digested to stable ids and vote-compared."""
 
         def tier_fn(tier: CascadeTier):
             def fn(batch):
                 toks = host_fetch(batch["tokens"])
-                out = tier.generate(toks, max_new_tokens, seed=seed)
+                out = tier.generate(toks, max_new_tokens, seed=seed, eager=eager)
                 return torch.as_tensor(digest_generations(out), device=self.device)
 
             return fn

@@ -21,12 +21,15 @@ class ServeConfig:
     ``max_seq``; 256 for the cascade).  ``paged=None`` selects block-paged
     KV pools wherever the family supports them (``paged=False`` keeps the
     dense slot cache as the parity oracle); ``n_pages=None`` sizes pools at
-    dense-equivalent capacity plus the overflow sink.  ``obs=None`` gives
-    each component a private telemetry bundle.  ``speculative``
+    dense-equivalent capacity plus the overflow sink.  ``seed`` feeds the
+    per-tier sampling keys (tier i's slot keys derive from ``seed + i``;
+    the single engine holds its own generator).  ``obs=None`` gives each
+    component a private telemetry bundle.  ``speculative``
     (cascade-as-drafter) is not ported yet and raises."""
 
     n_slots: int = 8
     max_seq: Optional[int] = None
+    seed: int = 0
     chunked_prefill: bool = True
     max_chunk: int = 256
     paged: Optional[bool] = None

@@ -1,5 +1,5 @@
 """SlotStream: the slot state machine behind all continuous batching (port
-of ``repro.serve.slot_stream``, greedy).
+of ``repro.serve.slot_stream``).
 
 One ``SlotStream`` owns the admit / refill / prompt-feed / force-complete
 lifecycle of ``n_slots`` decode slots over member-stacked caches or pools;
@@ -60,6 +60,13 @@ The pools or slot caches live on the owning engine or tier
 (``SlotMemory``, keyed by slot geometry), so a later run replays the graphs
 an earlier one captured.
 
+Sampling (temperature > 0): a tier samples inside its captured decode step
+from per-slot keys (``serve/sampling.py``), staged as an (n_slots,) input
+like the positions: ``TierBackend.begin_slot`` sets a slot's key from the
+admission sequence number once the pool admits it, so a slot's tokens do
+not depend on which slot it landed in or what shares its steps.  The
+engine samples after the captured step from its own generator.
+
 Not ported yet (the JAX package has them): the speculative draft-verify
 admission and in-flight (transport) admission.
 """
@@ -77,6 +84,7 @@ from repro_torch.models import api
 from repro_torch.obs import Observability, StatsView
 from repro_torch.serve.batching import Request
 from repro_torch.serve.config import ServeConfig
+from repro_torch.serve import sampling
 from repro_torch.serve.graphs import GraphSet
 from repro_torch.serve.paging import PagePool
 
@@ -345,9 +353,9 @@ class SlotMemory:
 
     __slots__ = ("state", "graphs", "user")
 
-    def __init__(self, state, device):
+    def __init__(self, state, device, pool=None):
         self.state = state
-        self.graphs = GraphSet(device)
+        self.graphs = GraphSet(device, pool)
         self.user = _no_user
 
 
@@ -362,10 +370,11 @@ class _SlotBackend:
     graphed path is held to, and nothing else."""
 
     def _init_slots(self, owner, device, cfg, *, n_slots, max_seq, paged, page_size, n_pages,
-                    obs, pool_name, eager):
+                    obs, pool_name, eager, graph_pool=None):
         """Host pool and device memory for this geometry: the owner's
         (``owner`` its geometry -> ``SlotMemory`` dict, None for memory of
-        this backend's own), or new memory from ``_new_pool``/``_new_cache``."""
+        this backend's own), or new memory from ``_new_pool``/``_new_cache``,
+        its graphs allocating from the owner's ``graph_pool``."""
         self.paged = api.supports_paging(cfg) if paged is None else bool(paged)
         self.eager = bool(eager)
         if self.paged:
@@ -378,7 +387,7 @@ class _SlotBackend:
         mem = None if owner is None else owner.get(geometry)
         if mem is None or mem.user() is not None:
             state = self._new_pool(n_pages, page_size) if self.paged else self._new_cache(n_slots, max_seq)
-            mem = SlotMemory(state, device)
+            mem = SlotMemory(state, device, graph_pool)
             if owner is not None:
                 owner.setdefault(geometry, mem)
         mem.user = weakref.ref(self)
@@ -418,11 +427,12 @@ class _SlotBackend:
         """One decode step for every member x slot at its own ``pos``;
         returns the next tokens (E, n_slots) on the host, in the step's one
         device-to-host read."""
+        keys = self._step_keys()
         if self.paged:
-            out = self._run(self._decode_paged, self._decode_paged_fn, tok, pos, self.pool.table)
+            out = self._run(self._decode_paged, self._decode_paged_fn, tok, pos, self.pool.table, *keys)
         else:
-            out = self._run(self._decode, self._decode_fn, tok, pos)
-        return host_fetch(out)
+            out = self._run(self._decode, self._decode_fn, tok, pos, *keys)
+        return host_fetch(self._after_step(out))
 
     def prefill_chunk(self, tokens, slot, start):
         """Write one pow2 prompt chunk into ``slot`` (every member's) at
@@ -443,15 +453,18 @@ class _SlotBackend:
 
 class EngineBackend(_SlotBackend):
     """E=1 backend over a single model's programs (``model_programs``);
-    ``sample`` turns logits into token ids (greedy).  ``paged`` selects
-    block-paged KV pools (default wherever the family supports them);
-    ``paged=False`` keeps the dense slot cache as the parity oracle.
-    ``memory`` is the owning engine's geometry -> ``SlotMemory`` dict (None:
-    memory of this backend's own); ``eager`` the oracle route."""
+    ``sample`` turns logits (..., V) into token ids: with ``greedy`` (the
+    argmax) it runs inside the captured decode step, otherwise after it, on
+    the host side of the program (the engine's generator draws there).
+    ``paged`` selects block-paged KV pools (default wherever the family
+    supports them); ``paged=False`` keeps the dense slot cache as the
+    parity oracle.  ``memory`` is the owning engine's geometry ->
+    ``SlotMemory`` dict (None: memory of this backend's own) and
+    ``graph_pool`` its graphs' pool; ``eager`` the oracle route."""
 
-    def __init__(self, cfg, params, programs, sample, *, n_slots, max_seq,
+    def __init__(self, cfg, params, programs, sample, *, n_slots, max_seq, greedy=True,
                  prefill_counter=None, paged=None, page_size: int = 16,
-                 n_pages=None, obs=None, pool_name="paging", memory=None, eager=False):
+                 n_pages=None, obs=None, pool_name="paging", memory=None, graph_pool=None, eager=False):
         assert not cfg.is_encoder
         self.cfg = cfg
         self.params = params
@@ -460,12 +473,14 @@ class EngineBackend(_SlotBackend):
         self._chunk = programs.prefill_chunk
         self._reset = programs.reset_slot
         self._sample = sample
+        self._greedy = bool(greedy)
         # the owning engine's ``engine.prefill_tokens`` counter; None
         # outside an engine
         self._prefill_counter = prefill_counter
         self._init_slots(
             memory, params["embed"].device, cfg, n_slots=n_slots, max_seq=max_seq, paged=paged,
             page_size=page_size, n_pages=n_pages, obs=obs, pool_name=pool_name, eager=eager,
+            graph_pool=graph_pool,
         )
         if self.paged:
             from repro_torch.serve.engine import paged_model_programs
@@ -484,13 +499,22 @@ class EngineBackend(_SlotBackend):
     def _new_cache(self, n_slots, max_seq):
         return api.init_cache(self.cfg, n_slots, max_seq, self.params["embed"].device)
 
+    def _step_keys(self):
+        return ()
+
+    def _step_out(self, logits):
+        return self._sample(logits)[None] if self._greedy else logits[None]
+
+    def _after_step(self, out):
+        return out if self._greedy else self._sample(out)
+
     def _decode_fn(self, tok, pos):
         logits, _ = self._decode(self.params, tok[0], self.mem.state, pos)
-        return self._sample(logits)[None]
+        return self._step_out(logits)
 
     def _decode_paged_fn(self, tok, pos, pages):
         logits, _ = self._decode_paged(self.params, tok[0], self.mem.state, pos, pages)
-        return self._sample(logits)[None]
+        return self._step_out(logits)
 
     def _chunk_fn(self, tokens, slot, start):
         self._chunk(self.params, tokens, self.mem.state, slot, start)
@@ -506,23 +530,34 @@ class EngineBackend(_SlotBackend):
 
 class TierBackend(_SlotBackend):
     """E=k backend over a cascade tier's stacked-ensemble programs (one
-    batched program advances every member; greedy tokens come back in one
-    fetch).  Paged tiers stack E pool planes under ONE page table: members
-    score the same tokens at the same positions, so every shared prefix
-    page is an E-fold memory saving.  Device memory and graphs live on the
-    tier (``CascadeTier.slot_memory``); ``eager`` is the oracle route."""
+    batched program advances every member and samples its tokens, which
+    come back in one fetch).  Paged tiers stack E pool planes under ONE
+    page table: members score the same tokens at the same positions, so
+    every shared prefix page is an E-fold memory saving.  Device memory and
+    graphs live on the tier (``CascadeTier.slot_memory``); ``eager`` is the
+    oracle route.
 
-    def __init__(self, tier, *, n_slots, max_seq, paged=None, page_size: int = 16,
+    Sampling determinism: every slot owns a key ``fold_in(base_key(seed),
+    admit_seq)`` assigned at admission (admission order is FIFO), and each
+    sampled token draws on (slot key, position, member): a slot's sampled
+    trajectory depends only on its own occupant and history, never on its
+    slot index, ``n_slots`` or which other slots share its decode steps."""
+
+    def __init__(self, tier, *, n_slots, max_seq, seed: int = 0, paged=None, page_size: int = 16,
                  n_pages=None, obs=None, pool_name="paging", eager=False):
         assert not tier.cfg.is_encoder
         self.tier = tier
         self.E = tier.k
+        self._base_key = sampling.base_key(seed)
+        self._admit_seq = 0
+        self.slot_keys = np.full(n_slots, self._base_key, np.int64)
         self._decode = tier._decode_slots
         self._chunk = tier._prefill_chunk
         self._reset = tier._reset_slot
         self._init_slots(
             tier.slot_memory, tier.device, tier.cfg, n_slots=n_slots, max_seq=max_seq, paged=paged,
             page_size=page_size, n_pages=n_pages, obs=obs, pool_name=pool_name, eager=eager,
+            graph_pool=tier.graph_pool,
         )
         if self.paged:
             from repro_torch.serve.cascade_server import tier_paged_programs
@@ -541,11 +576,26 @@ class TierBackend(_SlotBackend):
     def _new_cache(self, n_slots, max_seq):
         return api.init_cache_members(self.tier.cfg, self.E, n_slots, max_seq, self.tier.device)
 
-    def _decode_fn(self, tok, pos):
-        return self._decode(self.tier.values, tok, self.mem.state, pos)[0][..., 0]
+    def begin_slot(self, slot, tokens, *, share=True):
+        """Claim the slot's memory, then assign its admission key."""
+        shared = super().begin_slot(slot, tokens, share=share)
+        if shared is None:
+            return None  # pool refusal: the occupant (and its key) stays out
+        self._admit_seq += 1
+        self.slot_keys[slot] = sampling.fold_in(self._base_key, self._admit_seq)
+        return shared
 
-    def _decode_paged_fn(self, tok, pos, pages):
-        return self._decode_paged(self.tier.values, tok, self.mem.state, pos, pages)[0][..., 0]
+    def _step_keys(self):
+        return (self.slot_keys,)
+
+    def _after_step(self, out):
+        return out
+
+    def _decode_fn(self, tok, pos, keys):
+        return self._decode(self.tier.values, tok, self.mem.state, pos, keys)[0][..., 0]
+
+    def _decode_paged_fn(self, tok, pos, pages, keys):
+        return self._decode_paged(self.tier.values, tok, self.mem.state, pos, pages, keys)[0][..., 0]
 
     def _chunk_fn(self, tokens, slot, start):
         self._chunk(self.tier.values, self.mem.state, tokens, slot, start)

@@ -274,6 +274,24 @@ def test_slot_memory_freed_with_its_owner():
 # ---------------------------------------------------------------------------
 
 
+def test_graph_set_frees_an_evicted_bucket_before_making_the_next():
+    """An evicted bucket's memory and entries are gone before the new
+    bucket's memory is made, so peak memory holds at most the cap of
+    buckets; a kept bucket is moved to the end, not evicted."""
+    gs = GraphSet("cpu", max_buckets=2)
+    for b in ("a", "b"):
+        gs.run(f"gs-evict/{b}", lambda x: x + 1, np.zeros(3, np.float32), bucket=b)
+    mem = gs.bucket("a", lambda: torch.zeros(4))
+    ref = weakref.ref(mem)
+    del mem
+    seen = []
+    gs.bucket("c", lambda: seen.append(ref() is None) or torch.ones(4))
+    assert list(gs.buckets) == ["a", "c"]
+    gs.bucket("d", lambda: seen.append(ref() is None) or torch.ones(4))
+    assert seen == [False, True]
+    assert list(gs.buckets) == ["c", "d"] and ("gs-evict/a", "a", False) not in gs._entries
+
+
 def test_graph_set_counts_first_calls_and_stages_inputs():
     gs = GraphSet("cpu")
     key, eager_key = "graph-set-test/prog", "graph-set-test/eager"
@@ -407,9 +425,10 @@ def test_graph_set_decode_matches_direct_call(paged):
     pos = np.array([9, 10, 11], np.int32)
     got = be.decode(tok, pos)
     if paged:
-        t, _ = tier_paged_programs(tier.cfg, 0.0).decode_slots(tier.values, tok, copy, pos, be.pool.table)
+        t, _ = tier_paged_programs(tier.cfg, 0.0).decode_slots(tier.values, tok, copy, pos, be.pool.table,
+                                                                be.slot_keys)
     else:
-        t, _ = tier._decode_slots(tier.values, tok, copy, pos)
+        t, _ = tier._decode_slots(tier.values, tok, copy, pos, be.slot_keys)
     np.testing.assert_array_equal(got, t[..., 0].numpy())
     for name in copy:
         assert torch.equal(copy[name], be.mem.state[name])
@@ -448,3 +467,244 @@ def test_reused_cascade_matches_jax():
         for a, b in zip(jr, tr):
             assert (b.tier, b.truncated) == (a.tier, a.truncated)
             np.testing.assert_array_equal(b.output, a.output)
+
+
+# ---------------------------------------------------------------------------
+# the batch programs: classify, the batch prefill and generate's decode
+# ---------------------------------------------------------------------------
+
+
+def _reuse_pairs(family, tag):
+    """tests/test_compile_reuse.py's server: a 3-member vote tier of
+    ``family`` in front of a one-member confidence tier."""
+    return [(_jcfg(family, f"reuse-{tag}1-{family}"), 3, 70, "vote", 0.67),
+            (_jcfg("dense", f"reuse-{tag}2-{family}"), 1, 71, "confidence", -1.0)]
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_classify_zero_retrace_after_warmup(family):
+    """Same-shape classify counts nothing new after a warm-up (tier
+    transitions included), and answers alike every time."""
+    server = _server(_reuse_pairs(family, "cls"))
+    toks = np.random.default_rng(0).integers(0, 64, (16, 12)).astype(np.int32)
+    server.classify(toks)  # warm-up: counts (tier transitions included)
+    before = trace_counts()
+    r1 = server.classify(toks)
+    r2 = server.classify(toks)
+    assert trace_counts() == before, "same-shape classify must not count again"
+    assert any(k.endswith("/ens_last_logits") and k.startswith(f"reuse-cls1-{family}@") for k in before)
+    np.testing.assert_array_equal(r1.pred, r2.pred)
+    np.testing.assert_array_equal(r1.tier_of, r2.tier_of)
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_generate_zero_retrace_after_warmup(family):
+    server = _server(_reuse_pairs(family, "gen"))
+    toks = np.random.default_rng(1).integers(0, 64, (8, 10)).astype(np.int32)
+    server.generate(toks, max_new_tokens=3)  # warm-up
+    before = trace_counts()
+    r1 = server.generate(toks, max_new_tokens=3)
+    r2 = server.generate(toks, max_new_tokens=3)
+    assert trace_counts() == before, "same-shape generate must not count again"
+    for prog in ("ens_prefill", "ens_decode"):
+        assert before[f"reuse-gen1-{family}@T0/{prog}"] == 1
+    np.testing.assert_array_equal(r1.pred, r2.pred)
+    np.testing.assert_array_equal(r1.tier_of, r2.tier_of)
+    tier = server.tiers[0]
+    assert list(tier.batch_caches) == [(8, 10, 3)]
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_engine_batch_programs_zero_retrace(family):
+    """The engine's classify and generate, with left-pad starts where the
+    family takes them: flat counts after a warm-up, one static cache a
+    (B, S, max_new) bucket, equal answers."""
+    eng = _engine(_jcfg(family, f"reuse-eb-{family}"), 9)
+    toks = np.random.default_rng(2).integers(0, 64, (4, 8)).astype(np.int32)
+    starts = np.array([0, 3, 5, 1], np.int32) if family == "dense" else None
+    eng.classify(toks, starts)
+    eng.generate(toks, 4, starts=starts)
+    before = trace_counts()
+    outs = [(eng.classify(toks, starts), eng.generate(toks, 4, starts=starts)) for _ in range(2)]
+    assert trace_counts() == before
+    assert before[f"reuse-eb-{family}/prefill"] == 2 and before[f"reuse-eb-{family}/decode"] == 1
+    np.testing.assert_array_equal(outs[0][0], outs[1][0])
+    np.testing.assert_array_equal(outs[0][1], outs[1][1])
+    assert list(eng.batch_caches) == [(4, 8, 4, starts is None)]
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+def test_static_cache_generate_matches_grow_cache(family, temperature):
+    """Generate over the tier's static cache at (B,) positions (the graphed
+    route) emits bitwise the tokens of the grow_cache route at scalar
+    positions (``eager=True``), on a first call, on a reused cache holding
+    another batch's rows, and at another max_new on its own cache."""
+    jcfg = _jcfg(family, f"reuse-sc-{family}")
+    tier = CascadeTier(_tcfg(jcfg), t_ens.init_ensemble(_tcfg(jcfg), 3, torch.Generator().manual_seed(3), "cpu"),
+                       TierSpec("t", "vote", 0.5, k=3), temperature=temperature, device="cpu")
+    rng = np.random.default_rng(4)
+    for toks, max_new in ((rng.integers(0, 64, (4, 9)), 5), (rng.integers(0, 64, (4, 9)), 5),
+                          (rng.integers(0, 64, (4, 9)), 2)):
+        toks = toks.astype(np.int32)
+        got = tier.generate(toks, max_new, seed=11)
+        ref = tier.generate(toks, max_new, seed=11, eager=True)
+        assert got.shape == (3, 4, max_new)
+        np.testing.assert_array_equal(got, ref)
+    assert sorted(tier.batch_caches) == [(4, 9, 2), (4, 9, 5)]
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_engine_static_cache_generate_matches_grow_cache(family):
+    """The engine's static-cache generate (with starts on the dense family)
+    equals its grow_cache oracle bitwise."""
+    eng = _engine(_jcfg(family, f"reuse-esc-{family}"), 12)
+    rng = np.random.default_rng(5)
+    starts = np.array([2, 0, 6], np.int32) if family == "dense" else None
+    for _ in range(2):
+        toks = rng.integers(0, 64, (3, 8)).astype(np.int32)
+        np.testing.assert_array_equal(eng.generate(toks, 5, starts=starts),
+                                      eng.generate(toks, 5, starts=starts, eager=True))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("family", ["dense", "hybrid"])
+def test_vector_position_decode_matches_scalar(family, dtype):
+    """A decode step at a (B,) position vector (a captured step's route, and
+    a 0-d tensor, which broadcasts to it) writes bitwise the cache and emits
+    bitwise the logits of the step at the scalar int position, with left-pad
+    starts on the dense family."""
+    cfg = dataclasses.replace(_tcfg(_jcfg(family, f"reuse-vec-{family}")), dtype=dtype)
+    vals = t_ens.init_ensemble(cfg, 3, torch.Generator().manual_seed(6), "cpu")
+    toks = np.random.default_rng(7).integers(0, 64, (4, 10)).astype(np.int32)
+    batch = {"tokens": toks}
+    kw = {}
+    if family == "dense":
+        batch["starts"] = np.array([0, 4, 9, 2], np.int32)
+        kw["starts"] = torch.as_tensor(batch["starts"])
+    cache = t_api.init_cache_members(cfg, 3, 4, 14, "cpu")
+    t_ens.ensemble_prefill(vals, batch, cfg, cache=cache)
+    tok = torch.as_tensor(np.random.default_rng(8).integers(0, 64, (3, 4, 1)).astype(np.int32))
+    results = []
+    for pos in (10, torch.full((4,), 10, dtype=torch.int64), torch.tensor(10), np.full(4, 10, np.int32)):
+        c = {k: [t.clone() for t in v] if isinstance(v, list) else v.clone() for k, v in cache.items()}
+        logits, _ = t_api.decode_step_members(vals, tok, c, pos, cfg, **kw)
+        results.append((logits, c))
+    for logits, c in results[1:]:
+        assert torch.equal(logits, results[0][0])
+        for a, b in zip(_leaves(c), _leaves(results[0][1])):
+            assert torch.equal(a, b)
+
+
+def test_static_cache_prefill_matches_fresh_cache():
+    """Prefill into a larger static cache holding stale rows writes rows
+    [0, S) bitwise what a fresh prefill cache holds, and the logits."""
+    cfg = _tcfg(_jcfg("hybrid", "reuse-pre"))
+    vals = t_ens.init_ensemble(cfg, 3, torch.Generator().manual_seed(9), "cpu")
+    toks = np.random.default_rng(10).integers(0, 64, (2, 7)).astype(np.int32)
+    ref_logits, ref = t_ens.ensemble_prefill(vals, {"tokens": toks}, cfg)
+    cache = t_api.init_cache_members(cfg, 3, 2, 12, "cpu")
+    for t in _leaves(cache):
+        t.copy_(torch.randn(t.shape, generator=torch.Generator().manual_seed(11)))
+    logits, got = t_ens.ensemble_prefill(vals, {"tokens": toks}, cfg, cache=cache)
+    assert got is cache and torch.equal(logits, ref_logits)
+    for name, v in ref.items():
+        for a, b in zip(v if isinstance(v, list) else [v], got[name] if isinstance(v, list) else [got[name]]):
+            if name in ("attn_k", "attn_v"):
+                b = b[..., :7, :]
+            assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_batch_programs_match_jax(family):
+    """pred, tier_of and the greedy tokens of the graphed-route classify and
+    generate equal the JAX package's on the same weights, at a first call
+    and on the reused programs and static caches."""
+    j_server, t_server = _jax_server(_reuse_pairs(family, "jx"))
+    rng = np.random.default_rng(13)
+    toks = rng.integers(0, 64, (16, 12)).astype(np.int32)
+    gtoks = rng.integers(0, 64, (8, 10)).astype(np.int32)
+    jc, jg = j_server.classify(toks), j_server.generate(gtoks, max_new_tokens=4)
+    jt = np.asarray(j_server.tiers[0].generate(gtoks, 4))
+    for _ in range(2):
+        tc, tg = t_server.classify(toks), t_server.generate(gtoks, max_new_tokens=4)
+        for j, t in ((jc, tc), (jg, tg)):
+            np.testing.assert_array_equal(t.pred, j.pred)
+            np.testing.assert_array_equal(t.tier_of, j.tier_of)
+        np.testing.assert_array_equal(t_server.tiers[0].generate(gtoks, 4), jt)
+
+
+def test_engine_batch_programs_match_jax():
+    """The engine's graphed-route classify (argmax) and generate, with
+    left-pad starts, equal the JAX engine's."""
+    eng, jeng = _jax_engine(_jcfg("dense", "reuse-ejx"), 14)
+    toks = np.random.default_rng(15).integers(0, 64, (4, 9)).astype(np.int32)
+    starts = np.array([0, 2, 8, 5], np.int32)
+    jl, jt = jeng.classify(toks, starts), jeng.generate(toks, 5, starts=starts)
+    for _ in range(2):
+        np.testing.assert_array_equal(eng.classify(toks, starts).argmax(-1), np.asarray(jl).argmax(-1))
+        np.testing.assert_array_equal(eng.generate(toks, 5, starts=starts), np.asarray(jt))
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_batch_buckets_bounded(family):
+    """Generate at five (S, max_new) shapes on a tier that keeps two
+    buckets: never more than two static caches, each call bitwise the
+    grow_cache oracle, and an evicted shape that comes back captures again
+    over new memory and answers as before."""
+    jcfg = _jcfg(family, f"reuse-lru-{family}")
+    tier = CascadeTier(_tcfg(jcfg), t_ens.init_ensemble(_tcfg(jcfg), 2, torch.Generator().manual_seed(17), "cpu"),
+                       TierSpec("t", "vote", 0.5, k=2), temperature=0.8, device="cpu")
+    tier.graphs.max_buckets = 2
+    rng = np.random.default_rng(18)
+    toks = rng.integers(0, 64, (4, 12)).astype(np.int32)
+    shapes = [(6, 4), (8, 2), (7, 5), (9, 3), (6, 4)]
+    key = f"reuse-lru-{family}@T0.8/ens_prefill"
+    first, outs = trace_count(key), []
+    for S, max_new in shapes:
+        outs.append(tier.generate(toks[:, :S], max_new, seed=5))
+        np.testing.assert_array_equal(outs[-1], tier.generate(toks[:, :S], max_new, seed=5, eager=True))
+        assert len(tier.batch_caches) <= 2 and len(tier.graphs.buckets) <= 2
+    assert list(tier.batch_caches) == [(4, 9, 3), (4, 6, 4)]
+    assert trace_count(key) == first + 5, "the evicted (6, 4) bucket captures again"
+    np.testing.assert_array_equal(outs[-1], outs[0])
+    before = trace_counts()
+    tier.generate(toks[:, :9], 3, seed=5)
+    assert trace_counts() == before, "a kept bucket replays"
+
+
+def test_engine_batch_buckets_bounded():
+    """The engine's classify and generate buckets share one bound: a
+    serve_pending-like run of varied budgets keeps at most the cap, and
+    answers bitwise as the eager oracle."""
+    tcfg = _tcfg(_jcfg("dense", "reuse-elru"))
+    eng = ServingEngine(tcfg, t_api.init_params(tcfg, torch.Generator().manual_seed(19), "cpu"),
+                        max_seq=64, device="cpu")
+    eng.graphs.max_buckets = 3
+    toks = np.random.default_rng(20).integers(0, 64, (4, 8)).astype(np.int32)
+    starts = np.array([0, 3, 5, 1], np.int32)
+    for max_new in (2, 3, 4, 5, 2):
+        np.testing.assert_array_equal(eng.classify(toks, starts), eng.classify(toks, starts, eager=True))
+        np.testing.assert_array_equal(eng.generate(toks, max_new, starts=starts),
+                                      eng.generate(toks, max_new, starts=starts, eager=True))
+        assert len(eng.graphs.buckets) <= 3
+    assert list(eng.graphs.buckets) == [(4, 8, 5, False), ("classify", (4, 8), False), (4, 8, 2, False)]
+    assert list(eng.batch_caches) == [(4, 8, 5, False), (4, 8, 2, False)]
+
+
+def test_batch_memory_freed_with_its_owner():
+    """With the cyclic collector off, a dropped tier frees its static batch
+    caches and its batch graph set."""
+    gc.collect()
+    gc.disable()
+    try:
+        server = _server(_reuse_pairs("hybrid", "free"))
+        toks = np.random.default_rng(16).integers(0, 64, (8, 6)).astype(np.int32)
+        server.classify(toks)
+        server.generate(toks, 3)
+        caches = [weakref.ref(next(iter(t.batch_caches.values()))["attn_k"][0]) for t in server.tiers[:1]]
+        sets = [weakref.ref(t.graphs) for t in server.tiers]
+        del server
+        assert [w() for w in caches + sets] == [None] * 3
+    finally:
+        gc.enable()

@@ -650,3 +650,177 @@ def test_graphed_serve_continuous_matches_eager(cuda, arch, paged):
     assert eager == graphed == again
     assert l_eager == l_graphed == l_again
     assert sum(l_eager.values()) > 0
+
+
+# ---------------------------------------------------------------------------
+# compile-once batch programs and sampling
+# ---------------------------------------------------------------------------
+
+
+def _reduced_tier(arch, cuda, temperature=0.0, k=3, seed=0):
+    from repro_torch.configs import get_config
+    from repro_torch.core import ensemble as ens
+    from repro_torch.core.cascade import TierSpec
+    from repro_torch.serve import CascadeTier
+
+    cfg = get_config(arch).reduced()
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    return CascadeTier(cfg, ens.init_ensemble(cfg, k, gen, cuda), TierSpec("t", "vote", 0.5, k=k),
+                       temperature=temperature, device=cuda)
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "zamba2-2.7b", "rwkv6-7b"])
+def test_graphed_generate_matches_eager(cuda, arch, temperature):
+    """A k=3 tier's graphed generate (prefill into the static cache, decode
+    at a (B,) device position) emits bitwise the eager grow_cache oracle's
+    tokens with the same launches per kernel, twice, and the second call
+    captures nothing; the classify logits of a replay equal the eager ones."""
+    from repro_torch.serve.graphs import trace_counts
+
+    tier = _reduced_tier(arch, cuda, temperature)
+    toks = np.random.default_rng(2).integers(0, tier.cfg.vocab_size, (8, 24)).astype(np.int32)
+
+    def run(eager):
+        kernels.reset_launch_counts()
+        out = tier.generate(toks, 6, seed=4, eager=eager)
+        return out, kernels.launch_counts()
+
+    eager, l_eager = run(True)
+    graphed, l_graphed = run(False)
+    counts = trace_counts()
+    again, l_again = run(False)
+    assert trace_counts() == counts
+    np.testing.assert_array_equal(graphed, eager)
+    np.testing.assert_array_equal(again, eager)
+    assert l_eager == l_graphed == l_again and sum(l_eager.values()) > 0
+    for _ in range(2):
+        assert torch.equal(tier.last_logits(toks), tier.last_logits(toks, eager=True))
+    assert trace_counts() != counts
+
+
+@pytest.mark.parametrize("arch,paged", [("qwen2.5-3b", True), ("qwen2.5-3b", False), ("zamba2-2.7b", False)])
+def test_sampled_serve_continuous_graphed_matches_eager(cuda, arch, paged):
+    """serve_continuous at T = 0.8 on the card: graphed == eager, and
+    n_slots 3 == n_slots 2 (the per-slot keys follow admission)."""
+    from repro_torch.serve import CascadeServer, Request, ServeConfig
+
+    tier = _reduced_tier(arch, cuda, 0.8)
+    server = CascadeServer([tier], device=cuda)
+    rng = np.random.default_rng(3)
+    reqs = [(rng.integers(0, tier.cfg.vocab_size, int(n)).astype(np.int32), 5) for n in rng.integers(2, 50, 6)]
+
+    def run(eager, n_slots):
+        rs = [Request(tokens=t.copy(), max_new_tokens=m) for t, m in reqs]
+        done = {r.rid: r for r in server.serve_continuous(
+            rs, ServeConfig(n_slots=n_slots, max_seq=96, page_size=16, paged=paged, seed=9), eager=eager)}
+        return [done[r.rid].output.tolist() for r in rs]
+
+    ref = run(True, 3)
+    assert run(False, 3) == ref
+    assert run(False, 2) == ref
+
+
+def _reduced_engines(arch, cuda, temperature):
+    """Two reduced-width engines on the same weights and seed, one for the
+    eager oracle and one for the graphed route: their generators advance
+    alike, so call i of one is held to call i of the other."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.serve import ServingEngine
+
+    cfg = get_config(arch).reduced()
+    params = api.init_params(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    return cfg, {eager: ServingEngine(cfg, params, temperature=temperature, seed=5, device=cuda)
+                 for eager in (True, False)}
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "zamba2-2.7b"])
+def test_graphed_engine_batch_matches_eager(cuda, arch, temperature):
+    """The engine's graphed classify and generate (left-pad starts on the
+    dense model; at T = 0.8 the logits leave the graph for the engine's
+    generator) equal the eager oracle's bitwise, logits and tokens, with
+    the same launches per kernel, on two calls; the second captures
+    nothing."""
+    from repro_torch.serve.graphs import trace_counts
+
+    cfg, engs = _reduced_engines(arch, cuda, temperature)
+    toks = np.random.default_rng(4).integers(0, cfg.vocab_size, (4, 40)).astype(np.int32)
+    starts = np.array([0, 3, 17, 39], np.int32) if cfg.family == "dense" else None
+    for call in range(2):
+        runs = {}
+        for eager in (True, False):
+            before = trace_counts()
+            kernels.reset_launch_counts()
+            logits = engs[eager].classify(toks, starts, eager=eager)
+            out = engs[eager].generate(toks, 6, starts=starts, eager=eager)
+            runs[eager] = (logits, out, kernels.launch_counts())
+            if call == 1 and not eager:
+                assert trace_counts() == before
+        np.testing.assert_array_equal(runs[False][0], runs[True][0])
+        np.testing.assert_array_equal(runs[False][1], runs[True][1])
+        assert runs[False][2] == runs[True][2] and sum(runs[True][2].values()) > 0
+
+
+@pytest.mark.parametrize("paged", [True, False])
+def test_sampled_engine_serve_continuous_graphed_matches_eager(cuda, paged):
+    """The engine's serve_continuous at T = 0.8 (the generator samples
+    after each captured step): graphed == eager on two runs, the second
+    graphed run capturing nothing."""
+    from repro_torch.serve import Request, ServeConfig
+    from repro_torch.serve.graphs import trace_counts
+
+    cfg, engs = _reduced_engines("qwen2.5-3b", cuda, 0.8)
+    rng = np.random.default_rng(6)
+    reqs = [(rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32), 5) for n in rng.integers(2, 50, 6)]
+    for call in range(2):
+        runs = {}
+        for eager in (True, False):
+            before = trace_counts()
+            rs = [Request(tokens=t.copy(), max_new_tokens=m) for t, m in reqs]
+            done = {r.rid: r for r in engs[eager].serve_continuous(
+                rs, ServeConfig(n_slots=3, max_seq=96, page_size=16, paged=paged), eager=eager)}
+            runs[eager] = [done[r.rid].output.tolist() for r in rs]
+            if call == 1 and not eager:
+                assert trace_counts() == before
+        assert runs[False] == runs[True]
+
+
+def test_generate_buckets_bounded_memory(cuda):
+    """A tier keeping two batch buckets, at three (S, max_new) shapes of one
+    cache size, twice over (every call meets an evicted bucket): at most
+    two caches; once two are held, the device memory held after a call
+    stays level and each second-pass call peaks no higher than its shape's
+    first-pass call (1 MiB allowed: the staged prompt buffers differ by a
+    few hundred bytes between shapes); the second pass emits the first
+    pass's tokens, which equal the eager oracle's."""
+    from repro_torch.serve.graphs import trace_counts
+
+    tier = _reduced_tier("zamba2-2.7b", cuda, 0.8)
+    tier.graphs.max_buckets = 2
+    toks = np.random.default_rng(7).integers(0, tier.cfg.vocab_size, (8, 40)).astype(np.int32)
+    shapes = [(36, 12), (32, 16), (28, 20)]
+    held, peaks, outs = [], [], []
+    for S, max_new in shapes * 2:
+        before = trace_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        outs.append(tier.generate(toks[:, :S], max_new, seed=1))
+        torch.cuda.synchronize()
+        held.append(torch.cuda.memory_allocated())
+        peaks.append(torch.cuda.max_memory_allocated())
+        assert len(tier.batch_caches) <= 2 and trace_counts() != before
+    assert max(held[1:]) <= held[1] + 2**20, held
+    assert all(peaks[3 + i] <= peaks[i] + 2**20 for i in (1, 2)), peaks
+    for i, (S, max_new) in enumerate(shapes):
+        np.testing.assert_array_equal(outs[3 + i], outs[i])
+        np.testing.assert_array_equal(outs[i], tier.generate(toks[:, :S], max_new, seed=1, eager=True))
+
+
+def test_sampler_draws_match_cpu(cuda):
+    from repro_torch.serve import sampling
+
+    keys, pos = sampling.batch_keys(5, 6), np.array([0, 1, 2**20, 77, 300, 2**31])
+    card = sampling.draw_bits(torch.as_tensor(keys, device=cuda), torch.as_tensor(pos, device=cuda), 3, 1000)
+    assert torch.equal(card.cpu(), sampling.draw_bits(torch.as_tensor(keys), torch.as_tensor(pos), 3, 1000))

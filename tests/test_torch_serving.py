@@ -290,8 +290,11 @@ def test_serve_config_resolution(stack):
     assert stream.backend.pool.page_size == 8 and stream.backend.paged
     with pytest.raises(NotImplementedError, match="speculative"):
         ServeConfig(speculative=True)
-    with pytest.raises(NotImplementedError, match="temperature"):
-        ServingEngine(TCFG, vals, temperature=0.7, device="cpu")
+    # sampling is ported: the engine takes a temperature and the seed of its
+    # generator, and ServeConfig carries the tiers' sampling seed again
+    sampled = ServingEngine(TCFG, vals, temperature=0.7, seed=3, device="cpu")
+    assert sampled.temperature == 0.7 and not sampled.greedy
+    assert ServeConfig().seed == 0 and ServeConfig(seed=5).seed == 5
 
 
 def test_no_gpu_engine_raises(stack, monkeypatch):
