@@ -52,9 +52,17 @@ Phases, in order; any failure raises and exits non-zero:
    card, each with the eager oracle and with the graphed slot programs:
    the dense cascade with block-paged pools and with the dense slot cache,
    the recurrent cascade with dense slot caches; all must emit equal
-   tokens.  Then the batch programs (``check_batch_programs_on_card``) and
+   tokens.  Then the batch programs (``check_batch_programs_on_card``),
    the single-model engine (``check_engine_on_card``: classify, generate
-   and a sampled serve_continuous, graphed == eager).
+   and a sampled serve_continuous, graphed == eager), speculative deferral
+   (``check_speculative_on_card``: qwen2.5-3b, tier 1 [m0, m0, m2], tier 2
+   [m0], greedy and T = 0.8, paged and dense, eager and graphed twice
+   bitwise, speculative == plain up to near ties, each request emitting
+   its verify pass's choices, each pass of the second graphed run bitwise
+   the eager route on a copy of its memory; over an rwkv6-7b tier 2
+   no verify pass) and open-loop serving (``check_open_loop_on_card``: the
+   bench's bursty trace, static and with the greedy controller, each run
+   twice with equal reports and no capture).
 4. main path — two cascades at published widths and full depth, bf16
    weights drawn from ``--seed``, the second built after the first one's
    tensors are freed by reference counting alone (the cyclic collector is
@@ -81,9 +89,17 @@ Phases, in order; any failure raises and exits non-zero:
    host operators, device kernels and compaction launches, with the
    one-launch K/V view, with the two ``paged_pool_view`` calls it
    replaced, and as a CUDA-graph replay (device kernels equal to the eager
-   call's).  Last, tier 1's generate over more (S, max_new) shapes than
+   call's).  Then tier 1's generate over more (S, max_new) shapes than
    the tier keeps batch buckets (``bucket_memory_check``): device memory
-   level once the tier is full.
+   level once the tier is full.  The first cascade then serves the bench's
+   open-loop trace with the main path's prompts (``open_loop_path``), and
+   last its tier-1 weights, member 0 copied into member 1, make the
+   speculative cascade 3 x qwen2.5-3b [m0, m0, m2] -> qwen2.5-3b [m0]
+   (``speculative_path``): plain and speculative graphed twice and at T =
+   0.8, every request emitting its accepted draft prefix and its verify
+   pass's choice, every pass of two runs bitwise the eager route on a
+   copy of its pool (``verify_passes``), the verify chunk held to the
+   decode steps layer by layer, one verify replay profiled.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -188,24 +204,30 @@ def profiled(fn, iters=20):
     """(device ms, kernel launches) of one call from torch.profiler's CUDA
     records: the summed durations of the call's kernels and copies, and the
     count of its kernels.  None, None when the profiler records no device
-    activity."""
+    activity.  Both are a window of 2 x ``iters`` calls less a window of
+    ``iters``: the profiler drops or adds a record at a window's edge, the
+    same way in every window of a process (see ``profile_call``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    def window(calls):
+        for _ in range(3):  # a trace now and then holds no device records: take another
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+            dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+            if dev:
+                kernels = [e for e in dev if not e.name.lower().startswith(("memcpy", "memset"))]
+                return sum(e.time_range.elapsed_us() for e in dev), len(kernels)
+        return None
+
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # a trace now and then holds no device records: take another
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if dev:
-            break
-    else:
+    one, two = window(iters), window(2 * iters)
+    if one is None or two is None:
         return None, None
-    kernels = [e for e in dev if not e.name.lower().startswith(("memcpy", "memset"))]
-    return sum(e.time_range.elapsed_us() for e in dev) / iters / 1e3, len(kernels) / iters
+    return (two[0] - one[0]) / iters / 1e3, (two[1] - one[1]) / iters
 
 
 def profiled_cold_ms(fn):
@@ -1261,6 +1283,448 @@ def check_serving_on_card(dev, seed):
 
 
 # ---------------------------------------------------------------------------
+# speculative deferral and open-loop serving (phases 3 and 4)
+# ---------------------------------------------------------------------------
+
+# the verify chunk against the decode steps, normwise (max abs difference
+# over max abs), layer by layer: each layer of tier 2 fed the decode route's
+# own input and cache, once through decode steps and once through verify
+# chunks (the same bf16 weights through the decode kernel and through the
+# chunk attention, rounding at other places).  End to end the two routes
+# are not held: a random-weight model amplifies a layer's rounding
+# difference several times a layer, so at 36 layers the logits share
+# little but their scale (``route_error_by_depth`` prints the growth)
+SPEC_LAYER_TOL = REF_TOL
+# the bench's open-loop trace (benchmarks/bench_serving.py): 80 arrivals,
+# on/off at 300 and 2 q/s, dwell 0.5 s, SLO 0.3 s, 0.01 s of virtual time a
+# sweep; phase 4 draws the main path's prompt lengths
+OPEN_LOOP_TRACE = dict(rate_lo_qps=2.0, rate_hi_qps=300.0, n_requests=80, seed=7, mean_on_s=0.5,
+                       mean_off_s=0.5, max_new_tokens=(2, 5))
+OPEN_LOOP_RUN = dict(slo_s=0.3, step_time_s=0.01)
+OPEN_LOOP_CONTROLLER_INTERVAL_S = 0.1
+
+
+def drafting_server(dev, c1, v1, c2, v2, temperature=0.0):
+    """The speculative fixture: tier 1 ``v1`` (members [m0, m0, m2]) under
+    vote_preds 0.8, so the m0 pair's 2-of-3 vote defers with m0's
+    generation as the draft, and tier 2 ``v2`` (one member) answering."""
+    from repro_torch.core.cascade import TierSpec
+    from repro_torch.serve import CascadeServer, CascadeTier
+
+    return CascadeServer([
+        CascadeTier(c1, v1, TierSpec(f"{c1.name} [m0, m0, m2]", "vote_preds", 0.8, k=3, cost=3.0),
+                    temperature=temperature, device=dev),
+        CascadeTier(c2, v2, TierSpec(f"{c2.name} [m0]", "vote_preds", 0.0, k=1, cost=1.0),
+                    temperature=temperature, device=dev),
+    ], device=dev)
+
+
+def tier2_keys(tracer, seed, reqs):
+    """Submission index -> tier 2's slot key of each request in a run of
+    ``reqs`` traced by ``tracer``: the key ``TierBackend.begin_slot`` set at
+    the request's admission there, ``fold_in(base_key(seed + 1), admission
+    sequence)``."""
+    from repro_torch.serve import sampling
+
+    order = [e["tid"] for e in tracer.events
+             if e.get("ph") == "B" and e["name"] == "admit" and e["args"].get("stream") == "slot_stream.tier1"]
+    base, index = sampling.base_key(seed + 1), {q.rid: i for i, q in enumerate(reqs)}
+    return {index[rid]: sampling.fold_in(base, n + 1) for n, rid in enumerate(order)}
+
+
+class verify_passes:
+    """Inside it, every verify pass a run makes (``TierBackend.verify_draft``)
+    is recorded: the request (tagged by the stream's accept hook, which
+    runs right after the pass), the chunk fed, its start and the choices
+    the program returned.  With ``hold`` each pass is also replayed eagerly
+    through ``ensemble_prefill_into_slot[_paged]_logits`` and
+    ``verify_choices`` on a copy of the slot memory, with the same table
+    row (or slot), start and slot key, taken just before it: the choices
+    (every layer, the final norm, the projection and the draw) and the
+    whole pool or cache the pass wrote must equal the program's bitwise.
+    The eager replay's kernel launches are taken back out of the
+    counters."""
+
+    def __init__(self, hold=False):
+        self.hold, self.calls, self.held = hold, [], 0
+
+    def __enter__(self):
+        from repro_torch.models.params import tree_map
+        from repro_torch.serve import TierBackend
+        from repro_torch.serve.cascade_server import _CascadeRun
+
+        self._verify, self._recorder, rec = TierBackend.verify_draft, _CascadeRun._accept_recorder, self
+
+        def verify_draft(backend, tokens, slot, start, max_chunk):
+            snap = None
+            if rec.hold:
+                row = backend.pool.table[slot] if backend.paged else np.array([slot], np.int64)
+                snap = (tree_map(torch.clone, backend.mem.state), np.array(row), int(backend.slot_keys[slot]))
+            choices = rec._verify(backend, tokens, slot, start, max_chunk)
+            if snap is not None:
+                rec._hold(backend, tokens, start, max_chunk, snap, choices)
+            rec.calls.append(dict(tokens=np.array(tokens), start=int(start), choices=np.array(choices)))
+            return choices
+
+        def accept_recorder(h):
+            hook = rec._recorder(h)
+
+            def tagged(r, n_acc, n_draft):
+                rec.calls[-1].update(rid=r.rid, n_acc=n_acc)
+                hook(r, n_acc, n_draft)
+
+            return tagged
+
+        TierBackend.verify_draft, _CascadeRun._accept_recorder = verify_draft, staticmethod(accept_recorder)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.serve import TierBackend
+        from repro_torch.serve.cascade_server import _CascadeRun
+
+        TierBackend.verify_draft, _CascadeRun._accept_recorder = self._verify, staticmethod(self._recorder)
+
+    def _hold(self, backend, tokens, start, max_chunk, snap, choices):
+        from repro_torch import kernels
+        from repro_torch.core import ensemble as ens
+        from repro_torch.core.cascade import prompt_chunks
+        from repro_torch.kernels import build
+        from repro_torch.serve.speculative import verify_choices
+
+        state, row, key = snap
+        tier, dev = backend.tier, backend.tier.device
+        fn = ens.ensemble_prefill_into_slot_paged_logits if backend.paged else ens.ensemble_prefill_into_slot_logits
+        counts = kernels.launch_counts()
+        staged = lambda a: torch.as_tensor(a).to(dev)  # as ``GraphSet.run`` stages an input
+        outs, off = [], 0
+        for c in prompt_chunks(len(tokens), max_chunk):
+            at, k = staged(np.array([start + off], np.int64)), staged(np.array([key], np.int64))
+            logits, state = fn(tier.values, staged(tokens[off: off + c]), state, staged(row), at, tier.cfg)
+            outs.append(verify_choices(logits, k, at, float(tier.temperature)))
+            off += c
+        ref = torch.cat(outs, 1).cpu().numpy()
+        same_memory = all(torch.equal(a, b) for a, b in zip(leaves(state), leaves(backend.mem.state)))
+        kernels.reset_launch_counts()
+        for kname, n in counts.items():
+            build.launch_counter(kname).add(n)
+        require(np.array_equal(ref, choices), f"verify pass at {start}: the program's choices differ from the "
+                                              f"eager route's on the same memory: {choices} vs {ref}")
+        require(same_memory, f"verify pass at {start}: the program's pool or cache differs from the eager route's")
+        self.held += 1
+
+
+def leaves(tree):
+    return [t for v in tree.values() for t in leaves(v)] if isinstance(tree, dict) else [tree]
+
+
+def hold_spec_to_verify(reqs, spec, passes, what):
+    """Every request the run verified emits its accepted draft prefix, then
+    the verify pass's choice at the first rejected position, the chunk as
+    the run fed it (``spec``: submission index -> (tier, truncated,
+    output); ``passes``: a ``verify_passes``)."""
+    from repro_torch.serve.speculative import accepted_prefix
+
+    index, seen = {q.rid: i for i, q in enumerate(reqs)}, set()
+    for c in passes.calls:
+        i = index[c["rid"]]
+        require(i not in seen, f"{what}: request {i} verified twice")
+        seen.add(i)
+        draft, ch, out = c["tokens"][1:], c["choices"], spec[i][2]
+        require(ch.shape[0] == 1 and c["start"] == len(reqs[i].tokens) - 1, f"{what}: request {i}: pass {c}")
+        n_acc = accepted_prefix(ch, draft)
+        expect = [int(t) for t in draft[:n_acc]] + [int(ch[0, n_acc])]
+        require(n_acc == c["n_acc"] and out[: n_acc + 1] == expect,
+                f"{what}: request {i} emits {out[: n_acc + 1]}, its verify pass chose {expect}")
+    return dict(verified=len(seen), held_bitwise=passes.held)
+
+
+def teacher_forced_logits(tier, prompt, fed, max_chunk, max_seq):
+    """A tier's member logits (E, len(fed), V), f32, for the tokens ``fed``
+    at positions P-1.. after ``prompt[:-1]``, replayed eagerly into a
+    one-slot dense cache of ``max_seq`` rows: through decode steps (the
+    plain route) and through verify chunks in the ``prompt_chunks`` buckets
+    (the speculative route).  Returns (decode, verify)."""
+    from repro_torch.core import ensemble as ens
+    from repro_torch.core.cascade import prompt_chunks
+    from repro_torch.models import api
+
+    cfg, vals, dev, E, P = tier.cfg, tier.values, tier.device, tier.k, len(prompt)
+    routes = []
+    for route in ("decode", "verify"):
+        cache = api.init_cache_members(cfg, E, 1, max_seq, dev)
+        off = 0
+        for c in prompt_chunks(P - 1, max_chunk):
+            ens.ensemble_prefill_into_slot(vals, prompt[off: off + c], cache, 0, off, cfg)
+            off += c
+        rows, off = [], 0
+        if route == "decode":
+            for i, t in enumerate(fed):
+                tok = torch.full((E, 1, 1), int(t), dtype=torch.int32, device=dev)
+                rows.append(ens.ensemble_decode_step(vals, tok, cache, torch.tensor([P - 1 + i], device=dev), cfg)[0])
+        else:
+            for c in prompt_chunks(len(fed), max_chunk):
+                rows.append(ens.ensemble_prefill_into_slot_logits(vals, fed[off: off + c], cache, 0, P - 1 + off,
+                                                                  cfg)[0])
+                off += c
+        routes.append(torch.cat(rows, 1).float())
+    return routes
+
+
+def route_errors_by_layer(tier, prompt, fed, max_chunk, max_seq):
+    """Normwise error of each layer's output, verify route against decode
+    route, every layer fed the decode route's output of the layer before
+    and a copy of the cache the prompt's chunked prefill left (``fed`` at
+    positions P-1..)."""
+    from repro_torch.core import ensemble as ens
+    from repro_torch.core.cascade import prompt_chunks
+    from repro_torch.models import api
+    from repro_torch.models import blocks_dense as BD
+    from repro_torch.models.params import tree_map
+
+    cfg, vals, dev, E, P = tier.cfg, tier.values, tier.device, tier.k, len(prompt)
+    cache = api.init_cache_members(cfg, E, 1, max_seq, dev)
+    off = 0
+    for c in prompt_chunks(P - 1, max_chunk):
+        ens.ensemble_prefill_into_slot(vals, prompt[off: off + c], cache, 0, off, cfg)
+        off += c
+    x = api.embed_inputs(vals, torch.as_tensor(fed, device=dev).to(torch.int64)[None])  # (E, 1, n, D)
+    slot, errs = torch.zeros(1, dtype=torch.int64, device=dev), []
+    for l in range(cfg.n_layers):
+        lp = tree_map(lambda t: t[:, l], vals["layers"])
+        kd, vd, kv, vv = (cache[n][l].clone() for n in ("k", "v", "k", "v"))
+        dec = torch.cat([BD.dense_layer_decode(lp, x[:, :, i: i + 1], cfg, kd, vd,
+                                               torch.tensor([P - 1 + i], device=dev),
+                                               sliding_window=cfg.sliding_window)
+                         for i in range(len(fed))], 2)
+        outs, off = [], 0
+        for c in prompt_chunks(len(fed), max_chunk):
+            outs.append(BD.dense_layer_prefill_chunk(lp, x[:, :, off: off + c], cfg, kv, vv, slot,
+                                                     torch.tensor([P - 1 + off], device=dev),
+                                                     sliding_window=cfg.sliding_window))
+            off += c
+        errs.append(((dec - torch.cat(outs, 2)).abs().max() / dec.abs().max()).item())
+        x = dec
+    return errs
+
+
+def route_error_by_depth(tier, prompt, fed, max_chunk, max_seq, depths=(1, 2, 4, 8)):
+    """The two routes' end-to-end logits error (normwise) for the tier's
+    first ``depth`` layers and for all of them: how a layer's rounding
+    difference grows with depth in this model."""
+    from types import SimpleNamespace
+
+    from repro_torch.models.params import tree_map
+
+    out = {}
+    for d in [d for d in depths if d < tier.cfg.n_layers] + [tier.cfg.n_layers]:
+        vals = dict(tier.values, layers=tree_map(lambda t: t[:, :d], tier.values["layers"]))
+        sub = SimpleNamespace(cfg=dataclasses.replace(tier.cfg, n_layers=d), values=vals, device=tier.device,
+                              k=tier.k)
+        dec, ver = teacher_forced_logits(sub, prompt, fed, max_chunk, max_seq)
+        out[d] = ((dec - ver).abs().max() / dec.abs().max()).item()
+    return out
+
+
+def near_tie(tier, prompt, plain, spec, temperature, key, config):
+    """Where the speculative output ``spec`` first leaves the plain output
+    ``plain``: tier 2 replayed teacher-forced on the prompt and ``plain``
+    through both routes (``teacher_forced_logits``); the decode route's
+    top-1 - top-2 gap there and the routes' largest difference, on the
+    logits (greedy) or on logits / T + g, g recomputed from the slot key
+    (sampled).  A near tie: the gap is at most the difference."""
+    from repro_torch.serve import sampling
+
+    n = min(len(plain), len(spec))
+    j = next((i for i in range(n) if plain[i] != spec[i]), n)
+    require(j < n, f"speculative output {spec} and plain {plain} differ in length only")
+    fed = np.concatenate([prompt[-1:], plain[:j]]).astype(np.int32)
+    dec, ver = (x[:, -1] for x in teacher_forced_logits(tier, prompt, fed, config.max_chunk, config.max_seq))
+    if temperature > 0:
+        at = torch.tensor([len(prompt) - 1 + j], device=dec.device)
+        g = sampling.gumbel(sampling.draw_bits(torch.tensor([key], device=dec.device), at, tier.k, dec.shape[-1]))
+        dec, ver = dec / temperature + g[:, 0], ver / temperature + g[:, 0]
+    top = dec.topk(2, dim=-1).values
+    gap, diff = (top[:, 0] - top[:, 1]).min().item(), (dec - ver).abs().max().item()
+    return dict(position=j, plain_token=int(plain[j]), spec_token=int(spec[j]),
+                decode_replay_token=int(dec[0].argmax()), verify_replay_token=int(ver[0].argmax()),
+                gap=gap, route_diff=diff, near_tie=gap <= diff)
+
+
+def hold_spec_to_plain(tier2, reqs, plain, spec, temperature, keys, config, what, *, gate=True, show=None):
+    """Speculative == plain request by request (``plain``, ``spec``:
+    submission index -> (tier, truncated, output); ``keys`` index -> tier
+    2's slot key); every request that differs must be answered by tier 2 in
+    both runs.  Where it first differs ``near_tie`` replays both routes
+    (for the first ``show`` differing requests, all when None); with
+    ``gate`` each difference must be a near tie.  Where the routes diverge
+    over depth (published width, random weights) their difference spans
+    the vocabulary and the rule cannot fail, so there it is printed only."""
+    checks, differing = [], 0
+    for i, r in enumerate(reqs):
+        p, s = plain[i], spec[i]
+        if p == s:
+            continue
+        require(p[0] == s[0] == 1, f"{what}: request {i} answered by tier {p[0]} plain, {s[0]} speculative")
+        differing += 1
+        if show is not None and len(checks) >= show:
+            continue
+        c = dict(request=i, **near_tie(tier2, r.tokens, p[2], s[2], temperature, keys.get(i), config))
+        log(f"{what}: request {i} differs: {json.dumps(c)}")
+        if gate:
+            require(c["near_tie"], f"{what}: request {i} leaves the plain output at position {c['position']}, "
+                                   f"where the decode route's gap {c['gap']} exceeds the routes' difference "
+                                   f"{c['route_diff']}")
+        checks.append(c)
+    return dict(requests=len(reqs), differing=differing, differences=checks)
+
+
+def spec_stats(stats):
+    return {k: stats[k] for k in ("admitted", "decode_tokens", "spec_drafts", "spec_draft_tokens",
+                                  "spec_accepted_tokens")}
+
+
+def check_speculative_on_card(dev, seed):
+    """Speculative deferral at reduced width on the card: qwen2.5-3b, tier 1
+    [m0, m0, m2] under vote_preds 0.8, tier 2 [m0]; 12 requests of 4-60
+    tokens (4 sharing a 20-token prefix), 6 new, 3 slots, max_seq 128;
+    greedy and T = 0.8, paged and dense: the speculative run eager (the
+    oracle) and graphed twice, and a plain graphed run.  Graphed == eager
+    and paged == dense bitwise (tokens, tiers, flags, the spec counters),
+    the second graphed run capturing nothing; speculative == plain, or each
+    difference a near tie (``hold_spec_to_plain``); every run's output the
+    accepted draft prefix and its verify pass's choice
+    (``hold_spec_to_verify``), each pass of the second graphed run bitwise
+    the eager route on a copy of its memory (``verify_passes``).  Then the
+    same tier 1 over an rwkv6-7b tier 2: no verify pass, bitwise the plain
+    run."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import ensemble as ens
+    from repro_torch.models.params import tree_map
+    from repro_torch.obs import Observability, Tracer
+    from repro_torch.serve import ServeConfig
+    from repro_torch.serve.graphs import trace_counts
+
+    cfg = get_config("qwen2.5-3b").reduced()
+    vals = ens.init_ensemble(cfg, 3, torch.Generator(device=dev).manual_seed(seed), dev)
+    v1 = tree_map(lambda t: torch.stack([t[0], t[0], t[2]]), vals)
+    reqs = serve_requests(np.random.default_rng(seed), 12, cfg.vocab_size, 4, 60, 6, n_prefix=4, prefix_len=20)
+
+    def serve(server, run, paged, speculative):
+        tr = Tracer()
+        config = ServeConfig(n_slots=3, max_seq=128, page_size=16, paged=paged, seed=seed, speculative=speculative,
+                             obs=Observability(tracer=tr))
+        before = trace_counts()
+        with verify_passes(hold=run == "graphed_2") as passes:
+            done = server.serve_continuous([copy.deepcopy(r) for r in reqs], config, eager=run == "eager")
+        require(sorted(r.rid for r in done) == sorted(r.rid for r in reqs), f"speculative {run}: requests lost")
+        if run == "graphed_2":
+            require(trace_counts() == before, f"speculative paged={paged}: the second graphed run captured again")
+        by = {r.rid: r for r in done}
+        outputs = {i: (by[q.rid].tier, by[q.rid].truncated, by[q.rid].output.tolist()) for i, q in enumerate(reqs)}
+        stats = spec_stats(server.last_stream_stats[1])
+        verified = hold_spec_to_verify(reqs, outputs, passes, f"speculative {run} paged={paged}")
+        require(verified["verified"] == stats["spec_drafts"], f"speculative {run}: {verified} against {stats}")
+        return outputs, stats, tier2_keys(tr, seed, reqs), config, verified
+
+    out = {}
+    for temperature in (0.0, 0.8):
+        server = drafting_server(dev, cfg, v1, cfg, tree_map(lambda t: t[0:1], vals), temperature)
+        runs = {(paged, run): serve(server, run, paged, run != "plain")
+                for paged in (True, False) for run in ("plain", "eager", "graphed_1", "graphed_2")}
+        what = f"speculative reduced T={temperature}"
+        ref = runs[True, "eager"]
+        for key, got in runs.items():
+            if key[1] != "plain":
+                require(got[:2] == ref[:2], f"{what}: (paged, run) {key} differs from the paged eager run: "
+                                            f"{got[1]} vs {ref[1]}")
+        plain = runs[True, "plain"]
+        require(runs[False, "plain"][0] == plain[0], f"{what}: the plain run differs paged and dense")
+        require(plain[2] == ref[2], f"{what}: tier 2 admits in another order plain and speculative")
+        require(ref[1]["spec_drafts"] > 0 and plain[1]["spec_drafts"] == 0, f"{what}: spec counters {ref[1]}")
+        held = hold_spec_to_plain(server.tiers[1], reqs, plain[0], ref[0], temperature, plain[2], plain[3], what)
+        out[f"T{temperature:g}"] = dict(spec=ref[1], plain=plain[1], **held,
+                                        verify_held=[runs[p, "graphed_2"][4] for p in (True, False)],
+                                        outputs_digest=outputs_digest(*(np.asarray(o[2]) for o in ref[0].values())))
+    c2 = get_config("rwkv6-7b").reduced()
+    v2 = ens.init_ensemble(c2, 1, torch.Generator(device=dev).manual_seed(seed + 2), dev)
+    server = drafting_server(dev, cfg, v1, c2, v2)
+    fallback = {s: serve(server, "graphed_1", None, s) for s in (False, True)}
+    require(fallback[True][1]["spec_drafts"] == 0, f"rwkv6 tier 2 ran a verify pass: {fallback[True][1]}")
+    require(fallback[True][0] == fallback[False][0], "rwkv6 tier 2: speculative differs from plain")
+    out["rwkv6 tier 2 fallback"] = dict(spec=fallback[True][1], deferred=sum(
+        t == 1 for t, _, _ in fallback[True][0].values()))
+    return out
+
+
+def open_loop_report(rep, wall_s):
+    return dict(offered=rep.offered, completed=len(rep.completed), shed=len(rep.shed),
+                completed_in_slo=rep.completed_in_slo, goodput=rep.goodput, p50_s=rep.p50_s, p99_s=rep.p99_s,
+                makespan_s=rep.makespan_s, controller_actions=len(rep.controller_actions), wall_s=wall_s,
+                tier_counts=[sum(r.tier == i for r in rep.completed) for i in range(2)],
+                outputs_digest=outputs_digest(*(np.concatenate([[r.tier], r.output]) for r in rep.completed)))
+
+
+def open_loop_runs(server, workload, config, what, need=()):
+    """``serve_open_loop`` of ``workload`` after a closed-loop run of the same
+    geometry: the static arm and the greedy controller's, each twice, the
+    launch counters zeroed just before and read just after each run.
+    Within an arm both runs give equal reports and capture nothing;
+    offered == completed + shed in every run.  Returns (the reports, the
+    last run's launches)."""
+    from repro_torch import kernels
+    from repro_torch.serve import ControllerConfig, GreedyController
+    from repro_torch.serve.graphs import trace_counts
+
+    server.serve_continuous([r for _, r in workload], config)
+    before = trace_counts()
+    out = {}
+    for arm in ("static", "controller"):
+        reps = []
+        for _ in range(2):
+            ctl = GreedyController(ControllerConfig(interval_s=OPEN_LOOP_CONTROLLER_INTERVAL_S)) \
+                if arm == "controller" else None
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rep = server.serve_open_loop(workload, config, controller=ctl, **OPEN_LOOP_RUN)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = kernels.launch_counts()
+            for kname in need:
+                require(launches[kname] > 0, f"{what} {arm}: kernel {kname} was not launched")
+            require(rep.offered == len(rep.completed) + len(rep.shed) == len(workload),
+                    f"{what} {arm}: offered {rep.offered} != {len(rep.completed)} completed + {len(rep.shed)} shed")
+            require(all(r.shed and r.output is None for r in rep.shed), f"{what} {arm}: a shed request has output")
+            reps.append((open_loop_report(rep, wall), rep.controller_actions))
+        first, second = ({k: v for k, v in r[0].items() if k != "wall_s"} for r in reps)
+        require(first == second and reps[0][1] == reps[1][1], f"{what} {arm}: two runs differ: {first} vs {second}")
+        out[arm] = dict(reps[0][0], wall_s=[r[0]["wall_s"] for r in reps], launches=launches)
+        log(f"{what} open loop, {arm}: {json.dumps(out[arm])}")
+    require(trace_counts() == before, f"{what}: an open-loop run captured after the closed-loop run")
+    return out, launches
+
+
+def check_open_loop_on_card(dev, seed):
+    """The bench's open-loop trace on the dense cascade of
+    ``check_serving_on_card`` (qwen2.5-3b x3 at vote 0.5 -> internlm2-1.8b,
+    reduced, 4 slots, max_seq 64, paged): ``open_loop_runs``."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import ensemble as ens
+    from repro_torch.core.cascade import TierSpec
+    from repro_torch.serve import CascadeServer, CascadeTier, ServeConfig, bursty
+
+    c1, c2 = get_config("qwen2.5-3b").reduced(), get_config("internlm2-1.8b").reduced()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    v1, v2 = ens.init_ensemble(c1, 3, gen, dev), ens.init_ensemble(c2, 1, gen, dev)
+    server = CascadeServer([CascadeTier(c1, v1, TierSpec("s", "vote", 0.5, k=3), device=dev),
+                            CascadeTier(c2, v2, TierSpec("b", "confidence", -1.0), device=dev)], device=dev)
+    wl = bursty(**OPEN_LOOP_TRACE, prompt_len=(4, 12))
+    return open_loop_runs(server, wl, ServeConfig(n_slots=4, max_seq=64, page_size=16), "reduced")[0]
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the main path at published widths
 # ---------------------------------------------------------------------------
 
@@ -1274,6 +1738,9 @@ CASCADES = {
             generate=("compaction", "flash_attention", "decode_attention"),
             # the row gather under paged_view, the paged decode
             serve_continuous=("compaction", "decode_attention_paged"),
+            # the paged verify chunk's K/V view, both tiers' paged decode
+            serve_speculative=("compaction", "decode_attention_paged"),
+            serve_open_loop=("compaction", "decode_attention_paged"),
         ),
     ),
     "zamba2-2.7b x3 -> rwkv6-7b": dict(
@@ -1289,7 +1756,8 @@ CASCADES = {
 }
 
 
-# the cascade whose serve_continuous also runs sampled (T = 0.8), graphed
+# the cascade whose serve_continuous also runs sampled (T = 0.8), graphed,
+# and open loop, and whose tier 1 drafts for the speculative cascade
 SAMPLED_CASCADE = "qwen2.5-3b x3 -> internlm2-1.8b"
 
 
@@ -1299,8 +1767,9 @@ def main_path(dev, seed, name):
     launch counters zeroed just before and read just after; one replay of
     each tier's graphed generate prefill and decode step, serve decode step
     and chunk call, profiled; for ``SAMPLED_CASCADE`` a sampled graphed
-    serve_continuous.  Returns (results, launches per mode: the second
-    graphed run's)."""
+    serve_continuous, the open loop (``open_loop_path``) and the
+    speculative cascade (``speculative_path``).  Returns (results, launches
+    per mode: the second graphed run's)."""
     from repro_torch.configs import get_config
     from repro_torch.core import ensemble as ens
     from repro_torch.core.cascade import TierSpec
@@ -1362,7 +1831,124 @@ def main_path(dev, seed, name):
             results["serve_continuous_sampled"] = sampled_serve_run(servers["generate"], rng, vocab, name,
                                                                     spec["need"]["serve_continuous"], seed)
         results["generate_buckets"] = bucket_memory_check(servers["generate"].tiers[0], rng, vocab, name)
+        if name == SAMPLED_CASCADE:
+            results["serve_open_loop"], launches["serve_open_loop"] = open_loop_path(
+                servers["generate"], c1, c2, name, spec["need"]["serve_open_loop"])
+            # last: it overwrites tier 1's member 1 with member 0
+            del servers, tier2
+            results["serve_speculative"], launches["serve_speculative"] = speculative_path(
+                dev, c1, v1, rng, c1.vocab_size, name, spec["need"]["serve_speculative"], seed)
     return results, launches
+
+
+def speculative_path(dev, c1, v1, rng, vocab, name, need, seed):
+    """The speculative cascade at published width, from the first cascade's
+    tier-1 weights with no second copy of a member: member 1 takes member
+    0's values in place (tier 1 [m0, m0, m2], vote_preds 0.8) and tier 2 is
+    a view of member 0.  The main path's 32 serve requests and
+    ``SERVE_CONFIG``: plain graphed twice, speculative graphed twice (the
+    second capturing nothing), then plain and speculative at T = 0.8,
+    graphed, on tiers of their own.  Every speculative run emits, request
+    by request, the accepted draft prefix and its verify pass's choice
+    (``hold_spec_to_verify``); every pass of the first greedy and the
+    sampled speculative run is held bitwise to the eager route on a copy of
+    its pool, table row, start and key (``verify_passes``; their walls
+    include it).  The requests that leave the plain output are counted,
+    and the first 4 of each mode replayed teacher-forced at the position
+    where they leave it (``hold_spec_to_plain``, printed: the two bf16
+    routes diverge over 36 random layers, so no near-tie rule can tell a
+    fault there).  For 4 requests the verify chunk is held to the
+    teacher-forced decode steps at all 16 positions layer by layer
+    (``SPEC_LAYER_TOL``), the logits' error end to end and by depth
+    printed; one replay of tier 2's 16-token verify chunk profiled.
+    Returns (results, the second speculative run's launches)."""
+    from repro_torch.models.params import tree_map
+    from repro_torch.obs import Tracer
+    from repro_torch.serve import ServeConfig, TierBackend
+    from repro_torch.serve.graphs import trace_counts
+
+    tree_map(lambda t: t[1].copy_(t[0]), v1)
+    v2 = tree_map(lambda t: t[0:1], v1)
+    state = rng.bit_generator.state
+    runs, outputs, keys, servers, verified = {}, {}, {}, {}, {}
+    for temperature, kinds in ((0.0, ("plain_1", "plain_2", "spec_1", "spec_2")), (0.8, ("plain", "spec"))):
+        servers[temperature] = server = drafting_server(dev, c1, v1, c1, v2, temperature)
+        for kind in kinds:
+            rng.bit_generator.state = state  # the same requests in every run
+            reqs = serve_requests(rng, 32, vocab, 16, 384, 16, n_prefix=8, prefix_len=128)
+            cfg = ServeConfig(**SERVE_CONFIG, seed=seed, speculative=kind.startswith("spec"))
+            tag = f"{kind}@T{temperature:g}"
+            outputs[tag], tr = {}, Tracer() if temperature > 0 else None
+            with verify_passes(hold=kind in ("spec_1", "spec")) as passes:
+                runs[tag] = serve_continuous_run(server, reqs, cfg, f"{name} speculative", tag, need,
+                                                 outputs=outputs[tag], tracer=tr)
+            keys[tag] = tier2_keys(tr, seed, reqs) if tr is not None else {}
+            if cfg.speculative:
+                verified[tag] = hold_spec_to_verify(reqs, outputs[tag], passes, f"{name} {tag}")
+                require(verified[tag]["verified"] == runs[tag]["tiers"][1]["spec_drafts"] > 0,
+                        f"{name} {tag}: {verified[tag]} against {runs[tag]['tiers'][1]}")
+    for a, b in (("plain_1@T0", "plain_2@T0"), ("spec_1@T0", "spec_2@T0")):
+        require(runs[a]["outputs_digest"] == runs[b]["outputs_digest"] and runs[a]["pool_digest"] == runs[b]["pool_digest"],
+                f"{name}: two graphed runs {a}, {b} differ")
+    require(runs["spec_2@T0"]["trace_counts"] == runs["spec_1@T0"]["trace_counts"],
+            f"{name}: the second speculative run captured again")
+    require(keys["plain@T0.8"] == keys["spec@T0.8"], f"{name}: tier 2 admits in another order at T = 0.8")
+    tier2 = servers[0.0].tiers[1]
+    config = ServeConfig(**SERVE_CONFIG)
+    held = {}
+    for t, p, s in ((0.0, "plain_2@T0", "spec_2@T0"), (0.8, "plain@T0.8", "spec@T0.8")):
+        held[s] = hold_spec_to_plain(servers[t].tiers[1], reqs, outputs[p], outputs[s], t, keys[p], config,
+                                     f"{name} {s}", gate=False, show=4)
+    # the verify chunk against the decode steps at every position, 4
+    # requests: layer by layer (held), end to end and by depth (printed)
+    route = []
+    for i in [i for i in range(len(reqs)) if outputs["plain_2@T0"][i][0] == 1][:4]:
+        r, plain = reqs[i], np.asarray(outputs["plain_2@T0"][i][2])
+        fed = np.concatenate([r.tokens[-1:], plain[:-1]]).astype(np.int32)
+        layers = route_errors_by_layer(tier2, r.tokens, fed, config.max_chunk, config.max_seq)
+        require(max(layers) <= SPEC_LAYER_TOL, f"{name}: request {i}: a layer's verify output is "
+                                               f"{max(layers)} normwise off its decode output: {layers}")
+        route.append(dict(request=i, positions=len(fed), layer_max=max(layers), layer_errs=layers,
+                          logits_by_depth=route_error_by_depth(tier2, r.tokens, fed, config.max_chunk,
+                                                               config.max_seq)))
+    log(f"[{name}] verify chunk vs teacher-forced decode steps, normwise: {json.dumps(route)}")
+    backend = TierBackend(tier2, n_slots=SERVE_CONFIG["n_slots"], max_seq=SERVE_CONFIG["max_seq"],
+                          page_size=SERVE_CONFIG["page_size"])
+    prompt = rng.integers(0, vocab, 300).astype(np.int32)
+    backend.begin_slot(0, prompt, share=False)
+    require(backend.extend_slot(0, 300 + 15), f"{name}: the pool refused a verify extension")
+    tokens = np.concatenate([prompt[-1:], rng.integers(0, vocab, 15)]).astype(np.int32)
+    counts = trace_counts()
+    verify_profile = profile_call(lambda: backend.verify_draft(tokens, 0, 299, SERVE_CONFIG["max_chunk"]))
+    require(trace_counts() == counts, f"{name}: the profiled verify chunk captured again")
+    del backend
+    plain, spec = runs["plain_2@T0"]["tiers"][1], runs["spec_2@T0"]["tiers"][1]
+    summary = dict(
+        walls_s={k: r["wall_s"] for k, r in runs.items()},
+        tier2_decode_tokens=dict(plain=plain["decode_tokens"], speculative=spec["decode_tokens"]),
+        drafts=spec["spec_drafts"], draft_tokens=spec["spec_draft_tokens"], accepted_tokens=spec["spec_accepted_tokens"],
+        accepted_per_deferral=spec["spec_accepted_tokens"] / max(1, spec["spec_drafts"]),
+        accept_rate=spec["spec_accepted_tokens"] / max(1, spec["spec_draft_tokens"]),
+        sampled=dict(plain=runs["plain@T0.8"]["tiers"][1], speculative=runs["spec@T0.8"]["tiers"][1]),
+        capture_s={k: r["capture_s"] for k, r in runs.items()},
+        peak_gib={k: r["max_memory_allocated_gib"] for k, r in runs.items()},
+        spec_vs_plain=held, spec_vs_verify=verified, verify_vs_decode=route, verify_chunk_replay=verify_profile,
+    )
+    log(f"[{name}] speculative: {json.dumps(summary)}")
+    return dict(summary, runs=runs), runs["spec_2@T0"]["launches"]
+
+
+def open_loop_path(server, c1, c2, name, need):
+    """The first cascade under the bench's open-loop trace with the main
+    path's prompts (16-384 tokens; vocabulary the smaller tier's),
+    ``SERVE_CONFIG``: ``open_loop_runs``.  Random members disagree on every
+    request, so the routing here says nothing about the controller: no
+    goodput ordering is required."""
+    from repro_torch.serve import ServeConfig, bursty
+
+    wl = bursty(**OPEN_LOOP_TRACE, prompt_len=(16, 384), vocab=min(c1.vocab_size, c2.vocab_size))
+    return open_loop_runs(server, wl, ServeConfig(**SERVE_CONFIG), f"[{name}]", need)
+
 
 
 def bucket_memory_check(tier, rng, vocab, name):
@@ -1692,17 +2278,18 @@ def serve_continuous_path(server, rng, vocab, name, need):
     return result, g2["launches"]
 
 
-def serve_continuous_run(server, reqs, cfg, name, run, need):
+def serve_continuous_run(server, reqs, cfg, name, run, need, *, outputs=None, tracer=None):
     """One timed ``serve_continuous`` (``run`` "eager" takes the oracle
     route) with the launch counters, host fetches and peak memory reset
     just before and read just after; checks its outputs and returns its
-    numbers."""
+    numbers.  ``outputs`` (a dict) receives (tier, truncated, output) of
+    each request by submission index; ``tracer`` traces the run."""
     from repro_torch import kernels
     from repro_torch.core.cascade import host_fetch_stats, reset_host_fetch_stats
     from repro_torch.obs import Observability
     from repro_torch.serve.graphs import capture_seconds, trace_counts
 
-    ob = Observability()
+    ob = Observability(tracer=tracer)
     cap0 = capture_seconds()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1740,8 +2327,12 @@ def serve_continuous_run(server, reqs, cfg, name, run, need):
         chunk_tokens=st[i]["chunk_tokens"], shared_tokens=st[i]["shared_tokens"],
         peak_pages=reg.get(f"paging.tier{i}.pool_occupancy").peak if paged[i] else None,
         shared_hits=reg.value(f"paging.tier{i}.shared_hits") if paged[i] else None,
-        forced_completions=st[i]["forced_completions"],
+        forced_completions=st[i]["forced_completions"], spec_drafts=st[i]["spec_drafts"],
+        spec_draft_tokens=st[i]["spec_draft_tokens"], spec_accepted_tokens=st[i]["spec_accepted_tokens"],
     ) for i in range(n_tiers)]
+    if outputs is not None:
+        outputs.update({i: (by_rid[q.rid].tier, by_rid[q.rid].truncated, by_rid[q.rid].output.tolist())
+                        for i, q in enumerate(reqs)})
     result = dict(
         run=run, config=SERVE_CONFIG, paged=paged,
         n_pages=SERVE_CONFIG["n_slots"] * SERVE_CONFIG["max_seq"] // SERVE_CONFIG["page_size"] + 1,
@@ -1811,6 +2402,11 @@ def main(argv=None):
         f"{json.dumps(ref['batch_programs_on_card'])}")
     ref["engine_on_card"] = check_engine_on_card(dev, args.seed)
     log(f"engine on the card, graphed == eager: {json.dumps(ref['engine_on_card'])}")
+    ref["speculative_on_card"] = check_speculative_on_card(dev, args.seed)
+    log(f"speculative on the card, graphed == eager, paged == dense, == plain up to near ties: "
+        f"{json.dumps(ref['speculative_on_card'])}")
+    ref["open_loop_on_card"] = check_open_loop_on_card(dev, args.seed)
+    log(f"open loop on the card, repeat runs equal: {json.dumps(ref['open_loop_on_card'])}")
     results, launches = {}, {}
     # each cascade's weights and caches must be freed by reference counting
     # alone when it returns, before the next is built: the cyclic collector

@@ -47,6 +47,12 @@ def ensemble_prefill_into_slot(values, tokens, caches, slot, start, cfg: ModelCo
     return api.prefill_into_slot_members(values, tokens, caches, slot, start, cfg)
 
 
+def ensemble_prefill_into_slot_logits(values, tokens, caches, slot, start, cfg: ModelConfig):
+    """``ensemble_prefill_into_slot`` that also scores every chunk position
+    (the speculative verify pass): ``(logits (E, C, V) f32, caches)``."""
+    return api.prefill_into_slot_logits_members(values, tokens, caches, slot, start, cfg)
+
+
 def init_ensemble_paged_pool(values, cfg: ModelConfig, n_pages: int, page_size: int):
     """E member planes of paged pools, (L, E, P, KVH, page_size, hd), on the
     members' device, under one page table."""
@@ -63,6 +69,12 @@ def ensemble_prefill_into_slot_paged(values, tokens, pools, pages_row, start, cf
     """Chunked prefill of one slot into every member plane of the pools;
     ``start`` an int or a (1,) device tensor."""
     return api.prefill_into_slot_paged_members(values, tokens, pools, pages_row, start, cfg)
+
+
+def ensemble_prefill_into_slot_paged_logits(values, tokens, pools, pages_row, start, cfg: ModelConfig):
+    """Paged twin of ``ensemble_prefill_into_slot_logits``: ``(logits (E,
+    C, V) f32, pools)``."""
+    return api.prefill_into_slot_paged_logits_members(values, tokens, pools, pages_row, start, cfg)
 
 
 def member_count(values) -> int:

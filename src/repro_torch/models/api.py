@@ -11,10 +11,12 @@ every ``attn_every`` layers).
 and the slot surface of continuous batching:
 
     cache = prefill_into_slot(params, tokens, cache, slot, start, cfg)
+    logits, cache = prefill_into_slot_logits(params, tokens, cache, slot, start, cfg)
     cache = reset_slot(cache, slot, cfg)                 # state families
     pool = init_paged_pool(cfg, n_pages, page_size, device)   # dense only
     logits, pool = decode_step_paged(params, token, pool, pos, pages, cfg)
     pool = prefill_into_slot_paged(params, tokens, pool, pages_row, start, cfg)
+    logits, pool = prefill_into_slot_paged_logits(params, tokens, pool, pages_row, start, cfg)
     pool = copy_pool_page(pool, src, dst)
 
 The single-model functions take the JAX package's parameter tree and cache
@@ -317,6 +319,15 @@ def supports_chunked_prefill(cfg: ModelConfig) -> bool:
     return cfg.family in PORTED_FAMILIES and not cfg.is_encoder
 
 
+def supports_draft_verify(cfg: ModelConfig) -> bool:
+    """Speculative draft verification needs chunked prefill, to score every
+    draft position in one pass, and a position-masked attention cache, so
+    rejected draft rows are rolled back by position alone.  Constant-state
+    families fail the second: their recurrent state has absorbed the
+    rejected tokens."""
+    return supports_chunked_prefill(cfg) and not has_slot_state(cfg)
+
+
 def supports_paging(cfg: ModelConfig) -> bool:
     """Block-paged KV pools serve the dense family.  Constant-state
     families have O(1) per-slot state, nothing to page, and the hybrid's
@@ -334,7 +345,8 @@ def slot_index(v, device) -> torch.Tensor:
     return torch.tensor([int(v)], dtype=torch.int64, device=device)
 
 
-def prefill_into_slot_members(params, tokens, cache, slot, start, cfg: ModelConfig):
+def prefill_into_slot_members(params, tokens, cache, slot, start, cfg: ModelConfig, *,
+                              return_hidden: bool = False):
     """Consume a C-token chunk of one slot's prompt, positions
     [start, start+C), into every member's slot of the member slot cache
     (``init_cache_members`` with batch = n_slots), in place.  ``slot`` and
@@ -346,7 +358,10 @@ def prefill_into_slot_members(params, tokens, cache, slot, start, cfg: ModelConf
     by index) through the full-sequence block forwards.  No logits: the
     last prompt token always goes through the decode step, whose logits
     pick the first output token — which keeps chunked and decode-only
-    admission token-identical.  Returns the cache."""
+    admission token-identical.  Returns the cache; with ``return_hidden``
+    (attention families only: the speculative verify pass) ``(hidden (E,
+    1, C, D), cache)``, from which the caller projects every position's
+    logits."""
     _require_ported(cfg)
     device = params["embed"].device
     slot, start = slot_index(slot, device), slot_index(start, device)
@@ -357,7 +372,9 @@ def prefill_into_slot_members(params, tokens, cache, slot, start, cfg: ModelConf
                 _layer(params, l), x, cfg, cache["k"][l], cache["v"][l], slot, start,
                 sliding_window=cfg.sliding_window,
             )
-        return cache
+        return (x, cache) if return_hidden else cache
+    if return_hidden:  # constant-state families cannot roll a verify back
+        raise ValueError(f"return_hidden unsupported for family {cfg.family}")
     for l in range(cfg.n_layers):
         x, st = _recurrent_layer(params, l, x, cfg, {n: cache[n][l].index_select(1, slot) for n in _state_keys(cfg)})
         for name, t in st.items():
@@ -415,12 +432,14 @@ def decode_step_paged_members(params, token, pool, pos, pages, cfg: ModelConfig)
     return L.project_logits(params, x[:, :, 0], cfg), pool
 
 
-def prefill_into_slot_paged_members(params, tokens, pool, pages_row, start, cfg: ModelConfig):
+def prefill_into_slot_paged_members(params, tokens, pool, pages_row, start, cfg: ModelConfig, *,
+                                    return_hidden: bool = False):
     """Paged counterpart of ``prefill_into_slot_members``: the chunk's K/V
     rows land in the pool pages the slot's (n_pg,) table row maps.
     ``start`` an int or (1,) device tensor; tokens and table row host or
     device (device inputs are used without a copy).  Returns the pool
-    (updated in place)."""
+    (updated in place); with ``return_hidden`` ``(hidden (E, 1, C, D),
+    pool)`` for the speculative verify pass."""
     assert supports_paging(cfg), cfg.family
     device = params["embed"].device
     pages_row = torch.as_tensor(pages_row, device=device).to(torch.int32)
@@ -431,7 +450,27 @@ def prefill_into_slot_paged_members(params, tokens, pool, pages_row, start, cfg:
             _layer(params, l), x, cfg, pool["k"][l], pool["v"][l], start, pages_row,
             sliding_window=cfg.sliding_window,
         )
-    return pool
+    return (x, pool) if return_hidden else pool
+
+
+def prefill_into_slot_logits_members(params, tokens, cache, slot, start, cfg: ModelConfig):
+    """Chunked prefill that also scores every chunk position: returns
+    ``(logits (E, C, V) f32, cache)``, ``logits[:, j]`` the next-token
+    distribution after position ``start + j``.  This is the speculative
+    verify pass (``serve/speculative.py``): feeding the token before each
+    draft position gives, in one chunk, the model's own choice at every
+    draft position, through the decode head (``layers.project_logits``)."""
+    assert supports_draft_verify(cfg), cfg.family
+    h, cache = prefill_into_slot_members(params, tokens, cache, slot, start, cfg, return_hidden=True)
+    return L.project_logits(params, h, cfg)[:, 0], cache
+
+
+def prefill_into_slot_paged_logits_members(params, tokens, pool, pages_row, start, cfg: ModelConfig):
+    """Paged twin of ``prefill_into_slot_logits_members``: ``(logits (E, C,
+    V) f32, pool)``."""
+    assert supports_draft_verify(cfg), cfg.family
+    h, pool = prefill_into_slot_paged_members(params, tokens, pool, pages_row, start, cfg, return_hidden=True)
+    return L.project_logits(params, h, cfg)[:, 0], pool
 
 
 # ---------------------------------------------------------------------------
@@ -499,6 +538,13 @@ def prefill_into_slot(params, tokens, cache, slot, start, cfg: ModelConfig):
     return cache
 
 
+def prefill_into_slot_logits(params, tokens, cache, slot, start, cfg: ModelConfig):
+    """``prefill_into_slot`` that also scores every chunk position: returns
+    ``(logits (C, V) f32, cache)``."""
+    logits, _ = prefill_into_slot_logits_members(_members(params), tokens, _member_cache(cache), slot, start, cfg)
+    return logits[0], cache
+
+
 def init_paged_pool(cfg: ModelConfig, n_pages: int, page_size: int, device, dtype=None):
     """Zero pools, k and v (L, n_pages, KVH, page_size, hd)."""
     return _single_cache(init_paged_pool_members(cfg, 1, n_pages, page_size, device, dtype))
@@ -517,3 +563,12 @@ def prefill_into_slot_paged(params, tokens, pool, pages_row, start, cfg: ModelCo
     (n_pg,) table row.  Returns the pool (updated in place)."""
     prefill_into_slot_paged_members(_members(params), tokens, _member_cache(pool), pages_row, start, cfg)
     return pool
+
+
+def prefill_into_slot_paged_logits(params, tokens, pool, pages_row, start, cfg: ModelConfig):
+    """Paged twin of ``prefill_into_slot_logits``: ``(logits (C, V) f32,
+    pool)``."""
+    logits, _ = prefill_into_slot_paged_logits_members(
+        _members(params), tokens, _member_cache(pool), pages_row, start, cfg,
+    )
+    return logits[0], pool

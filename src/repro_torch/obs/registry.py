@@ -103,6 +103,10 @@ class Histogram:
         self._min = math.inf
         self._max = -math.inf
 
+    @property
+    def mean(self) -> float:
+        return self.sum / self.count if self.count else 0.0
+
     def percentile(self, q: float) -> float:
         """Estimated q-quantile (q in [0, 1]) by linear interpolation
         within the winning bucket; exact at the recorded min/max ends."""

@@ -11,6 +11,8 @@ Span vocabulary (what a request's track shows, in lifecycle order):
     queue_wait     B/E  submitted -> admitted
     admit          B/E  slot claim + prompt prefill; ``shared_tokens`` arg
       prefill_chunk B/E   one bucketed chunk dispatch (nested in admit)
+      verify_draft  B/E   speculative draft scoring (nested in admit; args:
+                          draft_tokens offered, accepted prefix length)
     decode         B/E  slot occupancy: admit -> completion
     defer_vote     i    the agreement vote (args: margin, defer, tier)
     forced_complete i   pool exhaustion cut the request short

@@ -29,6 +29,15 @@ class Request:
     # pool that could not grow) before the full max_new_tokens budget was
     # generated: ``output`` is short, not silently complete.
     truncated: bool = False
+    # True when open-loop admission control rejected the request under
+    # overload: it still comes back to the caller (never silently dropped),
+    # with ``output=None`` and this flag set.
+    shed: bool = False
+    # speculative deferral (serve/speculative.py): the previous tier's
+    # agreeing generation, set by the cascade when ``ServeConfig.
+    # speculative`` is on; consumed (and cleared) at admission by the
+    # receiving SlotStream's verify pass.
+    draft: Optional[np.ndarray] = None
 
 
 class RequestQueue:

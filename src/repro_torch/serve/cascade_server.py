@@ -19,6 +19,13 @@
   with chunked prefill admission; a slot that finishes votes on its member generations,
   and a disagreement re-queues the request on the next tier.  Tier streams
   are stepped round-robin, so tier i+1 starts while tier i still decodes.
+  With ``ServeConfig(speculative=True)`` a deferral carries the tier's
+  plurality generation as a draft, which the next tier verifies in one
+  chunked pass (``serve/speculative.py``).
+* ``serve_open_loop`` — the same run machinery driven by a workload's
+  arrival times in virtual time (``serve/workload.py``), optionally under
+  the greedy admission controller (``serve/controller.py``), scored by
+  SLO goodput.
 
 Sampling at ``temperature > 0`` is the counter-based Gumbel-max draw of
 ``serve/sampling.py``, inside the captured programs: batch generation keys
@@ -28,8 +35,7 @@ JAX's PRNG cannot be reproduced, so sampled tokens are held to the port's
 own invariants (paged == dense, graphed == eager, slot reuse, n_slots),
 and greedy ones to the JAX package's tokens.
 
-Not ported yet: placement and transports, the speculative
-(cascade-as-drafter) path and ``serve_open_loop``.
+Not ported yet: placement and transports (and so in-flight admission).
 """
 from __future__ import annotations
 
@@ -56,6 +62,8 @@ from repro_torch.serve import sampling
 from repro_torch.serve.engine import grow_cache
 from repro_torch.serve.graphs import BATCH_BUCKETS, GraphPool, GraphSet, Program
 from repro_torch.serve.slot_stream import SlotStream, TierBackend
+from repro_torch.serve.speculative import verify_choices
+from repro_torch.serve.workload import VirtualClock, Workload
 
 
 def stable_digest(tokens) -> int:
@@ -83,6 +91,10 @@ def tier_programs(cfg: ModelConfig, temperature: float) -> SimpleNamespace:
         (per-slot (B,) ``pos``, continuous batching over the dense slot
         cache)
     ``prefill_chunk(values, caches, tokens, slot, start) -> caches``
+    ``verify_chunk(values, caches, tokens, slot, start, slot_key) ->
+        (choices (E, C), caches)`` (the speculative verify pass: a chunk
+        that also scores every position, its tokens drawn as the decode
+        step draws them; None where ``api.supports_draft_verify`` is false)
     ``reset_slot(caches, slot) -> caches`` (zero every member's recurrent
         state in the slot; None for the dense family, which has none).
 
@@ -94,8 +106,8 @@ def tier_programs(cfg: ModelConfig, temperature: float) -> SimpleNamespace:
 
     Each is a ``Program`` keyed ``"<cfg.name>@T<temperature>/ens_<name>"``,
     the JAX package's keys; a tier captures ``last_logits``, ``prefill``
-    and ``decode`` per batch bucket and ``decode_slots`` and
-    ``prefill_chunk`` per slot geometry (``serve/graphs.py``)."""
+    and ``decode`` per batch bucket and ``decode_slots``, ``prefill_chunk``
+    and ``verify_chunk`` per slot geometry (``serve/graphs.py``)."""
     key = f"{cfg.name}@T{temperature:g}"
 
     def _tokens(logits, keys, pos):
@@ -115,6 +127,10 @@ def tier_programs(cfg: ModelConfig, temperature: float) -> SimpleNamespace:
     def prefill_chunk(values, caches, tokens, slot, start):
         return ens.ensemble_prefill_into_slot(values, tokens, caches, slot, start, cfg)
 
+    def verify_chunk(values, caches, tokens, slot, start, slot_key):
+        logits, caches = ens.ensemble_prefill_into_slot_logits(values, tokens, caches, slot, start, cfg)
+        return verify_choices(logits, slot_key, start, temperature), caches
+
     return SimpleNamespace(
         last_logits=Program(f"{key}/ens_last_logits", last_logits),
         prefill=Program(f"{key}/ens_prefill", prefill),
@@ -122,6 +138,9 @@ def tier_programs(cfg: ModelConfig, temperature: float) -> SimpleNamespace:
         decode_slots=Program(f"{key}/ens_decode_slots", decode),
         prefill_chunk=(
             Program(f"{key}/ens_prefill_chunk", prefill_chunk) if api.supports_chunked_prefill(cfg) else None
+        ),
+        verify_chunk=(
+            Program(f"{key}/ens_verify_chunk", verify_chunk) if api.supports_draft_verify(cfg) else None
         ),
         reset_slot=(
             Program(f"{key}/ens_slot_reset", functools.partial(api.reset_slot_members, cfg=cfg))
@@ -135,7 +154,9 @@ def tier_paged_programs(cfg: ModelConfig, temperature: float) -> SimpleNamespace
     """Block-paged counterparts of the continuous-mode programs: E pool
     planes advance under ONE shared (n_slots, n_pg) page table, with the
     per-slot admission keys for sampling:
-    ``decode_slots(values, tok, pools, pos, pages, slot_keys)``."""
+    ``decode_slots(values, tok, pools, pos, pages, slot_keys)``,
+    ``prefill_chunk(values, pools, tokens, pages_row, start)`` and
+    ``verify_chunk(values, pools, tokens, pages_row, start, slot_key)``."""
     assert api.supports_paging(cfg), cfg.family
     key = f"{cfg.name}@T{temperature:g}"
 
@@ -146,9 +167,14 @@ def tier_paged_programs(cfg: ModelConfig, temperature: float) -> SimpleNamespace
     def prefill_chunk(values, pools, tokens, pages_row, start):
         return ens.ensemble_prefill_into_slot_paged(values, tokens, pools, pages_row, start, cfg)
 
+    def verify_chunk(values, pools, tokens, pages_row, start, slot_key):
+        logits, pools = ens.ensemble_prefill_into_slot_paged_logits(values, tokens, pools, pages_row, start, cfg)
+        return verify_choices(logits, slot_key, start, temperature), pools
+
     return SimpleNamespace(
         decode_slots=Program(f"{key}/ens_decode_paged", decode_slots),
         prefill_chunk=Program(f"{key}/ens_prefill_chunk_paged", prefill_chunk),
+        verify_chunk=Program(f"{key}/ens_verify_chunk_paged", verify_chunk),
         copy_page=Program(f"{key}/ens_copy_pool_page", api.copy_pool_page),
     )
 
@@ -186,6 +212,7 @@ class CascadeTier:
         self._decode = programs.decode
         self._decode_slots = programs.decode_slots
         self._prefill_chunk = programs.prefill_chunk
+        self._verify_chunk = programs.verify_chunk
         self._reset_slot = programs.reset_slot
 
     def last_logits(self, tokens, *, eager: bool = False) -> torch.Tensor:
@@ -249,10 +276,45 @@ class CascadeTier:
         return self._decode(self.values, tok, cache, pos, keys)[0]
 
 
+@dataclasses.dataclass
+class OpenLoopReport:
+    """What one ``CascadeServer.serve_open_loop`` run measured.
+
+    ``goodput`` is SLO attainment: the fraction of offered requests that
+    completed within ``slo_s`` of their arrival; shed requests and SLO
+    misses both count against it.  ``completed + shed`` partitions the
+    offered trace (asserted by ``serve_open_loop``); the latency percentiles come
+    from the run's ``serve.request_latency_s`` histogram."""
+
+    offered: int
+    completed: List[Request]
+    shed: List[Request]
+    completed_in_slo: int
+    goodput: float
+    p50_s: float
+    p99_s: float
+    makespan_s: float
+    controller_actions: List[dict] = dataclasses.field(default_factory=list)
+
+    def __repr__(self):
+        return (
+            f"OpenLoopReport(offered={self.offered}, done={len(self.completed)}, shed={len(self.shed)}, "
+            f"goodput={self.goodput:.3f}, p50={self.p50_s:.4g}s, p99={self.p99_s:.4g}s, "
+            f"makespan={self.makespan_s:.4g}s)"
+        )
+
+
 class _CascadeRun:
-    """One ``serve_continuous`` run's machinery: per-tier ``SlotStream``s
-    over ``TierBackend``s, the vote / defer / complete routing and the
-    telemetry scopes."""
+    """One serve run's machinery, shared by the closed-loop
+    (``serve_continuous``) and open-loop (``serve_open_loop``) entry points:
+    per-tier ``SlotStream``s over ``TierBackend``s, the vote / defer /
+    complete routing and the telemetry scopes.  The two differ only in
+    when requests enter and how time advances.
+
+    ``theta_offset`` is the open-loop controller's deferral actuation: tier
+    i defers on ``vote_frac <= clamp(spec.theta + theta_offset[i], 0,
+    1)``.  At offset 0 the vote reads ``spec.theta`` unmodified, so a run
+    without a controller is bitwise the plain ``serve_continuous``."""
 
     def __init__(self, server: "CascadeServer", cfg: ServeConfig, ob: Observability, eager: bool):
         self.tiers = server.tiers
@@ -266,6 +328,9 @@ class _CascadeRun:
         self.c_deferred = [sc.counter("deferred") for sc in tier_sc]
         self.c_tokens = [sc.counter("output_tokens") for sc in tier_sc]
         self.h_margin = [sc.histogram("agreement_margin", buckets=UNIT_BUCKETS) for sc in tier_sc]
+        self.h_accept = [sc.histogram("draft_accept_rate", buckets=UNIT_BUCKETS) for sc in tier_sc]
+        self.speculative = bool(cfg.speculative)
+        self.theta_offset: List[float] = [0.0] * len(self.tiers)
         self.streams = [
             SlotStream(
                 TierBackend(
@@ -278,18 +343,38 @@ class _CascadeRun:
             )
             for i, t in enumerate(self.tiers)
         ]
+        for h, st in zip(self.h_accept[1:], self.streams[1:]):
+            st.on_draft_verified = self._accept_recorder(h)
         self.t_start: dict = {}
         self.done: List[Request] = []
 
-    def submit(self, requests: Sequence[Request]) -> None:
-        """Enqueue onto tier 0."""
+    @staticmethod
+    def _accept_recorder(h):
+        """The hook a stream calls after each verify pass.  It holds the
+        histogram, not the run: a run -> stream -> hook -> run cycle would
+        keep the backends alive past the run, and with them their claim on
+        the tier's slot memory."""
+        def record(r, n_acc, n_draft):
+            h.record(n_acc / max(1, n_draft))
+
+        return record
+
+    def submit(self, requests: Sequence[Request], *, t0=None) -> None:
+        """Enqueue onto tier 0.  ``t0`` overrides the latency clock's origin
+        (open loop passes the arrival time, so queue wait before admission
+        counts against the SLO)."""
         for r in requests:
-            self.t_start[r.rid] = self.clk()
+            self.t_start[r.rid] = self.clk() if t0 is None else t0
         self.streams[0].submit(requests)
 
     @property
-    def active(self) -> bool:
-        return any(st.active for st in self.streams)
+    def runnable(self) -> bool:
+        return any(st.runnable for st in self.streams)
+
+    def effective_theta(self, i: int) -> float:
+        off = self.theta_offset[i]
+        th = self.tiers[i].spec.theta
+        return th if off == 0.0 else min(1.0, max(0.0, th + off))
 
     def sweep(self) -> None:
         """One round-robin pass: step every stream once, routing each
@@ -304,7 +389,7 @@ class _CascadeRun:
         tr = self.tr
         digests = np.asarray([stable_digest(gen[e]) for e in range(tier.k)], np.int32)
         out = deferral.vote_rule_from_preds(
-            torch.as_tensor(digests[:, None], device=self.device), tier.spec.theta
+            torch.as_tensor(digests[:, None], device=self.device), self.effective_theta(i)
         )
         # one metered fetch per completed slot: the vote verdict and the
         # winning digest
@@ -315,13 +400,17 @@ class _CascadeRun:
         self.h_margin[i].record(margin)
         if tr.enabled:
             tr.instant(r.rid, "defer_vote", tier=i, margin=margin, defer=bool(defer_h))
+        winner = int(np.argmax(digests == pred_h))
         if defer:
             self.c_deferred[i].add(1)
+            # cascade-as-drafter: the plurality generation this tier voted
+            # on becomes the next tier's draft
+            if self.speculative and gen.shape[1]:
+                r.draft = gen[winner].astype(np.int32)
             self.streams[i + 1].submit([r])
             return
         self.c_answered[i].add(1)
         self.c_tokens[i].add(int(gen.shape[1]))
-        winner = int(np.argmax(digests == pred_h))
         r.output = gen[winner].astype(np.int32)
         r.tier = i
         self.h_lat.record(self.clk() - self.t_start[r.rid])
@@ -388,8 +477,11 @@ class CascadeServer:
         digests): agreement -> the request exits with the majority answer
         and ``r.tier`` set; disagreement -> it is re-queued, prompt intact,
         on the next tier.  Per-tier stream counters land in
-        ``last_stream_stats``.  Each tier's decode step and chunk buckets
-        are captured once per slot geometry and replayed after;
+        ``last_stream_stats``.  With ``config.speculative`` a deferral
+        carries the tier's plurality generation as the next tier's draft
+        (``serve/speculative.py``): the tokens are the plain run's, in fewer
+        decode steps.  Each tier's decode step, chunk buckets and verify
+        buckets are captured once per slot geometry and replayed after;
         ``eager=True`` runs them eagerly, the oracle of the graphed path and
         nothing else.  Returns completed requests."""
         cfg = config.with_max_seq_default(256)
@@ -400,10 +492,103 @@ class CascadeServer:
             )
         run = _CascadeRun(self, cfg, cfg.resolved_obs(), eager)
         run.submit(requests)
-        while run.active:
+        while run.runnable:
             run.sweep()
         self.last_stream_stats = [dict(st.stats) for st in run.streams]
         return run.done
+
+    def serve_open_loop(self, workload: Workload, config: ServeConfig = ServeConfig(), *, slo_s: float = 1.0,
+                        controller=None, step_time_s: float = 0.01) -> OpenLoopReport:
+        """Open-loop serving: requests enter at the workload's arrival
+        times, not as an up-front list, so queues build under bursts, and
+        the report scores SLO attainment (``goodput``).
+
+        The run is in virtual time: ``config.obs.clock`` must be advanceable
+        (``serve.workload.VirtualClock``; one is made when ``config.obs`` is
+        None), and the loop advances it by ``step_time_s`` a round-robin
+        sweep (the modelled service time of one decode step across the
+        tiers) and across idle gaps to the next arrival, so identical
+        (workload, config, controller) inputs replay bit for bit.
+
+        ``controller`` (``serve.controller.GreedyController``, optional) is
+        bound to the run and ticked on its own interval; it may lower
+        per-tier deferral thresholds, cap per-tier slot admission and shed
+        arrivals under overload.  Shed requests come back in
+        ``report.shed`` with ``r.shed=True``: ``offered == len(completed) +
+        len(shed)`` is asserted.  The slot programs are
+        ``serve_continuous``'s (``set_slot_limit`` changes no shape), so an
+        open-loop run after a closed-loop run of the same geometry captures
+        nothing."""
+        cfg = config.with_max_seq_default(256)
+        assert slo_s > 0 and step_time_s > 0, (slo_s, step_time_s)
+        ob = cfg.obs if cfg.obs is not None else Observability(clock=VirtualClock())
+        assert hasattr(ob.clock, "advance"), (
+            "serve_open_loop runs in virtual time: obs.clock must be advanceable "
+            f"(serve.workload.VirtualClock), got {type(ob.clock).__name__}"
+        )
+        vt = ob.clock
+        arrivals = list(workload)  # fresh Request objects, arrival order
+        for _, r in arrivals:
+            assert len(r.tokens) + r.max_new_tokens <= cfg.max_seq, (
+                f"request {r.rid}: prompt+budget {len(r.tokens)}+{r.max_new_tokens} "
+                f"exceeds max_seq={cfg.max_seq}"
+            )
+        run = _CascadeRun(self, cfg, ob, eager=False)
+        sc = ob.scope("serve.open_loop")
+        c_offered, c_shed = sc.counter("offered"), sc.counter("shed")
+        c_completed, c_in_slo = sc.counter("completed"), sc.counter("completed_in_slo")
+        if controller is not None:
+            controller.bind(run, slo_s=slo_s)
+        shed: List[Request] = []
+        n_in_slo = 0
+        n_seen = 0  # run.done prefix already scored against the SLO
+        idx = 0
+        next_tick = controller.config.interval_s if controller is not None else float("inf")
+        while idx < len(arrivals) or run.runnable:
+            # admit everything that has arrived by virtual now; shedding
+            # happens here, before the request touches a stream
+            while idx < len(arrivals) and arrivals[idx][0] <= vt.now_s + 1e-12:
+                t_arrive, r = arrivals[idx]
+                idx += 1
+                c_offered.add(1)
+                if controller is not None and controller.should_shed():
+                    r.shed = True
+                    shed.append(r)
+                    c_shed.add(1)
+                    if run.tr.enabled:
+                        run.tr.instant(r.rid, "complete", shed=True)
+                    continue
+                run.submit([r], t0=t_arrive)
+            if run.runnable:
+                run.sweep()
+                # score completions at their completion time, before this
+                # sweep's time charge moves the clock
+                for r in run.done[n_seen:]:
+                    c_completed.add(1)
+                    if vt.now_s - run.t_start[r.rid] <= slo_s:
+                        c_in_slo.add(1)
+                        n_in_slo += 1
+                n_seen = len(run.done)
+                vt.advance(step_time_s)
+            elif idx < len(arrivals):
+                # nothing runnable: jump to the next arrival
+                vt.advance(arrivals[idx][0] - vt.now_s)
+            else:
+                break
+            if controller is not None and vt.now_s + 1e-12 >= next_tick:
+                controller.tick(vt.now_s)
+                next_tick = vt.now_s + controller.config.interval_s
+        self.last_stream_stats = [dict(st.stats) for st in run.streams]
+        assert len(run.done) + len(shed) == len(arrivals), (
+            f"open-loop invariant violated: {len(arrivals)} offered != {len(run.done)} completed "
+            f"+ {len(shed)} shed"
+        )
+        return OpenLoopReport(
+            offered=len(arrivals), completed=run.done, shed=shed, completed_in_slo=n_in_slo,
+            goodput=n_in_slo / max(1, len(arrivals)),
+            p50_s=run.h_lat.percentile(0.50), p99_s=run.h_lat.percentile(0.99), makespan_s=vt.now_s,
+            controller_actions=list(controller.actions) if controller is not None else [],
+        )
 
     def tier_fractions(self, result: CascadeResult) -> np.ndarray:
         """(n_tiers,) fraction of examples answered by each tier."""

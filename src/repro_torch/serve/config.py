@@ -2,8 +2,8 @@
 takes (port of ``repro.serve.config``).
 
 ``ServingEngine.serve_continuous``, ``ServingEngine.slot_stream``,
-``SlotStream`` and ``CascadeServer.serve_continuous`` each take one
-``ServeConfig``.
+``SlotStream``, ``CascadeServer.serve_continuous`` and
+``CascadeServer.serve_open_loop`` each take one ``ServeConfig``.
 """
 from __future__ import annotations
 
@@ -24,8 +24,10 @@ class ServeConfig:
     dense-equivalent capacity plus the overflow sink.  ``seed`` feeds the
     per-tier sampling keys (tier i's slot keys derive from ``seed + i``;
     the single engine holds its own generator).  ``obs=None`` gives each
-    component a private telemetry bundle.  ``speculative``
-    (cascade-as-drafter) is not ported yet and raises."""
+    component a private telemetry bundle.  ``speculative`` turns on
+    cascade-as-drafter deferral (``serve/speculative.py``): a deferred
+    request carries the previous tier's agreeing generation as a draft,
+    which the next tier verifies in one chunked pass."""
 
     n_slots: int = 8
     max_seq: Optional[int] = None
@@ -37,10 +39,6 @@ class ServeConfig:
     n_pages: Optional[int] = None
     obs: Optional[Observability] = None
     speculative: bool = False
-
-    def __post_init__(self):
-        if self.speculative:
-            raise NotImplementedError("speculative decoding (speculative=True) is not ported yet")
 
     def with_max_seq_default(self, default: int) -> "ServeConfig":
         """This config with ``max_seq=None`` resolved to the caller's

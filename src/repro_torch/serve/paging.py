@@ -224,8 +224,8 @@ class PagePool:
     def extend(self, slot: int, n_rows: int) -> bool:
         """Map PRIVATE pages so rows ``[0, n_rows)`` of ``slot`` are all
         covered — for a pass that writes provisional KV rows past the
-        admission span (the JAX package's speculative verify; the port's
-        serving path does not call it yet).  Extension pages are never
+        admission span (the speculative verify, ``serve/speculative.py``).
+        Extension pages are never
         looked up in, or registered with, the prefix index: their contents
         are provisional until the acceptance decision, so they must not be
         visible to sharers (COW-safety is structural — registration only

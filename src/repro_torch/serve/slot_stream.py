@@ -41,6 +41,19 @@ rather than dedicated (the block-paged KV pools, ``serve/paging.py``):
         copy-on-write); returns the slots the pool could NOT serve, which
         the stream force-completes with ``truncated=True``.
 
+and, for speculative deferral (``serve/speculative.py``), backends with
+``supports_draft_verify`` take
+
+    verify_draft(tokens (T+1,), slot, start, max_chunk) -> choices (E, T+1)
+    extend_slot(slot, n_rows) -> bool   (map private rows before the pass)
+    rollback_slot(slot, keep_rows)      (unmap what the pass left past them)
+
+A request that arrives with a draft is admitted through the verify pass in
+place of the last prompt token's decode feed: the pass emits the accepted
+prefix and each member's own token after it, and decode resumes at
+``pos = P + n_acc``.  A request the pass completes (budget or wall) never
+decodes; ``step`` hands it back first.
+
 ``EngineBackend`` (E=1) and ``TierBackend`` (a cascade tier's ensemble)
 default to block-paged pools where ``api.supports_paging`` allows (the
 dense family) and keep the dense slot cache behind ``paged=False`` as the
@@ -67,8 +80,11 @@ admission sequence number once the pool admits it, so a slot's tokens do
 not depend on which slot it landed in or what shares its steps.  The
 engine samples after the captured step from its own generator.
 
-Not ported yet (the JAX package has them): the speculative draft-verify
-admission and in-flight (transport) admission.
+Admission cap: ``set_slot_limit`` (the open-loop controller's actuation)
+stops slots at index >= ``slot_limit`` from admitting; their occupants
+drain.  It changes no shape, so no program is captured again.
+
+Not ported yet (the JAX package has it): in-flight (transport) admission.
 """
 from __future__ import annotations
 
@@ -77,6 +93,7 @@ from collections import deque
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.core import ensemble as ens
 from repro_torch.core.cascade import host_fetch, prompt_chunks
@@ -87,6 +104,7 @@ from repro_torch.serve.config import ServeConfig
 from repro_torch.serve import sampling
 from repro_torch.serve.graphs import GraphSet
 from repro_torch.serve.paging import PagePool
+from repro_torch.serve.speculative import accepted_prefix, plan_draft
 
 
 class SlotStream:
@@ -103,6 +121,9 @@ class SlotStream:
         self.max_seq = cfg.max_seq
         self.max_chunk = cfg.max_chunk
         self.chunked = bool(cfg.chunked_prefill) and backend.supports_chunked_prefill
+        # admission-side slot cap (<= n_slots): slots at index >= slot_limit
+        # stop admitting; occupants above a lowered limit drain
+        self.slot_limit = n_slots
         E = backend.E
         self.queue: deque = deque()
         self.slot_req: List[Optional[Request]] = [None] * n_slots
@@ -111,6 +132,12 @@ class SlotStream:
         self.pos = np.zeros(n_slots, np.int32)
         self.tok = np.zeros((E, n_slots, 1), np.int32)
         self.steps = 0
+        # requests the verify pass completed at admission (full acceptance
+        # used the budget or hit the wall): ``step`` hands them back first
+        self._admit_done: List[Tuple[Request, np.ndarray]] = []
+        # cascade hook: called as (request, n_accepted, n_draft) after every
+        # verify pass
+        self.on_draft_verified = None
         # telemetry: counters and histograms on the stream's registry, named
         # under ``name`` (cascade tiers pass ``slot_stream.tier{i}``); times
         # come from the injectable ``obs.clock``
@@ -126,6 +153,12 @@ class SlotStream:
         self._c_chunk_tokens = sc.counter("chunk_tokens")
         self._c_shared_tokens = sc.counter("shared_tokens")
         self._c_decode_tokens = sc.counter("decode_tokens")
+        # speculative verify: passes run, draft tokens offered, accepted
+        self._c_spec_drafts = sc.counter("spec.drafts")
+        self._c_spec_draft_tokens = sc.counter("spec.draft_tokens")
+        self._c_spec_accepted = sc.counter("spec.accepted_tokens")
+        # ready-queue depth after every enqueue and admission: the backlog
+        # signal the open-loop controller reads
         self._g_queue = sc.gauge("queue_depth")
         # host wall time of the launches (PyTorch returns before the device
         # finishes: synchronise around refill()/step() for device latency)
@@ -142,6 +175,9 @@ class SlotStream:
             "decode_tokens": lambda m=self._c_decode_tokens: m.value,
             "admit_time": lambda b=self._h_begin_slot, p=self._h_prefill_dispatch: b.sum + p.sum,
             "decode_time": lambda m=self._h_decode_dispatch: m.sum,
+            "spec_drafts": lambda m=self._c_spec_drafts: m.value,
+            "spec_draft_tokens": lambda m=self._c_spec_draft_tokens: m.value,
+            "spec_accepted_tokens": lambda m=self._c_spec_accepted: m.value,
         })
 
     # -- admission ---------------------------------------------------------
@@ -159,6 +195,12 @@ class SlotStream:
                 self._tr.begin(r.rid, "queue_wait", stream=self.name)
         self._g_queue.set(len(self.queue))
 
+    def set_slot_limit(self, k: int) -> None:
+        """Cap how many slots may hold occupants (clamped to ``[1,
+        n_slots]``): a lowered limit takes effect as occupied slots free
+        up; a raised one reopens admission at the next ``refill``."""
+        self.slot_limit = max(1, min(int(k), self.n_slots))
+
     def _release(self, s: int):
         """Hand the slot's memory back to the backend (paged pools decref
         their pages; dense backends have nothing to return)."""
@@ -169,7 +211,7 @@ class SlotStream:
         self.slot_emitted[s] = []
 
     def _admit(self, s: int):
-        if not self.queue:
+        if not self.queue or s >= self.slot_limit:
             self.slot_req[s] = None
             return
         r = self.queue[0]  # peek: admission may be refused by the pool
@@ -225,15 +267,69 @@ class SlotStream:
             self._c_chunk_tokens.add(m - shared)
             self._c_shared_tokens.add(shared)
             self._h_prefill_dispatch.record(self._clock() - t1)
+        # a deferral carrying the previous tier's agreeing generation scores
+        # every draft position in one pass INSTEAD of the last prompt
+        # token's decode feed, where the chunk loop left off (consumed ==
+        # P-1), on backends whose cache can roll rejected rows back
+        plan = None
+        if r.draft is not None:
+            draft, r.draft = r.draft, None  # consumed at this admission
+            if self.chunked and getattr(self.backend, "supports_draft_verify", False):
+                plan = plan_draft(r.tokens, draft, r.max_new_tokens, self.max_seq)
+        verified = None
+        if plan is not None:
+            P, T_use = len(r.tokens), len(plan.draft)
+            # paged: map private pages for the draft rows first; a refusal
+            # (pool pressure) falls back to plain admission
+            if self.backend.extend_slot(s, P + T_use):
+                if tr.enabled:
+                    tr.begin(r.rid, "verify_draft", draft_tokens=T_use)
+                choices = self.backend.verify_draft(plan.tokens, s, plan.start, self.max_chunk)
+                n_acc = accepted_prefix(choices, plan.draft)
+                # unmap pages wholly past the accepted span (dense: the
+                # position mask already hides the rejected rows)
+                self.backend.rollback_slot(s, P + n_acc)
+                if tr.enabled:
+                    tr.end(r.rid, "verify_draft", accepted=n_acc)
+                self._c_spec_drafts.add(1)
+                self._c_spec_draft_tokens.add(T_use)
+                self._c_spec_accepted.add(n_acc)
+                if self.on_draft_verified is not None:
+                    self.on_draft_verified(r, n_acc, T_use)
+                verified = (plan, choices, n_acc)
         self.slot_req[s] = r
-        self.slot_consumed[s] = consumed + 1
-        self.slot_emitted[s] = []
-        self.pos[s] = consumed
-        self.tok[:, s, 0] = r.tokens[consumed]
+        if verified is not None:
+            plan, choices, n_acc = verified
+            # accepted draft tokens are every member's own emission; position
+            # n_acc emits each member's own choice: n_acc + 1 decode steps'
+            # worth of output from one pass
+            emitted = [np.full((self.backend.E,), d, np.int32) for d in plan.draft[:n_acc]]
+            emitted.append(choices[:, n_acc].astype(np.int32).copy())
+            self.slot_consumed[s] = len(r.tokens)
+            self.slot_emitted[s] = emitted
+            self.pos[s] = len(r.tokens) + n_acc
+            self.tok[:, s, 0] = choices[:, n_acc]
+        else:
+            self.slot_consumed[s] = consumed + 1
+            self.slot_emitted[s] = []
+            self.pos[s] = consumed
+            self.tok[:, s, 0] = r.tokens[consumed]
         self._c_admitted.add(1)
         if tr.enabled:
             tr.end(r.rid, "admit")
             tr.begin(r.rid, "decode", stream=self.name, slot=s)
+        if verified is not None:
+            # the pass may already satisfy the budget or hit the wall:
+            # complete now (the slot never decodes), hand the result back
+            # through step()'s _admit_done drain, and admit the next request
+            full = len(self.slot_emitted[s]) >= r.max_new_tokens
+            wall = self.pos[s] >= self.max_seq - 1
+            if full or wall:
+                _, gen = self._complete(s, self._admit_done, truncated=not full)
+                if tr.enabled:
+                    tr.end(r.rid, "decode", new_tokens=gen.shape[1], truncated=r.truncated)
+                self._release(s)
+                self._admit(s)
 
     def refill(self):
         """Admit queued requests into every free slot."""
@@ -243,15 +339,10 @@ class SlotStream:
 
     @property
     def runnable(self) -> bool:
-        """True when the stream can make progress: a slot is occupied or a
-        request is queued."""
-        return any(r is not None for r in self.slot_req) or bool(self.queue)
-
-    @property
-    def active(self) -> bool:
-        """True while the stream still owes work (the port has no
-        in-flight admission, so this is ``runnable``)."""
-        return self.runnable
+        """True when the stream can make progress: a slot is occupied, a
+        request is queued, or an admission-time completion waits to be
+        handed back."""
+        return any(r is not None for r in self.slot_req) or bool(self.queue) or bool(self._admit_done)
 
     # -- stepping ----------------------------------------------------------
     def _complete(self, s: int, completed: list, *, truncated: bool):
@@ -270,7 +361,9 @@ class SlotStream:
         (request, member generations (E, T)) that completed this step.
         Freed slots immediately admit from ``self.queue``."""
         self.refill()
-        completed: List[Tuple[Request, np.ndarray]] = []
+        # admission-time completions (fully accepted drafts) exit first:
+        # the verify pass finished them and they own no slot
+        completed, self._admit_done = self._admit_done, []
         n_active = sum(r is not None for r in self.slot_req)
         if n_active == 0:
             return completed
@@ -319,7 +412,7 @@ class SlotStream:
     def drain(self) -> List[Tuple[Request, np.ndarray]]:
         """Step until every queued request has completed."""
         done = []
-        while self.active:
+        while self.runnable:
             done.extend(self.step())
         return done
 
@@ -407,6 +500,21 @@ class _SlotBackend:
     def release_slot(self, slot):
         if self.paged:
             self.pool.release(slot)
+
+    def extend_slot(self, slot, n_rows):
+        """Cover rows ``[0, n_rows)`` with private pages before a verify
+        pass writes draft rows past the admission span
+        (``PagePool.extend``); dense slot rows are dedicated.  False when
+        the pool cannot cover the span (the caller admits plainly)."""
+        return self.pool.extend(slot, n_rows) if self.paged else True
+
+    def rollback_slot(self, slot, keep_rows):
+        """Unmap the pages wholly past rows ``[0, keep_rows)`` after a
+        verify pass (``PagePool.truncate``).  Dense slots rely on the
+        position mask: rejected rows are invisible, and the next decode
+        writes its row before attending to it."""
+        if self.paged:
+            self.pool.truncate(slot, keep_rows)
 
     def prepare_step(self, pos, active):
         """Map each active slot's next write position; copy-on-write splits
@@ -559,16 +667,21 @@ class TierBackend(_SlotBackend):
             page_size=page_size, n_pages=n_pages, obs=obs, pool_name=pool_name, eager=eager,
             graph_pool=tier.graph_pool,
         )
+        self._verify = tier._verify_chunk
         if self.paged:
             from repro_torch.serve.cascade_server import tier_paged_programs
 
             progs = tier_paged_programs(tier.cfg, float(tier.temperature))
             self._decode_paged = progs.decode_slots
             self._chunk_paged = progs.prefill_chunk
+            self._verify_paged = progs.verify_chunk
             self._copy_page = progs.copy_page
             self.supports_chunked_prefill = True
+            # paged families are attention families: always verifiable
+            self.supports_draft_verify = True
         else:
             self.supports_chunked_prefill = self._chunk is not None
+            self.supports_draft_verify = self._verify is not None
 
     def _new_pool(self, n_pages, page_size):
         return ens.init_ensemble_paged_pool(self.tier.values, self.tier.cfg, n_pages, page_size)
@@ -602,3 +715,32 @@ class TierBackend(_SlotBackend):
 
     def _chunk_paged_fn(self, tokens, pages_row, start):
         self._chunk_paged(self.tier.values, self.mem.state, tokens, pages_row, start)
+
+    def verify_draft(self, tokens, slot, start, max_chunk):
+        """Score the verify chunk ``[prompt[-1], d_0..d_{T-1}]`` at positions
+        ``[start, start + len(tokens))`` and return every member's
+        decode-equivalent choices, (E, len(tokens)) host int32.  Runs in the
+        ``prompt_chunks`` buckets of chunked admission, each one program
+        (captured at its first call), with the slot's key, set by
+        ``begin_slot``, a staged input; a bucket's choices are copied out
+        before the next replay, since two chunks of one size can follow each
+        other, and come back in one metered fetch."""
+        key = np.array([self.slot_keys[slot]], np.int64)
+        outs, off = [], 0
+        for c in prompt_chunks(len(tokens), max_chunk):
+            at = np.array([start + off], np.int64)
+            if self.paged:
+                t = self._run(self._verify_paged, self._verify_paged_fn, tokens[off: off + c],
+                              self.pool.table[slot], at, key, bucket=c)
+            else:
+                t = self._run(self._verify, self._verify_fn, tokens[off: off + c], np.array([slot], np.int64),
+                              at, key, bucket=c)
+            outs.append(t.clone())
+            off += c
+        return host_fetch(torch.cat(outs, dim=1))
+
+    def _verify_fn(self, tokens, slot, start, key):
+        return self._verify(self.tier.values, self.mem.state, tokens, slot, start, key)[0]
+
+    def _verify_paged_fn(self, tokens, pages_row, start, key):
+        return self._verify_paged(self.tier.values, self.mem.state, tokens, pages_row, start, key)[0]

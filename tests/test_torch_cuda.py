@@ -824,3 +824,146 @@ def test_sampler_draws_match_cpu(cuda):
     keys, pos = sampling.batch_keys(5, 6), np.array([0, 1, 2**20, 77, 300, 2**31])
     card = sampling.draw_bits(torch.as_tensor(keys, device=cuda), torch.as_tensor(pos, device=cuda), 3, 1000)
     assert torch.equal(card.cpu(), sampling.draw_bits(torch.as_tensor(keys), torch.as_tensor(pos), 3, 1000))
+
+
+# ---------------------------------------------------------------------------
+# speculative deferral and open-loop serving
+# ---------------------------------------------------------------------------
+
+
+def _drafting_server(cuda, temperature=0.0, tier2="qwen2.5-3b"):
+    """Reduced qwen2.5-3b: tier 1 [m0, m0, m2] under vote_preds 0.8 (the m0
+    pair agrees, so deferrals carry m0's generation as the draft), tier 2
+    [m0] (``tier2`` another architecture: its own seeded member)."""
+    from repro_torch.core.cascade import TierSpec
+    from repro_torch.models.params import tree_map
+    from repro_torch.serve import CascadeServer, CascadeTier
+
+    t = _reduced_tier("qwen2.5-3b", cuda, temperature)
+    t1 = CascadeTier(t.cfg, tree_map(lambda v: torch.stack([v[0], v[0], v[2]]), t.values),
+                     TierSpec("t0", "vote_preds", 0.8, k=3), temperature=temperature, device=cuda)
+    if tier2 == "qwen2.5-3b":
+        t2 = CascadeTier(t.cfg, tree_map(lambda v: v[0:1], t.values), TierSpec("t1", "vote_preds", 0.0, k=1),
+                         temperature=temperature, device=cuda)
+    else:
+        t2 = _reduced_tier(tier2, cuda, temperature, k=1)
+    return CascadeServer([t1, t2], device=cuda)
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+@pytest.mark.parametrize("paged", [True, False])
+def test_speculative_serve_graphed_matches_eager(cuda, paged, temperature):
+    """Speculative serve_continuous on the card: the graphed verify chunks
+    (twice) emit bitwise the eager oracle's tokens and spec counters with
+    the same launches per kernel, the second graphed run captures nothing,
+    and a verify pass ran."""
+    from repro_torch.serve import Request, ServeConfig
+    from repro_torch.serve.graphs import trace_counts
+
+    server = _drafting_server(cuda, temperature)
+    rng = np.random.default_rng(8)
+    reqs = [(rng.integers(0, server.tiers[0].cfg.vocab_size, int(n)).astype(np.int32), 6)
+            for n in rng.integers(2, 60, 8)]
+
+    def run(eager):
+        rs = [Request(tokens=t.copy(), max_new_tokens=m) for t, m in reqs]
+        kernels.reset_launch_counts()
+        done = {r.rid: r for r in server.serve_continuous(
+            rs, ServeConfig(n_slots=3, max_seq=96, page_size=16, paged=paged, seed=2, speculative=True),
+            eager=eager)}
+        spec = {k: v for k, v in server.last_stream_stats[1].items() if k.startswith("spec") or k == "decode_tokens"}
+        return [(done[r.rid].tier, done[r.rid].output.tolist()) for r in rs], spec, kernels.launch_counts()
+
+    eager = run(True)
+    graphed = run(False)
+    counts = trace_counts()
+    again = run(False)
+    assert trace_counts() == counts
+    assert eager == graphed == again
+    assert eager[1]["spec_drafts"] > 0
+
+
+def test_speculative_falls_back_on_a_recurrent_tier(cuda):
+    """A recurrent tier 2 drops the draft: no verify pass, the plain run's
+    tokens, bitwise."""
+    from repro_torch.serve import Request, ServeConfig
+
+    server = _drafting_server(cuda, tier2="rwkv6-7b")
+    rng = np.random.default_rng(9)
+    vocab = min(t.cfg.vocab_size for t in server.tiers)
+    reqs = [(rng.integers(0, vocab, int(n)).astype(np.int32), 5) for n in rng.integers(2, 40, 6)]
+    outs = {}
+    for spec in (False, True):
+        rs = [Request(tokens=t.copy(), max_new_tokens=m) for t, m in reqs]
+        done = {r.rid: r for r in server.serve_continuous(rs, ServeConfig(n_slots=3, max_seq=64, speculative=spec))}
+        outs[spec] = [(done[r.rid].tier, done[r.rid].output.tolist()) for r in rs]
+        assert server.last_stream_stats[1]["spec_drafts"] == 0
+    assert outs[True] == outs[False] and any(t == 1 for t, _ in outs[True])
+
+
+@pytest.mark.parametrize("paged", [True, False])
+def test_captured_verify_bucket_draws_anew_with_a_new_key(cuda, paged):
+    """A verify chunk at T = 0.8 captured at its first call and replayed with
+    another slot key: each call's choices are bitwise the eager route's at
+    the same key, the two keys' choices differ, and the replay captures
+    nothing."""
+    from repro_torch.core.cascade import prompt_chunks
+    from repro_torch.serve import TierBackend
+    from repro_torch.serve.graphs import trace_counts
+
+    tier = _reduced_tier("qwen2.5-3b", cuda, 0.8, k=1)
+    rng = np.random.default_rng(10)
+    prompt, draft = (rng.integers(0, tier.cfg.vocab_size, n).astype(np.int32) for n in (37, 7))
+    tokens = np.concatenate([prompt[-1:], draft])
+
+    def choices(eager):
+        backend = TierBackend(tier, n_slots=2, max_seq=96, page_size=16, paged=paged, eager=eager)
+        backend.begin_slot(1, prompt, share=False)
+        off = 0
+        for c in prompt_chunks(len(prompt) - 1, 256):
+            backend.prefill_chunk(prompt[off: off + c], 1, off)
+            off += c
+        assert backend.extend_slot(1, len(prompt) + len(draft))
+        out = []
+        for i, key in enumerate((int(backend.slot_keys[1]), (int(backend.slot_keys[1]) + 12345) % 2**32)):
+            backend.slot_keys[1] = key
+            before = trace_counts()
+            out.append(backend.verify_draft(tokens, 1, len(prompt) - 1, 256))
+            # counted (captured, on the graphed route) at the first call only
+            assert (trace_counts() == before) == (i == 1)
+        return out
+
+    eager, graphed = choices(True), choices(False)
+    for e, g in zip(eager, graphed):
+        np.testing.assert_array_equal(g, e)
+    assert not np.array_equal(graphed[0], graphed[1])
+
+
+def test_open_loop_replays_the_closed_loop_graphs(cuda):
+    """An open-loop run (the controller moving slot limits and offsets)
+    after a closed-loop run of the same geometry captures nothing; run
+    twice, it gives equal reports, with offered == completed + shed."""
+    from repro_torch.core.cascade import TierSpec
+    from repro_torch.serve import (CascadeServer, CascadeTier, ControllerConfig, GreedyController, ServeConfig,
+                                   bursty)
+    from repro_torch.serve.graphs import trace_counts
+
+    t1 = _reduced_tier("qwen2.5-3b", cuda)
+    t2 = _reduced_tier("internlm2-1.8b", cuda, k=1)
+    t2.spec = TierSpec("t2", "confidence", -1.0)
+    server = CascadeServer([t1, t2], device=cuda)
+    vocab = min(t1.cfg.vocab_size, t2.cfg.vocab_size)
+    wl = bursty(2.0, 300.0, 40, seed=7, mean_on_s=0.5, mean_off_s=0.5, prompt_len=(4, 40), max_new_tokens=(2, 5),
+                vocab=vocab)
+    cfg = ServeConfig(n_slots=4, max_seq=64, page_size=16)
+    server.serve_continuous([r for _, r in wl], cfg)
+    before = trace_counts()
+    reports = []
+    for _ in range(2):
+        ctl = GreedyController(ControllerConfig(interval_s=0.1))
+        rep = server.serve_open_loop(wl, cfg, slo_s=0.3, step_time_s=0.01, controller=ctl)
+        assert rep.offered == len(rep.completed) + len(rep.shed) == 40
+        reports.append((rep.goodput, rep.p50_s, rep.p99_s, rep.makespan_s, rep.controller_actions,
+                        [(r.tier, r.output.tolist()) for r in rep.completed]))
+    assert trace_counts() == before
+    assert reports[0] == reports[1]

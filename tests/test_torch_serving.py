@@ -288,8 +288,8 @@ def test_serve_config_resolution(stack):
     stream = eng.slot_stream(ServeConfig(n_slots=3, page_size=8))
     assert stream.n_slots == 3 and stream.max_seq == 64
     assert stream.backend.pool.page_size == 8 and stream.backend.paged
-    with pytest.raises(NotImplementedError, match="speculative"):
-        ServeConfig(speculative=True)
+    # speculative deferral is ported (tests/test_torch_speculative.py)
+    assert ServeConfig(speculative=True).speculative and not ServeConfig().speculative
     # sampling is ported: the engine takes a temperature and the seed of its
     # generator, and ServeConfig carries the tiers' sampling seed again
     sampled = ServingEngine(TCFG, vals, temperature=0.7, seed=3, device="cpu")
