@@ -82,6 +82,15 @@ class ModelConfig:
     def ssm_nheads(self) -> int:
         return self.d_inner // self.ssm_head_dim if self.ssm_head_dim else 0
 
+    def param_count(self) -> int:
+        """Analytic parameter count (``models.counting``)."""
+        from repro_torch.models.counting import count_params
+        return count_params(self)
+
+    def active_param_count(self) -> int:
+        from repro_torch.models.counting import count_params
+        return count_params(self, active_only=True)
+
     def reduced(self) -> "ModelConfig":
         """Smoke-test variant: 2 layers, d_model<=256, vocab<=512 — the same
         reduction rule as the JAX package's ``ModelConfig.reduced``."""

@@ -12,13 +12,16 @@
     intentional device->host read goes through the metered ``host_fetch``.
 
 Tier callables map a batch slice to logits (E, B, V) or, for black-box
-generation, to answer ids (E, B).  Placement and transports are not ported
-yet: every tier runs on one device.
+generation, to answer ids (E, B).  When tiers are placed on different hosts
+(``serve/placement.py``), the compacted payload takes an explicit
+``Transport`` hop (``serve/transport.py``) whose bytes and latency are
+metered, and answers produced on another device are moved next to the
+result accumulators before they are scattered.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -154,16 +157,29 @@ def cascade_apply_routed(
     *,
     pad_to: int = 8,
     device=None,
+    transport=None,
+    hosts: Optional[Sequence[str]] = None,
 ) -> CascadeResult:
     """Device-routed cascade with on-device compaction between tiers.
 
     ``batch`` is a dict of arrays with a leading example axis; it moves to
     ``device`` once and is never gathered back.  Cost accounting charges
-    ``spec.cost`` per example evaluated, bucket padding included."""
+    ``spec.cost`` per example evaluated, bucket padding included.
+
+    ``transport`` (optional) is a ``serve/transport.py`` backend: one
+    transport for every tier boundary, or one a boundary (None entries:
+    same-host hops).  Only the compacted deferral payload, padded to its
+    bucket cover, with its int32 index map, is sent; batch mode has no
+    admission point to overlap the hop with, so its handle is drained at
+    once.  ``hosts`` names the tiers' hosts for the hop metering (default:
+    the tier names).  The result accumulators stay on ``device``."""
     device = resolve_device(device)
     n = len(tier_fns)
     cur = {k: torch.as_tensor(np.asarray(v), device=device) for k, v in batch.items()}
     B = next(iter(cur.values())).shape[0]
+    hop_transports = list(transport) if isinstance(transport, (list, tuple)) else [transport] * (n - 1)
+    assert len(hop_transports) >= n - 1, (len(hop_transports), n)
+    hop_names = list(hosts) if hosts is not None else [s.name for s in specs]
 
     pred = torch.zeros((B,), dtype=torch.int32, device=device)
     tier_of = torch.full((B,), -1, dtype=torch.int32, device=device)
@@ -196,23 +212,30 @@ def cascade_apply_routed(
 
         last = i == n - 1
         take_m = ~defer | last
-        idx = active_idx.long()
-        pred[idx] = torch.where(take_m, p, pred[idx])
-        tier_of[idx] = torch.where(take_m, torch.full_like(p, i), tier_of[idx])
-        scores[idx] = torch.where(take_m, s, scores[idx])
-        tier_counts_dev.append(take_m.sum().to(torch.int32))
+        # answers produced on another host's device move next to the
+        # accumulators first (device to device; the same tensors when the
+        # tier shares the accumulators' device)
+        take_l, p_l, s_l = (t.to(device) for t in (take_m, p, s))
+        idx = active_idx.to(device).long()
+        pred[idx] = torch.where(take_l, p_l, pred[idx])
+        tier_of[idx] = torch.where(take_l, torch.full_like(p_l, i), tier_of[idx])
+        scores[idx] = torch.where(take_l, s_l, scores[idx])
+        tier_counts_dev.append(take_l.sum().to(torch.int32))
         if last:
             break
         # compaction of the defer path on the device: dense payload + index
         # map straight from the mask (cur may carry bucket-padding rows past
         # the m real ones)
         real = {k: v[:m] for k, v in cur.items()}
-        ctree, _, count = compaction_ops.compact_tree({**real, "__idx": active_idx}, defer)
+        ctree, _, count = compaction_ops.compact_tree({**real, "__idx": active_idx}, defer.to(active_idx.device))
         n_defer = int(host_fetch(count))  # the ONLY per-tier host read
         if n_defer == 0:
             break
         n_padded = min(sum(bucket_chunks(n_defer, pad_to)), m)
         payload = {k: v[:n_padded] for k, v in ctree.items()}
+        tr = hop_transports[i]
+        if tr is not None:
+            payload = tr.send_async(hop_names[i], hop_names[i + 1], payload, n_examples=n_defer).result()
         active_idx = payload.pop("__idx")[:n_defer]
         cur = payload
         m = n_defer

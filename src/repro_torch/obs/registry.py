@@ -125,7 +125,9 @@ class Histogram:
                 hi = min(hi, self._max)
                 if hi <= lo:
                     return lo
-                return lo + (hi - lo) * (rank - seen) / c
+                # the JAX package's order of operations, bit for bit
+                frac = (rank - seen) / c
+                return lo + (hi - lo) * frac
             seen += c
         return self._max
 

@@ -35,7 +35,17 @@ JAX's PRNG cannot be reproduced, so sampled tokens are held to the port's
 own invariants (paged == dense, graphed == eager, slot reuse, n_slots),
 and greedy ones to the JAX package's tokens.
 
-Not ported yet: placement and transports (and so in-flight admission).
+Placement (``serve/placement.py``): ``CascadeServer(placement=...)`` pins
+each tier to a host and makes every cross-host deferral an explicit metered
+``Transport`` hop (``serve/transport.py``).  In the batch modes only the
+compacted deferral payload (the deferred rows and their int32 index map,
+padded to the bucket cover) crosses; in continuous mode the deferred
+request's prompt does (and under ``speculative`` the draft with it), sent
+with ``send_async`` and admitted on the next tier when the handle resolves,
+so with an ``AsyncTransport`` the edge tier decodes on while payloads are
+on the wire.  Tokens do not depend on the link: tier i+1 admits deferrals
+in submission order whatever the link's timing, and a slot's sampling key
+comes from its admission sequence.
 """
 from __future__ import annotations
 
@@ -43,7 +53,7 @@ import dataclasses
 import functools
 import zlib
 from types import SimpleNamespace
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -319,10 +329,16 @@ class _CascadeRun:
     def __init__(self, server: "CascadeServer", cfg: ServeConfig, ob: Observability, eager: bool):
         self.tiers = server.tiers
         self.device = server.device
+        self.placement = server.placement
+        self.hosts = server._host_names()
         self.ob = ob
         self.tr = ob.tracer
         self.clk = ob.clock
         self.h_lat = ob.registry.histogram("serve.request_latency_s")
+        if self.placement is not None:
+            for i, link in enumerate(self.placement.links):
+                if link is not None:
+                    link.attach_obs(ob, f"{self.hosts[i]}_{self.hosts[i + 1]}")
         tier_sc = [ob.scope(f"cascade.tier{i}") for i in range(len(self.tiers))]
         self.c_answered = [sc.counter("answered") for sc in tier_sc]
         self.c_deferred = [sc.counter("deferred") for sc in tier_sc]
@@ -371,6 +387,15 @@ class _CascadeRun:
     def runnable(self) -> bool:
         return any(st.runnable for st in self.streams)
 
+    @property
+    def active(self) -> bool:
+        return any(st.active for st in self.streams)
+
+    def block_on_inflight(self) -> None:
+        """Every stream idle but payloads still on the wire: block on the
+        oldest in-flight hop (there is no compute left to hide it behind)."""
+        next(st for st in self.streams if st.inflight).poll_inflight(block=True)
+
     def effective_theta(self, i: int) -> float:
         off = self.theta_offset[i]
         th = self.tiers[i].spec.theta
@@ -405,9 +430,13 @@ class _CascadeRun:
             self.c_deferred[i].add(1)
             # cascade-as-drafter: the plurality generation this tier voted
             # on becomes the next tier's draft
-            if self.speculative and gen.shape[1]:
-                r.draft = gen[winner].astype(np.int32)
-            self.streams[i + 1].submit([r])
+            draft = gen[winner].astype(np.int32) if self.speculative and gen.shape[1] else None
+            link = self.placement.link(i) if self.placement is not None else None
+            if link is None:
+                r.draft = draft
+                self.streams[i + 1].submit([r])
+            else:
+                self._send_deferral(i, link, r, draft)
             return
         self.c_answered[i].add(1)
         self.c_tokens[i].add(int(gen.shape[1]))
@@ -418,17 +447,81 @@ class _CascadeRun:
             tr.instant(r.rid, "complete", tier=i)
         self.done.append(r)
 
+    def _send_deferral(self, i: int, link, r: Request, draft: Optional[np.ndarray]) -> None:
+        """Cross-host re-queue: the prompt (and the draft) is the payload.
+        ``send_async`` meters the hop now; the handle joins tier i+1's
+        in-flight queue and lands at one of its admission points, so this
+        tier's other slots decode on over the hop."""
+        tr = self.tr
+        hosts = self.hosts
+        payload = {"tokens": np.asarray(r.tokens, np.int32)}
+        if draft is not None:
+            payload["draft"] = draft  # rides the same metered hop
+        if tr.enabled:
+            tr.begin(r.rid, "hop", src=hosts[i], dst=hosts[i + 1],
+                     n_bytes=int(sum(v.nbytes for v in payload.values())))
+        handle = link.send_async(hosts[i], hosts[i + 1], payload, n_examples=1)
+        hop = link.hops[-1]  # metered at send time
+
+        def land(delivered, r=r, handle=handle, hop=hop):
+            # the delivered payload is back on the host as the request's
+            # prompt (not a metered fetch: the JAX package's count)
+            r.tokens = _host_int32(delivered["tokens"])
+            r.draft = _host_int32(delivered["draft"]) if "draft" in delivered else None
+            if tr.enabled:
+                # the span closes at delivery; blocked is what result()
+                # charged the caller, hidden the link time decode covered
+                blocked = float(handle.wait_time)
+                tr.end(r.rid, "hop", link_s=float(hop.latency), blocked_s=blocked,
+                       hidden_s=max(0.0, float(hop.latency) - blocked))
+            return r
+
+        self.streams[i + 1].submit_inflight(handle, land)
+
+
+def _host_int32(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        x = x.cpu().numpy()
+    return np.asarray(x, np.int32)
+
 
 class CascadeServer:
-    """The ABC serving runtime over a tier list on one device."""
+    """The ABC serving runtime: a tier list and an optional
+    ``TierPlacement``."""
 
-    def __init__(self, tiers: Sequence[CascadeTier], *, pad_to: int = 8, device=None):
+    def __init__(self, tiers: Sequence[CascadeTier], *, pad_to: int = 8, device=None, placement=None):
+        """``placement`` (``serve/placement.py``) pins each tier to a host
+        and makes every cross-host deferral a metered ``Transport`` hop.
+        Each tier must live on its host's device (a simulated host's is the
+        server's): the tiers are used as they are, so a placed server
+        replays the graphs an unplaced one over the same tiers captured.
+        Each link is bound to land its payloads on the device of the tier
+        it feeds."""
         self.device = resolve_device(device)
         self.tiers = list(tiers)
-        for t in self.tiers:
-            if t.device != self.device:
-                raise ValueError(f"tier {t.spec.name} lives on {t.device}, server on {self.device}")
+        self.placement = placement
+        hosts = [None] * len(self.tiers)
+        if placement is not None:
+            assert placement.n_tiers == len(self.tiers), (placement.n_tiers, len(self.tiers))
+            hosts = placement.hosts
+        for t, host in zip(self.tiers, hosts):
+            want = self.device if host is None or host.device is None else resolve_device(host.device)
+            if t.device != want:
+                where = "server" if host is None or host.device is None else f"host {host.name}"
+                raise ValueError(f"tier {t.spec.name} lives on {t.device}, {where} on {want}")
+        if placement is not None:
+            for link, dst in zip(placement.links, self.tiers[1:]):
+                if link is not None:
+                    link.bind(dst.device)
         self.pad_to = pad_to
+
+    def _hop_transports(self):
+        """Per-boundary transports from the placement (None: no metering)."""
+        return None if self.placement is None else list(self.placement.links)
+
+    def _host_names(self):
+        """Per-tier host names for the hop metering (None: unplaced)."""
+        return None if self.placement is None else [h.name for h in self.placement.hosts]
 
     def classify(self, tokens: np.ndarray, *, eager: bool = False) -> CascadeResult:
         """tokens (B, S) -> CascadeResult with per-tier routing stats.  Each
@@ -444,6 +537,7 @@ class CascadeServer:
         return cascade_apply_routed(
             [tier_fn(t) for t in self.tiers], [t.spec for t in self.tiers],
             {"tokens": tokens}, pad_to=self.pad_to, device=self.device,
+            transport=self._hop_transports(), hosts=self._host_names(),
         )
 
     def generate(self, tokens: np.ndarray, max_new_tokens: int = 8, seed: int = 0, *,
@@ -464,6 +558,7 @@ class CascadeServer:
         return cascade_apply_routed(
             [tier_fn(t) for t in self.tiers], specs, {"tokens": tokens},
             pad_to=self.pad_to, device=self.device,
+            transport=self._hop_transports(), hosts=self._host_names(),
         )
 
     def serve_continuous(self, requests: Sequence[Request], config: ServeConfig = ServeConfig(), *,
@@ -483,7 +578,13 @@ class CascadeServer:
         decode steps.  Each tier's decode step, chunk buckets and verify
         buckets are captured once per slot geometry and replayed after;
         ``eager=True`` runs them eagerly, the oracle of the graphed path and
-        nothing else.  Returns completed requests."""
+        nothing else.
+
+        With a placement, a cross-host re-queue is a ``send_async`` on the
+        boundary's link: the hop joins tier i+1's in-flight queue and the
+        loop steps every runnable stream meanwhile, blocking on the oldest
+        hop only when no stream has runnable work.  Returns completed
+        requests."""
         cfg = config.with_max_seq_default(256)
         for r in requests:
             assert len(r.tokens) + r.max_new_tokens <= cfg.max_seq, (
@@ -492,7 +593,10 @@ class CascadeServer:
             )
         run = _CascadeRun(self, cfg, cfg.resolved_obs(), eager)
         run.submit(requests)
-        while run.runnable:
+        while run.active:
+            if not run.runnable:
+                run.block_on_inflight()
+                continue
             run.sweep()
         self.last_stream_stats = [dict(st.stats) for st in run.streams]
         return run.done
@@ -544,7 +648,7 @@ class CascadeServer:
         n_seen = 0  # run.done prefix already scored against the SLO
         idx = 0
         next_tick = controller.config.interval_s if controller is not None else float("inf")
-        while idx < len(arrivals) or run.runnable:
+        while idx < len(arrivals) or run.active:
             # admit everything that has arrived by virtual now; shedding
             # happens here, before the request touches a stream
             while idx < len(arrivals) and arrivals[idx][0] <= vt.now_s + 1e-12:
@@ -570,8 +674,10 @@ class CascadeServer:
                         n_in_slo += 1
                 n_seen = len(run.done)
                 vt.advance(step_time_s)
+            elif any(st.inflight for st in run.streams):
+                run.block_on_inflight()
             elif idx < len(arrivals):
-                # nothing runnable: jump to the next arrival
+                # nothing runnable, nothing in flight: jump to the next arrival
                 vt.advance(arrivals[idx][0] - vt.now_s)
             else:
                 break

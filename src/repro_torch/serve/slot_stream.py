@@ -19,6 +19,17 @@ of ~400 decode steps.  The final prompt token always goes through the
 shared decode step (its logits pick the first output token), which keeps
 chunked and decode-only admission token for token identical.
 
+In-flight admission: work whose payload is still crossing a ``Transport``
+link (``serve/transport.py``) enters through ``submit_inflight`` as a
+(``SendHandle``, finalize) pair instead of a ready ``Request``.  The
+stream drains it only at its admission points: the top of ``refill()``
+polls and never blocks (decode runs on while hops are in flight), and
+``drain()`` or the serving loop's all-idle fallback blocks on the oldest handle
+only when no stream has runnable work.  Handles land strictly in
+submission order, so the admission order, and with it every slot's
+sampling key, is what a blocking transport would give.  The poll runs
+before the step's replay, never inside a graph capture.
+
 Device work goes through a small backend protocol (duck-typed):
 
     E                        int, ensemble width
@@ -83,8 +94,6 @@ engine samples after the captured step from its own generator.
 Admission cap: ``set_slot_limit`` (the open-loop controller's actuation)
 stops slots at index >= ``slot_limit`` from admitting; their occupants
 drain.  It changes no shape, so no program is captured again.
-
-Not ported yet (the JAX package has it): in-flight (transport) admission.
 """
 from __future__ import annotations
 
@@ -126,6 +135,9 @@ class SlotStream:
         self.slot_limit = n_slots
         E = backend.E
         self.queue: deque = deque()
+        # (SendHandle, finalize) pairs whose payload is still on a transport
+        # link; drained in order at the admission points
+        self.inflight: deque = deque()
         self.slot_req: List[Optional[Request]] = [None] * n_slots
         self.slot_consumed = np.zeros(n_slots, np.int64)  # prompt tokens fed
         self.slot_emitted: List[List[np.ndarray]] = [[] for _ in range(n_slots)]
@@ -153,6 +165,7 @@ class SlotStream:
         self._c_chunk_tokens = sc.counter("chunk_tokens")
         self._c_shared_tokens = sc.counter("shared_tokens")
         self._c_decode_tokens = sc.counter("decode_tokens")
+        self._c_inflight_admitted = sc.counter("inflight_admitted")
         # speculative verify: passes run, draft tokens offered, accepted
         self._c_spec_drafts = sc.counter("spec.drafts")
         self._c_spec_draft_tokens = sc.counter("spec.draft_tokens")
@@ -165,6 +178,8 @@ class SlotStream:
         self._h_begin_slot = sc.histogram("admit.begin_slot_s")
         self._h_prefill_dispatch = sc.histogram("admit.prefill_dispatch_s")
         self._h_decode_dispatch = sc.histogram("decode.dispatch_s")
+        # time blocked on unresolved transport handles (0 when hops hid)
+        self._h_inflight_wait = sc.histogram("admit.inflight_wait_s")
         self.stats = StatsView({
             "admitted": lambda m=self._c_admitted: m.value,
             "admit_failures": lambda m=self._c_admit_failures: m.value,
@@ -175,25 +190,59 @@ class SlotStream:
             "decode_tokens": lambda m=self._c_decode_tokens: m.value,
             "admit_time": lambda b=self._h_begin_slot, p=self._h_prefill_dispatch: b.sum + p.sum,
             "decode_time": lambda m=self._h_decode_dispatch: m.sum,
+            "inflight_admitted": lambda m=self._c_inflight_admitted: m.value,
+            "inflight_wait": lambda m=self._h_inflight_wait: m.sum,
             "spec_drafts": lambda m=self._c_spec_drafts: m.value,
             "spec_draft_tokens": lambda m=self._c_spec_draft_tokens: m.value,
             "spec_accepted_tokens": lambda m=self._c_spec_accepted: m.value,
         })
 
     # -- admission ---------------------------------------------------------
+    def _check_request(self, r: Request) -> Request:
+        """The admission invariant of both entry paths: 1 <= len(tokens) <
+        max_seq."""
+        assert len(r.tokens) >= 1, f"request {r.rid}: empty prompt"
+        assert len(r.tokens) < self.max_seq, (
+            f"request {r.rid}: prompt length {len(r.tokens)} does not fit "
+            f"max_seq={self.max_seq}"
+        )
+        return r
+
     def submit(self, requests: Sequence[Request]):
-        """Enqueue requests.  Prompts must fit the slot:
+        """Enqueue ready requests (work still on a transport link enters
+        through ``submit_inflight``).  Prompts must fit the slot:
         1 <= len(tokens) < max_seq."""
         for r in requests:
-            assert len(r.tokens) >= 1, f"request {r.rid}: empty prompt"
-            assert len(r.tokens) < self.max_seq, (
-                f"request {r.rid}: prompt length {len(r.tokens)} does not fit "
-                f"max_seq={self.max_seq}"
-            )
-            self.queue.append(r)
+            self.queue.append(self._check_request(r))
             if self._tr.enabled:
                 self._tr.begin(r.rid, "queue_wait", stream=self.name)
         self._g_queue.set(len(self.queue))
+
+    def submit_inflight(self, handle, finalize):
+        """Enqueue work whose payload is still crossing a transport link:
+        ``handle`` a ``serve.transport.SendHandle``, ``finalize`` maps the
+        delivered payload to the ``Request`` to admit.  The stream stays
+        ``active`` (not ``runnable``) while anything is in flight."""
+        self.inflight.append((handle, finalize))
+
+    def poll_inflight(self, *, block: bool = False) -> int:
+        """Move resolved in-flight sends into the queue, in submission order,
+        stopping at the first unresolved handle.  With ``block`` and nothing
+        resolved, waits on the oldest handle (serving loops do so only when no
+        stream has runnable work).  Returns the number that landed."""
+        landed = 0
+        while self.inflight and (self.inflight[0][0].done() or (block and landed == 0)):
+            handle, finalize = self.inflight.popleft()
+            r = self._check_request(finalize(handle.result()))
+            self.queue.append(r)
+            self._h_inflight_wait.record(handle.wait_time)
+            self._c_inflight_admitted.add(1)
+            if self._tr.enabled:
+                self._tr.begin(r.rid, "queue_wait", stream=self.name)
+            landed += 1
+        if landed:
+            self._g_queue.set(len(self.queue))
+        return landed
 
     def set_slot_limit(self, k: int) -> None:
         """Cap how many slots may hold occupants (clamped to ``[1,
@@ -332,17 +381,27 @@ class SlotStream:
                 self._admit(s)
 
     def refill(self):
-        """Admit queued requests into every free slot."""
+        """Admit queued requests into every free slot, after landing the
+        in-flight sends that have resolved (a poll: decode never waits on
+        the link here)."""
+        if self.inflight:
+            self.poll_inflight(block=False)
         for s in range(self.n_slots):
             if self.slot_req[s] is None and self.queue:
                 self._admit(s)
 
     @property
     def runnable(self) -> bool:
-        """True when the stream can make progress: a slot is occupied, a
+        """True when the stream can make progress now: a slot is occupied, a
         request is queued, or an admission-time completion waits to be
-        handed back."""
+        handed back.  In-flight sends do not count (see ``active``)."""
         return any(r is not None for r in self.slot_req) or bool(self.queue) or bool(self._admit_done)
+
+    @property
+    def active(self) -> bool:
+        """True while the stream still owes work: runnable, or a payload is
+        in flight on a transport link."""
+        return self.runnable or bool(self.inflight)
 
     # -- stepping ----------------------------------------------------------
     def _complete(self, s: int, completed: list, *, truncated: bool):
@@ -410,9 +469,12 @@ class SlotStream:
         return completed
 
     def drain(self) -> List[Tuple[Request, np.ndarray]]:
-        """Step until every queued request has completed."""
+        """Step until every queued and in-flight request has completed; with
+        only in-flight work left, block on the oldest handle."""
         done = []
-        while self.runnable:
+        while self.active:
+            if not self.runnable:
+                self.poll_inflight(block=True)
             done.extend(self.step())
         return done
 
