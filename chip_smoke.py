@@ -41,7 +41,13 @@ Phases, in order; any failure raises and exits non-zero:
    The redesigned attention kernels are also held at long ragged shapes:
    flash with Sq, Sk of 1000 and more and a single K tile, dense decode at
    S 512, 2048 and 4096 with window/starts edges across split boundaries,
-   and paged decode bitwise the dense kernel at S 4096.
+   and paged decode bitwise the dense kernel at S 4096.  Then the head
+   groups of the MoE, VLM and command-r families (``check_attention_groups``,
+   its own generator): decode dense and paged and flash at G 5, 6 and 12
+   (the published (H, KVH) of llama4, mixtral and command-r-plus at hd
+   128, and hd 64), dense decode at every cluster size 1-8, paged bitwise
+   the dense kernel, flash at mixtral's 4096-row window with S past it;
+   each timed (a row under its kernel's ``groups``) with a bound and SDPA.
 3. reference — the port on the card (kernels) against the port on the CPU
    (plain versions) with the same bf16 weights at reduced width: prefill and
    decode, paged decode and paged chunked prefill for the dense tiers;
@@ -71,14 +77,27 @@ Phases, in order; any failure raises and exits non-zero:
    ``serve_continuous`` greedy and T = 0.8 bitwise under no placement,
    ``single_host`` and the sim, serial and async links at 10 ms, equal
    hops, ``inflight_admitted`` the deferrals; speculative over the async
-   link, the draft on the hop).
-4. main path — two cascades at published widths and full depth, bf16
-   weights drawn from ``--seed``, the second built after the first one's
-   tensors are freed by reference counting alone (the cyclic collector is
+   link, the draft on the hop).  Last the families of the MoE, VLM and
+   encoder slice at reduced width (``check_families_on_card``): olmo-1b and
+   command-r-plus-104b end to end (left-padded prefill, decode, paged chunk
+   and decode) card vs CPU at REF_TOL; hubert-xlarge over frames,
+   internvl2-26b with its vision prefix, mixtral-8x22b and
+   llama4-maverick-400b-a17b layer by layer on the CPU's inputs at REF_TOL
+   (end to end a bf16 difference upstream can move a near tie between
+   experts, and the frontends' large projected inputs carry the rounding
+   further), prefill == forward on the card, and the MoE configs' paged
+   serve_continuous graphed twice == eager == dense.
+4. main path — three cascades at published widths, bf16
+   weights drawn from ``--seed``, each built after the one before has its
+   tensors freed by reference counting alone (the cyclic collector is
    off, and device memory that outlives a cascade fails the run).  First: tier 1 a k=3 ensemble of qwen2.5-3b, tier 2
    internlm2-1.8b.  Second: tier 1 a k=3 ensemble of zamba2-2.7b (Mamba2
    backbone, shared attention every 6th layer), tier 2 rwkv6-7b — the path
-   that runs the SSD and WKV6 kernels.  Each: tier 1 uses the score rule
+   that runs the SSD and WKV6 kernels.  Third: tier 1 a k=3 ensemble of
+   olmo-1b (full depth), tier 2 mixtral-8x22b cut to 4 of its 56 layers
+   (MoE at published width, G 6, window 4096), with the first two's three
+   modes and none of the first cascade's extras.  The first two run at
+   full depth.  Each: tier 1 uses the score rule
    for classify (theta = median tier-1 mean score on a calibration batch)
    and the digest vote with theta = 0.5 for generate and serve_continuous;
    tier 2 answers (confidence, theta = -1).  ``classify`` on 32 prompts of
@@ -114,7 +133,11 @@ Phases, in order; any failure raises and exits non-zero:
    (the unplaced digest; bytes crossed against the batch's), and the main
    path's serve_continuous over a serial and an overlapped 100 ms link
    (``AsyncTransport``): the unplaced graphed run's tokens, equal hops,
-   nothing captured, both walls and the overlap ratio.
+   nothing captured, both walls and the overlap ratio.  After the
+   cascades, the frontends at published width (``frontend_path``):
+   hubert-xlarge x3 last logits over 8 x 512 frames and ``member_stats``;
+   internvl2-26b with 4 of its 48 layers, a 256-patch + 128-token prefill
+   and 16 decode steps, graphed == eager.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -692,6 +715,177 @@ def check_decode_paged(dev, g):
                   lambda: ops.decode_attention_paged_plain(q, kp, vp, pages, cur_t), library),
         bound_ms=b_ms, bound_by=b_by,
     )
+
+
+# The head-group sizes that join the decode kernel with the MoE, VLM and
+# command-r families, with each config's published (H, KVH) at hd 128.
+GROUP_SHAPES = {
+    5: ("llama4-maverick-400b-a17b", 40, 8),
+    6: ("mixtral-8x22b", 48, 8),
+    12: ("command-r-plus-104b", 96, 8),
+}
+MIXTRAL_WINDOW = 4096
+
+
+def check_attention_groups(dev, g):
+    """The decode kernels (dense and paged) and flash at G 5, 6 and 12, hd
+    128 at the published (H, KVH) and hd 64, against their plain versions:
+    dense decode at every cluster size of the split plan (one (row, kv head)
+    pair at S = 128 n, n = 1..8, so the merge chunks G * hd = 640, 768 and
+    1536 outputs n ways), with window, softcap, starts and pure-pad rows;
+    paged decode with a shuffled table and holes, bitwise the dense kernel
+    on the gathered view; flash causal and not, and at mixtral's window with
+    S past it.  Timed (as phase 2 times every kernel, with a bound and the
+    SDPA call) at the third cascade's shapes: generate's decode (8 rows,
+    cache 144), serve's paged decode (8 slots of 512 rows in 16-row pages)
+    and tier 2's classify prefill (32 x 256).  Draws from its own generator,
+    so the older checks keep their inputs.  Returns {kernel name: {"max_abs_err",
+    "groups": {G: rows}}}."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.compaction.ops import gather_rows_plain, pool_row_index
+    from repro_torch.kernels.decode_attention import ops as dec
+    from repro_torch.kernels.flash_attention import ops as fl
+
+    mk = lambda *s: torch.randn(*s, device=dev, generator=g).to(torch.bfloat16)  # noqa: E731
+    T = lambda *xs: torch.tensor(xs, dtype=torch.int32, device=dev)  # noqa: E731
+    out = {n: {"max_abs_err": 0.0, "groups": {}} for n in ("decode_attention", "decode_attention_paged", "flash_attention")}
+
+    def held(name, got, ref, what):
+        err = (got.float() - ref.float()).abs().max().item()
+        tol = FLASH_TOL if name == "flash_attention" else DECODE_TOL
+        require(math.isfinite(err) and err <= tol, f"{name} {what}: err {err} > {tol}")
+        out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
+        return err
+
+    def decode(q, kc, vc, cur, what, **kw):
+        got = dec.decode_attention_bksd(q, kc, vc, cur, **kw)
+        err = held("decode_attention", got, dec.decode_attention_plain(q, kc, vc, cur, **kw), what)
+        if kw.get("starts") is not None:
+            pad = kw["starts"] >= torch.as_tensor(cur, device=dev).expand(q.shape[0])
+            require(not got[pad].any(), f"decode {what}: pure-pad rows not zero")
+        return err
+
+    def table(cur, n_pg, ps, P, holes=()):
+        perm = torch.randperm(P - 1, device=dev, generator=g)
+        pages = torch.full((len(cur), n_pg), -1, dtype=torch.int32, device=dev)
+        used = 0
+        for b, c in enumerate(cur):
+            n = -(-c // ps)
+            pages[b, :n] = perm[used:used + n].to(torch.int32)
+            used += n
+        for b, i in holes:
+            pages[b, i] = -1
+        return pages
+
+    def paged(E, B, H, KVH, hd, ps, n_pg, cur, what, holes=(), **kw):
+        P = B * n_pg + 1
+        q, kp, vp = mk(E * B, 1, H, hd), mk(E, P, KVH, ps, hd), mk(E, P, KVH, ps, hd)
+        pages, cur_t = table(cur, n_pg, ps, P, holes), T(*cur)
+        got = dec.decode_attention_paged(q, kp, vp, pages, cur_t, **kw)
+        err = held("decode_attention_paged", got, dec.decode_attention_paged_plain(q, kp, vp, pages, cur_t, **kw),
+                   what)
+        kv, vv = (dec.paged_pool_view(t, pages, gather_rows_plain) for t in (kp, vp))
+        require(torch.equal(got, dec.decode_attention_bksd(q, kv, vv, cur_t.repeat(E), **kw)),
+                f"paged decode {what} is not bitwise the dense kernel on the gathered view")
+        return q, kp, vp, pages, cur_t, err
+
+    def flash(q, k, v, what, **kw):
+        return held("flash_attention", fl.flash_attention(q, k, v, **kw), fl.flash_attention_plain(q, k, v, **kw), what)
+
+    for G, (arch, H, KVH) in GROUP_SHAPES.items():
+        for n in range(1, 9):  # one pair: n_split = n, up to the cluster's 8
+            S = 128 * n
+            q, kc, vc = mk(1, 1, G, 128), mk(1, 1, S, 128), mk(1, 1, S, 128)
+            for cur in sorted({S, max(1, S - 77), 1}):
+                decode(q, kc, vc, cur, f"G {G} S {S} cur {cur}")
+        for hd, kvh in ((128, KVH), (64, 2)):
+            S = 600
+            q, kc, vc = mk(3, 1, G * kvh, hd), mk(3, kvh, S, hd), mk(3, kvh, S, hd)
+            decode(q, kc, vc, T(1, 300, S), f"G {G} hd {hd}")
+            decode(q, kc, vc, T(S, S - 1, 65), f"G {G} hd {hd} window", window=200)
+            decode(q, kc, vc, T(S, 129, 1), f"G {G} hd {hd} starts", starts=T(S - 1, 128, 1))  # row 0: pure pad
+            decode(q, kc, vc, T(513, S, 1), f"G {G} hd {hd} softcap", softcap=20.0, starts=T(0, 513, 0))
+            paged(2, 3, G * kvh, kvh, hd, 16, 8, [100, 5, 128], f"G {G} hd {hd} holes", holes=[(0, 2), (2, 7)])
+            paged(1, 4, G * kvh, kvh, hd, 16, 8, [120, 33, 128, 9], f"G {G} hd {hd} window", window=40, softcap=20.0)
+            paged(1, 3, G * kvh, kvh, hd, 16, 256, [4096, 1000, 2049], f"G {G} hd {hd} S 4096")
+            flash(*(mk(2, 200, G * kvh, hd), mk(2, 200, kvh, hd), mk(2, 200, kvh, hd)), f"G {G} hd {hd} causal",
+                  causal=True, starts=T(0, 37))
+            flash(*(mk(2, 77, G * kvh, hd), mk(2, 150, kvh, hd), mk(2, 150, kvh, hd)), f"G {G} hd {hd}", causal=False)
+        rows = {"config": arch, "H": H, "KVH": KVH, "hd": 128}
+
+        # generate's decode step of the third cascade's tier 2 (8 rows, cache 144)
+        q, kc, vc = mk(8, 1, H, 128), mk(8, KVH, 144, 128), mk(8, KVH, 144, 128)
+        cur = 143
+        err = decode(q, kc, vc, cur, f"G {G} generate shape")
+        qt, ks, vs = q.transpose(1, 2), kc[:, :, :cur], vc[:, :, :cur]
+        b_ms, b_by = bound(2 * nbytes(q) + 2 * 8 * KVH * cur * 128 * 2, 4 * 8 * H * cur * 128, BF16_FLOPS)
+        out["decode_attention"]["groups"][G] = dict(
+            rows, shape={"q": list(q.shape), "cache": list(kc.shape), "cur_len": cur}, max_abs_err=err,
+            **timings(lambda: dec.decode_attention_bksd(q, kc, vc, cur),
+                      lambda: dec.decode_attention_plain(q, kc, vc, cur),
+                      lambda: F.scaled_dot_product_attention(qt, ks, vs, enable_gqa=True)),
+            bound_ms=b_ms, bound_by=b_by,
+        )
+
+        # serve's paged decode: 8 slots of max_seq 512 in 16-row pages, E = 1
+        B, ps, n_pg = 8, 16, 32
+        cur_l = torch.randint(1, 513, (B,), generator=torch.Generator().manual_seed(G)).tolist()
+        q, kp, vp, pages, cur_t, err = paged(1, B, H, KVH, 128, ps, n_pg, cur_l, f"G {G} serve shape")
+        visible = sum(cur_l)
+        b_ms, b_by = bound(2 * nbytes(q) + 2 * visible * KVH * 128 * 2 + nbytes(pages, cur_t),
+                           4 * H * 128 * visible, BF16_FLOPS)
+        idx = pool_row_index(pages, 1, kp.shape[1]).clamp(min=0).long()
+        S = n_pg * ps
+        valid = (torch.arange(S, device=dev)[None, :] < cur_t[:, None])[:, None, None, :]
+        qt = q.transpose(1, 2)
+
+        def library(kp=kp, vp=vp, idx=idx, valid=valid, qt=qt):
+            kv, vv = (t.reshape(-1, KVH, ps, 128).index_select(0, idx).reshape(B, n_pg, KVH, ps, 128)
+                      .transpose(1, 2).reshape(B, KVH, S, 128) for t in (kp, vp))
+            return F.scaled_dot_product_attention(qt, kv, vv, attn_mask=valid, enable_gqa=True)
+
+        out["decode_attention_paged"]["groups"][G] = dict(
+            rows, shape={"q": list(q.shape), "pool": list(kp.shape), "pages": list(pages.shape), "cur_len": cur_l},
+            max_abs_err=err,
+            **timings(lambda: dec.decode_attention_paged(q, kp, vp, pages, cur_t),
+                      lambda: dec.decode_attention_paged_plain(q, kp, vp, pages, cur_t), library),
+            bound_ms=b_ms, bound_by=b_by,
+        )
+
+        # tier 2's classify prefill (32 prompts of 256 tokens), causal
+        q, k, v = mk(32, 256, H, 128), mk(32, 256, KVH, 128), mk(32, 256, KVH, 128)
+        err = flash(q, k, v, f"G {G} classify shape", causal=True)
+        pairs = 32 * H * 256 * 257 // 2
+        b_ms, b_by = bound(nbytes(q, k, v, q), 4 * 128 * pairs, BF16_FLOPS)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        row = dict(
+            rows, shape={"q": list(q.shape), "kv": list(k.shape)}, max_abs_err=err,
+            **timings(lambda: fl.flash_attention(q, k, v, causal=True),
+                      lambda: fl.flash_attention_plain(q, k, v, causal=True),
+                      lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True),
+                      plain_iters=5),
+            bound_ms=b_ms, bound_by=b_by,
+        )
+        if G == 6:  # mixtral's sliding window, the prompt past it: keys before S - 4096 drop out
+            S = MIXTRAL_WINDOW + 256
+            q, k, v = mk(1, S, H, 128), mk(1, S, KVH, 128), mk(1, S, KVH, 128)
+            err = flash(q, k, v, f"G {G} window {MIXTRAL_WINDOW} at S {S}", causal=True, window=MIXTRAL_WINDOW)
+            visible = sum(min(i + 1, MIXTRAL_WINDOW) for i in range(S))
+            b_ms, b_by = bound(nbytes(q, k, v, q), 4 * 128 * H * visible, BF16_FLOPS)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            i = torch.arange(S, device=dev)
+            win = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - MIXTRAL_WINDOW)
+            row["window"] = dict(
+                shape={"q": list(q.shape), "kv": list(k.shape)}, window=MIXTRAL_WINDOW, max_abs_err=err,
+                **timings(lambda: fl.flash_attention(q, k, v, causal=True, window=MIXTRAL_WINDOW),
+                          lambda: fl.flash_attention_plain(q, k, v, causal=True, window=MIXTRAL_WINDOW),
+                          lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=win, enable_gqa=True),
+                          plain_iters=2),
+                bound_ms=b_ms, bound_by=b_by,
+            )
+        out["flash_attention"]["groups"][G] = row
+    return out
 
 
 # The scans: the WKV6 kernel and the SSD's f32 route run the per-step
@@ -1303,6 +1497,190 @@ def check_serving_on_card(dev, seed):
                 "outputs_digest": outputs_digest(*(np.asarray(first[r.rid][2]) for r in reqs)),
             }
     return out
+
+
+# ---------------------------------------------------------------------------
+# the families that join with the MoE, VLM and encoder slice (phases 3 and 4)
+# ---------------------------------------------------------------------------
+
+
+def attention_layer_by_layer(cfg, vals, gvals, dev, x, cache=None, pos=None):
+    """Walk an attention stack on the CPU from hidden x (E, B, S, D), a
+    prefill, or with ``cache`` (CPU member cache, updated in place) one
+    decode step at ``pos``; feed each layer's CPU input (and its cache) to
+    the same layer on the card and hold its output and written K/V against
+    the CPU's at REF_TOL.  On one input the f32 router sees the same bf16
+    activations on both devices, so the MoE routes alike but at exact
+    ties; end to end a bf16 difference upstream can move a near tie between
+    two experts, and a token's whole output with it.  The VLM's projected
+    patches are some 50 times its token embeddings, so the text positions
+    carry the prefix's rounding (bf16 P in flash against the plain f32
+    softmax) into every later layer: end to end its logits read 0.14 of
+    their largest apart on an H100 80GB HBM3 at 700 W, where CPU bf16 against CPU f32
+    already reads 0.24 on this random model.  Returns (worst normwise
+    error, final CPU hidden)."""
+    from repro_torch.models import api
+    from repro_torch.models import blocks_dense as BD
+
+    worst = 0.0
+    for l in range(cfg.n_layers):
+        lp, glp = api._layer(vals, l, cfg), api._layer(gvals, l, cfg)
+        gx = x.to(dev)
+        if cache is None:
+            causal = not cfg.is_encoder
+            y = BD.dense_layer_fwd(lp, x, cfg, causal=causal, sliding_window=cfg.sliding_window)[0]
+            gy = BD.dense_layer_fwd(glp, gx, cfg, causal=causal, sliding_window=cfg.sliding_window)[0]
+        else:
+            kc, vc = cache["k"][l], cache["v"][l]
+            gk, gv = kc.to(dev), vc.to(dev)
+            y = BD.dense_layer_decode(lp, x, cfg, kc, vc, pos, sliding_window=cfg.sliding_window)
+            gy = BD.dense_layer_decode(glp, gx, cfg, gk, gv, pos, sliding_window=cfg.sliding_window)
+            worst = max(worst, normwise(kc, gk, f"{cfg.name} layer {l} k card vs cpu, same input"),
+                        normwise(vc, gv, f"{cfg.name} layer {l} v card vs cpu, same input"))
+        worst = max(worst, normwise(y, gy, f"{cfg.name} layer {l} card vs cpu, same input"))
+        x = y
+    return worst, x
+
+
+def serve_graphed_on_card(cfg, vals, dev, seed, what):
+    """A one-tier k-member cascade at reduced width: ``serve_continuous``
+    eager, then graphed twice over block-paged pools (the second run must
+    capture nothing), and graphed over the dense slot cache: every run the
+    same tokens, tiers and truncation flags, the graphed runs the eager
+    run's launches per kernel."""
+    import copy
+
+    from repro_torch import kernels
+    from repro_torch.core import ensemble as ens
+    from repro_torch.core.cascade import TierSpec
+    from repro_torch.serve import CascadeServer, CascadeTier, ServeConfig
+    from repro_torch.serve.graphs import trace_counts
+
+    k = ens.member_count(vals)
+    server = CascadeServer([CascadeTier(cfg, vals, TierSpec("t", "vote", 0.5, k=k), device=dev)], device=dev)
+    reqs = serve_requests(np.random.default_rng(seed), 10, cfg.vocab_size, 4, 60, 6, n_prefix=3, prefix_len=20)
+    runs, launches = {}, {}
+    modes = [(True, True), (True, False), (True, False), (False, False)]  # (paged, eager)
+    for i, (paged, eager) in enumerate(modes):
+        run = [copy.deepcopy(r) for r in reqs]
+        counts = trace_counts()
+        kernels.reset_launch_counts()
+        done = server.serve_continuous(run, ServeConfig(n_slots=4, max_seq=128, page_size=16, paged=paged), eager=eager)
+        launches[i] = kernels.launch_counts()
+        require(sorted(r.rid for r in done) == sorted(r.rid for r in reqs), f"{what}: requests lost or doubled")
+        runs[i] = {r.rid: (r.tier, r.truncated, r.output.tolist()) for r in done}
+        if i == 2:
+            require(trace_counts() == counts, f"{what}: the second graphed paged serve_continuous captured again")
+    for i in runs:
+        require(runs[i] == runs[0], f"{what}: serve_continuous (paged, eager) {modes[i]} emits other tokens than eager")
+    require(launches[1] == launches[0] == launches[2], f"{what}: graphed launches {launches[1]} != eager {launches[0]}")
+    require(launches[0]["decode_attention_paged"] > 0, f"{what}: the paged decode kernel was not launched")
+    return {"requests": len(reqs), "runs_equal": [f"paged={p} eager={e}" for p, e in modes],
+            "outputs_digest": outputs_digest(*(np.asarray(runs[0][r.rid][2]) for r in reqs)), "launches": launches[1]}
+
+
+def check_families_on_card(dev, seed):
+    """The six configurations of the MoE, VLM and encoder slice at reduced
+    width, card against CPU on the same bf16 weights.  olmo-1b (k=3) and
+    command-r-plus-104b (G 12 reduced to the group of 4 heads on 1 KV head
+    the reduction gives) end to end at REF_TOL: a left-padded prefill and a
+    decode step, then a paged chunk into one slot and a paged decode step.
+    hubert-xlarge (k=3, non-causal over frames), internvl2-26b (k=1, with its
+    vision prefix), mixtral-8x22b (k=2) and llama4-maverick-400b-a17b (k=1,
+    its reduction: one dense and one MoE layer with the shared expert)
+    layer by layer on the CPU's inputs at REF_TOL
+    (``attention_layer_by_layer``: prefill, then a decode step but for the
+    encoder), with prefill == forward on the card and end to end printed; then
+    ``serve_graphed_on_card`` for the two MoE configs (paged graphed ==
+    eager, paged == dense)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import ensemble as ens
+    from repro_torch.models import api
+    from repro_torch.models import layers as L
+    from repro_torch.models.params import tree_map
+    from repro_torch.serve.engine import grow_cache
+
+    errs = {}
+    rng = np.random.default_rng(seed + 3)
+
+    def pair(arch, k):
+        cfg = get_config(arch).reduced()
+        vals = ens.init_ensemble(cfg, k, torch.Generator().manual_seed(seed), "cpu")
+        return cfg, vals, tree_map(lambda t: t.to(dev), vals)
+
+    for arch, k in (("olmo-1b", 3), ("command-r-plus-104b", 1)):
+        cfg, vals, gvals = pair(arch, k)
+        toks = rng.integers(0, cfg.vocab_size, (4, 40)).astype(np.int32)
+        batch = {"tokens": toks, "starts": np.array([0, 3, 17, 39], np.int32)}
+        outs = []
+        for v in (vals, gvals):
+            logits, cache = ens.ensemble_prefill(v, batch, cfg)
+            tok = torch.as_tensor(np.full((k, 4, 1), 7, np.int32), device=logits.device)
+            step, _ = api.decode_step_members(v, tok, grow_cache(cache, 2, cfg), 40, cfg, starts=batch["starts"])
+            outs.append((logits, step))
+        errs[f"{arch}/prefill"] = normwise(outs[0][0], outs[1][0], f"{arch} prefill card vs cpu")
+        errs[f"{arch}/decode"] = normwise(outs[0][1], outs[1][1], f"{arch} decode card vs cpu")
+        errs.update(check_reference_paged(arch, cfg, k, vals, gvals, seed))
+
+    # the VLM with its prefix: layer by layer on the CPU's inputs (see
+    # attention_layer_by_layer), the head over the text positions, then a
+    # decode step over the prefix's and the text's cache rows; end to end
+    # printed, and prefill == forward on the card
+    cfg, vals, gvals = pair("internvl2-26b", 1)
+    text = rng.integers(0, cfg.vocab_size, (2, 24)).astype(np.int32)
+    patches = torch.randn(2, cfg.n_vision_tokens, cfg.frontend_dim, generator=torch.Generator().manual_seed(seed))
+    batch = {"tokens": text, "embeds": patches.to(torch.bfloat16)}
+    gbatch = {"tokens": text, "embeds": patches.to(dev, torch.bfloat16)}
+    head = lambda x: (L.project_logits(vals, x, cfg), L.project_logits(gvals, x.to(dev), cfg))  # noqa: E731
+    worst, x = attention_layer_by_layer(cfg, vals, gvals, dev, api.embed_batch(vals, batch, cfg))
+    worst = max(worst, normwise(*head(x[:, :, cfg.n_vision_tokens:]), "internvl2-26b text head card vs cpu"))
+    _, cache = ens.ensemble_prefill(vals, batch, cfg)
+    S = cache["k"].shape[4]
+    require(S == cfg.n_vision_tokens + 24, f"internvl2: {S} cache rows for a {cfg.n_vision_tokens}-patch prefix")
+    tok = api.embed_inputs(vals, torch.full((1, 2, 1), 5, dtype=torch.int64))
+    w, x = attention_layer_by_layer(cfg, vals, gvals, dev, tok, grow_cache(cache, 1, cfg), pos=S)
+    worst = max(worst, w, normwise(*head(x[:, :, 0]), "internvl2-26b decode head card vs cpu"))
+    errs["internvl2-26b/layer_by_layer_worst"] = worst
+    g_fwd = api.forward_logits_members(gvals, gbatch, cfg)
+    require(g_fwd.shape[2] == 24, f"internvl2: logits {tuple(g_fwd.shape)} cover more than the text")
+    g_pre = ens.ensemble_last_logits(gvals, gbatch, cfg)
+    errs["internvl2-26b/prefill_vs_forward_on_card"] = normwise(g_fwd[:, :, -1], g_pre, "internvl2-26b prefill vs forward")
+    c_fwd = api.forward_logits_members(vals, batch, cfg)
+    errs["internvl2-26b/end_to_end_forward"] = ((c_fwd - g_fwd.cpu()).abs().max() / c_fwd.abs().max()).item()
+
+    # the encoder over frames: layer by layer (its CPU bf16 run reads 0.05
+    # from its f32 one; end to end an H100 80GB HBM3 at 700 W read 0.044), the
+    # head at the last frame, end to end printed
+    cfg, vals, gvals = pair("hubert-xlarge", 3)
+    frames = torch.randn(3, 50, cfg.frontend_dim, generator=torch.Generator().manual_seed(seed + 1))
+    batch = {"embeds": frames.to(torch.bfloat16)}
+    head = lambda x: (L.project_logits(vals, x, cfg), L.project_logits(gvals, x.to(dev), cfg))  # noqa: E731
+    worst, x = attention_layer_by_layer(cfg, vals, gvals, dev, api.embed_batch(vals, batch, cfg))
+    errs["hubert-xlarge/layer_by_layer_worst"] = max(worst, normwise(*head(x[:, :, -1]), "hubert-xlarge head card vs cpu"))
+    a = ens.ensemble_last_logits(vals, batch, cfg)
+    b = ens.ensemble_last_logits(gvals, {"embeds": frames.to(dev, torch.bfloat16)}, cfg)
+    errs["hubert-xlarge/end_to_end_last_logits"] = ((a - b.cpu()).abs().max() / a.abs().max()).item()
+
+    for arch, k in (("mixtral-8x22b", 2), ("llama4-maverick-400b-a17b", 1)):
+        cfg, vals, gvals = pair(arch, k)
+        toks = rng.integers(0, cfg.vocab_size, (3, 40)).astype(np.int32)
+        embed = lambda t, v=vals: api.embed_inputs(v, torch.as_tensor(t).to(torch.int64))  # noqa: E731
+        head = lambda x, v=vals, gv=gvals: (L.project_logits(v, x, cfg), L.project_logits(gv, x.to(dev), cfg))  # noqa: E731
+        worst, x = attention_layer_by_layer(cfg, vals, gvals, dev, embed(toks))
+        worst = max(worst, normwise(*head(x[:, :, -1]), f"{arch} prefill head card vs cpu"))
+        _, cache = ens.ensemble_prefill(vals, {"tokens": toks}, cfg)
+        tok = np.full((k, 3, 1), 9, np.int32)
+        w, x = attention_layer_by_layer(cfg, vals, gvals, dev, embed(tok), grow_cache(cache, 1, cfg), pos=40)
+        worst = max(worst, w, normwise(*head(x[:, :, 0]), f"{arch} decode head card vs cpu"))
+        errs[f"{arch}/layer_by_layer_worst"] = worst
+        # on the card: prefill's last logits == the forward's; end to end printed
+        g_pre = ens.ensemble_last_logits(gvals, {"tokens": toks}, cfg)
+        g_fwd = ens.ensemble_logits(gvals, {"tokens": toks}, cfg)[:, :, -1]
+        errs[f"{arch}/prefill_vs_forward_on_card"] = normwise(g_pre, g_fwd, f"{arch} prefill vs forward on the card")
+        c_pre = ens.ensemble_last_logits(vals, {"tokens": toks}, cfg)
+        errs[f"{arch}/end_to_end_prefill"] = ((c_pre - g_pre.cpu()).abs().max() / c_pre.abs().max()).item()
+        errs[f"{arch}/serve"] = serve_graphed_on_card(cfg, gvals, dev, seed, f"{arch} reduced")
+    return errs
 
 
 # ---------------------------------------------------------------------------
@@ -2122,6 +2500,17 @@ CASCADES = {
             serve_continuous=("decode_attention", "mamba2_ssd", "rwkv6_wkv"),
         ),
     ),
+    # MoE at published width: mixtral-8x22b cut to 4 of its 56 layers (8
+    # experts of d_ff 16384 on d_model 6144, 10.4 B parameters, 48 heads on
+    # 8 KV heads: G 6, window 4096), after olmo-1b x3 at full depth
+    "olmo-1b x3 -> mixtral-8x22b": dict(
+        tier1="olmo-1b", tier2="mixtral-8x22b", tier2_layers=4,
+        need=dict(
+            classify=("agreement", "compaction", "flash_attention"),
+            generate=("compaction", "flash_attention", "decode_attention"),
+            serve_continuous=("compaction", "decode_attention_paged"),
+        ),
+    ),
 }
 
 
@@ -2151,6 +2540,8 @@ def main_path(dev, seed, name):
     spec = CASCADES[name]
     a1, a2 = spec["tier1"], spec["tier2"]
     c1, c2 = get_config(a1), get_config(a2)
+    if "tier2_layers" in spec:
+        c2 = dataclasses.replace(c2, n_layers=spec["tier2_layers"])
     g = torch.Generator(device=dev).manual_seed(seed)
     t0 = time.perf_counter()
     v1 = ens.init_ensemble(c1, 3, g, dev)
@@ -2213,6 +2604,106 @@ def main_path(dev, seed, name):
             del servers, tier2
             results["serve_speculative"], launches["serve_speculative"] = speculative_path(
                 dev, c1, v1, rng, c1.vocab_size, name, spec["need"]["serve_speculative"], seed)
+    return results, launches
+
+
+def frontend_path(dev, seed):
+    """The two frontends at published width: hubert-xlarge x3
+    ``ensemble_last_logits`` over 8 x 512 stubbed frames (48 non-causal
+    layers: flash at hd 80, G 1; then ``member_stats`` through the agreement
+    kernel), and internvl2-26b with 4 of its 48 layers, one member: a
+    prefill of 256 stubbed patches and 128 text tokens into a static cache,
+    then 16 greedy decode steps (G 6 decode), once eager and once with the
+    prefill and the decode step captured as CUDA graphs (``GraphSet``) and
+    replayed: bitwise the same tokens and last logits.  Each run with the
+    launch counters zeroed just before and read just after.  Returns
+    (results, launches per run)."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core import ensemble as ens
+    from repro_torch.kernels.agreement import ops as agree_ops
+    from repro_torch.models import api
+    from repro_torch.models.params import param_count
+    from repro_torch.serve.graphs import GraphSet
+
+    results, launches = {}, {}
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cfg = get_config("hubert-xlarge")
+    vals = ens.init_ensemble(cfg, 3, g, dev)
+    frames = torch.randn(8, 512, cfg.frontend_dim, device=dev, generator=g).to(torch.bfloat16)
+    with torch.no_grad():
+        runs = []
+        for _ in range(2):
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits = ens.ensemble_last_logits(vals, {"embeds": frames}, cfg)
+            stats = agree_ops.agreement(logits)
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0, kernels.launch_counts(), logits, stats))
+        (_, _, l0, s0), (wall, counts, l1, s1) = runs
+        require(torch.isfinite(l1).all() and l1.shape == (3, 8, cfg.vocab_size), f"hubert: logits {tuple(l1.shape)}")
+        require(torch.equal(l0, l1) and torch.equal(s0["pred"], s1["pred"]), "hubert: two runs differ")
+        for kname in ("flash_attention", "agreement"):
+            require(counts[kname] > 0, f"hubert-xlarge x3: kernel {kname} was not launched")
+        launches["hubert-xlarge x3/last_logits"] = counts
+        results["hubert-xlarge x3"] = dict(
+            params=param_count(vals), frames=[8, 512], wall_s=wall, launches=counts,
+            pred_digest=outputs_digest(s1["pred"].cpu().numpy()),
+            max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30,
+        )
+    log(f"[frontend] hubert-xlarge x3 last logits over frames: {json.dumps(results['hubert-xlarge x3'])}")
+    del vals, frames, runs, l0, l1, logits
+
+    cfg = dataclasses.replace(get_config("internvl2-26b"), n_layers=4)
+    params = api.init_params(cfg, g, dev)
+    B, St, n_new = 1, 128, 16
+    S = cfg.n_vision_tokens + St
+    rng = np.random.default_rng(seed)
+    text = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, St)).astype(np.int32), device=dev)
+    patches = torch.randn(B, cfg.n_vision_tokens, cfg.frontend_dim, device=dev, generator=g).to(torch.bfloat16)
+    out = {}
+    with torch.no_grad():
+        for run in ("eager", "graphed_1", "graphed_2"):
+            eager = run == "eager"
+            gs = GraphSet(dev) if run != "graphed_2" else gs
+            cache = api.init_cache(cfg, B, S + n_new, dev) if run != "graphed_2" else cache
+
+            def prefill(tokens, embeds, cache=cache):
+                return api.prefill(params, {"tokens": tokens, "embeds": embeds}, cfg, cache=cache)[0]
+
+            def decode(tok, pos, cache=cache):
+                return api.decode_step(params, tok, cache, pos, cfg)[0]
+
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits = gs.run("internvl2/prefill", prefill, text, patches, eager=eager)
+            toks = [logits.argmax(-1)]
+            for t in range(n_new):
+                pos = torch.full((B,), S + t, dtype=torch.int64, device=dev)
+                logits = gs.run("internvl2/decode", decode, toks[-1][:, None], pos, eager=eager)
+                toks.append(logits.argmax(-1))
+            last = logits.float().clone()
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            out[run] = dict(wall_s=time.perf_counter() - t0, launches=counts, last=last,
+                            tokens=torch.stack(toks, 1).cpu().numpy())
+            require(torch.isfinite(last).all(), f"internvl2 {run}: non-finite logits")
+            for kname in ("flash_attention", "decode_attention"):
+                require(counts[kname] > 0, f"internvl2-26b: kernel {kname} was not launched ({run})")
+            launches[f"internvl2-26b/{run}"] = counts
+    for run in ("graphed_1", "graphed_2"):
+        require(np.array_equal(out[run]["tokens"], out["eager"]["tokens"]) and torch.equal(out[run]["last"], out["eager"]["last"]),
+                f"internvl2-26b: the {run} prefill + decode differs from the eager run")
+        require(out[run]["launches"] == out["eager"]["launches"], f"internvl2-26b: {run} launches differ from eager")
+    results["internvl2-26b (4 layers)"] = dict(
+        params=param_count(params), prefix=cfg.n_vision_tokens, text=St, new_tokens=n_new,
+        tokens_digest=outputs_digest(out["eager"]["tokens"]),
+        **{f"{run}_wall_s": out[run]["wall_s"] for run in out}, launches=out["graphed_2"]["launches"],
+    )
+    log(f"[frontend] internvl2-26b prefix prefill + decode, graphed == eager: "
+        f"{json.dumps(results['internvl2-26b (4 layers)'])}")
     return results, launches
 
 
@@ -2545,7 +3036,7 @@ def chunk_call_profile(tier, rng):
     ``paged_pool_view`` calls through ``gather_rows`` that it replaced
     (patched in for that run), and as a replay of the call captured in a
     CUDA graph (the serving path's form: its device kernels must be the
-    eager call's)."""
+    eager call's; misread counts are profiled again, at most twice)."""
     from repro_torch.core import ensemble as ens
     from repro_torch.kernels.compaction import ops as cops
     from repro_torch.serve.graphs import GraphSet
@@ -2583,6 +3074,17 @@ def chunk_call_profile(tier, rng):
             out[variant] = profile_call(fn, names=variant != "two_paged_view_calls")
     finally:
         cops.paged_kv_view = one_view
+    # the profiler misreads a call's kernels now and then, eager or graphed,
+    # in two of the three reps at once as often as in one (a mixtral chunk
+    # replay once read [567, 567, 525] against the eager 546, a qwen eager
+    # call [3746, 3741, 3718] against its replay's 3746): when the medians
+    # differ both are profiled again, at most twice, every reading kept
+    rereads = [(out["one_launch_view"]["device_kernels_runs"], out["graphed"]["device_kernels_runs"])]
+    while out["graphed"]["device_kernels"] != out["one_launch_view"]["device_kernels"] and len(rereads) < 3:
+        out["one_launch_view"] = profile_call(call, names=True)
+        out["graphed"] = profile_call(graphed_call, names=True)
+        rereads.append((out["one_launch_view"]["device_kernels_runs"], out["graphed"]["device_kernels_runs"]))
+    out["graphed"]["device_kernels_reads"] = rereads
     for variant in ("one_launch_view", "graphed"):
         require(out[variant]["launches"].get("compaction") == cfg.n_layers,
                 f"{cfg.name}: {out[variant]['launches']} launches in a {variant} chunk call")
@@ -2591,9 +3093,8 @@ def chunk_call_profile(tier, rng):
         log(f"{cfg.name}: device kernels of a graphed chunk call less the eager call's, by name: "
             f"{json.dumps({k: graphed_names[k] - eager_names[k] for k in graphed_names | eager_names if graphed_names[k] != eager_names[k]})}")
     require(out["graphed"]["device_kernels"] == out["one_launch_view"]["device_kernels"],
-            f"{cfg.name}: a graphed chunk call runs {out['graphed']['device_kernels']} device kernels "
-            f"({out['graphed']['device_kernels_runs']}), the eager call {out['one_launch_view']['device_kernels']} "
-            f"({out['one_launch_view']['device_kernels_runs']})")
+            f"{cfg.name}: a graphed chunk call runs {out['graphed']['device_kernels']} device kernels, the eager "
+            f"call {out['one_launch_view']['device_kernels']} (eager and graphed reads: {rereads})")
     return out
 
 
@@ -2776,6 +3277,14 @@ def main(argv=None):
         r = fn(dev, g)
         log(f"kernel {r['name']}: {json.dumps(r)}")
         checks.append(r)
+    # G 5, 6 and 12 (and flash at them) from a generator of their own; each
+    # kernel's row takes their worst error and keeps them under "groups"
+    groups = check_attention_groups(dev, torch.Generator(device=dev).manual_seed(args.seed + 2))
+    for c in checks:
+        if c["name"] in groups:
+            c["max_abs_err"] = max(c["max_abs_err"], groups[c["name"]]["max_abs_err"])
+            c["groups"] = groups[c["name"]]["groups"]
+            log(f"kernel {c['name']} at G 5, 6, 12: {json.dumps(c['groups'])}")
     ref = check_reference(dev, args.seed)
     ref.update(check_reference_recurrent(dev, args.seed))
     log(f"reference (card vs cpu, normwise, tol {REF_TOL}): {json.dumps(ref)}")
@@ -2793,6 +3302,9 @@ def main(argv=None):
     log(f"open loop on the card, repeat runs equal: {json.dumps(ref['open_loop_on_card'])}")
     ref["transport_on_card"] = check_transport_on_card(dev, args.seed)
     log(f"placement and transports on the card, tokens equal under every link: {json.dumps(ref['transport_on_card'])}")
+    ref["families_on_card"] = check_families_on_card(dev, args.seed)
+    log(f"moe, vlm, encoder, olmo and command-r on the card vs cpu (tol {REF_TOL}), MoE serve graphed == eager, "
+        f"paged == dense: {json.dumps(ref['families_on_card'])}")
     results, launches = {}, {}
     # each cascade's weights and caches must be freed by reference counting
     # alone when it returns, before the next is built: the cyclic collector
@@ -2808,6 +3320,12 @@ def main(argv=None):
         require(left < 0.25, f"{name}: {left:.2f} GiB of device memory outlived the cascade")
         results[name]["memory_left_gib"] = left
         torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    results["frontends"], per_run = frontend_path(dev, args.seed)
+    launches.update({f"frontends/{run}": c for run, c in per_run.items()})
+    left = (torch.cuda.memory_allocated() - before) / 2**30
+    require(left < 0.25, f"frontends: {left:.2f} GiB of device memory outlived the checks")
+    torch.cuda.empty_cache()
     gc.enable()
 
     sources = {

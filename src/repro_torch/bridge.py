@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.models.api import interleaved_moe
 
 
 def _leaf(a, device) -> torch.Tensor:
@@ -27,22 +28,35 @@ def _leaf(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
+def _layer_rows(cfg: ModelConfig, path) -> int:
+    """Rows of the stacked layer axis of a ``layers`` leaf: ``n_layers``,
+    or for llama4's interleave n_groups * (moe_every - 1) under
+    ``layers/dense`` and n_groups under ``layers/moe``."""
+    if interleaved_moe(cfg):
+        n_groups = cfg.n_layers // cfg.moe_every
+        return n_groups * (cfg.moe_every - 1) if path[1] == "dense" else n_groups
+    return cfg.n_layers
+
+
 def params_from_numpy(tree, cfg: ModelConfig, device=None):
     """Nested dict of numpy leaves -> nested dict of torch tensors on
     ``device``.  ``tree['layers']`` leaves must carry the stacked layer
-    axis (``cfg.n_layers``) first, or second behind an ensemble axis; the
-    hybrid's ``shared_attn`` block has no layer axis and passes through
-    as it is (behind the ensemble axis where there is one)."""
+    axis first, or second behind an ensemble axis, with ``cfg.n_layers``
+    rows (or llama4's interleaved stack sizes, ``_layer_rows``); the
+    hybrid's ``shared_attn`` block and the ``frontend`` projection have no
+    layer axis and pass through as they are (behind the ensemble axis
+    where there is one)."""
     device = resolve_device(device)
-    lead = tree["embed"].ndim - 2  # 1 when the tree is a stacked ensemble
+    anchor = tree["embed"] if "embed" in tree else tree["frontend"]["proj"]  # the encoder has no embed
+    lead = np.ndim(anchor) - 2  # 1 when the tree is a stacked ensemble
 
     def conv(t, path):
         if isinstance(t, dict):
             return {k: conv(v, path + (k,)) for k, v in t.items()}
-        if path[0] == "layers" and np.shape(t)[lead] != cfg.n_layers:
+        if path[0] == "layers" and np.shape(t)[lead] != _layer_rows(cfg, path):
             raise ValueError(
                 f"{'/'.join(path)}: layer axis {np.shape(t)[lead]} != "
-                f"n_layers {cfg.n_layers}"
+                f"{_layer_rows(cfg, path)} (n_layers {cfg.n_layers})"
             )
         return _leaf(t, device)
 

@@ -1,5 +1,6 @@
 """Model configuration dataclass (a copy of ``repro.configs.base``'s
-``ModelConfig``) and a registry restricted to the configs this port runs."""
+``ModelConfig``) and the registry of the ten configurations, the JAX
+package's ``ARCH_IDS`` in its order."""
 from __future__ import annotations
 
 import importlib
@@ -121,13 +122,24 @@ class ModelConfig:
         return replace(self, **changes)
 
 
-ARCH_IDS = ("internlm2-1.8b", "qwen2.5-3b", "rwkv6-7b", "zamba2-2.7b")
+ARCH_IDS = (
+    "zamba2-2.7b",
+    "internvl2-26b",
+    "hubert-xlarge",
+    "internlm2-1.8b",
+    "olmo-1b",
+    "rwkv6-7b",
+    "mixtral-8x22b",
+    "llama4-maverick-400b-a17b",
+    "command-r-plus-104b",
+    "qwen2.5-3b",
+)
 
 _MODULE_FOR = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
 
 
 def get_config(arch: str) -> ModelConfig:
     if arch not in _MODULE_FOR:
-        raise KeyError(f"unknown arch {arch!r}; ported: {sorted(_MODULE_FOR)}")
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(_MODULE_FOR)}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULE_FOR[arch]}")
     return mod.CONFIG

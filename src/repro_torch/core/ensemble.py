@@ -19,8 +19,16 @@ def init_ensemble(cfg: ModelConfig, k: int, generator: torch.Generator, device):
     return api.init_params(cfg, generator, device, lead=(k,))
 
 
+def ensemble_logits(values, batch, cfg: ModelConfig):
+    """Full-sequence logits per member: (E, B, S, V).  ``batch`` as
+    ``api.forward_logits`` takes it: ``tokens``, and ``embeds`` for the
+    encoder's frames or the VLM's patch prefix."""
+    return api.forward_logits_members(values, batch, cfg)
+
+
 def ensemble_last_logits(values, batch, cfg: ModelConfig):
-    """Last-token logits per member: (E, B, V)."""
+    """Last-token logits per member: (E, B, V); ``embeds`` as
+    ``ensemble_logits`` takes them."""
     return api.prefill_members(values, batch, cfg, collect_kv=False)[0]
 
 
@@ -56,7 +64,7 @@ def ensemble_prefill_into_slot_logits(values, tokens, caches, slot, start, cfg: 
 def init_ensemble_paged_pool(values, cfg: ModelConfig, n_pages: int, page_size: int):
     """E member planes of paged pools, (L, E, P, KVH, page_size, hd), on the
     members' device, under one page table."""
-    return api.init_paged_pool_members(cfg, member_count(values), n_pages, page_size, values["embed"].device)
+    return api.init_paged_pool_members(cfg, member_count(values), n_pages, page_size, api.param_device(values))
 
 
 def ensemble_decode_step_paged(values, token, pools, pos, pages, cfg: ModelConfig):
@@ -78,4 +86,4 @@ def ensemble_prefill_into_slot_paged_logits(values, tokens, pools, pages_row, st
 
 
 def member_count(values) -> int:
-    return values["embed"].shape[0]
+    return api.member_count(values)

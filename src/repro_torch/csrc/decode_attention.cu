@@ -8,7 +8,8 @@
 //                               (-1 = unmapped) shared by the E member planes,
 //                               cur_len (B,) i32; no starts
 //
-// Window and tanh softcap optional on both; hd in {64, 128}, G in {1, 2, 4, 8, 16};
+// Window and tanh softcap optional on both; hd in {64, 128}, G in {1, 2, 4, 5, 6,
+// 8, 12, 16} (llama4 has 5, mixtral and internvl2 6, command-r-plus 12);
 // the dense entry also takes hd 80 (zamba2's shared attention: 32 heads of
 // 80, as many KV heads).  The paged entry stays at hd {64, 128}: the only
 // hd-80 family (hybrid) keeps dense slot caches.
@@ -412,7 +413,11 @@ int dispatch(int hd, int G, const void* q, const void* k, const void* v, void* o
              int cur_scalar, const void* st, Paged pg, int rows, int KVH, int S, int window,
              float softcap, float scale, cudaStream_t s) {
   if (rows == 0) return (int)cudaGetLastError();
-  if (G != 1 && G != 2 && G != 4 && G != 8 && G != 16) return (int)cudaErrorInvalidValue;
+  // any G <= GM fits the body (heads past G are zero rows, never stored) and
+  // the merge (chunk = ceil(G * hd / n_split) per split: the n_split boxes of
+  // 2 * GM + chunk floats stay within Cfg::recv); these are the ones tested
+  if (G != 1 && G != 2 && G != 4 && G != 5 && G != 6 && G != 8 && G != 12 && G != 16)
+    return (int)cudaErrorInvalidValue;
   int rps = 1;
   const int n_split = plan_splits(rows * KVH, S, &rps);
 #define DA_LAUNCH(HD_)                                                                              \

@@ -14,7 +14,7 @@ with q (E*B, 1, H, hd): row r of q is slot r % B of member plane r // B,
 and the ONE table serves every plane.  No ``starts``.
 
 On a CUDA tensor each launches its kernel of ``csrc/decode_attention.cu``
-(bf16, hd in {64, 128}, G = H / KVH in {1, 2, 4, 8, 16}, any S or
+(bf16, hd in {64, 128}, G = H / KVH in ``GROUPS``, any S or
 page_size; the dense kernel also takes hd 80 at G = 1, zamba2's shared
 attention), which replace ``src/repro/kernels/decode_attention/kernel.py``
 ``decode_attention_bkgd`` and ``decode_attention_paged_bkgd``; both are
@@ -34,6 +34,9 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.compaction.ops import gather_rows_plain, member_pool, paged_pool_view
 
+# the head-group sizes the kernels take: the powers of two, llama4's 5,
+# mixtral's and internvl2's 6, command-r-plus's 12 (the body pads G to 16 MMA rows)
+GROUPS = (1, 2, 4, 5, 6, 8, 12, 16)
 _LAUNCHES = build.launch_counter("decode_attention")
 _PAGED_LAUNCHES = build.launch_counter("decode_attention_paged")
 NEG_INF = -1e30
@@ -72,7 +75,7 @@ def _decode_cuda(q, k_cache, v_cache, cur_len, *, window, softcap, starts):
     B, _, H, hd = q.shape
     KVH, S = k_cache.shape[1], k_cache.shape[2]
     G = H // KVH
-    shapes_ok = (hd in (64, 128) and G in (1, 2, 4, 8, 16)) or (hd == 80 and G == 1)
+    shapes_ok = (hd in (64, 128) and G in GROUPS) or (hd == 80 and G == 1)
     if (not shapes_ok or H % KVH
             or k_cache.shape != v_cache.shape or k_cache.shape[0] != B):
         raise ValueError(
@@ -143,7 +146,7 @@ def _paged_cuda(q, k_pool, v_pool, pages, cur_len, *, window, softcap):
     B, n_pg = pages.shape
     H = q.shape[2]
     G = H // KVH
-    if hd not in (64, 128) or G not in (1, 2, 4, 8, 16) or H % KVH or q.shape[3] != hd:
+    if hd not in (64, 128) or G not in GROUPS or H % KVH or q.shape[3] != hd:
         raise ValueError(
             f"decode_attention_paged: unsupported shapes q {tuple(q.shape)} pool {tuple(k_pool.shape)}"
         )

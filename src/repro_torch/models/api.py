@@ -1,26 +1,36 @@
-"""Model API (port of ``repro.models.api``) for the dense family and the
-three constant-state families: ``ssm_rwkv6``, ``ssm_mamba2`` and
-``hybrid`` (a Mamba2 backbone with one shared attention block applied
-every ``attn_every`` layers).
+"""Model API (port of ``repro.models.api``) for all seven families: the
+attention families ``dense``, ``moe`` (an MoE block in place of the MLP;
+with ``moe_every > 1`` only every ``moe_every``-th layer, llama4's
+interleave), ``vlm`` (a projected prefix of stubbed patch embeddings
+before the text) and ``encoder`` (projected stubbed frame embeddings,
+non-causal, no cache and no decode); and the three constant-state
+families ``ssm_rwkv6``, ``ssm_mamba2`` and ``hybrid`` (a Mamba2 backbone
+with one shared attention block applied every ``attn_every`` layers).
 
     params = init_params(cfg, generator, device)
     logits, cache = prefill(params, batch, cfg)          # (B, V), caches
     logits, cache = decode_step(params, token, cache, pos, cfg)
     logits = forward_logits(params, batch, cfg)          # (B, S, V)
 
+``batch`` holds ``tokens`` (B, S) and, for the frontends, ``embeds``: the
+encoder's (B, S, frontend_dim) frames in place of tokens, the VLM's
+(B, n_vision_tokens, frontend_dim) patches before its tokens (logits
+cover the text positions; the cache holds the prefix rows too).
+
 and the slot surface of continuous batching:
 
     cache = prefill_into_slot(params, tokens, cache, slot, start, cfg)
     logits, cache = prefill_into_slot_logits(params, tokens, cache, slot, start, cfg)
     cache = reset_slot(cache, slot, cfg)                 # state families
-    pool = init_paged_pool(cfg, n_pages, page_size, device)   # dense only
+    pool = init_paged_pool(cfg, n_pages, page_size, device)   # dense, moe, vlm
     logits, pool = decode_step_paged(params, token, pool, pos, pages, cfg)
     pool = prefill_into_slot_paged(params, tokens, pool, pages_row, start, cfg)
     logits, pool = prefill_into_slot_paged_logits(params, tokens, pool, pages_row, start, cfg)
     pool = copy_pool_page(pool, src, dst)
 
 The single-model functions take the JAX package's parameter tree and cache
-layouts: dense k, v (L, B, KVH, S, hd); mamba2 conv (L, B, K-1, conv_dim)
+layouts: attention k, v (L, B, KVH, S, hd), layer l at row l (llama4's
+interleave included); mamba2 conv (L, B, K-1, conv_dim)
 and ssm (L, B, nh, N, P) f32; rwkv6 tm_x, cm_x (L, B, D) and wkv (L, B, H,
 hd, hd) f32; hybrid the mamba2 leaves plus ``attn_k``/``attn_v``, one
 (B, KVH, S, hd) leaf per shared-attention invocation; dense pools (L,
@@ -29,7 +39,10 @@ function that carries the ensemble axis E explicitly: parameters (E, ...)
 with the stacked layer axis second, caches layer-major with E second —
 (L, E, B, ...) — so one layer's slab is contiguous for the kernels, the
 hybrid's per-invocation leaves (E, B, KVH, S, hd), and pools (L, E, P,
-KVH, page_size, hd) under one page table.  A Python loop over layers takes
+KVH, page_size, hd) under one page table.  The interleaved MoE stacks
+keep the JAX package's tree, ``layers = {"dense": (n_groups * (moe_every
+- 1) rows), "moe": (n_groups rows)}``; layer l of group l // moe_every is
+its MoE layer when it is the group's last.  A Python loop over layers takes
 the place of ``lax.scan``.  Caches and pools are updated IN PLACE (and
 returned, so call sites read like the JAX package's).
 """
@@ -47,26 +60,45 @@ from repro_torch.models import blocks_rwkv6 as BR
 from repro_torch.models import layers as L
 from repro_torch.models.params import Initializer, torch_dtype, tree_map
 
-PORTED_FAMILIES = ("dense", "ssm_mamba2", "ssm_rwkv6", "hybrid")
+ATTENTION_FAMILIES = ("dense", "moe", "vlm", "encoder")
 
 
-def _require_ported(cfg: ModelConfig):
-    if cfg.family not in PORTED_FAMILIES or cfg.is_encoder or cfg.n_vision_tokens:
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+def attention_family(cfg: ModelConfig) -> bool:
+    """True where every layer is an attention layer over a KV cache (or,
+    for the encoder, over the whole sequence)."""
+    return cfg.family in ATTENTION_FAMILIES
+
+
+def interleaved_moe(cfg: ModelConfig) -> bool:
+    """MoE every ``moe_every``-th layer (llama4's interleave)."""
+    return cfg.family == "moe" and cfg.moe_every > 1
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device, *, lead=()):
-    """Seeded parameters; ``lead=(k,)`` stacks k ensemble members."""
-    _require_ported(cfg)
+    """Seeded parameters; ``lead=(k,)`` stacks k ensemble members.  The
+    tree is the JAX package's: no ``embed`` for the encoder, a
+    ``frontend.proj`` (frontend_dim, D) where the config has a frontend,
+    the interleaved ``{"dense", "moe"}`` layer stacks for llama4."""
     ini = Initializer(generator, cfg.dtype, device, lead)
-    p = {"embed": ini.normal((cfg.vocab_size, cfg.d_model), std=0.02)}
-    layers = ini.stacked(cfg.n_layers)
-    if cfg.family == "dense":
-        p["layers"] = BD.init_dense_layer(layers, cfg)
+    p = {}
+    if not cfg.is_encoder:
+        p["embed"] = ini.normal((cfg.vocab_size, cfg.d_model), std=0.02)
+    if cfg.frontend_dim:
+        p["frontend"] = {"proj": ini.normal((cfg.frontend_dim, cfg.d_model))}
+    if interleaved_moe(cfg):
+        me = cfg.moe_every
+        assert cfg.n_layers % me == 0, (cfg.n_layers, me)
+        n_groups = cfg.n_layers // me
+        p["layers"] = {
+            "dense": BD.init_dense_layer(ini.stacked(n_groups * (me - 1)), cfg),
+            "moe": BD.init_dense_layer(ini.stacked(n_groups), cfg, moe=True),
+        }
+    elif attention_family(cfg):
+        p["layers"] = BD.init_dense_layer(ini.stacked(cfg.n_layers), cfg, moe=cfg.family == "moe")
     elif cfg.family == "ssm_rwkv6":
-        p["layers"] = BR.init_rwkv6_block(layers, cfg)
+        p["layers"] = BR.init_rwkv6_block(ini.stacked(cfg.n_layers), cfg)
     else:
-        p["layers"] = BM.init_mamba2_block(layers, cfg)
+        p["layers"] = BM.init_mamba2_block(ini.stacked(cfg.n_layers), cfg)
     if cfg.family == "hybrid" and cfg.attn_every:
         p["shared_attn"] = BD.init_dense_layer(ini, cfg)  # one block, shared by depth
     p["final_norm"] = L.init_norm(ini, cfg, cfg.d_model)
@@ -79,8 +111,29 @@ def _members(params):
     return tree_map(lambda t: t[None], params)
 
 
-def _layer(params, l: int):
-    return tree_map(lambda t: t[:, l], params["layers"])
+def _anchor(params) -> torch.Tensor:
+    """A leaf every model has, with the member axis first: the token
+    embedding, or the encoder's frontend projection."""
+    return params["embed"] if "embed" in params else params["frontend"]["proj"]
+
+
+def param_device(params) -> torch.device:
+    return _anchor(params).device
+
+
+def member_count(params) -> int:
+    return _anchor(params).shape[0]
+
+
+def _layer(params, l: int, cfg: Optional[ModelConfig] = None):
+    """Layer l's parameters, (E, ...) leaves; with llama4's interleave the
+    last layer of each ``moe_every`` group comes from the ``moe`` stack
+    (``cfg`` is needed only there)."""
+    stack, i = params["layers"], l
+    if cfg is not None and interleaved_moe(cfg):
+        g, r = divmod(l, cfg.moe_every)
+        stack, i = (stack["moe"], g) if r == cfg.moe_every - 1 else (stack["dense"], g * (cfg.moe_every - 1) + r)
+    return tree_map(lambda t: t[:, i], stack)
 
 
 def _tokens(batch, device) -> torch.Tensor:
@@ -96,22 +149,64 @@ def embed_inputs(params, tokens: torch.Tensor) -> torch.Tensor:
     return emb[torch.arange(emb.shape[0], device=emb.device)[:, None, None], tokens]
 
 
+def _project_frontend(params, embeds, device) -> torch.Tensor:
+    """Stubbed frontend embeddings (B, S, F), shared by the members, times
+    each member's ``frontend.proj`` (E, F, D), in the promoted dtype of the
+    two (as a JAX product of mixed dtypes) -> (E, B, S, D)."""
+    proj = params["frontend"]["proj"]
+    e = torch.as_tensor(embeds, device=device)
+    dt = torch.promote_types(e.dtype, proj.dtype)
+    return torch.einsum("bsf,efd->ebsd", e.to(dt), proj.to(dt))
+
+
+def embed_batch(params, batch, cfg: ModelConfig) -> torch.Tensor:
+    """The hidden (E, B, S, D) a batch enters the backbone with: the
+    encoder's projected frames; for the VLM with ``embeds`` its projected
+    patches prepended to the token embeddings; else the token
+    embeddings."""
+    device = param_device(params)
+    if cfg.is_encoder:
+        return _project_frontend(params, batch["embeds"], device).to(torch_dtype(cfg.dtype))
+    tok = embed_inputs(params, _tokens(batch, device))
+    if _has_prefix(batch, cfg):
+        vis = _project_frontend(params, batch["embeds"], device).to(tok.dtype)
+        tok = torch.cat([vis, tok], dim=2)
+    return tok
+
+
+def _has_prefix(batch, cfg: ModelConfig) -> bool:
+    return bool(cfg.n_vision_tokens) and "embeds" in batch
+
+
+def _text_only(x, batch, cfg: ModelConfig):
+    """Drop the vision prefix's positions (axis 2) before the head."""
+    return x[:, :, cfg.n_vision_tokens:] if _has_prefix(batch, cfg) else x
+
+
 def _pad_carveout(batch, S: int, cfg: ModelConfig, device):
     """(positions, starts) for a left-padded batch, or (None, None):
     positions are taken relative to each row's prompt start.  Recurrent
     families sweep the sequence unconditionally, so the carve-out cannot
-    apply there."""
+    apply there; starts index the token grid, so a prepended vision prefix
+    (which would shift every column the mask refers to) is refused too."""
     starts = batch.get("starts")
     if starts is None:
         return None, None
     _require_carveout(cfg)
+    if _has_prefix(batch, cfg):
+        raise ValueError("left-pad carve-out indexes token columns; unsupported with a prepended vision prefix")
     starts = torch.as_tensor(starts, device=device).to(torch.int32)
     return torch.arange(S, device=device)[None, :] - starts[:, None], starts
 
 
 def _require_carveout(cfg: ModelConfig):
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe", "vlm"):
         raise ValueError(f"left-pad carve-out unsupported for family {cfg.family}")
+
+
+def _require_decoder(cfg: ModelConfig):
+    if cfg.is_encoder:
+        raise ValueError(f"{cfg.name}: an encoder-only model has no cache and no decode step")
 
 
 def _state_keys(cfg: ModelConfig):
@@ -131,7 +226,7 @@ def _recurrent_layer(params, l: int, x, cfg: ModelConfig, state, *, step: bool =
     (E, B, S, D), continuing ``state`` (None at a sequence start); with
     ``step`` the single-token decode form (x (E, B, 1, D)).  Returns
     (x, new state)."""
-    lp = _layer(params, l)
+    lp = _layer(params, l, cfg)
     if cfg.family == "ssm_rwkv6":
         if step:
             return BR.rwkv6_step(lp, x, cfg, state)
@@ -152,14 +247,14 @@ def _write_kv(k_cache, v_cache, k, v):
 
 def backbone_fwd(params, x, cfg: ModelConfig, *, positions=None, starts=None, cache=None):
     """Runs every layer over x (E, B, S, D).  With ``cache`` (from
-    ``init_cache_members``, KV rows S' >= S) each dense layer's K/V are
-    written into rows [0, S), each recurrent layer's final state into its
-    layer slab, and each hybrid attention invocation's K/V into its
-    leaf."""
-    if cfg.family == "dense":
+    ``init_cache_members``, KV rows S' >= S) each attention layer's K/V
+    are written into rows [0, S), each recurrent layer's final state into
+    its layer slab, and each hybrid attention invocation's K/V into its
+    leaf.  The encoder attends without the causal mask."""
+    if attention_family(cfg):
         for l in range(cfg.n_layers):
             x, (k, v) = BD.dense_layer_fwd(
-                _layer(params, l), x, cfg, causal=True, sliding_window=cfg.sliding_window,
+                _layer(params, l, cfg), x, cfg, causal=not cfg.is_encoder, sliding_window=cfg.sliding_window,
                 positions=positions, starts=starts,
             )
             if cache is not None:
@@ -181,26 +276,25 @@ def backbone_fwd(params, x, cfg: ModelConfig, *, positions=None, starts=None, ca
 
 
 def forward_logits_members(params, batch, cfg: ModelConfig):
-    """Full logits (E, B, S, V)."""
-    _require_ported(cfg)
-    device = params["embed"].device
-    x = embed_inputs(params, _tokens(batch, device))
-    positions, starts = _pad_carveout(batch, x.shape[2], cfg, device)
+    """Full logits (E, B, S, V); for the VLM with a prefix, S the text
+    positions."""
+    x = embed_batch(params, batch, cfg)
+    positions, starts = _pad_carveout(batch, x.shape[2], cfg, x.device)
     x = backbone_fwd(params, x, cfg, positions=positions, starts=starts)
-    return L.project_logits(params, x, cfg)
+    return L.project_logits(params, _text_only(x, batch, cfg), cfg)
 
 
 def init_cache_members(cfg: ModelConfig, E: int, batch: int, max_seq: int, device, dtype=None):
-    """Zero member caches, layer-major: dense k, v (L, E, B, KVH, max_seq,
-    hd); mamba2 conv (L, E, B, K-1, conv_dim) and ssm (L, E, B, nh, N, P)
+    """Zero member caches, layer-major: attention k, v (L, E, B, KVH,
+    max_seq, hd); mamba2 conv (L, E, B, K-1, conv_dim) and ssm (L, E, B, nh, N, P)
     f32; rwkv6 tm_x, cm_x (L, E, B, D) and wkv (L, E, B, H, hd, hd) f32;
     hybrid the mamba2 leaves plus ``attn_k``/``attn_v`` lists of one
     (E, B, KVH, max_seq, hd) leaf per shared-attention invocation."""
-    _require_ported(cfg)
+    _require_decoder(cfg)
     dtype = dtype or torch_dtype(cfg.dtype)
     Lyr = cfg.n_layers
     zeros = lambda *shape: torch.zeros(shape, dtype=dtype, device=device)
-    if cfg.family == "dense":
+    if attention_family(cfg):
         shape = (Lyr, E, batch, cfg.n_kv_heads, max_seq, cfg.head_dim)
         return {"k": zeros(*shape), "v": zeros(*shape)}
     init_state = BR.init_rwkv6_state if cfg.family == "ssm_rwkv6" else BM.init_mamba2_state
@@ -221,14 +315,16 @@ def prefill_members(params, batch, cfg: ModelConfig, *, collect_kv=True, cache=N
     ``init_cache_members``, KV rows S' >= S) the prompt's K/V land in rows
     [0, S) and the recurrent state in its leaves, in place, and that cache
     is returned: the static cache of a captured batch generation, whose
-    decode steps write rows S.. of the same memory."""
-    _require_ported(cfg)
-    device = params["embed"].device
-    x = embed_inputs(params, _tokens(batch, device))
+    decode steps write rows S.. of the same memory.  The encoder keeps no
+    cache: its caches come back None.  A VLM's prefix rows are cache rows
+    like the text's."""
+    x = embed_batch(params, batch, cfg)
     E, B, S, _ = x.shape
-    positions, starts = _pad_carveout(batch, S, cfg, device)
+    positions, starts = _pad_carveout(batch, S, cfg, x.device)
+    if cfg.is_encoder:
+        cache, collect_kv = None, False
     if cache is None and collect_kv:
-        cache = init_cache_members(cfg, E, B, S, device, dtype=x.dtype)
+        cache = init_cache_members(cfg, E, B, S, x.device, dtype=x.dtype)
     x = backbone_fwd(params, x, cfg, positions=positions, starts=starts, cache=cache)
     return L.project_logits(params, x[:, :, -1], cfg), cache
 
@@ -252,17 +348,17 @@ def decode_step_members(params, token, cache, pos, cfg: ModelConfig, *, starts=N
     updated in place.  Token and a vector ``pos`` already on the device
     are used as they are (no copy), as a captured decode step needs.
     Returns (logits (E, B, V), cache)."""
-    _require_ported(cfg)
-    device = params["embed"].device
+    _require_decoder(cfg)
+    device = param_device(params)
     pos = _positions(pos, token.shape[1], device)
     if starts is not None:
         _require_carveout(cfg)
         starts = torch.as_tensor(starts, device=device).to(torch.int32)
     x = embed_inputs(params, torch.as_tensor(token, device=device).to(torch.int64))
-    if cfg.family == "dense":
+    if attention_family(cfg):
         for l in range(cfg.n_layers):
             x = BD.dense_layer_decode(
-                _layer(params, l), x, cfg, cache["k"][l], cache["v"][l], pos,
+                _layer(params, l, cfg), x, cfg, cache["k"][l], cache["v"][l], pos,
                 sliding_window=cfg.sliding_window, starts=starts,
             )
         return L.project_logits(params, x[:, :, 0], cfg), cache
@@ -315,8 +411,12 @@ def reset_slot_members(cache, slot, cfg: ModelConfig):
 
 
 def supports_chunked_prefill(cfg: ModelConfig) -> bool:
-    """Chunked-prefill admission: every ported decoder family."""
-    return cfg.family in PORTED_FAMILIES and not cfg.is_encoder
+    """Chunked-prefill admission: every decoder family.  For MoE a chunk's
+    capacity follows its token count, so a capacity-limited chunk may drop
+    tokens that one-token decode admission keeps (as the JAX package
+    says); with ``capacity_factor >= n_experts`` nothing drops and the two
+    admissions emit the same tokens."""
+    return not cfg.is_encoder
 
 
 def supports_draft_verify(cfg: ModelConfig) -> bool:
@@ -329,11 +429,11 @@ def supports_draft_verify(cfg: ModelConfig) -> bool:
 
 
 def supports_paging(cfg: ModelConfig) -> bool:
-    """Block-paged KV pools serve the dense family.  Constant-state
-    families have O(1) per-slot state, nothing to page, and the hybrid's
-    per-invocation KV leaves keep the dense slot layout, as in the JAX
-    package."""
-    return cfg.family == "dense" and not cfg.is_encoder
+    """Block-paged KV pools serve the attention-cache families (dense, moe,
+    vlm).  Constant-state families have O(1) per-slot state, nothing to
+    page, and the hybrid's per-invocation KV leaves keep the dense slot
+    layout, as in the JAX package."""
+    return cfg.family in ("dense", "moe", "vlm") and not cfg.is_encoder
 
 
 def slot_index(v, device) -> torch.Tensor:
@@ -362,14 +462,14 @@ def prefill_into_slot_members(params, tokens, cache, slot, start, cfg: ModelConf
     (attention families only: the speculative verify pass) ``(hidden (E,
     1, C, D), cache)``, from which the caller projects every position's
     logits."""
-    _require_ported(cfg)
-    device = params["embed"].device
+    assert supports_chunked_prefill(cfg), cfg.family
+    device = param_device(params)
     slot, start = slot_index(slot, device), slot_index(start, device)
     x = embed_inputs(params, torch.as_tensor(tokens, device=device).to(torch.int64)[None])
-    if cfg.family == "dense":
+    if attention_family(cfg):
         for l in range(cfg.n_layers):
             x = BD.dense_layer_prefill_chunk(
-                _layer(params, l), x, cfg, cache["k"][l], cache["v"][l], slot, start,
+                _layer(params, l, cfg), x, cfg, cache["k"][l], cache["v"][l], slot, start,
                 sliding_window=cfg.sliding_window,
             )
         return (x, cache) if return_hidden else cache
@@ -420,13 +520,13 @@ def decode_step_paged_members(params, token, pool, pos, pages, cfg: ModelConfig)
     ``init_paged_pool_members``, updated in place.  Positions and table go
     to the device once for all layers.  Returns (logits (E, B, V), pool)."""
     assert supports_paging(cfg), cfg.family
-    device = params["embed"].device
+    device = param_device(params)
     _, E, P = pool["k"].shape[:3]
     step = L.paged_step(pos, pages, E=E, n_pages=P, page_size=pool["k"].shape[-2], device=device)
     x = embed_inputs(params, torch.as_tensor(token, device=device).to(torch.int64))
     for l in range(cfg.n_layers):
         x = BD.dense_layer_decode_paged(
-            _layer(params, l), x, cfg, pool["k"][l], pool["v"][l], step,
+            _layer(params, l, cfg), x, cfg, pool["k"][l], pool["v"][l], step,
             sliding_window=cfg.sliding_window,
         )
     return L.project_logits(params, x[:, :, 0], cfg), pool
@@ -441,13 +541,13 @@ def prefill_into_slot_paged_members(params, tokens, pool, pages_row, start, cfg:
     (updated in place); with ``return_hidden`` ``(hidden (E, 1, C, D),
     pool)`` for the speculative verify pass."""
     assert supports_paging(cfg), cfg.family
-    device = params["embed"].device
+    device = param_device(params)
     pages_row = torch.as_tensor(pages_row, device=device).to(torch.int32)
     start = slot_index(start, device)
     x = embed_inputs(params, torch.as_tensor(tokens, device=device).to(torch.int64)[None])
     for l in range(cfg.n_layers):
         x = BD.dense_layer_prefill_chunk_paged(
-            _layer(params, l), x, cfg, pool["k"][l], pool["v"][l], start, pages_row,
+            _layer(params, l, cfg), x, cfg, pool["k"][l], pool["v"][l], start, pages_row,
             sliding_window=cfg.sliding_window,
         )
     return (x, pool) if return_hidden else pool
@@ -490,14 +590,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device, dtype=None):
 
 def prefill(params, batch, cfg: ModelConfig, *, cache=None):
     """Returns (last-token logits (B, V), cache in the JAX layout, with S KV
-    rows).  ``batch['starts']`` (B,), optional, is the left-pad carve-out
-    (dense family only).  ``cache`` (``init_cache`` with S' >= S rows): the
+    rows; None for the encoder).  ``batch['starts']`` (B,), optional, is
+    the left-pad carve-out (dense, moe and vlm without a prefix).  ``cache`` (``init_cache`` with S' >= S rows): the
     prompt is written into it in place and it is returned."""
     if cache is not None:
         logits, _ = prefill_members(_members(params), batch, cfg, cache=_member_cache(cache))
         return logits[0], cache
     logits, cache = prefill_members(_members(params), batch, cfg)
-    return logits[0], _single_cache(cache)
+    return logits[0], None if cache is None else _single_cache(cache)
 
 
 def last_logits(params, batch, cfg: ModelConfig):

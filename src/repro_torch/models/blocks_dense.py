@@ -1,6 +1,7 @@
-"""Dense transformer layer: prefill, decode, chunked prefill and their
-block-paged forms (port of ``repro.models.blocks_dense`` for the dense
-family)."""
+"""Transformer layer (dense, MoE and encoder flavours): prefill, decode,
+chunked prefill and their block-paged forms (port of
+``repro.models.blocks_dense``).  A layer whose parameters hold ``moe``
+runs the MoE block where the others run the MLP."""
 from __future__ import annotations
 
 from typing import Optional
@@ -10,17 +11,22 @@ from repro_torch.models import layers as L
 from repro_torch.models.params import Initializer
 
 
-def init_dense_layer(ini: Initializer, cfg: ModelConfig):
-    return {
+def init_dense_layer(ini: Initializer, cfg: ModelConfig, *, moe: bool = False):
+    p = {
         "ln1": L.init_norm(ini, cfg, cfg.d_model),
         "attn": L.init_attention(ini, cfg),
         "ln2": L.init_norm(ini, cfg, cfg.d_model),
-        "mlp": L.init_mlp(ini, cfg),
     }
+    if moe:
+        p["moe"] = L.init_moe(ini, cfg)
+    else:
+        p["mlp"] = L.init_mlp(ini, cfg)
+    return p
 
 
 def _mlp_residual(p, x, cfg: ModelConfig):
-    return x + L.apply_mlp(p["mlp"], L.apply_norm(p["ln2"], x, cfg), cfg)
+    h = L.apply_norm(p["ln2"], x, cfg)
+    return x + (L.apply_moe(p["moe"], h, cfg) if "moe" in p else L.apply_mlp(p["mlp"], h, cfg))
 
 
 def dense_layer_fwd(p, x, cfg: ModelConfig, *, causal: bool = True,

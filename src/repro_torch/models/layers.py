@@ -1,6 +1,7 @@
 """Shared building blocks: norms, RoPE, MLP, GQA attention, LM head.
 
-Ports ``repro.models.layers`` for the dense family.  Every function carries
+Ports ``repro.models.layers``: the dense layer's pieces and the MoE
+block (``init_moe``/``apply_moe``).  Every function carries
 the ensemble axis E explicitly: activations are (E, B, S, ...) and each
 parameter leaf has a leading E axis, where the JAX package ``vmap``s a
 single-model function.  The weight products are batched matmuls over E
@@ -83,8 +84,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 # ---------------------------------------------------------------------------
 
 
-def init_mlp(ini: Initializer, cfg: ModelConfig):
-    d, f = cfg.d_model, cfg.d_ff
+def init_mlp(ini: Initializer, cfg: ModelConfig, d: Optional[int] = None, d_ff: Optional[int] = None):
+    d, f = d or cfg.d_model, d_ff or cfg.d_ff
     if cfg.mlp_activation == "silu":
         return {
             "w_gate": ini.normal((d, f)),
@@ -108,6 +109,100 @@ def apply_mlp(p, x, cfg: ModelConfig):
         return torch.einsum("ebsf,efd->ebsd", h, p["w_down"])
     h = F.gelu(torch.einsum("ebsd,edf->ebsf", x, p["w_in"]) + _per_member(p["b_in"], x), approximate="tanh")
     return torch.einsum("ebsf,efd->ebsd", h, p["w_out"]) + _per_member(p["b_out"], x)
+
+
+# ---------------------------------------------------------------------------
+# MoE (token-choice top-k, capacity-dropped, scatter dispatch)
+# ---------------------------------------------------------------------------
+
+
+def init_moe(ini: Initializer, cfg: ModelConfig):
+    d, f, n = cfg.d_model, cfg.d_ff, cfg.n_experts
+    p = {
+        "router": ini.normal((d, n), dtype=torch.float32),
+        "w_gate": ini.normal((n, d, f)),
+        "w_up": ini.normal((n, d, f)),
+        "w_down": ini.normal((n, f, d)),
+    }
+    if cfg.n_shared_experts:
+        p["shared"] = init_mlp(ini, cfg, d, f * cfg.n_shared_experts)
+    return p
+
+
+def moe_capacity(T: int, S: int, cfg: ModelConfig) -> int:
+    """Rows of each expert's buffer for T tokens of sequence length S: a
+    2x balance slack (at least 8, at most T) for a decode step (S == 1),
+    ``capacity_factor`` of the even share for a sequence."""
+    n, K = cfg.n_experts, cfg.top_k
+    if S == 1:
+        return min(T, max(8, int(math.ceil(T * K / n * 2.0))))
+    return max(1, int(math.ceil(T * K / n * cfg.capacity_factor)))
+
+
+def top_k_first(probs: torch.Tensor, K: int):
+    """The K largest values along the last axis and their indices, largest
+    first and, among equal values, the lowest index first (the order of
+    ``lax.top_k``): K rounds of argmax, each masking the index it took.
+    ``torch.topk`` leaves the order of ties open."""
+    vals, idx, rest = [], [], probs
+    for _ in range(K):
+        i = rest.argmax(-1, keepdim=True)  # the first of the maxima
+        vals.append(probs.gather(-1, i))
+        idx.append(i)
+        rest = rest.scatter(-1, i, float("-inf"))
+    return torch.cat(vals, -1), torch.cat(idx, -1)
+
+
+def moe_route(p, xt, S: int, cfg: ModelConfig):
+    """The routing of ``apply_moe`` for tokens xt (E, T, D) of sequence
+    length S: (gates (E, T, K) f32 renormalised, experts (E, T, K) int64,
+    each (token, k)'s position in its expert's buffer (E, T*K), capacity);
+    a choice is kept where its position is below the capacity."""
+    E, T, _ = xt.shape
+    n, K = cfg.n_experts, cfg.top_k
+    probs = torch.softmax(torch.bmm(xt.float(), p["router"]), -1)  # (E, T, n)
+    gate, expert = top_k_first(probs, K)
+    gate = gate / gate.sum(-1, keepdim=True).clamp(min=1e-9)
+    onehot = (expert.reshape(E, T * K, 1) == torch.arange(n, device=xt.device)).to(torch.int32)
+    pos = ((torch.cumsum(onehot, 1) - onehot) * onehot).sum(-1)  # exclusive running count
+    return gate, expert, pos, moe_capacity(T, S, cfg)
+
+
+def apply_moe(p, x, cfg: ModelConfig):
+    """x (E, B, S, D) -> out (E, B, S, D).
+
+    Per member, as the JAX package's ``apply_moe`` under ``vmap``: the
+    T = B * S tokens of ONE member route among themselves.  Each token
+    picks its top-k experts from a softmax of the f32 router, the gates
+    renormalised to sum to one; its position in an expert's buffer is the
+    exclusive running count of earlier (token, k) choices of that expert;
+    a choice at or past ``moe_capacity`` rows is dropped (its zeroed row
+    added into the buffer's last row, which leaves a kept row there
+    unchanged).  The experts run as batched products over (member,
+    expert) on the (E, n_experts, capacity, D) buffers; each token sums its
+    kept choices' outputs times their gates, plus the shared expert where
+    the config has one.  Static shapes and no value read back to the host,
+    so the call can be captured in a CUDA graph.  The router's
+    load-balancing loss is a training term and comes with the training
+    path; inference never needs it."""
+    E, B, S, D = x.shape
+    n, K = cfg.n_experts, cfg.top_k
+    T = B * S
+    xt = x.reshape(E, T, D)
+    gate, expert, pos, capacity = moe_route(p, xt, S, cfg)
+    keep = (pos < capacity).to(x.dtype)
+    slot = expert.reshape(E, T * K) * capacity + pos.clamp(max=capacity - 1)  # row of (n * capacity)
+    contrib = (xt[:, :, None, :] * keep.reshape(E, T, K, 1)).reshape(E, T * K, D)
+    rows = slot[..., None].expand(E, T * K, D)
+    buf = torch.zeros((E, n * capacity, D), dtype=x.dtype, device=x.device).scatter_add_(1, rows, contrib)
+    h = buf.reshape(E, n, capacity, D)
+    a = F.silu(torch.matmul(h, p["w_gate"])) * torch.matmul(h, p["w_up"])
+    out = torch.matmul(a, p["w_down"]).reshape(E, n * capacity, D)
+    picked = out.gather(1, rows).reshape(E, T, K, D)
+    combined = (picked * (gate.to(x.dtype) * keep.reshape(E, T, K))[..., None]).sum(2)
+    if cfg.n_shared_experts:
+        combined = combined + apply_mlp(p["shared"], xt[:, None], cfg)[:, 0]
+    return combined.reshape(E, B, S, D)
 
 
 # ---------------------------------------------------------------------------

@@ -119,7 +119,7 @@ def grow_cache(cache, pad: int, cfg: ModelConfig):
     if pad <= 0:
         return cache
     grow = lambda t: F.pad(t, (0, 0, 0, pad))
-    if cfg.family == "dense":
+    if api.attention_family(cfg):
         return {k: grow(v) for k, v in cache.items()}
     if cfg.family == "hybrid":
         return {k: [grow(t) for t in v] if k in ("attn_k", "attn_v") else v for k, v in cache.items()}

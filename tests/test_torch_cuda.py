@@ -332,7 +332,30 @@ def test_decode_attention_long(cuda, case, G, hd, S):
         assert not got[pad].any()
 
 
-@pytest.mark.parametrize("G,KVH", [(8, 2), (2, 8)])
+# the head-group sizes of llama4 (5), mixtral and internvl2 (6) and
+# command-r-plus (12): the cases above at both head sizes, and one (row, kv
+# head) pair at S = 128 n for n = 1..8, so the split plan takes every
+# cluster size and the merge chunks G * hd = 640, 768, 1536 outputs n ways
+@pytest.mark.parametrize("G", [5, 6, 12])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("case", DECODE_CASES, ids=lambda c: "-".join(f"{k}={v}" for k, v in c.items() if v))
+def test_decode_attention_odd_groups(cuda, case, G, hd):
+    test_decode_attention(cuda, case, G, hd)
+
+
+@pytest.mark.parametrize("G", [5, 6, 12])
+@pytest.mark.parametrize("n_split", list(range(1, 9)))
+def test_decode_attention_odd_groups_every_split(cuda, G, n_split):
+    S, hd = 128 * n_split, 128
+    q = _randn(1, 1, G, hd, seed=0).to(cuda, torch.bfloat16)
+    kc = _randn(1, 1, S, hd, seed=1).to(cuda, torch.bfloat16)
+    vc = _randn(1, 1, S, hd, seed=2).to(cuda, torch.bfloat16)
+    for cur in (S, S - 77, 1):
+        got = decode.decode_attention_bksd(q, kc, vc, cur).float()
+        torch.testing.assert_close(got, decode.decode_attention_plain(q, kc, vc, cur).float(), rtol=0, atol=2e-2)
+
+
+@pytest.mark.parametrize("G,KVH", [(8, 2), (2, 8), (5, 8), (6, 8), (12, 8)])
 @pytest.mark.parametrize("S", [512, 4096])
 def test_decode_attention_paged_bitwise_dense(cuda, G, KVH, S):
     """The serving shapes (3 members x 8 slots, G 8 and G 2, 16-row pages)
@@ -369,7 +392,7 @@ PAGED_CASES = [
 
 
 @pytest.mark.parametrize("E", [1, 3])
-@pytest.mark.parametrize("G,hd", [(8, 128), (2, 128), (1, 64)])
+@pytest.mark.parametrize("G,hd", [(8, 128), (2, 128), (1, 64), (5, 128), (6, 64), (12, 128)])
 @pytest.mark.parametrize("case", PAGED_CASES, ids=lambda c: f"ps={c['ps']}-cur={c['cur']}-w={c['window']}")
 def test_decode_attention_paged(cuda, case, G, hd, E):
     """Shuffled tables, -1 entries past and inside cur_len, member planes
@@ -616,7 +639,9 @@ def test_graph_set_replays_read_new_inputs_and_count_launches(cuda):
 
 
 @pytest.mark.parametrize("arch,paged", [("qwen2.5-3b", True), ("qwen2.5-3b", False),
-                                        ("zamba2-2.7b", False), ("rwkv6-7b", False)])
+                                        ("zamba2-2.7b", False), ("rwkv6-7b", False),
+                                        ("mixtral-8x22b", True), ("llama4-maverick-400b-a17b", True),
+                                        ("mixtral-8x22b", False)])
 def test_graphed_serve_continuous_matches_eager(cuda, arch, paged):
     """A one-tier k=3 cascade at reduced width: the graphed
     ``serve_continuous`` (twice) emits bitwise the eager oracle's tokens

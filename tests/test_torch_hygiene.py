@@ -96,6 +96,53 @@ def test_cpu_call_launches_no_kernel():
     assert kernels.launch_counts() == {n: 0 for n in kernels.launch_counts()}
 
 
+FAMILIES_SCRIPT = r"""
+import sys
+import numpy as np, torch
+from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.core import ensemble as ens
+from repro_torch.models import api
+g = torch.Generator().manual_seed(0)
+for arch in ARCH_IDS:
+    cfg = get_config(arch).reduced()
+    vals = ens.init_ensemble(cfg, 2, g, "cpu")
+    rng = np.random.default_rng(0)
+    if cfg.is_encoder:
+        batch = {"embeds": torch.randn(2, 8, cfg.frontend_dim, generator=g).to(torch.bfloat16)}
+    else:
+        batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 8)).astype(np.int32)}
+        if cfg.n_vision_tokens:
+            batch["embeds"] = torch.randn(2, cfg.n_vision_tokens, cfg.frontend_dim, generator=g).to(torch.bfloat16)
+    assert torch.isfinite(ens.ensemble_last_logits(vals, batch, cfg)).all(), arch
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "repro.")) or m == "repro")
+assert not bad, bad
+print("OK")
+"""
+
+
+def test_subprocess_all_ten_configs_import_no_jax():
+    """Every config module, the MoE block and the frontends run with no JAX
+    and nothing of the JAX package in the process."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", FAMILIES_SCRIPT], env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip().endswith("OK"), out.stderr[-2000:]
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "llama4-maverick-400b-a17b", "internvl2-26b"])
+def test_cpu_call_of_new_families_launches_no_kernel(arch):
+    kernels.reset_launch_counts()
+    toks = np.random.default_rng(0).integers(0, 512, (4, 8)).astype(np.int32)
+    reqs = [Request(tokens=toks[i], max_new_tokens=2) for i in range(3)]
+    cfg = get_config(arch).reduced()  # llama4's interleave needs its 2 layers
+    vals = ens.init_ensemble(cfg, 1, torch.Generator().manual_seed(0), "cpu")
+    server = CascadeServer([CascadeTier(cfg, vals, TierSpec("only", "confidence", -1.0), device="cpu")], device="cpu")
+    server.classify(toks)
+    server.generate(toks, 2)
+    for paged in (True, False):
+        server.serve_continuous(reqs, ServeConfig(n_slots=2, max_seq=32, page_size=8, paged=paged))
+    assert kernels.launch_counts() == {n: 0 for n in kernels.launch_counts()}
+
+
 def test_kernel_library_name_hashes_included_headers(tmp_path, monkeypatch):
     """A library is named by a hash of its source and every csrc header the
     source includes (directly or through a header), so editing a shared
