@@ -48,6 +48,17 @@ Phases, in order; any failure raises and exits non-zero:
    128, and hd 64), dense decode at every cluster size 1-8, paged bitwise
    the dense kernel, flash at mixtral's 4096-row window with S past it;
    each timed (a row under its kernel's ``groups``) with a bound and SDPA.
+   Then training (``check_flash_training``, its own generator): flash's
+   lse output against the plain version's (abs 1e-3) at B 4 x S 1024 with
+   qwen2.5-3b's heads (16, 2) at hd 128, zamba2's hd 80 at G 1, and a window
+   and softcap; dq, dk, dv through the training route (the kernel forward
+   with lse, the plain backward) against autograd of the plain version
+   (normwise 2e-2); the forward timed with and without lse.
+   ``check_ssd_grad`` / ``check_wkv6_grad`` hold the scans' input gradients
+   under autograd (kernel forward, backward by recompute of the plain
+   version) against autograd of the plain versions at reduced shapes, and
+   ``check_inference_only`` that agreement, compaction (its three entries)
+   and both decode kernels raise under grad.
 3. reference — the port on the card (kernels) against the port on the CPU
    (plain versions) with the same bf16 weights at reduced width: prefill and
    decode, paged decode and paged chunked prefill for the dense tiers;
@@ -86,7 +97,18 @@ Phases, in order; any failure raises and exits non-zero:
    (end to end a bf16 difference upstream can move a near tie between
    experts, and the frontends' large projected inputs carry the rounding
    further), prefill == forward on the card, and the MoE configs' paged
-   serve_continuous graphed twice == eager == dense.
+   serve_continuous graphed twice == eager == dense.  Then three train
+   steps of qwen2.5-3b, mixtral-8x22b, zamba2-2.7b, rwkv6-7b, internvl2-26b
+   and hubert-xlarge at reduced width (``check_training_on_card``), card
+   against CPU from the same bf16 weights: each loss within 1e-2, the
+   parameters after the third step at REF_TOL, the first step's grad_norm
+   within 0.25 and its gradient leaf by leaf and over the whole tree within
+   three times the CPU's own bf16-vs-f32 distance (relative L2, at least
+   0.1, below 0.9: a lost or negated gradient fails), three AdamW updates
+   with one gradient equal on both devices up to rounding, the family's
+   kernels launched on the card and none on the CPU, the MoE's aux term
+   positive; and a checkpoint of the card's trained parameters restoring
+   bitwise.
 4. main path — three cascades at published widths, bf16
    weights drawn from ``--seed``, each built after the one before has its
    tensors freed by reference counting alone (the cyclic collector is
@@ -137,7 +159,19 @@ Phases, in order; any failure raises and exits non-zero:
    cascades, the frontends at published width (``frontend_path``):
    hubert-xlarge x3 last logits over 8 x 512 frames and ``member_stats``;
    internvl2-26b with 4 of its 48 layers, a 256-patch + 128-token prefill
-   and 16 decode steps, graphed == eager.
+   and 16 decode steps, graphed == eager.  Last, training (``train_path``):
+   the first-step grad_norm of qwen2.5-3b's 36 layers at d 512 on the card
+   and the CPU, finite and within 3 decades (``deep_gradient_witness``);
+   qwen2.5-3b at published width (36 layers, d 2048, vocab 151936, remat
+   on), one warm-up step and 5 timed steps of 4 x 1024 tokens of
+   ``sequence_task`` (step wall, tokens/s, peak memory, losses; finite
+   losses and 72 flash launches a step: 36 forward, 36 from remat's
+   recompute), then one more forward and backward outside the step (every
+   leaf's gradient finite, the f64 sum of squares past f32's range where
+   grad_norm read inf; device memory by stage); then examples/train_then_cascade.py on the card
+   (``trained_cascade``) at hd 64, calibrated and serving 1024 fresh
+   requests through ``CascadeServer``.  Its launches join the kernels line
+   under ``train/`` runs (``train_launches``).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -3243,6 +3277,656 @@ def serve_continuous_run(server, reqs, cfg, name, run, need, *, outputs=None, tr
     return result
 
 
+# ---------------------------------------------------------------------------
+# training: phase 2 (flash lse and gradients, the scans under autograd, the
+# inference-only kernels), phase 3 (train steps card vs CPU), phase 4 (full
+# width steps and the trained cascade)
+# ---------------------------------------------------------------------------
+
+LSE_TOL = 1e-3  # abs, natural-log units: the kernel's ex2.approx sums against exp in f32
+GRAD_TOL = 2e-2  # normwise, bf16 gradients (inputs and outputs rounded to bf16)
+# the training shapes of flash: B 4 x S 1024 at qwen2.5-3b's (16, 2) heads of
+# hd 128; zamba2-2.7b's shared attention (32 heads of hd 80, G 1); a window
+# and a softcap at qwen's heads
+FLASH_TRAIN_CASES = {
+    "qwen2.5-3b": dict(shape=(4, 1024, 16, 2, 128), causal=True),
+    "zamba2-2.7b": dict(shape=(4, 1024, 32, 32, 80), causal=True),
+    "window_softcap": dict(shape=(4, 1024, 16, 2, 128), causal=True, window=256, softcap=30.0),
+}
+
+
+def grads_of(fn, inputs, weights):
+    """Gradients of sum(output_i * weight_i) over fn's outputs with respect
+    to ``inputs`` (fresh leaves, so each call starts from nothing)."""
+    leaves = [None if t is None else t.detach().clone().requires_grad_(True) for t in inputs]
+    outs = fn(*leaves)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    sum(((o.float() * w).sum() for o, w in zip(outs, weights)), torch.zeros((), device=outs[0].device)).backward()
+    return [None if t is None else t.grad for t in leaves]
+
+
+def check_flash_training(dev, g):
+    """The flash kernel's lse output against the plain version's at the
+    training shapes (out abs FLASH_TOL, lse abs LSE_TOL), and dq, dk, dv
+    through the training route (``FlashAttention``: the kernel forward with
+    lse, the plain backward) against autograd of the plain version
+    (normwise GRAD_TOL); the forward timed with and without lse, and the
+    plain backward."""
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention import ops
+
+    mk = lambda *s: torch.randn(*s, device=dev, generator=g).to(torch.bfloat16)
+    out = {}
+    for name, case in FLASH_TRAIN_CASES.items():
+        B, S, H, KVH, hd = case["shape"]
+        kw = dict(causal=case["causal"], window=case.get("window"), softcap=case.get("softcap"))
+        q, k, v, do = mk(B, S, H, hd), mk(B, S, KVH, hd), mk(B, S, KVH, hd), mk(B, S, H, hd)
+        o, lse = ops._flash_cuda(q, k, v, starts=None, return_lse=True, **kw)
+        po, plse = ops.flash_attention_plain(q, k, v, return_lse=True, **kw)
+        e_out, e_lse = (o.float() - po.float()).abs().max().item(), (lse - plse).abs().max().item()
+        require(e_out <= FLASH_TOL, f"flash {name}: out err {e_out} > {FLASH_TOL} with lse")
+        require(e_lse <= LSE_TOL, f"flash {name}: lse err {e_lse} > {LSE_TOL}")
+        before = kernels.launch_counts()["flash_attention"]
+        got = grads_of(lambda q, k, v: ops.flash_attention(q, k, v, **kw), (q, k, v), (do,))
+        require(kernels.launch_counts()["flash_attention"] == before + 1, f"flash {name}: the training route "
+                                                                          "did not launch the kernel once")
+        ref = grads_of(lambda q, k, v: ops.flash_attention_plain(q, k, v, **kw), (q, k, v), (do,))
+        errs = {n: normwise_err(a, b) for n, a, b in zip(("dq", "dk", "dv"), got, ref)}
+        for n, e in errs.items():
+            require(math.isfinite(e) and e <= GRAD_TOL, f"flash {name}: {n} normwise err {e} > {GRAD_TOL}")
+        out[name] = dict(shape=list(case["shape"]), window=kw["window"], softcap=kw["softcap"],
+                         out_err=e_out, lse_err=e_lse, grad_normwise_err=errs)
+        del q, k, v, do, o, lse, po, plse, got, ref
+    B, S, H, KVH, hd = FLASH_TRAIN_CASES["qwen2.5-3b"]["shape"]
+    q, k, v, do = mk(B, S, H, hd), mk(B, S, KVH, hd), mk(B, S, KVH, hd), mk(B, S, H, hd)
+    fwd = lambda: ops._flash_cuda(q, k, v, causal=True, window=None, softcap=None, starts=None)
+    fwd_lse = lambda: ops._flash_cuda(q, k, v, causal=True, window=None, softcap=None, starts=None, return_lse=True)
+    o, lse = fwd_lse()
+    out["times"] = dict(
+        shape=[B, S, H, KVH, hd], fwd_ms=time_ms(fwd), fwd_lse_ms=time_ms(fwd_lse),
+        fwd_device_ms=device_ms(fwd), fwd_lse_device_ms=device_ms(fwd_lse),
+        bwd_plain_ms=time_ms(lambda: ops.flash_attention_bwd(q, k, v, o, lse, do, causal=True), iters=5),
+    )
+    return out
+
+
+def check_scan_grad(name, fn, plain, inputs, weights, launch_name):
+    """Input gradients of the wrapped scan (kernel forward, backward by
+    recompute of the plain version) against autograd of the plain version,
+    normwise GRAD_TOL; the kernel launches once in the forward.  Also the
+    times of the kernel forward, of the wrapped forward + backward and of
+    the plain forward + backward."""
+    from repro_torch import kernels
+
+    before = kernels.launch_counts()[launch_name]
+    got = grads_of(fn, inputs, weights)
+    require(kernels.launch_counts()[launch_name] == before + 1, f"{name}: the training route did not launch "
+                                                                "the kernel once")
+    ref = grads_of(plain, inputs, weights)
+    errs = {}
+    for i, (a, b) in enumerate(zip(got, ref)):
+        if b is None:
+            continue
+        e = normwise_err(a, b)
+        require(math.isfinite(e) and e <= GRAD_TOL, f"{name}: grad of input {i} normwise err {e} > {GRAD_TOL}")
+        errs[i] = e
+    with torch.no_grad():
+        fwd_ms = time_ms(lambda: fn(*inputs))
+    return dict(grad_normwise_err=errs, fwd_ms=fwd_ms,
+                fwd_bwd_ms=time_ms(lambda: grads_of(fn, inputs, weights), iters=5),
+                plain_fwd_bwd_ms=time_ms(lambda: grads_of(plain, inputs, weights), iters=5))
+
+
+def check_ssd_grad(dev, g):
+    """``ssd`` under autograd on the card at a reduced zamba2-like shape (8
+    heads of P 64, N 64, G 1, ragged S 200, an initial state, per-member A):
+    the output and the final state both feed the loss."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.mamba2_ssd import ops
+
+    B, S, H, P, G, N, E = 4, 200, 8, 64, 1, 64, 2
+    rn = lambda *s: torch.randn(*s, device=dev, generator=g)
+    x = rn(B, S, H, P).to(torch.bfloat16)
+    Bm, Cm = rn(B, S, G, N).mul(0.5).to(torch.bfloat16), rn(B, S, G, N).mul(0.5).to(torch.bfloat16)
+    dt, A = F.softplus(rn(B, S, H) - 2.0), -torch.exp(rn(E, H) * 0.3)
+    s0 = rn(B, H, N, P).mul(0.2)
+    wy, ws = rn(B, S, H, P), rn(B, H, N, P)
+    fn = lambda x, dt, A, Bm, Cm, s0: ops.ssd(x, dt, A, Bm, Cm, initial_state=s0, return_final_state=True)
+    plain = lambda x, dt, A, Bm, Cm, s0: ops.ssd_plain(x, dt, A, Bm, Cm, initial_state=s0)
+    return dict(name="mamba2_ssd", shape={"x": [B, S, H, P], "B": [B, S, G, N], "E": E},
+                **check_scan_grad("ssd grad", fn, plain, (x, dt, A, Bm, Cm, s0), (wy, ws), "mamba2_ssd"))
+
+
+def check_wkv6_grad(dev, g):
+    """``wkv6`` under autograd on the card at a reduced rwkv6-like shape (8
+    heads of D 64, ragged S 77, an initial state, per-member u)."""
+    from repro_torch.kernels.rwkv6_wkv import ops
+
+    B, S, H, D, E = 4, 77, 8, 64, 2
+    rn = lambda *s: torch.randn(*s, device=dev, generator=g)
+    r, k, v = (rn(B, S, H, D).to(torch.bfloat16) for _ in range(3))
+    logw, u, s0 = -torch.exp(rn(B, S, H, D) * 0.5), rn(E, H, D).mul(0.5), rn(B, H, D, D).mul(0.1)
+    wy, ws = rn(B, S, H, D), rn(B, H, D, D)
+    fn = lambda r, k, v, logw, u, s0: ops.wkv6(r, k, v, logw, u, initial_state=s0, return_final_state=True)
+    plain = lambda r, k, v, logw, u, s0: ops.wkv6_plain(r, k, v, logw, u, initial_state=s0)
+    return dict(name="rwkv6_wkv", shape={"r": [B, S, H, D], "E": E},
+                **check_scan_grad("wkv6 grad", fn, plain, (r, k, v, logw, u, s0), (wy, ws), "rwkv6_wkv"))
+
+
+def check_inference_only(dev):
+    """Every kernel with no training route refuses a CUDA input that
+    requires grad under grad mode, naming its op (and runs under no_grad)."""
+    from repro_torch.kernels.agreement import ops as agree
+    from repro_torch.kernels.compaction import ops as compaction
+    from repro_torch.kernels.decode_attention import ops as dec
+
+    bf = dict(device=dev, dtype=torch.bfloat16)
+    logits = torch.randn(3, 4, 512, device=dev, requires_grad=True)
+    rows = torch.randn(8, 16, device=dev, requires_grad=True)
+    mask = torch.arange(8, device=dev) % 2 == 0
+    imap = torch.arange(8, device=dev, dtype=torch.int32)
+    q = torch.randn(4, 1, 8, 64, **bf).requires_grad_(True)
+    kc, vc = torch.randn(4, 2, 32, 64, **bf), torch.randn(4, 2, 32, 64, **bf)
+    kp, vp = torch.randn(1, 8, 2, 16, 64, **bf), torch.randn(1, 8, 2, 16, 64, **bf)
+    pages = torch.arange(8, device=dev, dtype=torch.int32).reshape(4, 2)
+    cur = torch.full((4,), 20, device=dev, dtype=torch.int32)
+    calls = {
+        "member_stats": lambda: agree.member_stats(logits),
+        "compact": lambda: compaction.compact(rows, mask),
+        "gather_rows": lambda: compaction.gather_rows(rows, imap),
+        "paged_kv_view": lambda: compaction.paged_kv_view(kp.requires_grad_(True), vp, pages),
+        "decode_attention": lambda: dec.decode_attention_bksd(q, kc, vc, cur_len=20),
+        "decode_attention_paged": lambda: dec.decode_attention_paged(q, kp, vp, pages, cur),
+    }
+    for op, call in calls.items():
+        try:
+            call()
+        except RuntimeError as e:
+            require(f"{op}:" in str(e), f"{op}: raised under grad without naming the op: {e}")
+        else:
+            raise AssertionError(f"{op}: an inference-only kernel ran under grad")
+        with torch.no_grad():
+            call()
+    return sorted(calls)
+
+
+def flat(tree):
+    """Every leaf of a parameter tree as one f32 vector on the host."""
+    from repro_torch.models.params import tree_leaves
+
+    return torch.cat([t.detach().float().cpu().reshape(-1) for t in tree_leaves(tree)])
+
+
+TRAIN_ARCHS = ("qwen2.5-3b", "mixtral-8x22b", "zamba2-2.7b", "rwkv6-7b", "internvl2-26b", "hubert-xlarge")
+TRAIN_STEPS_REF = 3
+TRAIN_LOSS_TOL = 1e-2  # relative, each step's loss card vs CPU (the forward in bf16)
+GRAD_NORM_TOL = 0.25  # relative, the first step's grad_norm card vs CPU
+# The first step's gradient, card vs CPU, leaf by leaf in relative L2
+# (||g_card - g_cpu|| / ||g_cpu||): at most GRAD_FACTOR times that leaf's
+# distance between the CPU's own bf16 and f32 gradients (how far rounding
+# alone moves it), at least GRAD_FLOOR and never GRAD_CAP or more, so a
+# leaf whose gradient is lost (1.0) or negated (2.0) always fails.  Two
+# correct bf16 implementations read up to 1.9 times that distance apart:
+# the JAX package's against the port's on the CPU, zamba2's Mamba leaves
+# (tests/test_torch_train.py::test_bf16_gradients_within_rounding_of_jax,
+# which holds them to the same rule).
+GRAD_FACTOR, GRAD_FLOOR, GRAD_CAP = 3.0, 0.1, 0.9
+
+
+def rel_l2(got, ref):
+    """||got - ref|| / ||ref|| in f64 on the host (0 where both are 0)."""
+    got, ref = got.detach().double().cpu(), ref.detach().double().cpu()
+    den = ref.norm().item()
+    return (got - ref).norm().item() / den if den else float((got != 0).any())
+
+
+def grad_bound(d_rounding):
+    return min(GRAD_CAP, max(GRAD_FLOOR, GRAD_FACTOR * d_rounding))
+
+
+def first_step_grads(host, cfg, batch, where, f32=False):
+    """Every leaf's gradient of ``loss_fn`` at the weights ``host``, on the
+    device ``where`` (in f32 where asked), in tree order."""
+    from repro_torch.bridge import params_from_numpy
+    from repro_torch.models import api
+    from repro_torch.models.params import tree_leaves, tree_map
+
+    c = dataclasses.replace(cfg, dtype="float32") if f32 else cfg
+    p = tree_map(lambda t: (t.float() if f32 else t).requires_grad_(True), params_from_numpy(host, c, device=where))
+    loss, _ = api.loss_fn(p, batch, c)
+    leaves = tree_leaves(p)
+    g = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return [torch.zeros_like(t) if x is None else x.detach() for x, t in zip(g, leaves)], [x is None for x in g]
+
+
+def check_adamw_on_card(host, cfg, grads, dev):
+    """Three AdamW updates (the default config, clip on) from the same bf16
+    weights with the same gradient, on the card and on the CPU: the f32
+    moments within 1e-5 normwise of each other, the grad_norm metric within
+    1e-5, and every bf16 weight within one unit in the last place (both
+    round the same f32 value; a tie can round either way)."""
+    from repro_torch.bridge import params_from_numpy
+    from repro_torch.models.params import tree_leaves, tree_unflatten
+    from repro_torch.optim import OptimConfig, adamw_init, adamw_update
+
+    ocfg = OptimConfig(lr=3e-4)
+    out = {}
+    for where in ("cpu", dev):
+        params = params_from_numpy(host, cfg, device=where)
+        state = adamw_init(params, ocfg)
+        g = tree_unflatten(params, [x.to(where) for x in grads])
+        for _ in range(3):
+            params, state, m = adamw_update(g, state, params, ocfg)
+        out[str(where)] = ([tree_leaves(params), tree_leaves(state["m"]), tree_leaves(state["v"])], float(m["grad_norm"]))
+    (cpu, gn_cpu), (card, gn_card) = out["cpu"], out[str(dev)]
+    errs = {"grad_norm": abs(gn_card - gn_cpu) / gn_cpu}
+    require(errs["grad_norm"] <= 1e-5, f"AdamW grad_norm card {gn_card} vs cpu {gn_cpu}")
+    for name, a, b in (("m", card[1], cpu[1]), ("v", card[2], cpu[2])):
+        errs[name] = max(normwise_err(x.cpu(), y) if y.abs().max() > 0 else float((x != 0).any()) for x, y in zip(a, b))
+        require(errs[name] <= 1e-5, f"AdamW {name} card vs cpu normwise {errs[name]} > 1e-5")
+    ulp = [((x.cpu().float() - y.float()).abs() > 2.0**-7 * torch.maximum(x.cpu().float().abs(), y.float().abs())).sum().item()
+           for x, y in zip(card[0], cpu[0])]
+    require(not any(ulp), f"AdamW: bf16 weights card vs cpu more than one ulp apart at {ulp} elements a leaf")
+    errs["params_differing"] = sum(int((x.cpu() != y).sum()) for x, y in zip(card[0], cpu[0]))
+    return errs
+
+
+def train_batch(cfg, rng, B, S):
+    """A numpy batch for ``loss_fn``: tokens and next-token targets (the
+    encoder: frames in place of tokens; the VLM: its patches before them)."""
+    if cfg.is_encoder:
+        return {"embeds": rng.standard_normal((B, S, cfg.frontend_dim)).astype(np.float32),
+                "targets": rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)}
+    rows = rng.integers(0, cfg.vocab_size, (B, S + 1)).astype(np.int32)
+    batch = {"tokens": rows[:, :-1], "targets": rows[:, 1:], "mask": np.ones((B, S), np.float32)}
+    if cfg.n_vision_tokens:
+        batch["embeds"] = rng.standard_normal((B, cfg.n_vision_tokens, cfg.frontend_dim)).astype(np.float32)
+    return batch
+
+
+def check_training_on_card(dev, seed):
+    """Three train steps of each of ``TRAIN_ARCHS`` at reduced width, card
+    against CPU from the same bf16 weights (carried by ``bridge``) on the
+    same batches: each step's loss at TRAIN_LOSS_TOL, the parameters after
+    the last step normwise at REF_TOL; on the card the flash kernel (and the
+    scans, for the state families) launched, on the CPU no kernel.  The
+    gradient itself at the first weights: grad_norm at GRAD_NORM_TOL, every
+    leaf and the whole tree within ``grad_bound`` of the CPU's (relative
+    L2).  Three AdamW updates with one gradient, card against CPU
+    (``check_adamw_on_card``).  Then a checkpoint of the card's trained
+    parameters restores bitwise on the card.
+
+    After the first step the two devices' weights part (AdamW's first
+    updates are about lr * sign(g), and a random reduced model's gradient
+    moves with rounding: bf16 against f32 on an H100 host's CPU 0.025 to
+    1.92 in relative L2 over the tree), so later steps' gradients are read,
+    not held."""
+    import tempfile
+
+    from repro_torch import kernels
+    from repro_torch.bridge import params_from_numpy, params_to_numpy
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.optim import OptimConfig
+    from repro_torch.train import init_train_state, make_train_step
+
+    out = {}
+    for arch in TRAIN_ARCHS:
+        cfg = get_config(arch).reduced()
+        host = params_to_numpy(api.init_params(cfg, torch.Generator().manual_seed(seed), "cpu"))
+        rng = np.random.default_rng(seed + 5)
+        batches = [train_batch(cfg, rng, 2, 64) for _ in range(TRAIN_STEPS_REF)]
+        ocfg = OptimConfig(lr=3e-4)
+        runs = {}
+        for where in ("cpu", dev):
+            params = params_from_numpy(host, cfg, device=where)
+            state = init_train_state(params, ocfg)
+            step = make_train_step(cfg, ocfg, total_steps=10, warmup_steps=1)
+            kernels.reset_launch_counts()
+            hist = []
+            for b in batches:
+                state, m = step(state, b)
+                hist.append({k: float(m[k]) for k in ("loss", "grad_norm", "aux")})
+            runs[str(where)] = (state, hist, kernels.launch_counts())
+        (cpu_state, cpu_hist, cpu_counts), (card_state, card_hist, card_counts) = runs["cpu"], runs[str(dev)]
+        require(all(n == 0 for n in cpu_counts.values()), f"{arch}: the CPU train step launched {cpu_counts}")
+        used = ["flash_attention"] if cfg.family not in ("ssm_rwkv6",) else []
+        used += {"hybrid": ["mamba2_ssd"], "ssm_mamba2": ["mamba2_ssd"], "ssm_rwkv6": ["rwkv6_wkv"]}.get(cfg.family, [])
+        for n in used:
+            require(card_counts[n] > 0, f"{arch}: the card's train step never launched {n}")
+        require(all(card_counts[n] == 0 for n in card_counts if n not in used),
+                f"{arch}: the card's train step launched an inference kernel: {card_counts}")
+        errs = {}
+        errs["loss"] = [abs(c["loss"] - a["loss"]) / abs(a["loss"]) for c, a in zip(card_hist, cpu_hist)]
+        require(max(errs["loss"]) <= TRAIN_LOSS_TOL, f"{arch}: train losses card vs cpu {errs['loss']} > {TRAIN_LOSS_TOL}")
+        errs["grad_norm"] = [abs(c["grad_norm"] - a["grad_norm"]) / abs(a["grad_norm"]) for c, a in zip(card_hist, cpu_hist)]
+        require(errs["grad_norm"][0] <= GRAD_NORM_TOL,
+                f"{arch}: first step's grad_norm card vs cpu {errs['grad_norm'][0]} > {GRAD_NORM_TOL}")
+        errs["params"] = normwise(flat(card_state.params), flat(cpu_state.params),
+                                  f"{arch} params after {TRAIN_STEPS_REF} steps card vs cpu")
+        # the first step's gradient leaf by leaf, against the CPU's bf16 and,
+        # for the yardstick of rounding, the CPU's f32 of the same weights
+        g_cpu, unused_cpu = first_step_grads(host, cfg, batches[0], "cpu")
+        g_card, unused_card = first_step_grads(host, cfg, batches[0], dev)
+        g_f32, _ = first_step_grads(host, cfg, batches[0], "cpu", f32=True)
+        require(unused_card == unused_cpu, f"{arch}: leaves without a gradient card {unused_card} vs cpu {unused_cpu}")
+        leaf, bound, rounding = [], [], []
+        for c, a, f in zip(g_card, g_cpu, g_f32):
+            leaf.append(rel_l2(c, a))
+            rounding.append(rel_l2(a, f))
+            bound.append(grad_bound(rounding[-1]))
+        bad = [(i, round(e, 4), round(t, 4)) for i, (e, t) in enumerate(zip(leaf, bound)) if not e <= t]
+        require(not bad, f"{arch}: first-step gradient card vs cpu (leaf, rel L2, bound) {bad}")
+        cat = lambda gs: torch.cat([x.double().cpu().reshape(-1) for x in gs])
+        tree, tree_rounding = rel_l2(cat(g_card), cat(g_cpu)), rel_l2(cat(g_cpu), cat(g_f32))
+        require(tree <= grad_bound(tree_rounding), f"{arch}: first-step gradient card vs cpu, whole tree, rel L2 "
+                                                   f"{tree} > {grad_bound(tree_rounding)}")
+        errs.update(grad_leaf_rel_l2=leaf, grad_leaf_bound=bound, grad_leaf_rounding=rounding, grad_tree_rel_l2=tree,
+                    grad_tree_bound=grad_bound(tree_rounding), grad_tree_rounding=tree_rounding)
+        errs["adamw"] = check_adamw_on_card(host, cfg, g_card, dev)
+        if cfg.family == "moe":
+            require(all(h["aux"] > 0 for h in card_hist), f"{arch}: the MoE's aux term is {card_hist}")
+        log(f"  [train {arch}] losses {max(errs['loss']):.2e}, grad_norm {errs['grad_norm'][0]:.3f} (bound "
+            f"{GRAD_NORM_TOL}); gradient rel L2 tree {tree:.4f} (bound {grad_bound(tree_rounding):.3f}), worst leaf "
+            f"{max(leaf):.4f}; AdamW m {errs['adamw']['m']:.1e} v {errs['adamw']['v']:.1e}")
+        out[arch] = dict(normwise_err=errs, card=card_hist, cpu=cpu_hist,
+                         card_launches={n: card_counts[n] for n in used})
+    with tempfile.TemporaryDirectory(dir=str(Path(__file__).resolve().parent / "build")) as d:
+        save_checkpoint(d, TRAIN_STEPS_REF, card_state.params)
+        back = restore_checkpoint(d, card_state.params)
+        same = all(a.dtype == b.dtype and a.device == b.device and torch.equal(a, b)
+                   for a, b in zip(tree_leaves(card_state.params), tree_leaves(back)))
+    require(same, f"{arch}: a checkpoint of the card's parameters does not restore bitwise")
+    out["checkpoint_roundtrip_bitwise"] = same
+    return out
+
+
+# phase 4 (a): qwen2.5-3b at published width, remat on
+TRAIN_FULL = dict(arch="qwen2.5-3b", batch=4, seq=1024, warmup_steps=1, steps=5)
+# phase 4 (b): examples/train_then_cascade.py's task, steps and lr at hd 64
+CASCADE_TASK = dict(vocab=256, n_classes=16, seq_len=32, easy_frac=0.6, seed=0)
+
+
+DEEP_WITNESS = dict(n_layers=36, d_model=512, d_ff=1024, n_heads=8)  # qwen2.5-3b's depth at a width both devices run
+DEEP_DECADES = 3.0  # |log10(card / cpu)| of its grad_norm
+
+
+def deep_gradient_witness(dev, seed):
+    """The gradient's growth with depth under the reference's init, at
+    qwen2.5-3b's 36 layers and d 512 (``DEEP_WITNESS``; reduced vocabulary):
+    the first step's grad_norm on the card and on the CPU from the same bf16
+    weights, each from the f64 sum of every leaf's squares.  Both must be
+    finite and within DEEP_DECADES decades of each other: each layer
+    amplifies rounding, so at this depth the two devices agree in size, not
+    in value (an H100 and its host's CPU read 1.4 decades apart)."""
+    from repro_torch.bridge import params_to_numpy
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+
+    cfg = dataclasses.replace(get_config("qwen2.5-3b").reduced(), **DEEP_WITNESS)
+    host = params_to_numpy(api.init_params(cfg, torch.Generator().manual_seed(seed), "cpu"))
+    batch = train_batch(cfg, np.random.default_rng(seed + 5), 2, 64)
+    norms = {}
+    for where in ("cpu", dev):
+        g, _ = first_step_grads(host, cfg, batch, where)
+        norms[str(where)] = math.sqrt(sum(x.double().square().sum().item() for x in g))
+    card, cpu = norms[str(dev)], norms["cpu"]
+    require(math.isfinite(card) and math.isfinite(cpu) and card > 0 and cpu > 0, f"deep witness grad_norm {norms}")
+    decades = abs(math.log10(card / cpu))
+    require(decades <= DEEP_DECADES, f"deep witness: grad_norm card {card:.4g} vs cpu {cpu:.4g}, {decades:.2f} decades")
+    log(f"  [train deep witness] {cfg.n_layers} layers, d {cfg.d_model}: grad_norm card {card:.4g}, cpu {cpu:.4g}")
+    return dict(config=DEEP_WITNESS, grad_norm_card=card, grad_norm_cpu=cpu, decades=decades)
+
+
+def train_full_width(dev, seed):
+    """``TRAIN_FULL``: one warm-up step, then timed steps of B x S tokens of
+    ``sequence_task``; finite losses and 2 flash launches a layer a step (the
+    forward and remat's recompute).  The init rule is the JAX package's
+    (std 1/sqrt(fan_in), no scaling by depth), under which the gradient grows
+    with depth: at 36 layers its global norm overflows f32, the clip's scale
+    is 0 and a step applies weight decay alone, so the losses stay level.
+    The step's work is the same.  After the timed steps one more forward
+    and backward, outside the step, shows what overflows: every leaf's
+    gradient finite, each leaf's sum of squares in f64, and the f64 total
+    above f32's range wherever the step's grad_norm was inf.  It also
+    splits the peak memory by stage: weights, moments, the forward's
+    saved activations, the backward and the AdamW update."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenDataset, batches, sequence_task, to_device
+    from repro_torch.models import api
+    from repro_torch.models.params import tree_leaves, tree_unflatten
+    from repro_torch.optim import OptimConfig, adamw_update
+    from repro_torch.train import init_train_state, make_train_step
+
+    c = TRAIN_FULL
+    cfg = get_config(c["arch"])
+    require(cfg.remat, f"{cfg.name}: remat off")
+    n_steps = c["warmup_steps"] + c["steps"]
+    rows = sequence_task(c["batch"] * n_steps, c["seq"], vocab=min(cfg.vocab_size, 512), seed=seed)
+    it = batches(TokenDataset(rows), c["batch"], seed=seed)
+    gib = lambda: torch.cuda.memory_allocated() / 2**30
+    mem = {}
+    torch.cuda.reset_peak_memory_stats()
+    params = api.init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    mem["weights"] = gib()
+    ocfg = OptimConfig(lr=3e-4)
+    state = init_train_state(params, ocfg)
+    del params
+    mem["weights_and_moments"] = gib()
+    step = make_train_step(cfg, ocfg, total_steps=n_steps, warmup_steps=1)
+    walls, losses, grad_norms, per_step = [], [], [], []
+    counts = collections.Counter()
+    for i in range(n_steps):
+        b = to_device(next(it), dev)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        n = kernels.launch_counts()
+        per_step.append(n["flash_attention"])
+        if i >= c["warmup_steps"]:
+            counts.update(n)
+        grad_norms.append(float(m["grad_norm"]))
+        log(f"  [train {cfg.name}] step {i + 1}: loss {losses[-1]:.4f} grad_norm {grad_norms[-1]:.4g} "
+            f"wall {walls[-1]:.3f}s flash launches {n['flash_attention']}")
+    timed = walls[c["warmup_steps"]:]
+    mem["step_peak"] = torch.cuda.max_memory_allocated() / 2**30
+    require(all(math.isfinite(x) for x in losses), f"train {cfg.name}: losses {losses}")
+    require(all(n == 2 * cfg.n_layers for n in per_step), f"train {cfg.name}: flash launches a step {per_step}, "
+                                                          f"not {2 * cfg.n_layers}")
+
+    # the step's stages again, outside the step, on the next batch (the second epoch's first)
+    b = to_device(next(it), dev)
+    del m
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(state.params)]
+    with torch.enable_grad():
+        loss, _ = api.loss_fn(tree_unflatten(state.params, leaves), b, cfg)
+        mem["after_forward"], mem["forward_peak"] = gib(), torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, leaves)]
+    del loss, leaves
+    mem["after_backward"], mem["backward_peak"] = gib(), torch.cuda.max_memory_allocated() / 2**30
+    finite = [bool(torch.isfinite(g).all()) for g in grads]
+    sq64 = [g.double().square().sum().item() for g in grads]
+    sq32_inf = sum(not math.isfinite(g.float().square().sum().item()) for g in grads)
+    total64 = sum(sq64)
+    f32_max = float(torch.finfo(torch.float32).max)
+    require(all(finite), f"train {cfg.name}: leaves {[i for i, f in enumerate(finite) if not f]} have a "
+                         f"non-finite gradient")
+    require(math.isfinite(total64), f"train {cfg.name}: f64 sum of squares {total64}")
+    require(all(math.isfinite(x) for x in grad_norms) or total64 > f32_max,
+            f"train {cfg.name}: grad_norm {grad_norms} inf while the f64 sum of squares {total64:.4g} fits f32")
+    torch.cuda.reset_peak_memory_stats()
+    adamw_update(tree_unflatten(state.params, grads), state.opt, state.params, ocfg)
+    torch.cuda.synchronize()
+    mem["optimizer_peak"] = torch.cuda.max_memory_allocated() / 2**30
+    del grads
+    big = max(range(len(sq64)), key=sq64.__getitem__)
+    overflow = dict(all_leaves_finite=all(finite), f64_grad_norm=math.sqrt(total64),
+                    f64_sum_of_squares=total64, f32_max=f32_max, leaves_f32_sum_of_squares_inf=sq32_inf,
+                    largest_leaf=big, largest_leaf_f64_sum_of_squares=sq64[big])
+    log(f"  [train {cfg.name}] gradient after the steps: every leaf finite, f64 norm {math.sqrt(total64):.4g} "
+        f"(f32 sum of squares overflows past {f32_max:.4g}; {sq32_inf} of {len(sq64)} leaves overflow alone); "
+        f"memory GiB {json.dumps({k: round(v, 2) for k, v in mem.items()})}")
+    tokens = c["batch"] * c["seq"]
+    res = dict(arch=cfg.name, layers=cfg.n_layers, batch=c["batch"], seq=c["seq"], remat=cfg.remat,
+               params=sum(t.numel() for t in tree_leaves(state.params)), losses=losses, grad_norms=grad_norms,
+               step_wall_s=walls,
+               median_step_s=float(np.median(timed)), tokens_per_s=tokens / float(np.median(timed)),
+               peak_memory_gib=mem["step_peak"], memory_gib=mem, flash_launches_per_step=per_step,
+               gradient_overflow=overflow)
+    del state, b
+    return res, dict(counts)
+
+
+def train_classifier(cfg, task, steps, seed, dev, lr=2e-3, batch=64):
+    """examples/train_then_cascade.py's ``train_classifier`` on the card:
+    the label at the last position, the other positions masked out.
+    Returns (params, losses of every step)."""
+    from repro_torch.models import api
+    from repro_torch.optim import OptimConfig
+    from repro_torch.train import init_train_state, make_train_step
+
+    toks, labels, _ = task.sample(4096, seed=seed + 100)
+    ocfg = OptimConfig(lr=lr, weight_decay=0.01)
+    state = init_train_state(api.init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev), ocfg)
+    step = make_train_step(cfg, ocfg, total_steps=steps, warmup_steps=20)
+    rng = np.random.default_rng(seed)
+    mask = np.zeros((batch, task.seq_len), np.float32)
+    mask[:, -1] = 1.0
+    losses = []
+    for _ in range(steps):
+        idx = rng.integers(0, len(toks), batch)
+        tgt = np.zeros((batch, task.seq_len), np.int32)
+        tgt[:, -1] = labels[idx]
+        state, m = step(state, {"tokens": toks[idx], "targets": tgt, "mask": mask})
+        losses.append(m["loss"])
+    return state.params, torch.stack(losses).cpu().numpy()
+
+
+def trained_cascade(dev, seed):
+    """The card counterpart of examples/train_then_cascade.py: three small
+    members (300 steps each) and one big model (600 steps) trained on
+    ``MixtureTask``, theta calibrated on 100 held-out samples (vote rule,
+    epsilon 0.05), then 1024 fresh requests classified through
+    ``CascadeServer`` (tier 1 the k = 3 vote, tier 2 the big model).  The
+    example's widths give head sizes 24 and 40, which the flash kernel does
+    not take (hd 64, 80, 128): the same layer counts run at hd 64 —
+    ``ex-small`` d 128 with 2 heads and d_ff 256, ``ex-big`` d 256 with 4
+    heads and d_ff 512.  Each model's loss must fall (mean of the last 10
+    steps below the first 10's by 1.0); the card's pred and tier_of must
+    equal the port's CPU classify on the same trained weights except at rows
+    a near tie can flip (``unsettled`` members or answers); the selection
+    rate must lie strictly between 0 and 1."""
+    from repro_torch import kernels
+    from repro_torch.configs import ModelConfig
+    from repro_torch.core import calibration, deferral
+    from repro_torch.core import ensemble as ens
+    from repro_torch.core.cascade import TierSpec
+    from repro_torch.data import MixtureTask
+    from repro_torch.models.params import tree_map
+    from repro_torch.serve import CascadeServer, CascadeTier
+
+    small = ModelConfig(name="ex-small", family="dense", n_layers=1, d_model=128, d_ff=256, vocab_size=256,
+                        n_heads=2, n_kv_heads=2, remat=False)
+    big = ModelConfig(name="ex-big", family="dense", n_layers=3, d_model=256, d_ff=512, vocab_size=256,
+                      n_heads=4, n_kv_heads=4, remat=False)
+    task = MixtureTask(**CASCADE_TASK)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    trained = {}
+    for cfg, steps, s in ((small, 300, 0), (small, 300, 1), (small, 300, 2), (big, 600, 7)):
+        params, losses = train_classifier(cfg, task, steps, s, dev)
+        first, last = float(losses[:10].mean()), float(losses[-10:].mean())
+        log(f"  [{cfg.name} seed {s}] {steps} steps: loss first 10 {first:.3f}, last 10 {last:.3f}")
+        require(last < first - 1.0, f"{cfg.name} seed {s}: loss {first:.3f} -> {last:.3f} did not fall by 1.0")
+        trained[s] = (params, first, last)
+    train_s = time.perf_counter() - t0
+    train_counts = kernels.launch_counts()
+    stacked = stack_members([trained[s][0] for s in (0, 1, 2)])
+    big_vals = tree_map(lambda t: t[None], trained[7][0])
+
+    cal_toks, cal_y, _ = task.sample(100, seed=999)
+    out = deferral.vote_rule(ens.ensemble_last_logits(stacked, {"tokens": cal_toks}, small), theta=0.0)
+    theta, info = calibration.estimate_threshold(out.score.float().cpu().numpy(),
+                                                 out.pred.cpu().numpy() == cal_y, epsilon=0.05)
+    test_toks, test_y, easy = task.sample(1024, seed=1234)
+    specs = (TierSpec("small-x3", "vote", theta, k=3, cost=1.0), TierSpec("big", "confidence", -1.0, k=1, cost=25.0))
+    kernels.reset_launch_counts()
+    server = CascadeServer([CascadeTier(small, stacked, specs[0], device=dev),
+                            CascadeTier(big, big_vals, specs[1], device=dev)], device=dev)
+    res = server.classify(test_toks)
+    classify_counts = kernels.launch_counts()
+    for n in ("flash_attention", "agreement"):
+        require(classify_counts[n] > 0, f"trained cascade: classify launched no {n} kernel")
+    with torch.no_grad():
+        big_pred = ens.ensemble_last_logits(big_vals, {"tokens": test_toks}, big)[0].argmax(-1).cpu().numpy()
+    acc_c, acc_b = float((res.pred == test_y).mean()), float((big_pred == test_y).mean())
+    fr = server.tier_fractions(res)
+    sel = res.tier_of == 0
+    require(0.0 < sel.mean() < 1.0, f"trained cascade: selection rate {sel.mean()}")
+
+    # the port's CPU classify of the same trained weights
+    cpu_tiers = [CascadeTier(t.cfg, tree_map(lambda x: x.cpu(), t.values), t.spec, device="cpu") for t in server.tiers]
+    cpu = CascadeServer(cpu_tiers, device="cpu").classify(test_toks)
+    with torch.no_grad():
+        near = unsettled(cpu_tiers[0].last_logits(test_toks, eager=True),
+                         server.tiers[0].last_logits(test_toks, eager=True)).any(0)
+        near |= unsettled(cpu_tiers[1].last_logits(test_toks, eager=True)[0],
+                          server.tiers[1].last_logits(test_toks, eager=True)[0])
+    differ = (res.pred != cpu.pred) | (res.tier_of != cpu.tier_of)
+    require(not (differ & ~near).any(), f"trained cascade: card and CPU classify differ at rows "
+                                        f"{np.flatnonzero(differ & ~near).tolist()}, none a near tie")
+    report = dict(
+        widths={"ex-small": [small.d_model, small.n_heads, small.d_ff], "ex-big": [big.d_model, big.n_heads, big.d_ff]},
+        train_s=train_s, losses={str(s): [v[1], v[2]] for s, v in trained.items()},
+        theta=theta, calibration=info, accuracy_cascade=acc_c, accuracy_big_only=acc_b,
+        tier_fractions=[float(f) for f in fr], cost=float(res.cost), cost_always_large=25.0 * len(test_toks),
+        cost_ratio=25.0 * len(test_toks) / float(res.cost),
+        easy_share_exits=float(easy[sel].mean()), easy_share_deferred=float(easy[~sel].mean()),
+        card_vs_cpu=dict(differ=int(differ.sum()), near_ties=int(near.sum())),
+    )
+    log(f"  [trained cascade] accuracy: cascade {acc_c:.3f} vs big-only {acc_b:.3f}; tier fractions "
+        f"{fr[0]:.2f} / {fr[1]:.2f}; cost {res.cost:.0f} vs always-large {25.0 * len(test_toks):.0f} "
+        f"({report['cost_ratio']:.2f}x cheaper); easy share at exits {report['easy_share_exits']:.2f} vs "
+        f"deferred {report['easy_share_deferred']:.2f}")
+    return report, {"train": dict(train_counts), "classify": dict(classify_counts)}
+
+
+def stack_members(trees):
+    """Single-model trees -> one tree with a leading member axis."""
+    if isinstance(trees[0], dict):
+        return {k: stack_members([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def train_path(dev, seed):
+    """Phase 4's training: ``deep_gradient_witness``, ``train_full_width``,
+    then ``trained_cascade``.  Returns (report, launches by run)."""
+    deep = deep_gradient_witness(dev, seed)
+    full, full_counts = train_full_width(dev, seed)
+    log(f"[train {full['arch']}] {full['batch']} x {full['seq']} tokens, {full['layers']} layers, remat: median "
+        f"step {full['median_step_s']:.3f}s, {full['tokens_per_s']:.0f} tokens/s, peak "
+        f"{full['peak_memory_gib']:.1f} GiB; losses {[round(x, 4) for x in full['losses']]}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    cascade, cascade_counts = trained_cascade(dev, seed)
+    return dict(deep_witness=deep, full_width=full, trained_cascade=cascade), {
+        "full_width": full_counts, "cascade_train": cascade_counts["train"],
+        "cascade_classify": cascade_counts["classify"],
+    }
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3285,6 +3969,18 @@ def main(argv=None):
             c["max_abs_err"] = max(c["max_abs_err"], groups[c["name"]]["max_abs_err"])
             c["groups"] = groups[c["name"]]["groups"]
             log(f"kernel {c['name']} at G 5, 6, 12: {json.dumps(c['groups'])}")
+    # training: flash's lse forward and gradients, the scans under autograd
+    # (generators of their own), and the kernels that refuse grad
+    by_name = {c["name"]: c for c in checks}
+    by_name["flash_attention"]["training"] = check_flash_training(dev, torch.Generator(device=dev).manual_seed(args.seed + 4))
+    g_scan = torch.Generator(device=dev).manual_seed(args.seed + 5)
+    for grad_check in (check_ssd_grad, check_wkv6_grad):
+        r = grad_check(dev, g_scan)
+        by_name[r.pop("name")]["training"] = r
+    for n in ("flash_attention", "mamba2_ssd", "rwkv6_wkv"):
+        log(f"kernel {n} training route: {json.dumps(by_name[n]['training'])}")
+    inference_only = check_inference_only(dev)
+    log(f"inference-only kernels raise under grad: {inference_only}")
     ref = check_reference(dev, args.seed)
     ref.update(check_reference_recurrent(dev, args.seed))
     log(f"reference (card vs cpu, normwise, tol {REF_TOL}): {json.dumps(ref)}")
@@ -3305,6 +4001,9 @@ def main(argv=None):
     ref["families_on_card"] = check_families_on_card(dev, args.seed)
     log(f"moe, vlm, encoder, olmo and command-r on the card vs cpu (tol {REF_TOL}), MoE serve graphed == eager, "
         f"paged == dense: {json.dumps(ref['families_on_card'])}")
+    ref["training_on_card"] = check_training_on_card(dev, args.seed)
+    log(f"train steps card vs cpu (losses, first-step gradient by leaf, AdamW), checkpoint round trip: "
+        f"{json.dumps(ref['training_on_card'])}")
     results, launches = {}, {}
     # each cascade's weights and caches must be freed by reference counting
     # alone when it returns, before the next is built: the cyclic collector
@@ -3327,6 +4026,12 @@ def main(argv=None):
     require(left < 0.25, f"frontends: {left:.2f} GiB of device memory outlived the checks")
     torch.cuda.empty_cache()
     gc.enable()
+    # training last: autograd graphs and checkpointed layers are freed with
+    # the cyclic collector on
+    results["train"], per_run = train_path(dev, args.seed)
+    launches.update({f"train/{run}": c for run, c in per_run.items()})
+    gc.collect()
+    torch.cuda.empty_cache()
 
     sources = {
         "agreement": ("src/repro_torch/csrc/agreement.cu", "src/repro/kernels/agreement/kernel.py:67"),
@@ -3342,6 +4047,7 @@ def main(argv=None):
             "name": c["name"], "route": "cuda", "source": sources[c["name"]][0],
             "replaces": sources[c["name"]][1],
             "launches": sum(launches[m][c["name"]] for m in launches),
+            "train_launches": sum(launches[m][c["name"]] for m in launches if m.startswith("train/")),
             "max_abs_err": c["max_abs_err"], "ms": c["ms"], "plain_ms": c["plain_ms"],
             "bound_ms": c["bound_ms"], "bound_by": c["bound_by"], "library_ms": c["library_ms"],
             "device_ms": c["device_ms"], "library_device_ms": c["library_device_ms"],
@@ -3352,7 +4058,8 @@ def main(argv=None):
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(dict(
-            card=card, build_s=build_s, checks=checks, reference=ref, main_path=results, line=line,
+            card=card, build_s=build_s, checks=checks, inference_only=inference_only, reference=ref,
+            main_path=results, line=line,
         ), indent=1))
     log(card)
     log(json.dumps(line))

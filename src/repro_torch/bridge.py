@@ -8,6 +8,10 @@ unchanged.  bfloat16 leaves go through float32, which every bf16 value
 survives exactly, so the port computes on the very weights the reference
 holds.  Converting JAX arrays to numpy is the caller's job: this module
 never imports JAX.
+
+``params_to_numpy`` is the inverse: a tree of tensors (on any device) as
+numpy leaves, bfloat16 carried exactly through float32 into ``ml_dtypes``
+bfloat16 arrays (the dtype JAX takes and ``params_from_numpy`` reads).
 """
 from __future__ import annotations
 
@@ -61,6 +65,24 @@ def params_from_numpy(tree, cfg: ModelConfig, device=None):
         return _leaf(t, device)
 
     return conv(tree, ())
+
+
+def params_to_numpy(tree):
+    """Nested dict (or list) of tensors -> the same nesting of numpy arrays
+    on the host.  Every bf16 value survives: bf16 -> f32 is exact."""
+    import ml_dtypes
+
+    def conv(t):
+        if isinstance(t, dict):
+            return {k: conv(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return [conv(v) for v in t]
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.float().numpy().astype(ml_dtypes.bfloat16)
+        return t.numpy().copy()
+
+    return conv(tree)
 
 
 def cache_from_numpy(cache, device=None, *, members: bool = True):

@@ -1,3 +1,3 @@
-from repro_torch.configs.base import ARCH_IDS, ModelConfig, get_config
+from repro_torch.configs.base import ARCH_IDS, ModelConfig, ShapeConfig, get_config
 
-__all__ = ["ARCH_IDS", "ModelConfig", "get_config"]
+__all__ = ["ARCH_IDS", "ModelConfig", "ShapeConfig", "get_config"]

@@ -122,6 +122,16 @@ class ModelConfig:
         return replace(self, **changes)
 
 
+@dataclass(frozen=True)
+class ShapeConfig:
+    """An input shape (a copy of the JAX package's ``ShapeConfig``)."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # 'train' | 'prefill' | 'decode'
+
+
 ARCH_IDS = (
     "zamba2-2.7b",
     "internvl2-26b",

@@ -35,6 +35,11 @@
 // K tiles wholly acausal, wholly outside the window or wholly below the row's
 // start are never loaded.  Rows with no visible key (pure left padding) end
 // with l == 0 and emit zeros.  Rows and keys past the end read as zeros.
+// With an lse output (the forward of a training step: its backward
+// recomputes P = exp(s - lse)), each row also writes the log-sum-exp of its
+// scaled (and softcapped) scores in natural-log units, f32 (B, Sq, H), -inf
+// where l == 0; LSE is a template parameter, so the kernel without it (the
+// serving path, lse null) is the same code as before.
 // hd 80 has 160-byte rows: 10 ldmatrix columns of 16 bytes, on the same ring.
 #include "attention_common.cuh"
 
@@ -62,10 +67,10 @@ struct Cfg {
   static constexpr int MINB = Tune<HD>::MINB;  // blocks an SM must hold: caps the registers
 };
 
-template <int HD, bool CAP>
+template <int HD, bool CAP, bool LSE>
 __global__ void __launch_bounds__(Cfg<HD>::NT, Cfg<HD>::MINB)
     flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ o,
+                     const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
                      const int* __restrict__ starts, int Sq, int Sk, int H, int KVH, int causal,
                      int window, float softcap, float scale) {
   using C = Cfg<HD>;
@@ -254,6 +259,14 @@ __global__ void __launch_bounds__(Cfg<HD>::NT, Cfg<HD>::MINB)
       l += __shfl_xor_sync(0xffffffffu, l, 1);
       l += __shfl_xor_sync(0xffffffffu, l, 2);
       const float inv = 1.f / (l == 0.f ? 1.f : l);
+      if constexpr (LSE) {
+        // the running max is in raw-score units (capped, base-2 units with a
+        // softcap): p = 2^(x k - m k), so ln sum exp = ln 2 (m k + log2 l)
+        const int m = m0 + wr + mt * 16 + g + 8 * rr;
+        if (t == 0 && m < n_rows)
+          lse[((long)b * Sq + m / G) * H + kvh * G + m % G] =
+              l == 0.f ? -INFINITY : (m_run[mt][rr] * score.k + __log2f(l)) * 0.6931471805599453f;
+      }
 #pragma unroll
       for (int n = 0; n < HD / 8; ++n)
         *reinterpret_cast<uint32_t*>(os + (mt * 16 + g + 8 * rr) * LD + n * 8 + 2 * t) =
@@ -267,12 +280,12 @@ __global__ void __launch_bounds__(Cfg<HD>::NT, Cfg<HD>::MINB)
   }
 }
 
-template <int HD, bool CAP>
-int launch(const void* q, const void* k, const void* v, void* o, const void* starts, int B, int Sq,
-           int Sk, int H, int KVH, int causal, int window, float softcap, float scale,
+template <int HD, bool CAP, bool LSE>
+int launch(const void* q, const void* k, const void* v, void* o, void* lse, const void* starts, int B,
+           int Sq, int Sk, int H, int KVH, int causal, int window, float softcap, float scale,
            cudaStream_t stream) {
   using C = Cfg<HD>;
-  auto kernel = flash_fwd_kernel<HD, CAP>;
+  auto kernel = flash_fwd_kernel<HD, CAP, LSE>;
   static int attr_set_on = -1;  // the device whose attribute is set: once, not per call
   int dev = 0;
   cudaGetDevice(&dev);
@@ -287,33 +300,42 @@ int launch(const void* q, const void* k, const void* v, void* o, const void* sta
   const long n_rows = (long)Sq * (H / KVH);
   dim3 grid((unsigned)((n_rows + C::BM - 1) / C::BM), KVH, B);
   kernel<<<grid, C::NT, C::bytes, stream>>>((const bf16*)q, (const bf16*)k, (const bf16*)v,
-                                            (bf16*)o, (const int*)starts, Sq, Sk, H, KVH, causal,
+                                            (bf16*)o, (float*)lse, (const int*)starts, Sq, Sk, H, KVH, causal,
                                             window, softcap, scale);
   return (int)cudaGetLastError();
 }
 
-template <int HD>
-int launch_hd(const void* q, const void* k, const void* v, void* o, const void* starts, int B, int Sq,
-              int Sk, int H, int KVH, int causal, int window, float softcap, float scale,
-              cudaStream_t stream) {
+template <int HD, bool LSE>
+int launch_cap(const void* q, const void* k, const void* v, void* o, void* lse, const void* starts, int B,
+               int Sq, int Sk, int H, int KVH, int causal, int window, float softcap, float scale,
+               cudaStream_t stream) {
   return softcap > 0.f
-             ? launch<HD, true>(q, k, v, o, starts, B, Sq, Sk, H, KVH, causal, window, softcap, scale, stream)
-             : launch<HD, false>(q, k, v, o, starts, B, Sq, Sk, H, KVH, causal, window, softcap, scale, stream);
+             ? launch<HD, true, LSE>(q, k, v, o, lse, starts, B, Sq, Sk, H, KVH, causal, window, softcap, scale, stream)
+             : launch<HD, false, LSE>(q, k, v, o, lse, starts, B, Sq, Sk, H, KVH, causal, window, softcap, scale, stream);
+}
+
+template <int HD>
+int launch_hd(const void* q, const void* k, const void* v, void* o, void* lse, const void* starts, int B,
+              int Sq, int Sk, int H, int KVH, int causal, int window, float softcap, float scale,
+              cudaStream_t stream) {
+  return lse ? launch_cap<HD, true>(q, k, v, o, lse, starts, B, Sq, Sk, H, KVH, causal, window, softcap, scale, stream)
+             : launch_cap<HD, false>(q, k, v, o, lse, starts, B, Sq, Sk, H, KVH, causal, window, softcap, scale, stream);
 }
 
 }  // namespace
 
 extern "C" const char* kernel_error_string(int e) { return cudaGetErrorString((cudaError_t)e); }
 
-// window <= 0: no window; softcap <= 0: no softcap; starts may be null.
-extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
+// window <= 0: no window; softcap <= 0: no softcap; starts may be null;
+// lse (f32 (B, Sq, H)) may be null: the kernel without the lse output.
+extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                                    const void* starts, int B, int Sq, int Sk, int H, int KVH,
                                    int hd, int causal, int window, float softcap, float scale,
                                    void* stream) {
   if (B == 0 || Sq == 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
-  if (hd == 128) return launch_hd<128>(q, k, v, o, starts, B, Sq, Sk, H, KVH, causal, window, softcap, scale, s);
-  if (hd == 80) return launch_hd<80>(q, k, v, o, starts, B, Sq, Sk, H, KVH, causal, window, softcap, scale, s);
-  if (hd == 64) return launch_hd<64>(q, k, v, o, starts, B, Sq, Sk, H, KVH, causal, window, softcap, scale, s);
+  if (hd == 128) return launch_hd<128>(q, k, v, o, lse, starts, B, Sq, Sk, H, KVH, causal, window, softcap, scale, s);
+  if (hd == 80) return launch_hd<80>(q, k, v, o, lse, starts, B, Sq, Sk, H, KVH, causal, window, softcap, scale, s);
+  if (hd == 64) return launch_hd<64>(q, k, v, o, lse, starts, B, Sq, Sk, H, KVH, causal, window, softcap, scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -8,7 +8,9 @@ replaces ``src/repro/kernels/agreement/kernel.py`` ``member_stats_pallas``
 and is bound by the E*B*V*4 bytes it reads (each row split over a cluster
 of up to 8 blocks, one launch); on a CPU tensor it runs the plain version
 below.  The O(E^2 B) vote epilogue is plain PyTorch on
-either device, as in the JAX package.
+either device, as in the JAX package.  The kernel is inference-only: on
+a CUDA tensor that requires grad under grad mode it raises
+(``build.inference_only``).
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ def member_stats_plain(logits: torch.Tensor):
 
 
 def _member_stats_cuda(logits: torch.Tensor):
+    build.inference_only("member_stats", logits)
     build.require_cuda(logits, "member_stats logits", (torch.float32,), align=4)
     if logits.ndim != 3:
         raise ValueError(f"member_stats: expected logits (E, B, V), got {tuple(logits.shape)}")

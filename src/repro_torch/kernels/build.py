@@ -48,7 +48,7 @@ SIGNATURES = {
         "compaction_gather": [_P, _I, _P, _I, _P],
         "compaction_paged_kv_view": [_P] * 5 + [_I] * 5 + [_LL, _I, _P],
     },
-    "flash_attention": {"flash_attention_fwd": [_P] * 5 + [_I] * 8 + [_F] * 2 + [_P]},
+    "flash_attention": {"flash_attention_fwd": [_P] * 6 + [_I] * 8 + [_F] * 2 + [_P]},
     "decode_attention": {
         "decode_attention_fwd": [_P] * 5 + [_I, _P] + [_I] * 6 + [_F] * 2 + [_P],
         "decode_attention_paged_fwd": [_P] * 6 + [_I] * 9 + [_F] * 2 + [_P],
@@ -172,6 +172,41 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc} ({lib.kernel_error_string(rc).decode()})")
+
+
+def needs_grad(*tensors) -> bool:
+    """Grad mode is on and some input requires grad: a kernel's output must
+    then carry a ``grad_fn``."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
+def inference_only(op: str, *tensors) -> None:
+    """Refuse a launch whose output autograd would need: a kernel whose
+    output is allocated here and filled through ``ctypes`` carries no
+    ``grad_fn``, so under grad mode a loss through it would leave every
+    upstream weight without a gradient, silently.  The kernels with a
+    training route wrap theirs in a ``torch.autograd.Function``; the others
+    (agreement, compaction, decode) are inference-only and raise here."""
+    if needs_grad(*tensors):
+        raise RuntimeError(
+            f"{op}: inference-only CUDA kernel called on a tensor that requires grad "
+            "(it has no backward); run it under torch.no_grad() or detach its inputs"
+        )
+
+
+def recompute_grads(ctx, plain, saved, grads_out):
+    """Input gradients by recomputing the plain version under autograd:
+    ``saved`` the forward's inputs (None where absent), ``grads_out`` the
+    gradients of its outputs (None where unused)."""
+    inputs = [None if t is None else t.detach().requires_grad_(need)
+              for t, need in zip(saved, ctx.needs_input_grad)]
+    with torch.enable_grad():
+        outs = plain(*inputs)
+    pairs = [(o, g) for o, g in zip(outs, grads_out) if g is not None]
+    want = [t for t in inputs if t is not None and t.requires_grad]
+    got = iter(torch.autograd.grad([o for o, _ in pairs], want, [g for _, g in pairs], allow_unused=True)
+               if pairs and want else [None] * len(want))
+    return tuple(next(got) if t is not None and t.requires_grad else None for t in inputs)
 
 
 def require_cuda(t: torch.Tensor, name: str, dtypes, *, align: int = 16) -> None:

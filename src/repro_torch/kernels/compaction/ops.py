@@ -15,7 +15,9 @@ alone and ``gather_rows`` the copy through a given map.  The copy is
 byte-exact for every dtype, so unlike the JAX package's one-hot f32 matmul
 there is no separate integer route.  ``paged_kv_view`` gathers chunked
 prefill's K and V views of a block-paged pool in one launch of the same
-source.  On CPU tensors the plain versions below run.
+source.  On CPU tensors the plain versions below run.  Every CUDA entry
+is inference-only: a CUDA input that requires grad under grad mode raises
+(``build.inference_only``).
 """
 from __future__ import annotations
 
@@ -124,6 +126,7 @@ def _launches(n_leaves: int) -> int:
 
 
 def _compact_tree_cuda(tree: dict, mask: torch.Tensor):
+    build.inference_only("compact", *tree.values())
     if mask.dtype != torch.bool:
         mask = mask.to(torch.bool)
     if not mask.is_cuda or mask.ndim != 1 or not mask.is_contiguous():
@@ -147,6 +150,7 @@ def _compact_tree_cuda(tree: dict, mask: torch.Tensor):
 
 
 def _gather_rows_cuda(x: torch.Tensor, index_map: torch.Tensor):
+    build.inference_only("gather_rows", x)
     build.require_cuda(index_map, "gather_rows index_map", (torch.int32,), align=4)
     rows = index_map.shape[0]
     if not x.is_cuda or not x.is_contiguous() or x.ndim == 0:
@@ -164,6 +168,7 @@ def _gather_rows_cuda(x: torch.Tensor, index_map: torch.Tensor):
 
 
 def _paged_kv_view_cuda(k_pool: torch.Tensor, v_pool: torch.Tensor, pages: torch.Tensor):
+    build.inference_only("paged_kv_view", k_pool, v_pool)
     kp, vp = member_pool(k_pool), member_pool(v_pool)
     for name, t in (("k_pool", kp), ("v_pool", vp)):
         if not t.is_cuda or not t.is_contiguous():

@@ -21,7 +21,8 @@ attention), which replace ``src/repro/kernels/decode_attention/kernel.py``
 bound by the cache bytes they read.  On a CPU tensor the plain versions
 run — the JAX package's ``_xla_decode_bksd`` and ``_xla_decode_paged``
 (gather each slot's view of exactly ``n_pg * page_size`` rows, then the
-dense sweep).
+dense sweep).  Both kernels are inference-only: a CUDA input that
+requires grad under grad mode raises (``build.inference_only``).
 """
 from __future__ import annotations
 
@@ -70,6 +71,7 @@ def decode_attention_plain(q, k_cache, v_cache, cur_len, *, window=None, softcap
 
 
 def _decode_cuda(q, k_cache, v_cache, cur_len, *, window, softcap, starts):
+    build.inference_only("decode_attention", q, k_cache, v_cache)
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
         build.require_cuda(t, f"decode_attention {name}", (torch.bfloat16,))
     B, _, H, hd = q.shape
@@ -135,6 +137,7 @@ def decode_attention_paged_plain(q, k_pool, v_pool, pages, cur_len, *, window=No
 
 
 def _paged_cuda(q, k_pool, v_pool, pages, cur_len, *, window, softcap):
+    build.inference_only("decode_attention_paged", q, k_pool, v_pool)
     for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
         build.require_cuda(t, f"decode_attention_paged {name}", (torch.bfloat16,))
     # the table and positions must already be on the card: the caller moves

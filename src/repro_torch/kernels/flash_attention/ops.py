@@ -1,4 +1,4 @@
-"""Flash attention (prefill, forward only).
+"""Flash attention (prefill), with the training gradient.
 
 ``flash_attention(q, k, v)`` with q (B, Sq, H, hd) and k, v (B, Sk, KVH,
 hd) — the JAX package's public layout.  Causal masking, sliding window,
@@ -11,6 +11,19 @@ On a CUDA tensor it launches ``csrc/flash_attention.cu`` (bf16, hd in
 its bound is the tensor-core operations for long prompts and the q/k/v/out
 bytes for short ones.  On a CPU tensor the plain version runs — the same
 masked softmax as the JAX package's ``impl='xla'`` path.
+
+Training: when grad mode is on and q, k or v requires grad,
+``flash_attention`` goes through ``FlashAttention`` (a
+``torch.autograd.Function``, the port of the JAX package's ``_flash_diff``
+custom VJP).  Its forward is the kernel with its log-sum-exp output on a
+CUDA tensor (the plain version with ``return_lse`` on a CPU tensor); its
+backward (``flash_attention_bwd``) is plain PyTorch on both devices, the
+port of ``_flash_diff_bwd``: per block of up to 512 queries it recomputes
+P = exp(s - lse), with delta = sum(dO * O), the softcap's 1 - tanh^2 factor
+and the causal and window masks, and accumulates dk and dv across blocks
+(no (Sq, Sk) matrix in either direction).  A backward kernel is later
+work.  ``starts`` (the serving carve-out) is inference-only, as in the
+JAX package, and raises under grad.
 """
 from __future__ import annotations
 
@@ -24,9 +37,25 @@ from repro_torch.kernels import build
 
 _LAUNCHES = build.launch_counter("flash_attention")
 NEG_INF = -1e30
+BWD_BLOCK_Q = 512  # the backward's query block, ``_flash_diff_bwd``'s constant
 
 
-def flash_attention_plain(q, k, v, *, causal=True, window=None, softcap=None, starts=None):
+def _mask(Sq: int, Sk: int, causal: bool, window, device, q0: int = 0):
+    """(rows, Sk) visibility of query positions [q0, q0 + rows)."""
+    rows = q0 + torch.arange(Sq, device=device)[:, None]
+    cols = torch.arange(Sk, device=device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= cols <= rows
+    if window is not None:
+        mask &= (rows - cols) < window
+    return mask
+
+
+def flash_attention_plain(q, k, v, *, causal=True, window=None, softcap=None, starts=None, return_lse=False):
+    """The masked softmax in f32; with ``return_lse`` also each row's
+    log-sum-exp of its scaled (softcapped) scores, f32 (B, Sq, H), the
+    masked scores counted at -1e30 as in the JAX package."""
     B, Sq, H, hd = q.shape
     Sk, KVH = k.shape[1], k.shape[2]
     G = H // KVH
@@ -34,14 +63,9 @@ def flash_attention_plain(q, k, v, *, causal=True, window=None, softcap=None, st
     s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float())
     if softcap is not None:
         s = softcap * torch.tanh(s / softcap)
-    rows = torch.arange(Sq, device=q.device)[:, None]
-    cols = torch.arange(Sk, device=q.device)[None, :]
-    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= cols <= rows
-    if window is not None:
-        mask &= (rows - cols) < window
+    mask = _mask(Sq, Sk, causal, window, q.device)
     if starts is not None:
+        cols = torch.arange(Sk, device=q.device)[None, :]
         maskb = mask[None] & (cols[None] >= starts[:, None, None])  # (B, Sq, Sk)
         s = torch.where(maskb[:, None, None], s, NEG_INF)
     elif causal or window is not None:
@@ -49,11 +73,52 @@ def flash_attention_plain(q, k, v, *, causal=True, window=None, softcap=None, st
     p = torch.softmax(s, -1)
     if starts is not None:
         p = torch.where(maskb[:, None, None], p, 0.0)
-    o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
-    return o.reshape(B, Sq, H, hd).to(q.dtype)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float()).reshape(B, Sq, H, hd).to(q.dtype)
+    if return_lse:
+        return o, torch.logsumexp(s, -1).permute(0, 3, 1, 2).reshape(B, Sq, H)
+    return o
 
 
-def _flash_cuda(q, k, v, *, causal, window, softcap, starts):
+def flash_attention_bwd(q, k, v, out, lse, do, *, causal=True, window=None, softcap=None):
+    """(dq, dk, dv) of the attention output, in q's, k's and v's dtypes:
+    the port of the JAX package's ``_flash_diff_bwd``, plain PyTorch on
+    every device.  Over blocks of ``min(BWD_BLOCK_Q, Sq)`` queries (the last
+    may be shorter) it recomputes P = exp(s - lse) from (q, k, lse) in f32,
+    ds = P (dP - delta) with delta = sum(dO * O) (times 1 - tanh^2 under a
+    softcap), and accumulates dk and dv."""
+    B, Sq, H, hd = q.shape
+    Sk, KVH = k.shape[1], k.shape[2]
+    G = H // KVH
+    scale = 1.0 / math.sqrt(hd)
+    bq_max = min(BWD_BLOCK_Q, Sq)
+    kf, vf = k.float(), v.float()
+    delta = (do.float() * out.float()).sum(-1)  # (B, Sq, H)
+    dq = torch.empty((B, Sq, H, hd), dtype=torch.float32, device=q.device)
+    dk = torch.zeros((B, Sk, KVH, hd), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    for q0 in range(0, Sq, bq_max):
+        bq = min(bq_max, Sq - q0)
+        blk = lambda t: t[:, q0:q0 + bq].float().reshape((B, bq, KVH, G) + tuple(t.shape[3:]))
+        qb, dob = blk(q), blk(do)
+        db, lb = blk(delta).permute(0, 2, 3, 1)[..., None], blk(lse).permute(0, 2, 3, 1)[..., None]
+        s = torch.einsum("bqkgd,bskd->bkgqs", qb * scale, kf)
+        dcap = None
+        if softcap is not None:
+            t = torch.tanh(s / softcap)
+            s, dcap = softcap * t, 1.0 - t.square()
+        if causal or window is not None:
+            s = torch.where(_mask(bq, Sk, causal, window, q.device, q0), s, NEG_INF)
+        p = torch.exp(s - lb)  # (B, KVH, G, bq, Sk)
+        dv += torch.einsum("bkgqs,bqkgd->bskd", p, dob)
+        ds = p * (torch.einsum("bqkgd,bskd->bkgqs", dob, vf) - db)
+        if dcap is not None:
+            ds = ds * dcap
+        dq[:, q0:q0 + bq] = torch.einsum("bkgqs,bskd->bqkgd", ds, kf).reshape(B, bq, H, hd) * scale
+        dk += torch.einsum("bkgqs,bqkgd->bskd", ds, qb) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _flash_cuda(q, k, v, *, causal, window, softcap, starts, return_lse=False):
     for name, t in (("q", q), ("k", k), ("v", v)):
         build.require_cuda(t, f"flash_attention {name}", (torch.bfloat16,))
     B, Sq, H, hd = q.shape
@@ -63,9 +128,11 @@ def _flash_cuda(q, k, v, *, causal, window, softcap, starts):
     if starts is not None:
         starts = starts.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty_like(q)
+    lse = torch.empty((B, Sq, H), dtype=torch.float32, device=q.device) if return_lse else None
     lib = build.library("flash_attention")
     rc = lib.flash_attention_fwd(
         build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(out),
+        ctypes.c_void_p(None if lse is None else lse.data_ptr()),
         ctypes.c_void_p(None if starts is None else starts.data_ptr()),
         ctypes.c_int(B), ctypes.c_int(Sq), ctypes.c_int(Sk), ctypes.c_int(H),
         ctypes.c_int(KVH), ctypes.c_int(hd), ctypes.c_int(int(causal)),
@@ -74,7 +141,29 @@ def _flash_cuda(q, k, v, *, causal, window, softcap, starts):
     )
     build.check(lib, rc, "flash_attention_fwd")
     _LAUNCHES.add(1)
-    return out
+    return (out, lse) if return_lse else out
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention whose backward is ``flash_attention_bwd``: the forward
+    keeps (q, k, v, out, lse), as ``_flash_diff_fwd`` does."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap):
+        if q.device.type == "cpu":
+            out, lse = flash_attention_plain(q, k, v, causal=causal, window=window, softcap=softcap, return_lse=True)
+        else:
+            out, lse = _flash_cuda(q, k, v, causal=causal, window=window, softcap=softcap, starts=None,
+                                   return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.opts = dict(causal=causal, window=window, softcap=softcap)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do, **ctx.opts)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(
@@ -87,6 +176,11 @@ def flash_attention(
     softcap: Optional[float] = None,
     starts: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        if starts is not None:
+            raise RuntimeError("flash_attention: starts (the left-pad carve-out) is inference-only; "
+                               "it has no gradient route")
+        return FlashAttention.apply(q, k, v, causal, window, softcap)
     if q.device.type == "cpu":
         return flash_attention_plain(
             q, k, v, causal=causal, window=window, softcap=softcap, starts=starts

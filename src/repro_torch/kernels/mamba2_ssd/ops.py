@@ -16,6 +16,13 @@ cum_s))·x~, inter-chunk C·e^cum·h and the state update h·e^total +
 (B·e^(total-cum))ᵀ·x~ (every exponent <= 0), and zero padding of a ragged
 last chunk.  ``ssd_step`` (one decode step) is plain PyTorch on every
 device, as in the JAX package.
+
+Training: when grad mode is on and an input requires grad, a CUDA call
+goes through ``SSDFunction`` (a ``torch.autograd.Function``): its forward
+is the kernel; its backward recomputes ``ssd_plain`` on the same inputs
+under autograd and takes ``torch.autograd.grad`` of it — the counterpart
+of XLA differentiating ``_xla_ssd`` in the JAX package.  A backward kernel
+is later work.  On a CPU tensor autograd runs through the plain version.
 """
 from __future__ import annotations
 
@@ -127,6 +134,21 @@ def _ssd_cuda(x, dt, A, Bm, Cm, *, initial_state):
     return y, hT
 
 
+class SSDFunction(torch.autograd.Function):
+    """(y, hT) of the kernel forward, gradients by recompute of ``ssd_plain``."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, initial_state):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, A, Bm, Cm, initial_state)
+        return _ssd_cuda(x, dt, A, Bm, Cm, initial_state=initial_state)
+
+    @staticmethod
+    def backward(ctx, gy, ghT):
+        plain = lambda x, dt, A, Bm, Cm, h0: ssd_plain(x, dt, A, Bm, Cm, initial_state=h0)
+        return build.recompute_grads(ctx, plain, ctx.saved_tensors, (gy, ghT))
+
+
 def ssd(
     x: torch.Tensor,
     dt: torch.Tensor,
@@ -141,6 +163,8 @@ def ssd(
     final (B, H, N, P) f32 state."""
     if x.device.type == "cpu":
         y, hT = ssd_plain(x, dt, A, Bm, Cm, initial_state=initial_state)
+    elif build.needs_grad(x, dt, A, Bm, Cm, initial_state):
+        y, hT = SSDFunction.apply(x, dt, A, Bm, Cm, initial_state)
     else:
         y, hT = _ssd_cuda(x, dt, A, Bm, Cm, initial_state=initial_state)
     return (y, hT) if return_final_state else y

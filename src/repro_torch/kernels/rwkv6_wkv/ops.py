@@ -15,6 +15,14 @@ first.  On a CPU tensor the plain version runs: the JAX package's
 exponent <= 0) and zero padding of a ragged last chunk.  ``wkv6_step`` (one
 decode step) is plain PyTorch on every device, as in the JAX package; the
 models' decode goes through ``wkv6`` at S = 1 instead, as the TPU path does.
+
+Training: when grad mode is on and an input requires grad, a CUDA call
+goes through ``WKV6Function`` (a ``torch.autograd.Function``): its forward
+is the kernel; its backward recomputes ``wkv6_plain`` on the same inputs
+under autograd and takes ``torch.autograd.grad`` of it — the counterpart
+of XLA differentiating ``_xla_wkv6`` in the JAX package.  A backward
+kernel is later work.  On a CPU tensor autograd runs through the plain
+version.
 """
 from __future__ import annotations
 
@@ -107,6 +115,21 @@ def _wkv6_cuda(r, k, v, logw, u, *, initial_state):
     return y, sT
 
 
+class WKV6Function(torch.autograd.Function):
+    """(y, sT) of the kernel forward, gradients by recompute of ``wkv6_plain``."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, logw, u, initial_state):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(r, k, v, logw, u, initial_state)
+        return _wkv6_cuda(r, k, v, logw, u, initial_state=initial_state)
+
+    @staticmethod
+    def backward(ctx, gy, gsT):
+        plain = lambda r, k, v, logw, u, s0: wkv6_plain(r, k, v, logw, u, initial_state=s0)
+        return build.recompute_grads(ctx, plain, ctx.saved_tensors, (gy, gsT))
+
+
 def wkv6(
     r: torch.Tensor,
     k: torch.Tensor,
@@ -121,6 +144,8 @@ def wkv6(
     final (B, H, D, D) f32 state."""
     if r.device.type == "cpu":
         y, sT = wkv6_plain(r, k, v, logw, u, initial_state=initial_state)
+    elif build.needs_grad(r, k, v, logw, u, initial_state):
+        y, sT = WKV6Function.apply(r, k, v, logw, u, initial_state)
     else:
         y, sT = _wkv6_cuda(r, k, v, logw, u, initial_state=initial_state)
     return (y, sT) if return_final_state else y

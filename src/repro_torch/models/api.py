@@ -11,6 +11,13 @@ with one shared attention block applied every ``attn_every`` layers).
     logits, cache = prefill(params, batch, cfg)          # (B, V), caches
     logits, cache = decode_step(params, token, cache, pos, cfg)
     logits = forward_logits(params, batch, cfg)          # (B, S, V)
+    loss, metrics = loss_fn(params, batch, cfg)          # training
+
+``loss_fn`` runs ``backbone_fwd(..., train=True)``: each layer under
+``torch.utils.checkpoint`` where ``cfg.remat`` is set, the MoE's
+load-balancing term summed over layers, then the chunked cross-entropy
+(``_chunked_ce``).  ``input_specs`` / ``make_inputs`` give the reference's
+input shapes and dtypes for a ``ShapeConfig``.
 
 ``batch`` holds ``tokens`` (B, S) and, for the frontends, ``embeds``: the
 encoder's (B, S, frontend_dim) frames in place of tokens, the VLM's
@@ -48,12 +55,14 @@ returned, so call sites read like the JAX package's).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.device import resolve_device
 from repro_torch.models import blocks_dense as BD
 from repro_torch.models import blocks_mamba2 as BM
 from repro_torch.models import blocks_rwkv6 as BR
@@ -226,7 +235,11 @@ def _recurrent_layer(params, l: int, x, cfg: ModelConfig, state, *, step: bool =
     (E, B, S, D), continuing ``state`` (None at a sequence start); with
     ``step`` the single-token decode form (x (E, B, 1, D)).  Returns
     (x, new state)."""
-    lp = _layer(params, l, cfg)
+    return _recurrent_block(_layer(params, l, cfg), x, cfg, state, step=step)
+
+
+def _recurrent_block(lp, x, cfg: ModelConfig, state, *, step: bool = False):
+    """``_recurrent_layer`` on one layer's parameters ``lp``."""
     if cfg.family == "ssm_rwkv6":
         if step:
             return BR.rwkv6_step(lp, x, cfg, state)
@@ -245,16 +258,37 @@ def _write_kv(k_cache, v_cache, k, v):
     v_cache[:, :, :, :S] = v.permute(0, 1, 3, 2, 4)
 
 
-def backbone_fwd(params, x, cfg: ModelConfig, *, positions=None, starts=None, cache=None):
+def _remat(fn, on: bool):
+    """``fn`` under ``torch.utils.checkpoint`` (non-reentrant) when ``on``:
+    its activations are recomputed in the backward instead of kept — the
+    counterpart of the JAX package's ``_maybe_remat``.  Its
+    ``dots_with_no_batch_dims_saveable`` policy changes what is stored, not
+    what is computed; here a layer keeps only its inputs."""
+    if not on:
+        return fn
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+
+def backbone_fwd(params, x, cfg: ModelConfig, *, positions=None, starts=None, cache=None,
+                 train: bool = False, window_override: Optional[int] = None):
     """Runs every layer over x (E, B, S, D).  With ``cache`` (from
     ``init_cache_members``, KV rows S' >= S) each attention layer's K/V
     are written into rows [0, S), each recurrent layer's final state into
     its layer slab, and each hybrid attention invocation's K/V into its
-    leaf.  The encoder attends without the causal mask."""
+    leaf.  The encoder attends without the causal mask.
+    ``window_override`` replaces ``cfg.sliding_window``.
+
+    Returns x; with ``train`` (the training forward, no cache) ``(x, aux)``,
+    aux the (E,) f32 sum of the MoE layers' load-balancing terms (zeros for
+    the other families), each layer (and each call of the hybrid's shared
+    block) under ``torch.utils.checkpoint`` when ``cfg.remat`` is set."""
+    window = window_override if window_override is not None else cfg.sliding_window
+    if train:
+        return _backbone_train(params, x, cfg, window)
     if attention_family(cfg):
         for l in range(cfg.n_layers):
             x, (k, v) = BD.dense_layer_fwd(
-                _layer(params, l, cfg), x, cfg, causal=not cfg.is_encoder, sliding_window=cfg.sliding_window,
+                _layer(params, l, cfg), x, cfg, causal=not cfg.is_encoder, sliding_window=window,
                 positions=positions, starts=starts,
             )
             if cache is not None:
@@ -267,12 +301,37 @@ def backbone_fwd(params, x, cfg: ModelConfig, *, positions=None, starts=None, ca
                 cache[name][l] = t
         if _attn_after(cfg, l):
             x, (k, v) = BD.dense_layer_fwd(
-                params["shared_attn"], x, cfg, causal=True, sliding_window=cfg.sliding_window,
+                params["shared_attn"], x, cfg, causal=True, sliding_window=window,
             )
             if cache is not None:
                 inv = l // cfg.attn_every
                 _write_kv(cache["attn_k"][inv], cache["attn_v"][inv], k, v)
     return x
+
+
+def _backbone_train(params, x, cfg: ModelConfig, window):
+    remat = cfg.remat
+
+    def attn_layer(lp, h, causal):
+        h, a, _ = BD.dense_layer_fwd(lp, h, cfg, causal=causal, sliding_window=window, with_aux=True)
+        return h, a
+
+    def recurrent_layer(lp, h):
+        return _recurrent_block(lp, h, cfg, None)[0]
+
+    attn = _remat(attn_layer, remat)
+    aux = torch.zeros((x.shape[0],), dtype=torch.float32, device=x.device)
+    if attention_family(cfg):
+        for l in range(cfg.n_layers):
+            x, a = attn(_layer(params, l, cfg), x, not cfg.is_encoder)
+            aux = aux + a
+        return x, aux
+    recurrent = _remat(recurrent_layer, remat)
+    for l in range(cfg.n_layers):
+        x = recurrent(_layer(params, l), x)
+        if _attn_after(cfg, l):
+            x, _ = attn(params["shared_attn"], x, True)
+    return x, aux
 
 
 def forward_logits_members(params, batch, cfg: ModelConfig):
@@ -375,6 +434,112 @@ def decode_step_members(params, token, cache, pos, cfg: ModelConfig, *, starts=N
                 sliding_window=cfg.sliding_window,
             )
     return L.project_logits(params, x[:, :, 0], cfg), cache
+
+
+# ---------------------------------------------------------------------------
+# training: loss (chunked over the sequence) and inputs
+# ---------------------------------------------------------------------------
+
+
+def _ce_chunk(h, head, t, m):
+    """One chunk's sums: (nll, z, mask, correct), f32 (4,).  The logits
+    (B, c, V) are f32 and live only inside this call."""
+    logits = (h @ head).float()
+    logz = torch.logsumexp(logits, -1)
+    tgt = logits.gather(-1, t[..., None])[..., 0]
+    acc = (logits.argmax(-1) == t).float()  # the first index of the maximum
+    return torch.stack([((logz - tgt) * m).sum(), (logz.square() * m).sum(), m.sum(), (acc * m).sum()])
+
+
+def _chunked_ce(params, hidden, targets, mask, cfg: ModelConfig, chunk: int = 512):
+    """(mean cross-entropy, mean logz^2, accuracy) over the mask, for one
+    model's ``params`` and hidden (B, S, D).  The sequence goes in chunks of
+    ``min(chunk, S)`` positions, halved until the chunk divides S; each
+    chunk runs under ``torch.utils.checkpoint`` when grad is on, so no more
+    than one (B, chunk, V) block of f32 logits lives at once, in the
+    forward or the backward."""
+    B, S, D = hidden.shape
+    head = params["lm_head"] if "lm_head" in params else params["embed"].T
+    c = min(chunk, S)
+    while S % c:  # e.g. the VLM's text length S - n_vision_tokens
+        c //= 2
+    c = max(c, 1)
+    run = _remat(_ce_chunk, torch.is_grad_enabled())
+    total = torch.zeros((4,), dtype=torch.float32, device=hidden.device)
+    for i in range(0, S, c):
+        total = total + run(hidden[:, i:i + c], head, targets[:, i:i + c], mask[:, i:i + c])
+    nll_sum, z_sum, n, correct = total.unbind()
+    n = torch.clamp(n, min=1.0)
+    return nll_sum / n, z_sum / n, correct / n
+
+
+def loss_fn(params, batch, cfg: ModelConfig, *, window_override: Optional[int] = None):
+    """(loss, metrics) of one model (the JAX package's tree, no member
+    axis) on ``batch``: tokens (B, S) and targets (B, S), an optional mask
+    (ones by default); the encoder's ``embeds`` frames in place of tokens;
+    the VLM's ``embeds`` patches before its tokens, whose positions are
+    dropped before the loss.  loss = ce + 1e-4 z_loss + aux, metrics
+    ``ce``, ``z_loss``, ``acc`` and ``aux`` as f32 device scalars."""
+    mp = _members(params)
+    x = embed_batch(mp, batch, cfg)
+    x, aux = backbone_fwd(mp, x, cfg, train=True, window_override=window_override)
+    x = L.apply_norm(mp["final_norm"], x, cfg)
+    x = _text_only(x, batch, cfg)[0]
+    targets = torch.as_tensor(batch["targets"], device=x.device).to(torch.int64)
+    mask = batch.get("mask")
+    mask = (torch.ones(targets.shape, dtype=torch.float32, device=x.device) if mask is None
+            else torch.as_tensor(mask, device=x.device).to(torch.float32))
+    ce, zl, acc = _chunked_ce(params, x, targets, mask, cfg)
+    aux = aux[0]
+    return ce + 1e-4 * zl + aux, {"ce": ce, "z_loss": zl, "acc": acc, "aux": aux}
+
+
+class InputSpec(NamedTuple):
+    shape: tuple
+    dtype: torch.dtype
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig):
+    """The shape and dtype of every model input of ``shape`` (the JAX
+    package's ``input_specs``; nothing is allocated)."""
+    B, S = shape.global_batch, shape.seq_len
+    i32, bf = torch.int32, torch_dtype(cfg.dtype)
+    if shape.kind == "decode":
+        return {"token": InputSpec((B, 1), i32), "pos": InputSpec((), i32)}
+    if shape.kind not in ("train", "prefill"):
+        raise ValueError(shape.kind)
+    if cfg.is_encoder:
+        specs, St = {"embeds": InputSpec((B, S, cfg.frontend_dim), bf)}, S
+    elif cfg.n_vision_tokens:  # the patches take the first n_vision_tokens positions
+        St = S - cfg.n_vision_tokens
+        specs = {"tokens": InputSpec((B, St), i32), "embeds": InputSpec((B, cfg.n_vision_tokens, cfg.frontend_dim), bf)}
+    else:
+        specs, St = {"tokens": InputSpec((B, S), i32)}, S
+    if shape.kind == "train":
+        specs.update(targets=InputSpec((B, St), i32), mask=InputSpec((B, St), torch.float32))
+    return specs
+
+
+def make_inputs(cfg: ModelConfig, shape: ShapeConfig, generator: Optional[torch.Generator] = None, device=None):
+    """Random inputs matching ``input_specs``, drawn from ``generator`` (a
+    fresh one seeded 0 if None) on its own device and placed on ``device``
+    (None: the card): token ids uniform in [0, vocab), other integers zero,
+    the mask ones, embeddings N(0, 1) in their dtype.  The values differ
+    from ``jax.random``'s."""
+    device = resolve_device(device)
+    g = generator if generator is not None else torch.Generator().manual_seed(0)
+    out = {}
+    for name, s in input_specs(cfg, shape).items():
+        if s.dtype == torch.int32 and name in ("tokens", "targets", "token"):
+            t = torch.randint(0, cfg.vocab_size, s.shape, generator=g, device=g.device, dtype=torch.int32)
+        elif s.dtype == torch.int32:
+            t = torch.zeros(s.shape, dtype=torch.int32)
+        elif name == "mask":
+            t = torch.ones(s.shape, dtype=s.dtype)
+        else:
+            t = torch.randn(s.shape, generator=g, device=g.device).to(s.dtype)
+        out[name] = t.to(device)
+    return out
 
 
 # ---------------------------------------------------------------------------

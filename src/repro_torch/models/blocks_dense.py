@@ -6,6 +6,8 @@ from __future__ import annotations
 
 from typing import Optional
 
+import torch
+
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.params import Initializer
@@ -24,18 +26,32 @@ def init_dense_layer(ini: Initializer, cfg: ModelConfig, *, moe: bool = False):
     return p
 
 
-def _mlp_residual(p, x, cfg: ModelConfig):
+def _mlp_residual(p, x, cfg: ModelConfig, *, with_aux: bool = False):
+    """x + MLP (or MoE) of the normed x; with ``with_aux`` (x, aux), aux
+    the MoE's (E,) load-balancing term (zeros for an MLP layer)."""
     h = L.apply_norm(p["ln2"], x, cfg)
-    return x + (L.apply_moe(p["moe"], h, cfg) if "moe" in p else L.apply_mlp(p["mlp"], h, cfg))
+    if "moe" in p:
+        out = L.apply_moe(p["moe"], h, cfg, with_aux=with_aux)
+        if with_aux:
+            return x + out[0], out[1]
+        return x + out
+    x = x + L.apply_mlp(p["mlp"], h, cfg)
+    return (x, x.new_zeros((x.shape[0],), dtype=torch.float32)) if with_aux else x
 
 
 def dense_layer_fwd(p, x, cfg: ModelConfig, *, causal: bool = True,
-                    sliding_window: Optional[int] = None, positions=None, starts=None):
-    """Full-sequence forward.  Returns (x, (k, v))."""
+                    sliding_window: Optional[int] = None, positions=None, starts=None,
+                    with_aux: bool = False):
+    """Full-sequence forward.  Returns (x, (k, v)); with ``with_aux`` (the
+    training forward) (x, aux (E,) f32, (k, v)), as the JAX package's
+    ``dense_layer_fwd`` returns (x, aux, kv)."""
     h, kv = L.attention_layer(
         p["attn"], L.apply_norm(p["ln1"], x, cfg), cfg, causal=causal,
         positions=positions, sliding_window=sliding_window, starts=starts,
     )
+    if with_aux:
+        x, aux = _mlp_residual(p, x + h, cfg, with_aux=True)
+        return x, aux, kv
     return _mlp_residual(p, x + h, cfg), kv
 
 

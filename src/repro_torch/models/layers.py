@@ -153,14 +153,21 @@ def top_k_first(probs: torch.Tensor, K: int):
     return torch.cat(vals, -1), torch.cat(idx, -1)
 
 
-def moe_route(p, xt, S: int, cfg: ModelConfig):
+def router_probs(p, xt):
+    """Softmax of the f32 router over the experts: xt (E, T, D) -> (E, T, n)."""
+    return torch.softmax(torch.bmm(xt.float(), p["router"]), -1)
+
+
+def moe_route(p, xt, S: int, cfg: ModelConfig, probs=None):
     """The routing of ``apply_moe`` for tokens xt (E, T, D) of sequence
-    length S: (gates (E, T, K) f32 renormalised, experts (E, T, K) int64,
+    length S (``probs``: their ``router_probs``, computed here if not
+    given): (gates (E, T, K) f32 renormalised, experts (E, T, K) int64,
     each (token, k)'s position in its expert's buffer (E, T*K), capacity);
-    a choice is kept where its position is below the capacity."""
+    a choice is kept where its position is below the capacity.  The gates
+    are values of ``probs``, so a loss reaches the router through them."""
     E, T, _ = xt.shape
     n, K = cfg.n_experts, cfg.top_k
-    probs = torch.softmax(torch.bmm(xt.float(), p["router"]), -1)  # (E, T, n)
+    probs = router_probs(p, xt) if probs is None else probs
     gate, expert = top_k_first(probs, K)
     gate = gate / gate.sum(-1, keepdim=True).clamp(min=1e-9)
     onehot = (expert.reshape(E, T * K, 1) == torch.arange(n, device=xt.device)).to(torch.int32)
@@ -168,8 +175,21 @@ def moe_route(p, xt, S: int, cfg: ModelConfig):
     return gate, expert, pos, moe_capacity(T, S, cfg)
 
 
-def apply_moe(p, x, cfg: ModelConfig):
-    """x (E, B, S, D) -> out (E, B, S, D).
+def load_balance_loss(probs, expert, cfg: ModelConfig):
+    """Switch-style load-balancing term of each member over its own T
+    tokens: n_experts * sum_e(mean router prob of e * share of the T*K
+    choices that picked e) * router_aux_coef -> (E,) f32.  The choice
+    shares carry no gradient; the mean probabilities do."""
+    E, T, n = probs.shape
+    picked = (expert.reshape(E, -1, 1) == torch.arange(n, device=probs.device)).sum(1)
+    share = picked.to(torch.float32) / expert[0].numel()
+    return n * (probs.mean(1) * share).sum(-1) * cfg.router_aux_coef
+
+
+def apply_moe(p, x, cfg: ModelConfig, *, with_aux: bool = False):
+    """x (E, B, S, D) -> out (E, B, S, D); with ``with_aux`` (out, aux),
+    aux the (E,) ``load_balance_loss`` (training asks for it; the serving
+    paths never compute it).
 
     Per member, as the JAX package's ``apply_moe`` under ``vmap``: the
     T = B * S tokens of ONE member route among themselves.  Each token
@@ -182,14 +202,13 @@ def apply_moe(p, x, cfg: ModelConfig):
     expert) on the (E, n_experts, capacity, D) buffers; each token sums its
     kept choices' outputs times their gates, plus the shared expert where
     the config has one.  Static shapes and no value read back to the host,
-    so the call can be captured in a CUDA graph.  The router's
-    load-balancing loss is a training term and comes with the training
-    path; inference never needs it."""
+    so the call can be captured in a CUDA graph."""
     E, B, S, D = x.shape
     n, K = cfg.n_experts, cfg.top_k
     T = B * S
     xt = x.reshape(E, T, D)
-    gate, expert, pos, capacity = moe_route(p, xt, S, cfg)
+    probs = router_probs(p, xt)
+    gate, expert, pos, capacity = moe_route(p, xt, S, cfg, probs)
     keep = (pos < capacity).to(x.dtype)
     slot = expert.reshape(E, T * K) * capacity + pos.clamp(max=capacity - 1)  # row of (n * capacity)
     contrib = (xt[:, :, None, :] * keep.reshape(E, T, K, 1)).reshape(E, T * K, D)
@@ -202,7 +221,8 @@ def apply_moe(p, x, cfg: ModelConfig):
     combined = (picked * (gate.to(x.dtype) * keep.reshape(E, T, K))[..., None]).sum(2)
     if cfg.n_shared_experts:
         combined = combined + apply_mlp(p["shared"], xt[:, None], cfg)[:, 0]
-    return combined.reshape(E, B, S, D)
+    out = combined.reshape(E, B, S, D)
+    return (out, load_balance_loss(probs, expert, cfg)) if with_aux else out
 
 
 # ---------------------------------------------------------------------------

@@ -59,6 +59,26 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
+def tree_leaves(tree) -> list:
+    """The leaves of a nested dict, in its key order."""
+    if isinstance(tree, dict):
+        return [x for k in tree for x in tree_leaves(tree[k])]
+    return [tree]
+
+
+def tree_unflatten(template, leaves):
+    """A nested dict shaped like ``template`` holding ``leaves`` in
+    ``tree_leaves`` order."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(v) for k, v in t.items()}
+        return next(it)
+
+    return build(template)
+
+
 def param_count(tree) -> int:
     n = 0
 

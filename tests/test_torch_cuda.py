@@ -992,3 +992,111 @@ def test_open_loop_replays_the_closed_loop_graphs(cuda):
                         [(r.tier, r.output.tolist()) for r in rep.completed]))
     assert trace_counts() == before
     assert reports[0] == reports[1]
+
+
+# ---------------------------------------------------------------------------
+# training: flash's lse forward and its gradient route, the scans under
+# autograd, the inference-only kernels, a train step
+# ---------------------------------------------------------------------------
+
+
+def _grads(fn, inputs, weights):
+    leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+    outs = fn(*leaves)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    sum((o.float() * w).sum() for o, w in zip(outs, weights)).backward()
+    return [t.grad for t in leaves]
+
+
+@pytest.mark.parametrize("hd,H,KVH,window,softcap", [(128, 16, 2, None, None), (80, 8, 8, None, None),
+                                                     (64, 8, 2, 48, 30.0)])
+def test_flash_lse_and_training_gradients(cuda, hd, H, KVH, window, softcap):
+    """The kernel's lse (abs 1e-3) and out (abs 2e-2) against the plain
+    version's; dq, dk, dv through the training route (kernel forward, one
+    launch) against autograd of the plain version, normwise 2e-2."""
+    g = torch.Generator().manual_seed(hd)
+    mk = lambda *s: torch.randn(*s, generator=g).to(torch.bfloat16).to(cuda)
+    B, S = 2, 300
+    q, k, v, do = mk(B, S, H, hd), mk(B, S, KVH, hd), mk(B, S, KVH, hd), mk(B, S, H, hd)
+    kw = dict(causal=True, window=window, softcap=softcap)
+    o, lse = flash._flash_cuda(q, k, v, starts=None, return_lse=True, **kw)
+    po, plse = flash.flash_attention_plain(q, k, v, return_lse=True, **kw)
+    assert (lse - plse).abs().max().item() <= 1e-3 and (o.float() - po.float()).abs().max().item() <= 2e-2
+    before = kernels.launch_counts()["flash_attention"]
+    got = _grads(lambda q, k, v: flash.flash_attention(q, k, v, **kw), (q, k, v), (do,))
+    assert kernels.launch_counts()["flash_attention"] == before + 1
+    ref = _grads(lambda q, k, v: flash.flash_attention_plain(q, k, v, **kw), (q, k, v), (do,))
+    for a, b in zip(got, ref):
+        _normwise(a, b, 2e-2)
+
+
+def test_scans_under_autograd_launch_and_match_plain(cuda):
+    """ssd and wkv6 under grad: one kernel launch each in the forward; the
+    input gradients (backward by recompute of the plain version) equal
+    autograd of the plain version, normwise 2e-2."""
+    g = torch.Generator().manual_seed(0)
+    rn = lambda *s: torch.randn(*s, generator=g).to(cuda)
+    x, Bm, Cm = rn(2, 70, 4, 64).bfloat16(), rn(2, 70, 1, 64).mul(0.5).bfloat16(), rn(2, 70, 1, 64).mul(0.5).bfloat16()
+    dt, A, s0 = torch.nn.functional.softplus(rn(2, 70, 4) - 2), -torch.exp(rn(4) * 0.3), rn(2, 4, 64, 64).mul(0.2)
+    w = (rn(2, 70, 4, 64), rn(2, 4, 64, 64))
+    before = kernels.launch_counts()["mamba2_ssd"]
+    got = _grads(lambda *a: ssd.ssd(*a[:5], initial_state=a[5], return_final_state=True), (x, dt, A, Bm, Cm, s0), w)
+    assert kernels.launch_counts()["mamba2_ssd"] == before + 1
+    ref = _grads(lambda *a: ssd.ssd_plain(*a[:5], initial_state=a[5]), (x, dt, A, Bm, Cm, s0), w)
+    for a, b in zip(got, ref):
+        _normwise(a, b, 2e-2)
+    r, k, v = (rn(2, 33, 4, 32).bfloat16() for _ in range(3))
+    logw, u, s1 = -torch.exp(rn(2, 33, 4, 32) * 0.5), rn(4, 32).mul(0.5), rn(2, 4, 32, 32).mul(0.1)
+    w = (rn(2, 33, 4, 32), rn(2, 4, 32, 32))
+    before = kernels.launch_counts()["rwkv6_wkv"]
+    got = _grads(lambda *a: wkv.wkv6(*a[:5], initial_state=a[5], return_final_state=True), (r, k, v, logw, u, s1), w)
+    assert kernels.launch_counts()["rwkv6_wkv"] == before + 1
+    ref = _grads(lambda *a: wkv.wkv6_plain(*a[:5], initial_state=a[5]), (r, k, v, logw, u, s1), w)
+    for a, b in zip(got, ref):
+        _normwise(a, b, 2e-2)
+
+
+def test_inference_only_kernels_raise_under_grad(cuda):
+    logits = torch.randn(2, 3, 64, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="member_stats"):
+        agree.member_stats(logits)
+    rows = torch.randn(4, 8, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="compact"):
+        compact.compact(rows, torch.ones(4, dtype=torch.bool, device=cuda))
+    q = torch.randn(2, 1, 4, 64, device=cuda).bfloat16().requires_grad_(True)
+    kc = torch.randn(2, 2, 16, 64, device=cuda).bfloat16()
+    with pytest.raises(RuntimeError, match="decode_attention"):
+        decode.decode_attention_bksd(q, kc, kc, cur_len=8)
+    with torch.no_grad():
+        agree.member_stats(logits)
+        decode.decode_attention_bksd(q, kc, kc, cur_len=8)
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "zamba2-2.7b", "rwkv6-7b", "mixtral-8x22b"])
+def test_train_step_on_card_launches_kernels(cuda, arch):
+    """A reduced train step on the card: finite loss, every parameter
+    moves, the family's kernels launched (flash twice a layer with remat)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.optim import OptimConfig
+    from repro_torch.train import init_train_state, make_train_step
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), remat=True)
+    rng = np.random.default_rng(0)
+    rows = rng.integers(0, cfg.vocab_size, (2, 33)).astype(np.int32)
+    batch = {"tokens": rows[:, :-1], "targets": rows[:, 1:]}
+    state = init_train_state(api.init_params(cfg, torch.Generator(device=cuda).manual_seed(0), cuda), OptimConfig())
+    before = [t.clone() for t in tree_leaves(state.params)]
+    kernels.reset_launch_counts()
+    state, m = make_train_step(cfg, OptimConfig(), total_steps=4, warmup_steps=1)(state, batch)
+    counts = kernels.launch_counts()
+    assert np.isfinite(float(m["loss"]))
+    assert all(not torch.equal(a, b) for a, b in zip(before, tree_leaves(state.params)))
+    n_attn = {"hybrid": cfg.n_layers // max(cfg.attn_every, 1), "ssm_rwkv6": 0}.get(cfg.family, cfg.n_layers)
+    assert counts["flash_attention"] == 2 * n_attn
+    scan = {"hybrid": "mamba2_ssd", "ssm_rwkv6": "rwkv6_wkv"}.get(cfg.family)
+    if scan:
+        assert counts[scan] == 2 * cfg.n_layers  # the forward and remat's recompute

@@ -57,7 +57,7 @@ def test_subprocess_classify_imports_no_jax():
 FORBIDDEN = re.compile(r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)\b[\s.])", re.M)
 
 
-@pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT)) for p in (ROOT / "src" / "repro_torch").rglob("*.py")) + ["chip_smoke.py", "chip_scan_compare.py"])
+@pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT)) for p in (ROOT / "src" / "repro_torch").rglob("*.py")) + ["chip_smoke.py", "chip_scan_compare.py", "chip_adamw_compare.py"])
 def test_source_has_no_jax_or_repro_import(path):
     text = (ROOT / path).read_text()
     assert not FORBIDDEN.search(text), FORBIDDEN.search(text).group(0)
@@ -160,3 +160,46 @@ def test_kernel_library_name_hashes_included_headers(tmp_path, monkeypatch):
     (tmp_path / "inner.cuh").write_text("#pragma once\n// edited\n")
     assert build._target("a") != a and build._target("b") == b
 
+
+
+TRAIN_SCRIPT = r"""
+import sys, tempfile
+import numpy as np, torch
+import repro_torch.checkpoint, repro_torch.data, repro_torch.optim, repro_torch.train
+from repro_torch.launch import train as cli
+with tempfile.TemporaryDirectory() as d:
+    hist = cli.main(["--arch", "zamba2-2.7b", "--reduced", "--steps", "2", "--batch", "2", "--seq", "16",
+                     "--n-examples", "8", "--ckpt-dir", d, "--device", "cpu"])
+    assert np.isfinite(hist[-1]["loss"]) and repro_torch.checkpoint.latest_step(d) == 2
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "repro.")) or m == "repro")
+assert not bad, bad
+print("OK")
+"""
+
+
+def test_subprocess_training_imports_no_jax():
+    """The training subpackages (data, optim, checkpoint, train, launch)
+    run the train CLI with no JAX and nothing of the JAX package loaded."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", TRAIN_SCRIPT], env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip().endswith("OK"), out.stderr[-2000:]
+
+
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "rwkv6-7b", "mixtral-8x22b", "hubert-xlarge"])
+def test_cpu_train_step_launches_no_kernel(arch):
+    from repro_torch.models import api
+    from repro_torch.optim import OptimConfig
+    from repro_torch.train import init_train_state, make_train_step
+
+    cfg = get_config(arch).reduced()
+    rng = np.random.default_rng(0)
+    batch = {"targets": rng.integers(0, cfg.vocab_size, (2, 8)).astype(np.int32)}
+    if cfg.is_encoder:
+        batch["embeds"] = rng.standard_normal((2, 8, cfg.frontend_dim)).astype(np.float32)
+    else:
+        batch["tokens"] = rng.integers(0, cfg.vocab_size, (2, 8)).astype(np.int32)
+    state = init_train_state(api.init_params(cfg, torch.Generator().manual_seed(0), "cpu"), OptimConfig())
+    kernels.reset_launch_counts()
+    state, m = make_train_step(cfg, OptimConfig(), total_steps=4, warmup_steps=1)(state, batch)
+    assert np.isfinite(float(m["loss"]))
+    assert kernels.launch_counts() == {n: 0 for n in kernels.launch_counts()}
