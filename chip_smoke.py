@@ -48,15 +48,24 @@ Phases, in order; any failure raises and exits non-zero:
    128, and hd 64), dense decode at every cluster size 1-8, paged bitwise
    the dense kernel, flash at mixtral's 4096-row window with S past it;
    each timed (a row under its kernel's ``groups``) with a bound and SDPA.
+   Then the padded head sizes and the f32 route (``check_attention_widths``,
+   its own generator): flash, dense and paged decode at hd 8, 16, 24, 32,
+   40 and 56 (G 1, 2, 3, 7) in bf16, and at those and hd 64, 80, 128 in
+   f32 (normwise 1e-5), every G from 1 to 16 at hd 40 in both, paged
+   bitwise the dense kernel at each; timed at the examples' shapes (bf16)
+   and the main path's (f32), each a row under its kernel's ``widths``.
    Then training (``check_flash_training``, its own generator): flash's
    lse output against the plain version's (abs 1e-3) at B 4 x S 1024 with
    qwen2.5-3b's heads (16, 2) at hd 128, zamba2's hd 80 at G 1, and a window
    and softcap; dq, dk, dv through the training route (the kernel forward
    with lse, the plain backward) against autograd of the plain version
-   (normwise 2e-2); the forward timed with and without lse.
+   (normwise 2e-2); the forward timed with and without lse, and the
+   training route's forward and backward against SDPA's (events, device
+   and host times, the backward's bound).
    ``check_ssd_grad`` / ``check_wkv6_grad`` hold the scans' input gradients
    under autograd (kernel forward, backward by recompute of the plain
-   version) against autograd of the plain versions at reduced shapes, and
+   version) against autograd of the plain versions at reduced shapes (with
+   the bound of a forward and backward), and
    ``check_inference_only`` that agreement, compaction (its three entries)
    and both decode kernels raise under grad.
 3. reference — the port on the card (kernels) against the port on the CPU
@@ -64,8 +73,9 @@ Phases, in order; any failure raises and exits non-zero:
    decode, paged decode and paged chunked prefill for the dense tiers;
    prefill, decode and chunked prefill into a slot followed by a decode step
    for rwkv6-7b and zamba2-2.7b, and the same again in float32 (rwkv6-7b,
-   and zamba2-2.7b's Mamba2 backbone) at a tight tolerance, where only
-   summation order differs; then short ``serve_continuous`` runs on the
+   zamba2-2.7b's Mamba2 backbone and zamba2-2.7b whole, and qwen2.5-3b,
+   whose attention takes the kernels' f32 route) at a tight tolerance,
+   where only summation order differs; then short ``serve_continuous`` runs on the
    card, each with the eager oracle and with the graphed slot programs:
    the dense cascade with block-paged pools and with the dense slot cache,
    the recurrent cascade with dense slot caches; all must emit equal
@@ -88,7 +98,11 @@ Phases, in order; any failure raises and exits non-zero:
    ``serve_continuous`` greedy and T = 0.8 bitwise under no placement,
    ``single_host`` and the sim, serial and async links at 10 ms, equal
    hops, ``inflight_admitted`` the deferrals; speculative over the async
-   link, the draft on the hop).  Last the families of the MoE, VLM and
+   link, the draft on the hop).  Then an f32 cascade, 3 x qwen2.5-3b ->
+   internlm2-1.8b reduced (``check_f32_cascade_on_card``): classify over
+   the sim link, each tier's greedy generate and the cascade's
+   serve_continuous, card against CPU equal but at near ties.  Last the
+   families of the MoE, VLM and
    encoder slice at reduced width (``check_families_on_card``): olmo-1b and
    command-r-plus-104b end to end (left-padded prefill, decode, paged chunk
    and decode) card vs CPU at REF_TOL; hubert-xlarge over frames,
@@ -159,7 +173,13 @@ Phases, in order; any failure raises and exits non-zero:
    cascades, the frontends at published width (``frontend_path``):
    hubert-xlarge x3 last logits over 8 x 512 frames and ``member_stats``;
    internvl2-26b with 4 of its 48 layers, a 256-patch + 128-token prefill
-   and 16 decode steps, graphed == eager.  Last, training (``train_path``):
+   and 16 decode steps, graphed == eager.  Then the serve CLI at published
+   width (``serve_cli_path``: ``--tiers qwen2.5-3b:3 internlm2-1.8b:1``,
+   classify and generate) and examples/edge_to_cloud.py at its widths, hd
+   16 and 32 (``edge_to_cloud_example``: its 200 and 400 training steps,
+   classify over the sim link card vs CPU, serve_continuous over the sim,
+   serial and async links, equal generations and hops).  Last,
+   training (``train_path``):
    the first-step grad_norm of qwen2.5-3b's 36 layers at d 512 on the card
    and the CPU, finite and within 3 decades (``deep_gradient_witness``);
    qwen2.5-3b at published width (36 layers, d 2048, vocab 151936, remat
@@ -169,8 +189,8 @@ Phases, in order; any failure raises and exits non-zero:
    recompute), then one more forward and backward outside the step (every
    leaf's gradient finite, the f64 sum of squares past f32's range where
    grad_norm read inf; device memory by stage); then examples/train_then_cascade.py on the card
-   (``trained_cascade``) at hd 64, calibrated and serving 1024 fresh
-   requests through ``CascadeServer``.  Its launches join the kernels line
+   (``trained_cascade``) at its own widths, hd 24 and 40, calibrated and
+   serving 1024 fresh requests through ``CascadeServer``.  Its launches join the kernels line
    under ``train/`` runs (``train_launches``).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
@@ -673,6 +693,22 @@ def check_decode(dev, g):
     )
 
 
+def shuffled_table(cur, n_pg, ps, P, holes=(), *, dev, g):
+    """A shuffled, non-monotone (B, n_pg) page table of a pool of P pages:
+    slot b maps ceil(cur[b] / ps) distinct random pages (from ``g``), -1
+    past its length and at ``holes``."""
+    perm = torch.randperm(P - 1, device=dev, generator=g)
+    pages = torch.full((len(cur), n_pg), -1, dtype=torch.int32, device=dev)
+    used = 0
+    for b, c in enumerate(cur):
+        n = -(-c // ps)
+        pages[b, :n] = perm[used:used + n].to(torch.int32)
+        used += n
+    for b, i in holes:
+        pages[b, i] = -1
+    return pages
+
+
 def check_decode_paged(dev, g):
     import torch.nn.functional as F
 
@@ -681,19 +717,7 @@ def check_decode_paged(dev, g):
 
     mk = lambda *s: torch.randn(*s, device=dev, generator=g).to(torch.bfloat16)
 
-    def table(cur, n_pg, ps, P, holes=()):
-        """A shuffled, non-monotone table: slot b maps ceil(cur[b] / ps)
-        distinct random pages, -1 past its length and at ``holes``."""
-        perm = torch.randperm(P - 1, device=dev, generator=g)
-        pages = torch.full((len(cur), n_pg), -1, dtype=torch.int32, device=dev)
-        used = 0
-        for b, c in enumerate(cur):
-            n = -(-c // ps)
-            pages[b, :n] = perm[used:used + n].to(torch.int32)
-            used += n
-        for b, i in holes:
-            pages[b, i] = -1
-        return pages
+    table = functools.partial(shuffled_table, dev=dev, g=g)
 
     def run(E, B, H, KVH, hd, P, ps, n_pg, cur, holes=(), **kw):
         q = mk(E * B, 1, H, hd)
@@ -800,17 +824,7 @@ def check_attention_groups(dev, g):
             require(not got[pad].any(), f"decode {what}: pure-pad rows not zero")
         return err
 
-    def table(cur, n_pg, ps, P, holes=()):
-        perm = torch.randperm(P - 1, device=dev, generator=g)
-        pages = torch.full((len(cur), n_pg), -1, dtype=torch.int32, device=dev)
-        used = 0
-        for b, c in enumerate(cur):
-            n = -(-c // ps)
-            pages[b, :n] = perm[used:used + n].to(torch.int32)
-            used += n
-        for b, i in holes:
-            pages[b, i] = -1
-        return pages
+    table = functools.partial(shuffled_table, dev=dev, g=g)
 
     def paged(E, B, H, KVH, hd, ps, n_pg, cur, what, holes=(), **kw):
         P = B * n_pg + 1
@@ -919,6 +933,172 @@ def check_attention_groups(dev, g):
                 bound_ms=b_ms, bound_by=b_by,
             )
         out["flash_attention"]["groups"][G] = row
+    return out
+
+
+# The head sizes the attention kernels run zero-padded to a built width (the
+# examples' 16, 24, 32 and 40; 8 and 56 beside them), head groups no config
+# has (3, 7), and the f32 route (plain FFMA on the SIMT cores), where card
+# and plain version differ only in summation order: held normwise at
+# F32_ATTN_TOL.  bf16 as above (FLASH_TOL, DECODE_TOL).
+F32_ATTN_TOL = 1e-5
+# (hd, H, KVH): every padded width with G 1, 2, 3 and 7; hd 64, 80 and 128
+# join for f32 (their bf16 kernels are held above)
+WIDTHS = ((8, 2, 2), (16, 6, 2), (24, 7, 1), (32, 8, 8), (40, 4, 4), (56, 3, 1))
+F32_WIDTHS = WIDTHS + ((64, 8, 2), (80, 4, 4), (128, 16, 2))
+# timed, bf16: the examples' own shapes (train_then_cascade's tiers at hd 24
+# and 40 classifying 1024 prompts of 32 tokens, tier 1 three members;
+# edge_to_cloud's at hd 16 and 32, its serve_continuous paged decode over 4
+# slots of 32 rows); f32: the main path's shapes
+EXAMPLE_FLASH = {"hd24": (3 * 1024, 32, 2, 2, 24), "hd40": (1024, 32, 4, 4, 40),
+                 "hd16": (3 * 256, 32, 2, 2, 16), "hd32": (256, 32, 4, 4, 32)}
+EXAMPLE_PAGED = {"hd16": (3, 4, 2, 2, 16), "hd32": (1, 4, 4, 4, 32)}  # E, slots, H, KVH, hd
+
+
+def check_attention_widths(dev, g):
+    """Flash, dense decode and paged decode at every padded head size and G
+    (``WIDTHS``), and in f32 at those and the built widths
+    (``F32_WIDTHS``), against their plain versions: flash causal with
+    starts (pure-pad rows zero) and not causal with a window and a softcap;
+    dense decode with per-row cur_len and starts, and with a window and
+    softcap, at S 600 (several splits); paged decode with a shuffled table
+    and holes, bitwise the dense kernel on the gathered view; then every G
+    from 1 to 16 at hd 40 in both dtypes, dense and paged.  Timed as every
+    kernel is, at the examples' shapes in bf16 (``EXAMPLE_FLASH``,
+    ``EXAMPLE_PAGED``, and generate's dense decode at hd 32) and at the
+    main path's shapes in f32.  Draws from its own generator.  Returns
+    {kernel name: {"max_abs_err", "f32_normwise_err", "widths": {case:
+    row}}}."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.compaction.ops import gather_rows_plain, pool_row_index
+    from repro_torch.kernels.decode_attention import ops as dec
+    from repro_torch.kernels.flash_attention import ops as fl
+
+    names = ("flash_attention", "decode_attention", "decode_attention_paged")
+    out = {n: {"max_abs_err": 0.0, "f32_normwise_err": 0.0, "widths": {}} for n in names}
+    T = lambda *xs: torch.tensor(xs, dtype=torch.int32, device=dev)  # noqa: E731
+
+    def mk(*s, dtype=torch.bfloat16):
+        return torch.randn(*s, device=dev, generator=g).to(dtype)
+
+    def held(name, got, ref, what):
+        require(got.dtype == ref.dtype, f"{name} {what}: dtype {got.dtype} != the plain version's {ref.dtype}")
+        err = (got.float() - ref.float()).abs().max().item()
+        if got.dtype == torch.float32:
+            e32 = normwise_err(got, ref)
+            require(math.isfinite(e32) and e32 <= F32_ATTN_TOL, f"{name} {what}: f32 normwise err {e32} > {F32_ATTN_TOL}")
+            out[name]["f32_normwise_err"] = max(out[name]["f32_normwise_err"], e32)
+        else:
+            tol = FLASH_TOL if name == "flash_attention" else DECODE_TOL
+            require(math.isfinite(err) and err <= tol, f"{name} {what}: err {err} > {tol}")
+        out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
+        return err
+
+    table = functools.partial(shuffled_table, dev=dev, g=g)
+
+    def flash(q, k, v, what, **kw):
+        got = fl.flash_attention(q, k, v, **kw)
+        err = held("flash_attention", got, fl.flash_attention_plain(q, k, v, **kw), what)
+        if kw.get("starts") is not None and kw.get("causal"):
+            for b, s in enumerate(kw["starts"].tolist()):
+                require(not got[b, :s].any(), f"flash {what}: pure-pad rows not zero")
+        return err
+
+    def decode(q, kc, vc, cur, what, **kw):
+        got = dec.decode_attention_bksd(q, kc, vc, cur, **kw)
+        err = held("decode_attention", got, dec.decode_attention_plain(q, kc, vc, cur, **kw), what)
+        if kw.get("starts") is not None:
+            require(not got[kw["starts"] >= torch.as_tensor(cur, device=dev).expand(q.shape[0])].any(),
+                    f"decode {what}: pure-pad rows not zero")
+        return err
+
+    def paged(E, B, H, KVH, hd, ps, n_pg, cur, what, dtype, holes=(), **kw):
+        P = B * n_pg + 1
+        q, kp, vp = mk(E * B, 1, H, hd, dtype=dtype), mk(E, P, KVH, ps, hd, dtype=dtype), mk(E, P, KVH, ps, hd, dtype=dtype)
+        pages, cur_t = table(cur, n_pg, ps, P, holes), T(*cur)
+        got = dec.decode_attention_paged(q, kp, vp, pages, cur_t, **kw)
+        err = held("decode_attention_paged", got, dec.decode_attention_paged_plain(q, kp, vp, pages, cur_t, **kw), what)
+        kv, vv = (dec.paged_pool_view(t, pages, gather_rows_plain) for t in (kp, vp))
+        require(torch.equal(got, dec.decode_attention_bksd(q, kv, vv, cur_t.repeat(E), **kw)),
+                f"paged decode {what} is not bitwise the dense kernel on the gathered view")
+        return q, kp, vp, pages, cur_t, err
+
+    for dtype, widths in ((torch.bfloat16, WIDTHS), (torch.float32, F32_WIDTHS)):
+        dn = str(dtype).split(".")[-1]
+        for hd, H, KVH in widths:
+            w = f"{dn} hd {hd} G {H // KVH}"
+            flash(mk(2, 200, H, hd, dtype=dtype), mk(2, 200, KVH, hd, dtype=dtype), mk(2, 200, KVH, hd, dtype=dtype),
+                  f"{w} causal", causal=True, starts=T(0, 37))
+            flash(mk(2, 77, H, hd, dtype=dtype), mk(2, 150, KVH, hd, dtype=dtype), mk(2, 150, KVH, hd, dtype=dtype),
+                  f"{w} window softcap", causal=False, window=40, softcap=20.0)
+            S = 600
+            q, kc, vc = mk(3, 1, H, hd, dtype=dtype), mk(3, KVH, S, hd, dtype=dtype), mk(3, KVH, S, hd, dtype=dtype)
+            decode(q, kc, vc, T(1, 300, S), f"{w} cur_len")
+            decode(q, kc, vc, T(S, 129, 1), f"{w} starts", starts=T(S - 1, 128, 1))  # row 0: pure pad
+            decode(q, kc, vc, T(513, S, 65), f"{w} window softcap", window=200, softcap=20.0)
+            paged(2, 3, H, KVH, hd, 16, 8, [100, 5, 128], f"{w} holes", dtype, holes=[(0, 2), (2, 7)])
+            paged(1, 4, H, KVH, hd, 16, 8, [120, 33, 128, 9], f"{w} window", dtype, window=40, softcap=20.0)
+        for G in range(1, 17):
+            w = f"{dn} hd 40 G {G}"
+            decode(mk(3, 1, 2 * G, 40, dtype=dtype), mk(3, 2, 700, 40, dtype=dtype), mk(3, 2, 700, 40, dtype=dtype),
+                   T(700, 300, 1), w, starts=T(0, 300, 0))
+            paged(2, 3, 2 * G, 2, 40, 16, 16, [256, 100, 1], w, dtype)
+
+    def row(name, what, shape, err, timed, n_bytes, n_ops, peak):
+        b_ms, b_by = bound(n_bytes, n_ops, peak)
+        out[name]["widths"][what] = dict(shape=shape, max_abs_err=err, **timed, bound_ms=b_ms, bound_by=b_by)
+        log(f"  [widths] {name} {what}: {json.dumps(out[name]['widths'][what])}")
+
+    def flash_timed(what, B, S, H, KVH, hd, dtype):
+        q, k, v = mk(B, S, H, hd, dtype=dtype), mk(B, S, KVH, hd, dtype=dtype), mk(B, S, KVH, hd, dtype=dtype)
+        err = flash(q, k, v, f"{what} timed", causal=True)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        t = timings(lambda: fl.flash_attention(q, k, v, causal=True),
+                    lambda: fl.flash_attention_plain(q, k, v, causal=True),
+                    lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True), plain_iters=5)
+        row("flash_attention", what, {"q": list(q.shape), "kv": list(k.shape), "dtype": str(dtype)}, err, t,
+            nbytes(q, k, v, q), 4 * hd * B * H * S * (S + 1) // 2, BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
+
+    def decode_timed(what, B, H, KVH, S, cur, hd, dtype):
+        q, kc, vc = mk(B, 1, H, hd, dtype=dtype), mk(B, KVH, S, hd, dtype=dtype), mk(B, KVH, S, hd, dtype=dtype)
+        err = decode(q, kc, vc, cur, f"{what} timed")
+        qt, ks, vs = q.transpose(1, 2), kc[:, :, :cur], vc[:, :, :cur]
+        t = timings(lambda: dec.decode_attention_bksd(q, kc, vc, cur), lambda: dec.decode_attention_plain(q, kc, vc, cur),
+                    lambda: F.scaled_dot_product_attention(qt, ks, vs, enable_gqa=True))
+        row("decode_attention", what, {"q": list(q.shape), "cache": list(kc.shape), "cur_len": cur, "dtype": str(dtype)},
+            err, t, 2 * nbytes(q) + 2 * B * KVH * cur * hd * q.element_size(), 4 * B * H * cur * hd,
+            BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
+
+    def paged_timed(what, E, B, H, KVH, hd, ps, n_pg, seed, dtype):
+        cur_l = torch.randint(1, n_pg * ps + 1, (B,), generator=torch.Generator().manual_seed(seed)).tolist()
+        q, kp, vp, pages, cur_t, err = paged(E, B, H, KVH, hd, ps, n_pg, cur_l, f"{what} timed", dtype)
+        visible = E * sum(cur_l)
+        idx = pool_row_index(pages, E, kp.shape[1]).clamp(min=0).long()
+        S = n_pg * ps
+        valid = (torch.arange(S, device=dev)[None, :] < cur_t.repeat(E)[:, None])[:, None, None, :]
+        qt = q.transpose(1, 2)
+
+        def library():
+            kv, vv = (t.reshape(-1, KVH, ps, hd).index_select(0, idx).reshape(E * B, n_pg, KVH, ps, hd)
+                      .transpose(1, 2).reshape(E * B, KVH, S, hd) for t in (kp, vp))
+            return F.scaled_dot_product_attention(qt, kv, vv, attn_mask=valid, enable_gqa=True)
+
+        t = timings(lambda: dec.decode_attention_paged(q, kp, vp, pages, cur_t),
+                    lambda: dec.decode_attention_paged_plain(q, kp, vp, pages, cur_t), library)
+        row("decode_attention_paged", what, {"q": list(q.shape), "pool": list(kp.shape), "pages": list(pages.shape),
+                                             "cur_len": cur_l, "dtype": str(dtype)}, err, t,
+            2 * nbytes(q) + 2 * visible * KVH * hd * q.element_size() + nbytes(pages, cur_t), 4 * H * hd * visible,
+            BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
+
+    for what, (B, S, H, KVH, hd) in EXAMPLE_FLASH.items():
+        flash_timed(f"bf16 {what}", B, S, H, KVH, hd, torch.bfloat16)
+    flash_timed("f32 hd128", 96, 256, 16, 2, 128, torch.float32)  # qwen2.5-3b tier 1 classify prefill
+    decode_timed("bf16 hd32", 8, 4, 4, 40, 39, 32, torch.bfloat16)  # edge_to_cloud's cloud tier, a generate step
+    decode_timed("f32 hd128", 24, 16, 2, 144, 143, 128, torch.float32)  # qwen2.5-3b tier 1 generate step
+    for what, (E, B, H, KVH, hd) in EXAMPLE_PAGED.items():
+        paged_timed(f"bf16 {what}", E, B, H, KVH, hd, 16, 2, hd, torch.bfloat16)
+    paged_timed("f32 hd128", 3, 8, 16, 2, 128, 16, 32, 0, torch.float32)  # tier 1's serve decode
     return out
 
 
@@ -1142,10 +1322,13 @@ def check_reference(dev, seed):
 E2E_TOL = 0.15
 # The same end-to-end run with bf16 rounding removed: float32 weights and
 # activations (TF32 off), where card and CPU differ only in summation order
-# (~1e-6 a layer).  It separates rounding from a fault.  The hybrid's shared
-# attention cannot run so (the flash and decode kernels take bf16 only, as
-# the TPU kernels do), so zamba2 runs its Mamba2 backbone alone.
+# (~1e-6 a layer).  It separates rounding from a fault.  zamba2 runs its
+# Mamba2 backbone alone and whole (the shared attention through the f32
+# route of flash and decode), and the dense qwen2.5-3b the same way, whose
+# random dense blocks grow their input's difference about tenfold a layer
+# (as the bf16 runs above show): held at F32_DENSE_TOL.
 F32_TOL = 1e-4
+F32_DENSE_TOL = 1e-3
 
 
 def layer_by_layer(cfg, vals, gvals, dev, x, cache=None, *, step=False, slot=None, start=0, pos=None):
@@ -1207,7 +1390,8 @@ def check_reference_recurrent(dev, seed):
     chunk into slot 1 of a 3-slot cache followed by a decode step at
     per-slot positions (logits and every state leaf) — end to end at
     E2E_TOL, and layer by layer on the CPU's own inputs at REF_TOL; then
-    end to end in float32 at F32_TOL."""
+    end to end in float32 at F32_TOL (and zamba2 whole, and qwen2.5-3b at
+    F32_DENSE_TOL, whose attention takes the kernels' f32 route)."""
     from repro_torch.configs import get_config
     from repro_torch.core import ensemble as ens
     from repro_torch.models import api
@@ -1240,9 +1424,10 @@ def check_reference_recurrent(dev, seed):
         worst = max(worst, w, normwise(*head(x[:, :, 0]), f"{arch} slot decode head card vs cpu"))
         errs[f"{arch}/layer_by_layer_worst"] = worst
     require(not torch.backends.cuda.matmul.allow_tf32, "float32 card-vs-cpu needs TF32 off")
-    for arch, k, family in (("zamba2-2.7b", 3, "ssm_mamba2"), ("rwkv6-7b", 1, "ssm_rwkv6")):
+    for arch, k, family, tol in (("zamba2-2.7b", 3, "ssm_mamba2", F32_TOL), ("rwkv6-7b", 1, "ssm_rwkv6", F32_TOL),
+                                 ("zamba2-2.7b", 3, "hybrid", F32_TOL), ("qwen2.5-3b", 3, "dense", F32_DENSE_TOL)):
         cfg = dataclasses.replace(get_config(arch).reduced(), family=family, dtype="float32")
-        e2e = recurrent_end_to_end(cfg, k, dev, seed, F32_TOL)[2]
+        e2e = recurrent_end_to_end(cfg, k, dev, seed, tol)[2]
         errs.update({f"{arch}/f32_{family}_{name}": e for name, e in e2e.items()})
     return errs
 
@@ -2327,6 +2512,93 @@ def classify_over_link(dev, c1, v1, c2, v2, rng, vocab, what):
                 differ=int(differ.sum()), cpu_hops_equal=hop_list(cpu_pl.link(0)) == hops)
 
 
+def path_unsettled(cpu_tier, card_tier, prompts, seqs):
+    """(E, B) True where member e's greedy path could differ between the
+    CPU and the card: ``seqs`` (E, B, n) continuations of ``prompts`` (B,
+    S); member e's logits on its own sequence, on both devices, at the n
+    positions that chose its tokens, ``unsettled`` at any of them."""
+    from repro_torch.core import ensemble as ens
+
+    S, n = prompts.shape[1], seqs.shape[-1]
+    out = np.zeros(seqs.shape[:2], bool)
+    with torch.no_grad():
+        for e in range(seqs.shape[0]):
+            full = np.concatenate([prompts, seqs[e]], axis=1)[:, :-1].astype(np.int32)
+            lc = ens.ensemble_logits(cpu_tier.values, {"tokens": full}, cpu_tier.cfg)[e, :, S - 1:S - 1 + n]
+            lg = ens.ensemble_logits(card_tier.values, {"tokens": full}, card_tier.cfg)[e, :, S - 1:S - 1 + n]
+            out[e] = unsettled(lc, lg).any(-1)
+    return out
+
+
+def check_f32_cascade_on_card(dev, seed):
+    """An f32 cascade, 3 x qwen2.5-3b reduced -> internlm2-1.8b reduced, on
+    the card (every attention through the kernels' f32 route) against the
+    CPU from the same weights, where the two differ only in summation
+    order: classify over a simulated link (``classify_over_link``: pred and
+    tier_of equal but at rows a near tie can flip); each tier's greedy
+    generate, member tokens equal but on a path through a near tie
+    (``path_unsettled``); the cascade's greedy ``serve_continuous`` (paged,
+    graphed on the card), every request's tier and tokens equal but where
+    its CPU output passes a near tie of some member of either tier; the
+    attention kernels launched on the card."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core import ensemble as ens
+    from repro_torch.core.cascade import TierSpec
+    from repro_torch.models.params import tree_map
+    from repro_torch.serve import CascadeServer, CascadeTier, Request, ServeConfig
+
+    c1, c2 = (dataclasses.replace(get_config(a).reduced(), dtype="float32") for a in ("qwen2.5-3b", "internlm2-1.8b"))
+    g = torch.Generator().manual_seed(seed + 9)
+    v1, v2 = ens.init_ensemble(c1, 3, g, "cpu"), ens.init_ensemble(c2, 1, g, "cpu")
+    g1, g2 = (tree_map(lambda t: t.to(dev), v) for v in (v1, v2))
+    rng = np.random.default_rng(seed + 9)
+    vocab = min(c1.vocab_size, c2.vocab_size)
+    kernels.reset_launch_counts()
+    out = {"classify": classify_over_link(dev, c1, g1, c2, g2, rng, vocab, "f32 cascade")}
+    specs = (TierSpec("qwen-x3", "vote", 0.5, k=3), TierSpec("internlm", "confidence", -1.0))
+    card = [CascadeTier(c, v, sp, device=dev) for c, v, sp in zip((c1, c2), (g1, g2), specs)]
+    cpu = [CascadeTier(c, v, sp, device="cpu") for c, v, sp in zip((c1, c2), (v1, v2), specs)]
+
+    toks = rng.integers(0, vocab, (8, 16)).astype(np.int32)
+    gen = []
+    with torch.no_grad():
+        for ct, pt in zip(card, cpu):
+            got, ref = ct.generate(toks, 8), pt.generate(toks, 8)
+            near = path_unsettled(pt, ct, toks, ref)
+            differ = (got != ref).any(-1)
+            require(not (differ & ~near).any(), f"f32 cascade {ct.spec.name} generate: card and CPU tokens differ "
+                                                f"at (member, row) {np.argwhere(differ & ~near).tolist()}, none a near tie")
+            gen.append(dict(tier=ct.spec.name, members=int(got.shape[0]), differ=int(differ.sum()),
+                            near_ties=int(near.sum())))
+    out["generate"] = gen
+
+    prompts = [rng.integers(0, vocab, int(rng.integers(4, 21))).astype(np.int32) for _ in range(12)]
+    make = lambda: [Request(tokens=p, max_new_tokens=6, rid=i) for i, p in enumerate(prompts)]  # noqa: E731
+    config = ServeConfig(n_slots=4, max_seq=64)
+    with torch.no_grad():
+        done = {where: {r.rid: r for r in CascadeServer(tiers, device=where).serve_continuous(make(), config)}
+                for where, tiers in ((dev, card), ("cpu", cpu))}
+        n_differ = n_near = 0
+        for i, p in enumerate(prompts):
+            a, b = done[dev][i], done["cpu"][i]
+            if a.tier == b.tier and np.array_equal(a.output, b.output):
+                continue
+            n_differ += 1
+            seq = np.asarray(b.output, np.int32)[None, None]
+            near = any(path_unsettled(pt, ct, p[None], np.repeat(seq, ct.k, 0)).any() for ct, pt in zip(card, cpu))
+            n_near += near
+            require(near, f"f32 cascade serve_continuous: request {i} on the card (tier {a.tier}, {a.output.tolist()}) "
+                          f"!= the CPU (tier {b.tier}, {b.output.tolist()}), no near tie on the CPU's path")
+    out["serve_continuous"] = dict(requests=len(prompts), differ=n_differ, near_ties=n_near,
+                                   tier_counts=np.bincount([r.tier for r in done[dev].values()], minlength=2).tolist())
+    launched = kernels.launch_counts()
+    for name in ("agreement", "compaction", "flash_attention", "decode_attention", "decode_attention_paged"):
+        require(launched[name] > 0, f"f32 cascade: no {name} launch on the card")
+    out["launches"] = launched
+    return out
+
+
 def check_transport_on_card(dev, seed):
     """Placement and transports at reduced width on the card, for both
     cascade shapes: qwen2.5-3b x3 -> internlm2-1.8b (paged) and zamba2-2.7b
@@ -3347,7 +3619,52 @@ def check_flash_training(dev, g):
         fwd_device_ms=device_ms(fwd), fwd_lse_device_ms=device_ms(fwd_lse),
         bwd_plain_ms=time_ms(lambda: ops.flash_attention_bwd(q, k, v, o, lse, do, causal=True), iters=5),
     )
+    out["fwd_bwd"] = flash_fwd_bwd_times(q, k, v, do)
     return out
+
+
+def flash_fwd_bwd_times(q, k, v, do):
+    """The training route's forward and backward (``flash_attention`` under
+    grad: the kernel with lse, then the plain backward) against one call of
+    the same function in PyTorch (SDPA's forward and its autograd
+    backward), causal: event ms, device ms with a cold L2 (the profiler's
+    kernel durations: autograd's backward is not captured in a graph here)
+    and host µs a call; the bound of the backward's five products over the
+    causal pairs (S = Q K^T and P recomputed, dV, dP, dQ, dK)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops
+
+    B, S, H, hd = q.shape
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    t_leaves = [t.detach().transpose(1, 2).clone().requires_grad_(True) for t in (q, k, v)]
+    do_t = do.transpose(1, 2)
+
+    def route():
+        with torch.enable_grad():
+            return torch.autograd.grad(ops.flash_attention(*leaves, causal=True), leaves, do)
+
+    def sdpa():
+        with torch.enable_grad():
+            o = F.scaled_dot_product_attention(*t_leaves, is_causal=True, enable_gqa=True)
+            return torch.autograd.grad(o, t_leaves, do_t)
+
+    b_ms, b_by = bound(nbytes(q, k, v, q, do) + nbytes(q, k, v), 5 * 2 * hd * B * H * S * (S + 1) // 2, BF16_FLOPS)
+    return dict(shape=[B, S, H, k.shape[2], hd], ms=time_ms(route, iters=5), device_ms=profiled_cold_ms(route),
+                host_us=host_us(route, calls=5), library_ms=time_ms(sdpa, iters=5),
+                library_device_ms=profiled_cold_ms(sdpa), library_host_us=host_us(sdpa, calls=5),
+                bwd_bound_ms=b_ms, bwd_bound_by=b_by)
+
+
+def scan_grad_bound(inputs, weights, step_flops, steps):
+    """The bound of a scan's forward and backward: each input read once and
+    its gradient written once, each output written once and its gradient
+    read once (``weights`` are those gradients); 3x the forward's per-step
+    operations (the forward, and the backward's two products a step: the
+    state's gradient and the inputs'), on the SIMT f32 peak (the
+    reference's gradient is f32)."""
+    ins = [t for t in inputs if t is not None]
+    return bound(2 * nbytes(*ins) + 2 * nbytes(*weights), 3 * step_flops * steps, F32_FLOPS)
 
 
 def check_scan_grad(name, fn, plain, inputs, weights, launch_name):
@@ -3394,8 +3711,12 @@ def check_ssd_grad(dev, g):
     wy, ws = rn(B, S, H, P), rn(B, H, N, P)
     fn = lambda x, dt, A, Bm, Cm, s0: ops.ssd(x, dt, A, Bm, Cm, initial_state=s0, return_final_state=True)
     plain = lambda x, dt, A, Bm, Cm, s0: ops.ssd_plain(x, dt, A, Bm, Cm, initial_state=s0)
+    # a step of a (row, head): h = exp(dt A) h + (dt x) B^T and y = C h, two
+    # and one multiply-adds an (N, P) element
+    b_ms, b_by = scan_grad_bound((x, dt, A, Bm, Cm, s0), (wy, ws), 6 * N * P, B * S * H)
     return dict(name="mamba2_ssd", shape={"x": [B, S, H, P], "B": [B, S, G, N], "E": E},
-                **check_scan_grad("ssd grad", fn, plain, (x, dt, A, Bm, Cm, s0), (wy, ws), "mamba2_ssd"))
+                **check_scan_grad("ssd grad", fn, plain, (x, dt, A, Bm, Cm, s0), (wy, ws), "mamba2_ssd"),
+                bound_ms=b_ms, bound_by=b_by)
 
 
 def check_wkv6_grad(dev, g):
@@ -3410,8 +3731,12 @@ def check_wkv6_grad(dev, g):
     wy, ws = rn(B, S, H, D), rn(B, H, D, D)
     fn = lambda r, k, v, logw, u, s0: ops.wkv6(r, k, v, logw, u, initial_state=s0, return_final_state=True)
     plain = lambda r, k, v, logw, u, s0: ops.wkv6_plain(r, k, v, logw, u, initial_state=s0)
+    # a step of a (row, head): y = r (S + u k v^T) and S = w S + k v^T, three
+    # multiply-adds a (D, D) element
+    b_ms, b_by = scan_grad_bound((r, k, v, logw, u, s0), (wy, ws), 6 * D * D, B * S * H)
     return dict(name="rwkv6_wkv", shape={"r": [B, S, H, D], "E": E},
-                **check_scan_grad("wkv6 grad", fn, plain, (r, k, v, logw, u, s0), (wy, ws), "rwkv6_wkv"))
+                **check_scan_grad("wkv6 grad", fn, plain, (r, k, v, logw, u, s0), (wy, ws), "rwkv6_wkv"),
+                bound_ms=b_ms, bound_by=b_by)
 
 
 def check_inference_only(dev):
@@ -3646,8 +3971,6 @@ def check_training_on_card(dev, seed):
 
 # phase 4 (a): qwen2.5-3b at published width, remat on
 TRAIN_FULL = dict(arch="qwen2.5-3b", batch=4, seq=1024, warmup_steps=1, steps=5)
-# phase 4 (b): examples/train_then_cascade.py's task, steps and lr at hd 64
-CASCADE_TASK = dict(vocab=256, n_classes=16, seq_len=32, easy_frac=0.6, seed=0)
 
 
 DEEP_WITNESS = dict(n_layers=36, d_model=512, d_ff=1024, n_heads=8)  # qwen2.5-3b's depth at a width both devices run
@@ -3789,90 +4112,41 @@ def train_full_width(dev, seed):
     return res, dict(counts)
 
 
-def train_classifier(cfg, task, steps, seed, dev, lr=2e-3, batch=64):
-    """examples/train_then_cascade.py's ``train_classifier`` on the card:
-    the label at the last position, the other positions masked out.
-    Returns (params, losses of every step)."""
-    from repro_torch.models import api
-    from repro_torch.optim import OptimConfig
-    from repro_torch.train import init_train_state, make_train_step
-
-    toks, labels, _ = task.sample(4096, seed=seed + 100)
-    ocfg = OptimConfig(lr=lr, weight_decay=0.01)
-    state = init_train_state(api.init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev), ocfg)
-    step = make_train_step(cfg, ocfg, total_steps=steps, warmup_steps=20)
-    rng = np.random.default_rng(seed)
-    mask = np.zeros((batch, task.seq_len), np.float32)
-    mask[:, -1] = 1.0
-    losses = []
-    for _ in range(steps):
-        idx = rng.integers(0, len(toks), batch)
-        tgt = np.zeros((batch, task.seq_len), np.int32)
-        tgt[:, -1] = labels[idx]
-        state, m = step(state, {"tokens": toks[idx], "targets": tgt, "mask": mask})
-        losses.append(m["loss"])
-    return state.params, torch.stack(losses).cpu().numpy()
-
-
-def trained_cascade(dev, seed):
-    """The card counterpart of examples/train_then_cascade.py: three small
-    members (300 steps each) and one big model (600 steps) trained on
-    ``MixtureTask``, theta calibrated on 100 held-out samples (vote rule,
-    epsilon 0.05), then 1024 fresh requests classified through
-    ``CascadeServer`` (tier 1 the k = 3 vote, tier 2 the big model).  The
-    example's widths give head sizes 24 and 40, which the flash kernel does
-    not take (hd 64, 80, 128): the same layer counts run at hd 64 —
-    ``ex-small`` d 128 with 2 heads and d_ff 256, ``ex-big`` d 256 with 4
-    heads and d_ff 512.  Each model's loss must fall (mean of the last 10
-    steps below the first 10's by 1.0); the card's pred and tier_of must
-    equal the port's CPU classify on the same trained weights except at rows
-    a near tie can flip (``unsettled`` members or answers); the selection
-    rate must lie strictly between 0 and 1."""
+def trained_cascade(dev):
+    """examples/train_then_cascade.py on the card through its port
+    (``repro_torch.examples.train_then_cascade``), at the example's own
+    widths: three small members (d 48, 2 heads of hd 24; 300 steps each)
+    and one big model (d 160, 4 heads of hd 40; 600 steps) trained on
+    ``MixtureTask`` (flash's padded widths under the training route), theta
+    calibrated on 100 held-out samples (vote rule, epsilon 0.05), then 1024
+    fresh requests classified through ``CascadeServer``.  Each model's loss
+    must fall (mean of the last 10 steps below the first 10's by 1.0); the
+    card's pred and tier_of must equal the port's CPU classify on the same
+    trained weights except at rows a near tie can flip (``unsettled``
+    members or answers); the selection rate must lie strictly between 0
+    and 1.  The example's seeds are its own (0-2 and 7), as in the
+    reference."""
     from repro_torch import kernels
-    from repro_torch.configs import ModelConfig
-    from repro_torch.core import calibration, deferral
-    from repro_torch.core import ensemble as ens
-    from repro_torch.core.cascade import TierSpec
-    from repro_torch.data import MixtureTask
+    from repro_torch.examples import train_then_cascade as ex
     from repro_torch.models.params import tree_map
     from repro_torch.serve import CascadeServer, CascadeTier
 
-    small = ModelConfig(name="ex-small", family="dense", n_layers=1, d_model=128, d_ff=256, vocab_size=256,
-                        n_heads=2, n_kv_heads=2, remat=False)
-    big = ModelConfig(name="ex-big", family="dense", n_layers=3, d_model=256, d_ff=512, vocab_size=256,
-                      n_heads=4, n_kv_heads=4, remat=False)
-    task = MixtureTask(**CASCADE_TASK)
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    trained = {}
-    for cfg, steps, s in ((small, 300, 0), (small, 300, 1), (small, 300, 2), (big, 600, 7)):
-        params, losses = train_classifier(cfg, task, steps, s, dev)
-        first, last = float(losses[:10].mean()), float(losses[-10:].mean())
-        log(f"  [{cfg.name} seed {s}] {steps} steps: loss first 10 {first:.3f}, last 10 {last:.3f}")
-        require(last < first - 1.0, f"{cfg.name} seed {s}: loss {first:.3f} -> {last:.3f} did not fall by 1.0")
-        trained[s] = (params, first, last)
+    stacked, big_vals, losses = ex.train_tiers(ex.parse_args([]), dev)  # the example's own steps
+    for s_, l_ in losses.items():
+        first, last = float(l_[:10].mean()), float(l_[-10:].mean())
+        log(f"  [train_then_cascade seed {s_}] {len(l_)} steps: loss first 10 {first:.3f}, last 10 {last:.3f}")
+        require(last < first - 1.0, f"train_then_cascade seed {s_}: loss {first:.3f} -> {last:.3f} did not fall by 1.0")
     train_s = time.perf_counter() - t0
     train_counts = kernels.launch_counts()
-    stacked = stack_members([trained[s][0] for s in (0, 1, 2)])
-    big_vals = tree_map(lambda t: t[None], trained[7][0])
-
-    cal_toks, cal_y, _ = task.sample(100, seed=999)
-    out = deferral.vote_rule(ens.ensemble_last_logits(stacked, {"tokens": cal_toks}, small), theta=0.0)
-    theta, info = calibration.estimate_threshold(out.score.float().cpu().numpy(),
-                                                 out.pred.cpu().numpy() == cal_y, epsilon=0.05)
-    test_toks, test_y, easy = task.sample(1024, seed=1234)
-    specs = (TierSpec("small-x3", "vote", theta, k=3, cost=1.0), TierSpec("big", "confidence", -1.0, k=1, cost=25.0))
+    theta, info = ex.calibrate(stacked, ex.SMALL, ex.TASK, seed=999)
     kernels.reset_launch_counts()
-    server = CascadeServer([CascadeTier(small, stacked, specs[0], device=dev),
-                            CascadeTier(big, big_vals, specs[1], device=dev)], device=dev)
-    res = server.classify(test_toks)
+    rep = ex.serve(stacked, big_vals, theta, dev)
     classify_counts = kernels.launch_counts()
     for n in ("flash_attention", "agreement"):
         require(classify_counts[n] > 0, f"trained cascade: classify launched no {n} kernel")
-    with torch.no_grad():
-        big_pred = ens.ensemble_last_logits(big_vals, {"tokens": test_toks}, big)[0].argmax(-1).cpu().numpy()
-    acc_c, acc_b = float((res.pred == test_y).mean()), float((big_pred == test_y).mean())
-    fr = server.tier_fractions(res)
+    server, res, test_toks = rep["server"], rep["result"], rep["tokens"]
     sel = res.tier_of == 0
     require(0.0 < sel.mean() < 1.0, f"trained cascade: selection rate {sel.mean()}")
 
@@ -3887,27 +4161,122 @@ def trained_cascade(dev, seed):
     differ = (res.pred != cpu.pred) | (res.tier_of != cpu.tier_of)
     require(not (differ & ~near).any(), f"trained cascade: card and CPU classify differ at rows "
                                         f"{np.flatnonzero(differ & ~near).tolist()}, none a near tie")
+    easy = rep["easy"]
     report = dict(
-        widths={"ex-small": [small.d_model, small.n_heads, small.d_ff], "ex-big": [big.d_model, big.n_heads, big.d_ff]},
-        train_s=train_s, losses={str(s): [v[1], v[2]] for s, v in trained.items()},
-        theta=theta, calibration=info, accuracy_cascade=acc_c, accuracy_big_only=acc_b,
-        tier_fractions=[float(f) for f in fr], cost=float(res.cost), cost_always_large=25.0 * len(test_toks),
-        cost_ratio=25.0 * len(test_toks) / float(res.cost),
+        widths={c.name: dict(d_model=c.d_model, n_heads=c.n_heads, head_dim=c.head_dim, d_ff=c.d_ff)
+                for c in (ex.SMALL, ex.BIG)},
+        train_s=train_s, losses={str(s_): [float(l_[:10].mean()), float(l_[-10:].mean())] for s_, l_ in losses.items()},
+        theta=theta, calibration=info, accuracy_cascade=rep["accuracy_cascade"],
+        accuracy_big_only=rep["accuracy_big_only"], tier_fractions=[float(f) for f in rep["tier_fractions"]],
+        cost=float(res.cost), cost_always_large=25.0 * len(test_toks), cost_ratio=25.0 * len(test_toks) / float(res.cost),
         easy_share_exits=float(easy[sel].mean()), easy_share_deferred=float(easy[~sel].mean()),
         card_vs_cpu=dict(differ=int(differ.sum()), near_ties=int(near.sum())),
+        launches={"train": dict(train_counts), "classify": dict(classify_counts)},
     )
-    log(f"  [trained cascade] accuracy: cascade {acc_c:.3f} vs big-only {acc_b:.3f}; tier fractions "
-        f"{fr[0]:.2f} / {fr[1]:.2f}; cost {res.cost:.0f} vs always-large {25.0 * len(test_toks):.0f} "
-        f"({report['cost_ratio']:.2f}x cheaper); easy share at exits {report['easy_share_exits']:.2f} vs "
-        f"deferred {report['easy_share_deferred']:.2f}")
+    log(f"  [trained cascade] hd {ex.SMALL.head_dim} / {ex.BIG.head_dim}: accuracy cascade "
+        f"{report['accuracy_cascade']:.3f} vs big-only {report['accuracy_big_only']:.3f}; {report['cost_ratio']:.2f}x "
+        f"cheaper; card vs CPU {report['card_vs_cpu']}")
     return report, {"train": dict(train_counts), "classify": dict(classify_counts)}
 
 
-def stack_members(trees):
-    """Single-model trees -> one tree with a leading member axis."""
-    if isinstance(trees[0], dict):
-        return {k: stack_members([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
+def edge_to_cloud_example(dev):
+    """examples/edge_to_cloud.py on the card through its port
+    (``repro_torch.examples.edge_to_cloud``), at the example's widths (hd 16
+    at the edge, 32 in the cloud) and training steps (200 and 400):
+    classify 256 prompts over the ``sim`` link (the hop the deferred rows
+    padded to the bucket, card against the CPU on the same weights equal
+    but at near ties), then ``serve_continuous`` over the sim, serial and
+    async 40 ms links: the same generations and hops under every link, the
+    paged decode at the padded widths launched.  Returns (results, launches
+    by run)."""
+    from repro_torch import kernels
+    from repro_torch.examples import edge_to_cloud as ex
+    from repro_torch.models.params import tree_map
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    args = ex.parse_args([])
+    edge, cloud = ex.train_tiers(args, dev)
+    train_s = time.perf_counter() - t0
+    launches = {"train": kernels.launch_counts()}
+    theta, _ = ex.calibrate(edge, ex.EDGE, ex.TASK, seed=77)
+    toks = ex.TASK.sample(256, seed=42)[0]
+    kernels.reset_launch_counts()
+    res, placement = ex.classify_over_link(edge, cloud, theta, toks, dev)
+    launches["classify"] = kernels.launch_counts()
+    link = placement.link(0)
+    S = toks.shape[1]
+    require(link.total_examples == int((res.tier_of == 1).sum()) and
+            link.total_bytes == res.evaluated[1] * (S * 4 + 4), f"edge_to_cloud classify: hops {hop_list(link)}")
+    cpu_res, _ = ex.classify_over_link(tree_map(lambda t: t.cpu(), edge), tree_map(lambda t: t.cpu(), cloud), theta,
+                                       toks, torch.device("cpu"))
+    cpu_tiers = ex.tiers(tree_map(lambda t: t.cpu(), edge), tree_map(lambda t: t.cpu(), cloud), theta, torch.device("cpu"))
+    card_tiers = ex.tiers(edge, cloud, theta, dev)
+    with torch.no_grad():
+        near = vote_unsettled(cpu_tiers[0].last_logits(toks, eager=True), card_tiers[0].last_logits(toks, eager=True),
+                              cpu_res.pred)
+        near |= unsettled(cpu_tiers[1].last_logits(toks, eager=True)[0], card_tiers[1].last_logits(toks, eager=True)[0])
+    differ = (res.pred != cpu_res.pred) | (res.tier_of != cpu_res.tier_of)
+    require(not (differ & ~near).any(), f"edge_to_cloud classify: card and CPU differ at rows "
+                                        f"{np.flatnonzero(differ & ~near).tolist()}, none a near tie")
+    serve = {}
+    for kind in ("sim", "serial", "async"):
+        kernels.reset_launch_counts()
+        done, wall, ln = ex.serve_over_link(card_tiers, kind, dev)
+        launches[f"serve_{kind}"] = kernels.launch_counts()
+        serve[kind] = dict(wall_s=wall, generations=ex.generations(done),
+                           hops=[(h.n_examples, h.payload_bytes) for h in ln.hops], latency_s=ln.total_latency,
+                           wait_s=ln.total_wait)
+    require(serve["sim"]["generations"] == serve["serial"]["generations"] == serve["async"]["generations"],
+            "edge_to_cloud serve: the links give other generations")
+    require(serve["serial"]["hops"] == serve["async"]["hops"], "edge_to_cloud serve: serial and async meter other hops")
+    for kname in ("decode_attention_paged", "compaction"):
+        require(launches["serve_async"][kname] > 0, f"edge_to_cloud serve: {kname} not launched")
+    require(launches["classify"]["agreement"] > 0 and launches["classify"]["flash_attention"] > 0,
+            f"edge_to_cloud classify: launches {launches['classify']}")
+    out = dict(widths={c.name: c.head_dim for c in (ex.EDGE, ex.CLOUD)},
+               steps=dict(edge=args.edge_steps, cloud=args.cloud_steps), train_s=train_s,
+               theta=theta, deferred=int(res.tier_counts[1]), bytes_crossed=link.total_bytes,
+               batch_bytes=toks.size * 4, card_vs_cpu=dict(differ=int(differ.sum()), near_ties=int(near.sum())),
+               serve={k: {x: v for x, v in r.items() if x != "generations"} for k, r in serve.items()},
+               overlap_ratio=serve["serial"]["wall_s"] / serve["async"]["wall_s"], launches=launches)
+    log(f"  [edge_to_cloud] {json.dumps(out)}")
+    return out, launches
+
+
+def serve_cli_path(dev, seed):
+    """The serve CLI (``repro_torch.launch.serve``) at published width,
+    ``--tiers qwen2.5-3b:3 internlm2-1.8b:1`` on the card: its tiers built
+    once (weights from ``--seed``), then its classify and its generate (64
+    prompts of 64 tokens each): every request answered, the mode's kernels
+    launched.  Returns (results, launches by mode)."""
+    from repro_torch import kernels
+    from repro_torch.launch import serve as cli
+
+    need = dict(classify=("agreement", "compaction", "flash_attention"),
+                generate=("compaction", "flash_attention", "decode_attention"))
+    results, launches = {}, {}
+    argv = ["--tiers", "qwen2.5-3b:3", "internlm2-1.8b:1", "--seed", str(seed)]
+    tiers = cli.build_tiers(cli.parse_args(argv))  # one set of weights for both modes
+    for mode in ("classify", "generate"):
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = cli.serve(cli.parse_args(argv + ["--mode", mode]), tiers)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[mode] = kernels.launch_counts()
+        require(int(res.tier_counts.sum()) == 64, f"serve CLI {mode}: {res.tier_counts} answered of 64")
+        for n in need[mode]:
+            require(launches[mode][n] > 0, f"serve CLI {mode}: {n} not launched")
+        results[mode] = dict(wall_s=wall, tier_counts=res.tier_counts.tolist(), evaluated=res.evaluated.tolist(),
+                             cost=float(res.cost), outputs_digest=outputs_digest(res.pred, res.tier_of),
+                             launches=launches[mode])
+        del res
+    del tiers
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[serve CLI] {json.dumps(results)}")
+    return results, launches
 
 
 def train_path(dev, seed):
@@ -3920,7 +4289,7 @@ def train_path(dev, seed):
         f"{full['peak_memory_gib']:.1f} GiB; losses {[round(x, 4) for x in full['losses']]}")
     gc.collect()
     torch.cuda.empty_cache()
-    cascade, cascade_counts = trained_cascade(dev, seed)
+    cascade, cascade_counts = trained_cascade(dev)
     return dict(deep_witness=deep, full_width=full, trained_cascade=cascade), {
         "full_width": full_counts, "cascade_train": cascade_counts["train"],
         "cascade_classify": cascade_counts["classify"],
@@ -3969,6 +4338,16 @@ def main(argv=None):
             c["max_abs_err"] = max(c["max_abs_err"], groups[c["name"]]["max_abs_err"])
             c["groups"] = groups[c["name"]]["groups"]
             log(f"kernel {c['name']} at G 5, 6, 12: {json.dumps(c['groups'])}")
+    # the padded head sizes, every G to 16 and the f32 route (a generator of
+    # their own); each row takes their worst error and keeps them under "widths"
+    widths = check_attention_widths(dev, torch.Generator(device=dev).manual_seed(args.seed + 6))
+    for c in checks:
+        if c["name"] in widths:
+            w = widths[c["name"]]
+            c["max_abs_err"] = max(c["max_abs_err"], w["max_abs_err"])
+            c["f32_normwise_err"], c["widths"] = w["f32_normwise_err"], w["widths"]
+            log(f"kernel {c['name']} at the padded head sizes and in f32: f32 normwise err "
+                f"{w['f32_normwise_err']:.3g}, bf16/f32 max abs err {w['max_abs_err']:.3g}")
     # training: flash's lse forward and gradients, the scans under autograd
     # (generators of their own), and the kernels that refuse grad
     by_name = {c["name"]: c for c in checks}
@@ -3998,6 +4377,8 @@ def main(argv=None):
     log(f"open loop on the card, repeat runs equal: {json.dumps(ref['open_loop_on_card'])}")
     ref["transport_on_card"] = check_transport_on_card(dev, args.seed)
     log(f"placement and transports on the card, tokens equal under every link: {json.dumps(ref['transport_on_card'])}")
+    ref["f32_cascade_on_card"] = check_f32_cascade_on_card(dev, args.seed)
+    log(f"f32 cascade on the card vs cpu, equal but at near ties: {json.dumps(ref['f32_cascade_on_card'])}")
     ref["families_on_card"] = check_families_on_card(dev, args.seed)
     log(f"moe, vlm, encoder, olmo and command-r on the card vs cpu (tol {REF_TOL}), MoE serve graphed == eager, "
         f"paged == dense: {json.dumps(ref['families_on_card'])}")
@@ -4026,6 +4407,11 @@ def main(argv=None):
     require(left < 0.25, f"frontends: {left:.2f} GiB of device memory outlived the checks")
     torch.cuda.empty_cache()
     gc.enable()
+    # the serve CLI at published width and examples/edge_to_cloud.py at its own widths
+    results["serve_cli"], per_mode = serve_cli_path(dev, args.seed)
+    launches.update({f"cli/{mode}": c for mode, c in per_mode.items()})
+    results["edge_to_cloud_example"], per_run = edge_to_cloud_example(dev)
+    launches.update({f"examples/edge_to_cloud/{run}": c for run, c in per_run.items()})
     # training last: autograd graphs and checkpointed layers are freed with
     # the cyclic collector on
     results["train"], per_run = train_path(dev, args.seed)

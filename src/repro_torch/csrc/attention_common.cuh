@@ -6,7 +6,15 @@
 // Both kernels keep K and V tiles in shared memory as rows of HD bf16 padded
 // to HD + 8 elements: a row then starts 16 bytes further along the banks than
 // the one before, so the eight 16-byte row addresses of one ldmatrix phase
-// fall in distinct banks at every HD the kernels take (64, 80, 128).
+// fall in distinct banks at every HD the kernels are built at (32, 64, 80,
+// 128).  A head size hd below HD (any multiple of 8 up to 128) runs at the
+// next of these widths: the copies bring its hd real columns and zero-fill
+// the rest, which leaves every dot product exact, and only the real columns
+// are stored.
+//
+// The f32 route of both kernels (attend_f32 below) is plain FFMA on the SIMT
+// cores with the same masks and online softmax: f32 inputs are never rounded,
+// as a TF32 product would round them.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -178,6 +186,122 @@ __device__ __forceinline__ void softmax_tile(float* s, float (&m)[2], float (&l)
   tile_exp<NJ, CAP>(s, m, m_new, alpha, psum, sm);
 #pragma unroll
   for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + psum[r];
+}
+
+// ---------------------------------------------------------------------------
+// The f32 route: one block attends BM query rows (each with its own visible
+// key range) over keys [k_lo, k_hi), in BK-key tiles from k_lo rounded down
+// to BK, so that two callers with the same rows and keys run the same tiles
+// in the same order (the paged decode is bitwise the dense one).
+//
+// The caller fills, for r < BM, roff[r] (element offset of row r's q and
+// output vectors, -1 for no row), rlo[r] and rhi[r] (its visible keys), then
+// calls attend_f32 with key(j): the element offset of key j's K and V rows,
+// or -1 (the row reads as zeros, as an unmapped page does).  Phases a tile,
+// each behind a barrier: the K and V tile into shared memory; the scores
+// (thread (r, j), j fastest: a warp reads one q row, by broadcast, against
+// 32 K rows of stride HD + 1, in distinct banks); the online softmax (a
+// thread a row: running max, rescale, exp and sum, in natural-log units);
+// O = O * alpha + P V (thread (r, d), d fastest, BM * HD / NT outputs a
+// thread in registers).  A row that sees no key ends with l == 0 and emits
+// zeros; with an lse pointer each row also writes its log-sum-exp at
+// lse[roff / hd] (-inf where l == 0): q is (..., H, hd) with one lse a head.
+template <int HD, int BM, int BK>
+struct F32Smem {
+  static constexpr int QLD = HD + 1, KLD = HD + 1, SLD = BK + 1;
+  static constexpr int floats = BM * QLD + BK * KLD + BK * HD + BM * SLD + 3 * BM;
+  static constexpr size_t bytes = sizeof(float) * floats;
+};
+
+template <int HD, int BM, int BK, int NT, bool CAP, class KeyFn>
+__device__ __forceinline__ void attend_f32(float* sm, const long* roff, const int* rlo, const int* rhi,
+                                           const float* __restrict__ q, const float* __restrict__ kc,
+                                           const float* __restrict__ vc, float* __restrict__ o,
+                                           float* __restrict__ lse, int hd, int k_lo, int k_hi,
+                                           float scale, float softcap, KeyFn key) {
+  using S = F32Smem<HD, BM, BK>;
+  constexpr int QLD = S::QLD, KLD = S::KLD, SLD = S::SLD, NACC = BM * HD / NT;
+  static_assert(BM * HD % NT == 0, "every thread holds NACC outputs");
+  float* Qs = sm;
+  float* Ks = Qs + BM * QLD;
+  float* Vs = Ks + BK * KLD;
+  float* Ss = Vs + BK * HD;
+  float* m_s = Ss + BM * SLD;
+  float* l_s = m_s + BM;
+  float* a_s = l_s + BM;
+  const int tid = threadIdx.x;
+
+  for (int i = tid; i < BM * HD; i += NT) {  // q, scaled as the plain version scales it
+    const int r = i / HD, d = i % HD;
+    const long off = roff[r];
+    Qs[r * QLD + d] = off >= 0 && d < hd ? q[off + d] * scale : 0.f;
+  }
+  for (int r = tid; r < BM; r += NT) m_s[r] = -INFINITY, l_s[r] = 0.f;
+  float acc[NACC];
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) acc[i] = 0.f;
+
+  for (int k0 = k_lo < k_hi ? k_lo / BK * BK : k_hi; k0 < k_hi; k0 += BK) {
+    __syncthreads();  // the last tile's products are done (and, the first time, Qs and the state are set)
+    for (int i = tid; i < BK * HD; i += NT) {
+      const int j = i / HD, d = i % HD, kk = k0 + j;
+      const long off = kk >= k_lo && kk < k_hi ? key(kk) : -1;
+      const bool ok = off >= 0 && d < hd;
+      Ks[j * KLD + d] = ok ? kc[off + d] : 0.f;
+      Vs[j * HD + d] = ok ? vc[off + d] : 0.f;
+    }
+    __syncthreads();
+    for (int i = tid; i < BM * BK; i += NT) {
+      const int r = i / BK, j = i % BK, kk = k0 + j;
+      float x = -INFINITY;
+      if (kk >= rlo[r] && kk < rhi[r]) {
+        float dot = 0.f;
+#pragma unroll 16
+        for (int d = 0; d < HD; ++d) dot = fmaf(Qs[r * QLD + d], Ks[j * KLD + d], dot);
+        x = CAP ? softcap * tanhf(dot / softcap) : dot;
+      }
+      Ss[r * SLD + j] = x;
+    }
+    __syncthreads();
+    for (int r = tid; r < BM; r += NT) {
+      const float m_old = m_s[r];
+      float mx = m_old;
+      for (int j = 0; j < BK; ++j) mx = fmaxf(mx, Ss[r * SLD + j]);
+      const float a = m_old == -INFINITY ? 0.f : expf(m_old - mx);  // O and l are 0 while m is -inf
+      float sum = 0.f;
+      for (int j = 0; j < BK; ++j) {
+        const float x = Ss[r * SLD + j];
+        const float p = x == -INFINITY ? 0.f : expf(x - mx);
+        Ss[r * SLD + j] = p;
+        sum += p;
+      }
+      l_s[r] = l_s[r] * a + sum;
+      m_s[r] = mx;
+      a_s[r] = a;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < NACC; ++i) {
+      const int e = tid + i * NT, r = e / HD, d = e % HD;
+      float pv = 0.f;
+#pragma unroll 8
+      for (int j = 0; j < BK; ++j) pv = fmaf(Ss[r * SLD + j], Vs[j * HD + d], pv);
+      acc[i] = fmaf(acc[i], a_s[r], pv);
+    }
+  }
+  __syncthreads();  // l_s and m_s final (a block with no tile: as set above)
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) {
+    const int e = tid + i * NT, r = e / HD, d = e % HD;
+    const long off = roff[r];
+    if (off >= 0 && d < hd) {
+      const float l = l_s[r];
+      o[off + d] = l == 0.f ? 0.f : acc[i] / l;
+    }
+  }
+  if (lse)
+    for (int r = tid; r < BM; r += NT)
+      if (roff[r] >= 0) lse[roff[r] / hd] = l_s[r] == 0.f ? -INFINITY : m_s[r] + logf(l_s[r]);
 }
 
 }  // namespace attn

@@ -1,5 +1,6 @@
-// Decode attention: one query token per row against a bf16 KV cache, dense or
-// block-paged.  Two entry points share one kernel body:
+// Decode attention: one query token per row against a KV cache, dense or
+// block-paged.  Two entry points share one kernel body (bf16), and two more
+// (the _f32 entries) share the f32 route's body:
 //
 //   decode_attention_fwd        q (B, KVH, G, hd), caches (B, KVH, S, hd),
 //                               cur_len (B,) i32 or a scalar, optional starts (B,)
@@ -8,11 +9,14 @@
 //                               (-1 = unmapped) shared by the E member planes,
 //                               cur_len (B,) i32; no starts
 //
-// Window and tanh softcap optional on both; hd in {64, 128}, G in {1, 2, 4, 5, 6,
-// 8, 12, 16} (llama4 has 5, mixtral and internvl2 6, command-r-plus 12);
-// the dense entry also takes hd 80 (zamba2's shared attention: 32 heads of
-// 80, as many KV heads).  The paged entry stays at hd {64, 128}: the only
-// hd-80 family (hybrid) keeps dense slot caches.
+// Window and tanh softcap optional on both; hd a multiple of 8 from 8 to 128,
+// any G from 1 to 16.  The bf16 body is built at HD 32, 64, 80 and 128; another
+// hd runs at the next of these widths (PAD: its hd columns copied, the rest
+// zero-filled in shared memory, only the real columns stored), so hd 64, 80
+// and 128 keep the code they had.  The f32 route (attention_common.cuh
+// attend_f32) is plain FFMA, one block a (row, kv head) pair with the G heads
+// as its rows, no split; the paged f32 entry is bitwise the dense one on the
+// gathered view, as the bf16 entries are.
 //
 // Replaces: src/repro/kernels/decode_attention/kernel.py
 // decode_attention_bkgd (dense, body _decode_kernel), which needs
@@ -97,12 +101,12 @@ struct Cfg {
       sizeof(bf16) * q_elems + sizeof(float) * recv + sizeof(bf16) * ST * stage_elems;
 };
 
-template <int HD, int ST, bool PAGED, bool CAP>
+template <int HD, int ST, bool PAGED, bool CAP, bool PAD>
 __global__ void __launch_bounds__(NT, 1)
     decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kc,
                   const bf16* __restrict__ vc, bf16* __restrict__ out,
                   const int* __restrict__ cur_len, int cur_scalar, const int* __restrict__ starts,
-                  Paged pg, int G, int KVH, int S, int rows_per_split, int window, float softcap,
+                  Paged pg, int G, int KVH, int S, int hd_in, int rows_per_split, int window, float softcap,
                   float scale) {
   using C = Cfg<HD, ST>;
   constexpr int LD = C::LD, CH = C::CH;
@@ -123,10 +127,12 @@ __global__ void __launch_bounds__(NT, 1)
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const long row0 = (long)b * KVH + kvh;
+  const int hd = PAD ? hd_in : HD;  // the real head size: columns [hd, HD) are zeros in shared memory
   // the q row (heads past G as zeros) first: it depends on nothing the block reads
   for (int c = tid; c < GM * CH; c += NT) {
     const int r = c / CH, cc = (c % CH) * 8;
-    cp_async16(Qs + r * LD + cc, q + (row0 * G + (r < G ? r : 0)) * HD + cc, r < G);
+    const bool col = !PAD || cc < hd;
+    cp_async16(Qs + r * LD + cc, q + (row0 * G + (r < G ? r : 0)) * hd + (col ? cc : 0), r < G && col);
   }
   // paged: row b of q is slot b % B of member plane b / B
   const int slot = PAGED ? b % pg.B : b;
@@ -143,7 +149,7 @@ __global__ void __launch_bounds__(NT, 1)
   const int origin = va < vz ? sa + (va - sa) / BK * BK : sa;
   const int n_tiles = va < vz ? (vz - origin + BK - 1) / BK : 0;
 
-  const long base = PAGED ? (long)(b / pg.B) * pg.P * KVH * pg.ps * HD : row0 * (long)S * HD;
+  const long base = PAGED ? (long)(b / pg.B) * pg.P * KVH * pg.ps * hd : row0 * (long)S * hd;
   const bf16* kb = kc + base;
   const bf16* vb = vc + base;
   const int* table = PAGED ? pg.pages + (long)slot * pg.n_pg : nullptr;
@@ -157,14 +163,15 @@ __global__ void __launch_bounds__(NT, 1)
       if (row >= va && row < vz) {
         if (PAGED) {
           const int page = table[row / pg.ps];
-          if (page >= 0 && page < pg.P) off = (((long)page * KVH + kvh) * pg.ps + row % pg.ps) * HD;
+          if (page >= 0 && page < pg.P) off = (((long)page * KVH + kvh) * pg.ps + row % pg.ps) * hd;
         } else {
-          off = (long)row * HD;
+          off = (long)row * hd;
         }
       }
-      const long src = (off < 0 ? 0 : off) + cc;
-      cp_async16(ks + r * LD + cc, kb + src, off >= 0);
-      cp_async16(vs + r * LD + cc, vb + src, off >= 0);
+      const bool col = !PAD || cc < hd;
+      const long src = (off < 0 ? 0 : off) + (col ? cc : 0);
+      cp_async16(ks + r * LD + cc, kb + src, off >= 0 && col);
+      cp_async16(vs + r * LD + cc, vb + src, off >= 0 && col);
     }
   };
 
@@ -297,8 +304,8 @@ __global__ void __launch_bounds__(NT, 1)
 #pragma unroll
       for (int j = 0; j < NTW; ++j) {
         const int n = warp + NW * j;
-        if (r < G && n < HD / 8)
-          *reinterpret_cast<uint32_t*>(out + (row0 * G + r) * HD + n * 8 + 2 * t) =
+        if (r < G && n * 8 < hd)
+          *reinterpret_cast<uint32_t*>(out + (row0 * G + r) * hd + n * 8 + 2 * t) =
               pack(acc[j][2 * rr] * inv, acc[j][2 * rr + 1] * inv);
       }
     }
@@ -348,7 +355,12 @@ __global__ void __launch_bounds__(NT, 1)
         ov += a * Rv[sp * box + 2 * GM + off];
         lv += a * Rv[sp * box + GM + r];
       }
-    out[row0 * E + e] = __float2bfloat16(ov / (lv == 0.f ? 1.f : lv));
+    const bf16 y = __float2bfloat16(ov / (lv == 0.f ? 1.f : lv));
+    if constexpr (PAD) {
+      if (e % HD < hd) out[(row0 * G + r) * hd + e % HD] = y;
+    } else {
+      out[row0 * E + e] = y;
+    }
   }
 }
 
@@ -364,12 +376,12 @@ int plan_splits(int pairs, int S, int* rows_per_split) {
   return (rows + *rows_per_split - 1) / *rows_per_split;
 }
 
-template <int HD, int ST, bool PAGED, bool CAP>
+template <int HD, int ST, bool PAGED, bool CAP, bool PAD>
 int launch_cap(const void* q, const void* k, const void* v, void* o, const void* cur, int cur_scalar,
-           const void* st, Paged pg, int G, int rows, int KVH, int S, int n_split, int rps, int window,
+           const void* st, Paged pg, int G, int rows, int KVH, int S, int hd, int n_split, int rps, int window,
            float softcap, float scale, cudaStream_t stream) {
   using C = Cfg<HD, ST>;
-  auto kernel = decode_kernel<HD, ST, PAGED, CAP>;
+  auto kernel = decode_kernel<HD, ST, PAGED, CAP, PAD>;
   static int attr_set_on = -1;  // the device whose attribute is set: once, not per call
   int dev = 0;
   cudaGetDevice(&dev);
@@ -393,45 +405,130 @@ int launch_cap(const void* q, const void* k, const void* v, void* o, const void*
   cfg.numAttrs = n_split > 1 ? 1 : 0;  // one split: a plain launch, no cluster
   const cudaError_t e = cudaLaunchKernelEx(
       &cfg, kernel, (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (const int*)cur,
-      cur_scalar, (const int*)st, pg, G, KVH, S, rps, window, softcap, scale);
+      cur_scalar, (const int*)st, pg, G, KVH, S, hd, rps, window, softcap, scale);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
-template <int HD, int ST, bool PAGED>
+template <int HD, int ST, bool PAGED, bool PAD>
 int launch(const void* q, const void* k, const void* v, void* o, const void* cur, int cur_scalar,
-           const void* st, Paged pg, int G, int rows, int KVH, int S, int n_split, int rps, int window,
+           const void* st, Paged pg, int G, int rows, int KVH, int S, int hd, int n_split, int rps, int window,
            float softcap, float scale, cudaStream_t stream) {
-  return softcap > 0.f ? launch_cap<HD, ST, PAGED, true>(q, k, v, o, cur, cur_scalar, st, pg, G, rows, KVH, S,
-                                                         n_split, rps, window, softcap, scale, stream)
-                       : launch_cap<HD, ST, PAGED, false>(q, k, v, o, cur, cur_scalar, st, pg, G, rows, KVH,
-                                                          S, n_split, rps, window, softcap, scale, stream);
+  return softcap > 0.f ? launch_cap<HD, ST, PAGED, true, PAD>(q, k, v, o, cur, cur_scalar, st, pg, G, rows, KVH,
+                                                              S, hd, n_split, rps, window, softcap, scale, stream)
+                       : launch_cap<HD, ST, PAGED, false, PAD>(q, k, v, o, cur, cur_scalar, st, pg, G, rows, KVH,
+                                                               S, hd, n_split, rps, window, softcap, scale, stream);
 }
+
+// hd a multiple of 8 from 8 to 128, G from 1 to GM: any G <= GM fits the
+// body (heads past G are zero rows, never stored) and the merge (chunk =
+// ceil(G * HD / n_split) per split: the n_split boxes of 2 * GM + chunk
+// floats stay within Cfg::recv)
+bool shapes_ok(int hd, int G) { return hd >= 8 && hd <= 128 && hd % 8 == 0 && G >= 1 && G <= GM; }
 
 template <bool PAGED>
 int dispatch(int hd, int G, const void* q, const void* k, const void* v, void* o, const void* cur,
              int cur_scalar, const void* st, Paged pg, int rows, int KVH, int S, int window,
              float softcap, float scale, cudaStream_t s) {
+  if (!shapes_ok(hd, G)) return (int)cudaErrorInvalidValue;
   if (rows == 0) return (int)cudaGetLastError();
-  // any G <= GM fits the body (heads past G are zero rows, never stored) and
-  // the merge (chunk = ceil(G * hd / n_split) per split: the n_split boxes of
-  // 2 * GM + chunk floats stay within Cfg::recv); these are the ones tested
-  if (G != 1 && G != 2 && G != 4 && G != 5 && G != 6 && G != 8 && G != 12 && G != 16)
-    return (int)cudaErrorInvalidValue;
   int rps = 1;
   const int n_split = plan_splits(rows * KVH, S, &rps);
-#define DA_LAUNCH(HD_)                                                                              \
-  return rps <= BK ? launch<HD_, 1, PAGED>(q, k, v, o, cur, cur_scalar, st, pg, G, rows, KVH, S,    \
-                                           n_split, rps, window, softcap, scale, s)                 \
-                   : launch<HD_, 2, PAGED>(q, k, v, o, cur, cur_scalar, st, pg, G, rows, KVH, S,    \
-                                           n_split, rps, window, softcap, scale, s);
+#define DA_LAUNCH(HD_)                                                                                     \
+  return rps <= BK ? launch<HD_, 1, PAGED, false>(q, k, v, o, cur, cur_scalar, st, pg, G, rows, KVH, S, hd,  \
+                                                  n_split, rps, window, softcap, scale, s)                 \
+                   : launch<HD_, 2, PAGED, false>(q, k, v, o, cur, cur_scalar, st, pg, G, rows, KVH, S, hd,  \
+                                                  n_split, rps, window, softcap, scale, s);
   if (hd == 128) DA_LAUNCH(128)
   if (hd == 64) DA_LAUNCH(64)
-  if constexpr (!PAGED) {
-    if (hd == 80) DA_LAUNCH(80)
-  }
+  if (hd == 80) DA_LAUNCH(80)
 #undef DA_LAUNCH
-  return (int)cudaErrorInvalidValue;
+  // a padded width always takes the two-stage ring (with one tile its second
+  // stage stays empty): half the instantiations, the same results
+#define DA_PAD(HD_) \
+  return launch<HD_, 2, PAGED, true>(q, k, v, o, cur, cur_scalar, st, pg, G, rows, KVH, S, hd, n_split, rps, window, \
+                                     softcap, scale, s);
+  if (hd <= 32) DA_PAD(32)
+  if (hd <= 64) DA_PAD(64)
+  if (hd <= 80) DA_PAD(80)
+  DA_PAD(128)
+#undef DA_PAD
+}
+
+// ---------------------------------------------------------------------------
+// The f32 route: one block of F32_NT threads a (row, kv head) pair, its G
+// heads the rows of attend_f32 (attention_common.cuh), keys [lo, cur) of the
+// row, K/V rows from the dense cache or through the page table.
+constexpr int F32_BK = 32, F32_NT = 128;
+
+template <int HD, bool PAGED, bool CAP>
+__global__ void __launch_bounds__(F32_NT)
+    decode_f32_kernel(const float* __restrict__ q, const float* __restrict__ kc, const float* __restrict__ vc,
+                      float* __restrict__ out, const int* __restrict__ cur_len, int cur_scalar,
+                      const int* __restrict__ starts, Paged pg, int G, int KVH, int S, int hd, int window,
+                      float softcap, float scale) {
+  extern __shared__ __align__(16) float fsm[];
+  __shared__ long roff[GM];
+  __shared__ int rlo[GM], rhi[GM];
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const long row0 = (long)b * KVH + kvh;
+  const int slot = PAGED ? b % pg.B : b;
+  const int cur = min(cur_len ? cur_len[slot] : cur_scalar, S);
+  int lo = starts ? max(starts[b], 0) : 0;
+  if (window > 0) lo = max(lo, cur - window);
+  for (int r = threadIdx.x; r < GM; r += F32_NT) {
+    roff[r] = r < G ? (row0 * G + r) * hd : -1;
+    rlo[r] = r < G ? lo : 0;
+    rhi[r] = r < G ? cur : 0;
+  }
+  __syncthreads();
+  const long base = PAGED ? (long)(b / pg.B) * pg.P * KVH * pg.ps * hd : row0 * (long)S * hd;
+  const int* table = PAGED ? pg.pages + (long)slot * pg.n_pg : nullptr;
+  attend_f32<HD, GM, F32_BK, F32_NT, CAP>(fsm, roff, rlo, rhi, q, kc + base, vc + base, out, nullptr, hd, lo, cur,
+                                          scale, softcap, [&](int row) -> long {
+                                            if (!PAGED) return (long)row * hd;
+                                            const int page = table[row / pg.ps];
+                                            return page >= 0 && page < pg.P
+                                                       ? (((long)page * KVH + kvh) * pg.ps + row % pg.ps) * hd
+                                                       : -1;
+                                          });
+}
+
+template <int HD, bool PAGED, bool CAP>
+int launch_f32(const void* q, const void* k, const void* v, void* o, const void* cur, int cur_scalar,
+               const void* st, Paged pg, int G, int rows, int KVH, int S, int hd, int window, float softcap,
+               float scale, cudaStream_t stream) {
+  constexpr size_t bytes = F32Smem<HD, GM, F32_BK>::bytes;
+  auto kernel = decode_f32_kernel<HD, PAGED, CAP>;
+  static int attr_set_on = -1;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (attr_set_on != dev) {
+    const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (e != cudaSuccess) return (int)e;
+    attr_set_on = dev;
+  }
+  kernel<<<dim3(1, KVH, rows), F32_NT, bytes, stream>>>((const float*)q, (const float*)k, (const float*)v,
+                                                         (float*)o, (const int*)cur, cur_scalar, (const int*)st, pg,
+                                                         G, KVH, S, hd, window, softcap, scale);
+  return (int)cudaGetLastError();
+}
+
+template <bool PAGED>
+int dispatch_f32(int hd, int G, const void* q, const void* k, const void* v, void* o, const void* cur,
+                 int cur_scalar, const void* st, Paged pg, int rows, int KVH, int S, int window, float softcap,
+                 float scale, cudaStream_t s) {
+  if (!shapes_ok(hd, G)) return (int)cudaErrorInvalidValue;
+  if (rows == 0) return (int)cudaGetLastError();
+#define DF_LAUNCH(HD_)                                                                                        \
+  return softcap > 0.f ? launch_f32<HD_, PAGED, true>(q, k, v, o, cur, cur_scalar, st, pg, G, rows, KVH, S, hd, \
+                                                      window, softcap, scale, s)                              \
+                       : launch_f32<HD_, PAGED, false>(q, k, v, o, cur, cur_scalar, st, pg, G, rows, KVH, S, hd, \
+                                                       window, softcap, scale, s);
+  if (hd <= 32) DF_LAUNCH(32)
+  if (hd <= 64) DF_LAUNCH(64)
+  DF_LAUNCH(128)
+#undef DF_LAUNCH
 }
 
 }  // namespace
@@ -449,6 +546,16 @@ extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v,
                          B, KVH, S, window, softcap, scale, (cudaStream_t)stream);
 }
 
+// The same arguments for f32 q, caches and output.
+extern "C" int decode_attention_fwd_f32(const void* q, const void* k, const void* v, void* o,
+                                        const void* cur_len, int cur_scalar, const void* starts,
+                                        int B, int KVH,
+                                        int G, int S, int hd, int window, float softcap, float scale,
+                                        void* stream) {
+  return dispatch_f32<false>(hd, G, q, k, v, o, cur_len, cur_scalar, starts, Paged{nullptr, B, 0, 0, 1},
+                             B, KVH, S, window, softcap, scale, (cudaStream_t)stream);
+}
+
 // q (E*B, KVH, G, hd); k_pool, v_pool (E, P, KVH, ps, hd); cur_len (B,); pages (B, n_pg).
 extern "C" int decode_attention_paged_fwd(const void* q, const void* k_pool, const void* v_pool,
                                           void* o, const void* cur_len, const void* pages, int E,
@@ -456,4 +563,14 @@ extern "C" int decode_attention_paged_fwd(const void* q, const void* k_pool, con
                                           int window, float softcap, float scale, void* stream) {
   return dispatch<true>(hd, G, q, k_pool, v_pool, o, cur_len, 0, nullptr, Paged{(const int*)pages, B, P, n_pg, ps},
                         E * B, KVH, n_pg * ps, window, softcap, scale, (cudaStream_t)stream);
+}
+
+// The same arguments for f32 q, pools and output.
+extern "C" int decode_attention_paged_fwd_f32(const void* q, const void* k_pool, const void* v_pool,
+                                              void* o, const void* cur_len, const void* pages, int E,
+                                              int B, int P, int KVH, int G, int ps, int n_pg, int hd,
+                                              int window, float softcap, float scale, void* stream) {
+  return dispatch_f32<true>(hd, G, q, k_pool, v_pool, o, cur_len, 0, nullptr,
+                            Paged{(const int*)pages, B, P, n_pg, ps}, E * B, KVH, n_pg * ps, window, softcap,
+                            scale, (cudaStream_t)stream);
 }

@@ -1,5 +1,7 @@
-// Flash attention forward (prefill) for bf16 q (B, Sq, H, hd) and k, v
-// (B, Sk, KVH, hd), GQA by h / (H / KVH), hd in {64, 80, 128}, any Sq and Sk.
+// Flash attention forward (prefill) for q (B, Sq, H, hd) and k, v
+// (B, Sk, KVH, hd), GQA by h / (H / KVH), any Sq and Sk, hd a multiple of 8
+// from 8 to 128: bf16 on the tensor cores (below), f32 on the SIMT cores
+// (flash_attention_fwd_f32, attention_common.cuh attend_f32).
 //
 // Replaces: src/repro/kernels/flash_attention/kernel.py flash_attention_bhsd
 // (body _flash_kernel), which needs Sq % block_q == 0 and Sk % block_k == 0.
@@ -41,6 +43,10 @@
 // where l == 0; LSE is a template parameter, so the kernel without it (the
 // serving path, lse null) is the same code as before.
 // hd 80 has 160-byte rows: 10 ldmatrix columns of 16 bytes, on the same ring.
+// The kernel is built at HD 32, 64, 80 and 128; another hd runs at the next
+// of these widths (PAD: its hd columns copied, the rest zero-filled in shared
+// memory, only the hd real columns stored), so hd 64, 80 and 128 keep the
+// code they had.
 #include "attention_common.cuh"
 
 using namespace attn;
@@ -49,7 +55,8 @@ namespace {
 
 // Per head size, measured on the H100 at the main path's shapes: two m-tiles
 // a warp and 32-key tiles at hd 64 and 128; hd 80 (zamba2, G = 1) is faster
-// with one m-tile and 64-key tiles.
+// with one m-tile and 64-key tiles.  HD 32 (the padded width of hd <= 32)
+// takes hd 64's tiles, untuned.
 template <int HD>
 struct Tune {
   static constexpr int MT = HD == 80 ? 1 : 2, BK = HD == 80 ? 64 : 32, MINB = HD == 80 ? 4 : 2;
@@ -67,12 +74,12 @@ struct Cfg {
   static constexpr int MINB = Tune<HD>::MINB;  // blocks an SM must hold: caps the registers
 };
 
-template <int HD, bool CAP, bool LSE>
+template <int HD, bool CAP, bool LSE, bool PAD>
 __global__ void __launch_bounds__(Cfg<HD>::NT, Cfg<HD>::MINB)
     flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
-                     const int* __restrict__ starts, int Sq, int Sk, int H, int KVH, int causal,
-                     int window, float softcap, float scale) {
+                     const int* __restrict__ starts, int Sq, int Sk, int H, int KVH, int hd_in,
+                     int causal, int window, float softcap, float scale) {
   using C = Cfg<HD>;
   constexpr int MT = C::MT, BM = C::BM, WM = C::WM, BK = C::BK, ST = C::ST, NT = C::NT, LD = C::LD,
                 CH = C::CH;
@@ -89,7 +96,8 @@ __global__ void __launch_bounds__(Cfg<HD>::NT, Cfg<HD>::MINB)
   const int start = starts ? max(starts[b], 0) : 0;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3, wr = warp * WM;
-  const long q_row = (long)H * HD, kv_row = (long)KVH * HD;
+  const int hd = PAD ? hd_in : HD;  // the real head size: columns [hd, HD) are zeros in shared memory
+  const long q_row = (long)H * hd, kv_row = (long)KVH * hd;
   const ScoreMap<CAP> score(scale, softcap);
 
   // visible keys of position p: [pos_lo(p), pos_hi(p)), both non-decreasing in p
@@ -103,16 +111,16 @@ __global__ void __launch_bounds__(Cfg<HD>::NT, Cfg<HD>::MINB)
   const int t0 = k_lo / BK;
   const int n_tiles = k_hi > t0 * BK ? (k_hi - t0 * BK + BK - 1) / BK : 0;
 
-  const bf16* kb = k + (long)b * Sk * kv_row + (long)kvh * HD;
-  const bf16* vb = v + (long)b * Sk * kv_row + (long)kvh * HD;
+  const bf16* kb = k + (long)b * Sk * kv_row + (long)kvh * hd;
+  const bf16* vb = v + (long)b * Sk * kv_row + (long)kvh * hd;
   auto load_tile = [&](int i) {  // tile i of the range into stage i % ST
     const int k0 = (t0 + i) * BK;
     bf16* ks = Ks + (i % ST) * C::kv_elems;
     bf16* vs = Vs + (i % ST) * C::kv_elems;
     for (int c = tid; c < BK * CH; c += NT) {
       const int r = c / CH, cc = (c % CH) * 8;
-      const bool ok = k0 + r < k_hi;
-      const long off = (long)(ok ? k0 + r : k0) * kv_row + cc;
+      const bool col = !PAD || cc < hd, ok = k0 + r < k_hi && col;
+      const long off = (long)(ok ? k0 + r : k0) * kv_row + (col ? cc : 0);
       cp_async16(ks + r * LD + cc, kb + off, ok);
       cp_async16(vs + r * LD + cc, vb + off, ok);
     }
@@ -122,13 +130,14 @@ __global__ void __launch_bounds__(Cfg<HD>::NT, Cfg<HD>::MINB)
   // ST - 1 tiles, one commit group per tile
   for (int r = tid; r < BM; r += NT) {
     const int m = m0 + r;
-    rbase[r] = m < n_rows ? ((long)b * Sq + m / G) * q_row + (long)(kvh * G + m % G) * HD : -1;
+    rbase[r] = m < n_rows ? ((long)b * Sq + m / G) * q_row + (long)(kvh * G + m % G) * hd : -1;
   }
   __syncthreads();
   for (int c = tid; c < BM * CH; c += NT) {
     const int r = c / CH, cc = (c % CH) * 8;
     const long off = rbase[r];
-    cp_async16(Qs + r * LD + cc, q + (off >= 0 ? off : rbase[0]) + cc, off >= 0);
+    const bool col = !PAD || cc < hd;
+    cp_async16(Qs + r * LD + cc, q + (off >= 0 ? off : rbase[0]) + (col ? cc : 0), off >= 0 && col);
   }
 #pragma unroll
   for (int i = 0; i < ST - 1; ++i) {
@@ -276,16 +285,17 @@ __global__ void __launch_bounds__(Cfg<HD>::NT, Cfg<HD>::MINB)
   for (int c = lane; c < WM * CH; c += 32) {
     const int r = c / CH, cc = (c % CH) * 8;
     const long off = rbase[wr + r];
-    if (off >= 0) *reinterpret_cast<uint4*>(o + off + cc) = *reinterpret_cast<const uint4*>(os + r * LD + cc);
+    if (off >= 0 && (!PAD || cc < hd))
+      *reinterpret_cast<uint4*>(o + off + cc) = *reinterpret_cast<const uint4*>(os + r * LD + cc);
   }
 }
 
-template <int HD, bool CAP, bool LSE>
+template <int HD, bool CAP, bool LSE, bool PAD>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse, const void* starts, int B,
-           int Sq, int Sk, int H, int KVH, int causal, int window, float softcap, float scale,
+           int Sq, int Sk, int H, int KVH, int hd, int causal, int window, float softcap, float scale,
            cudaStream_t stream) {
   using C = Cfg<HD>;
-  auto kernel = flash_fwd_kernel<HD, CAP, LSE>;
+  auto kernel = flash_fwd_kernel<HD, CAP, LSE, PAD>;
   static int attr_set_on = -1;  // the device whose attribute is set: once, not per call
   int dev = 0;
   cudaGetDevice(&dev);
@@ -300,42 +310,138 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse, cons
   const long n_rows = (long)Sq * (H / KVH);
   dim3 grid((unsigned)((n_rows + C::BM - 1) / C::BM), KVH, B);
   kernel<<<grid, C::NT, C::bytes, stream>>>((const bf16*)q, (const bf16*)k, (const bf16*)v,
-                                            (bf16*)o, (float*)lse, (const int*)starts, Sq, Sk, H, KVH, causal,
+                                            (bf16*)o, (float*)lse, (const int*)starts, Sq, Sk, H, KVH, hd, causal,
                                             window, softcap, scale);
   return (int)cudaGetLastError();
 }
 
-template <int HD, bool LSE>
+template <int HD, bool LSE, bool PAD>
 int launch_cap(const void* q, const void* k, const void* v, void* o, void* lse, const void* starts, int B,
-               int Sq, int Sk, int H, int KVH, int causal, int window, float softcap, float scale,
+               int Sq, int Sk, int H, int KVH, int hd, int causal, int window, float softcap, float scale,
                cudaStream_t stream) {
   return softcap > 0.f
-             ? launch<HD, true, LSE>(q, k, v, o, lse, starts, B, Sq, Sk, H, KVH, causal, window, softcap, scale, stream)
-             : launch<HD, false, LSE>(q, k, v, o, lse, starts, B, Sq, Sk, H, KVH, causal, window, softcap, scale, stream);
+             ? launch<HD, true, LSE, PAD>(q, k, v, o, lse, starts, B, Sq, Sk, H, KVH, hd, causal, window, softcap,
+                                          scale, stream)
+             : launch<HD, false, LSE, PAD>(q, k, v, o, lse, starts, B, Sq, Sk, H, KVH, hd, causal, window, softcap,
+                                           scale, stream);
+}
+
+template <int HD, bool PAD>
+int launch_hd(const void* q, const void* k, const void* v, void* o, void* lse, const void* starts, int B,
+              int Sq, int Sk, int H, int KVH, int hd, int causal, int window, float softcap, float scale,
+              cudaStream_t stream) {
+  return lse ? launch_cap<HD, true, PAD>(q, k, v, o, lse, starts, B, Sq, Sk, H, KVH, hd, causal, window, softcap,
+                                         scale, stream)
+             : launch_cap<HD, false, PAD>(q, k, v, o, lse, starts, B, Sq, Sk, H, KVH, hd, causal, window, softcap,
+                                          scale, stream);
+}
+
+// ---------------------------------------------------------------------------
+// The f32 route: rows as above ((position, head of the group) pairs,
+// position-major), F32_BM of them a block, the block's keys the union of its
+// rows' visible ranges; the body is attend_f32 (attention_common.cuh).
+constexpr int F32_BM = 32, F32_BK = 32, F32_NT = 128;
+
+template <int HD, bool CAP>
+__global__ void __launch_bounds__(F32_NT)
+    flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+                         const int* __restrict__ starts, int Sq, int Sk, int H, int KVH, int hd, int causal,
+                         int window, float softcap, float scale) {
+  extern __shared__ __align__(16) float fsm[];
+  __shared__ long roff[F32_BM];
+  __shared__ int rlo[F32_BM], rhi[F32_BM];
+  const int G = H / KVH, n_rows = Sq * G;
+  const int m0 = blockIdx.x * F32_BM, kvh = blockIdx.y, b = blockIdx.z;
+  const int start = starts ? max(starts[b], 0) : 0;
+  auto pos_lo = [&](int p) { return window > 0 ? max(start, p - window + 1) : start; };
+  auto pos_hi = [&](int p) { return min(Sk, causal ? p + 1 : Sk); };
+  for (int r = threadIdx.x; r < F32_BM; r += F32_NT) {
+    const int m = m0 + r, p = m / G;
+    const bool ok = m < n_rows;
+    roff[r] = ok ? (((long)b * Sq + p) * H + kvh * G + m % G) * hd : -1;
+    rlo[r] = ok ? pos_lo(p) : 0;
+    rhi[r] = ok ? pos_hi(p) : 0;
+  }
+  // both bounds are non-decreasing in the position: the block's first and last rows bound its keys
+  const int p_first = m0 / G, p_last = (min(m0 + F32_BM, n_rows) - 1) / G;
+  const long kv_base = (long)b * Sk * KVH * hd + (long)kvh * hd, kv_row = (long)KVH * hd;
+  __syncthreads();
+  attend_f32<HD, F32_BM, F32_BK, F32_NT, CAP>(fsm, roff, rlo, rhi, q, k, v, o, lse, hd, pos_lo(p_first),
+                                              pos_hi(p_last), scale, softcap,
+                                              [&](int key) { return kv_base + key * kv_row; });
+}
+
+template <int HD, bool CAP>
+int launch_f32(const void* q, const void* k, const void* v, void* o, void* lse, const void* starts, int B,
+               int Sq, int Sk, int H, int KVH, int hd, int causal, int window, float softcap, float scale,
+               cudaStream_t stream) {
+  constexpr size_t bytes = F32Smem<HD, F32_BM, F32_BK>::bytes;
+  auto kernel = flash_fwd_f32_kernel<HD, CAP>;
+  static int attr_set_on = -1;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (attr_set_on != dev) {
+    const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (e != cudaSuccess) return (int)e;
+    attr_set_on = dev;
+  }
+  const long n_rows = (long)Sq * (H / KVH);
+  dim3 grid((unsigned)((n_rows + F32_BM - 1) / F32_BM), KVH, B);
+  kernel<<<grid, F32_NT, bytes, stream>>>((const float*)q, (const float*)k, (const float*)v, (float*)o,
+                                          (float*)lse, (const int*)starts, Sq, Sk, H, KVH, hd, causal, window,
+                                          softcap, scale);
+  return (int)cudaGetLastError();
 }
 
 template <int HD>
-int launch_hd(const void* q, const void* k, const void* v, void* o, void* lse, const void* starts, int B,
-              int Sq, int Sk, int H, int KVH, int causal, int window, float softcap, float scale,
-              cudaStream_t stream) {
-  return lse ? launch_cap<HD, true>(q, k, v, o, lse, starts, B, Sq, Sk, H, KVH, causal, window, softcap, scale, stream)
-             : launch_cap<HD, false>(q, k, v, o, lse, starts, B, Sq, Sk, H, KVH, causal, window, softcap, scale, stream);
+int launch_f32_cap(const void* q, const void* k, const void* v, void* o, void* lse, const void* starts, int B,
+                   int Sq, int Sk, int H, int KVH, int hd, int causal, int window, float softcap, float scale,
+                   cudaStream_t stream) {
+  return softcap > 0.f
+             ? launch_f32<HD, true>(q, k, v, o, lse, starts, B, Sq, Sk, H, KVH, hd, causal, window, softcap, scale,
+                                    stream)
+             : launch_f32<HD, false>(q, k, v, o, lse, starts, B, Sq, Sk, H, KVH, hd, causal, window, softcap, scale,
+                                     stream);
 }
+
+bool head_size_ok(int hd) { return hd >= 8 && hd <= 128 && hd % 8 == 0; }
 
 }  // namespace
 
 extern "C" const char* kernel_error_string(int e) { return cudaGetErrorString((cudaError_t)e); }
 
-// window <= 0: no window; softcap <= 0: no softcap; starts may be null;
-// lse (f32 (B, Sq, H)) may be null: the kernel without the lse output.
+// bf16 q, k, v, o.  window <= 0: no window; softcap <= 0: no softcap; starts
+// may be null; lse (f32 (B, Sq, H)) may be null: the kernel without the lse
+// output.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                                    const void* starts, int B, int Sq, int Sk, int H, int KVH,
                                    int hd, int causal, int window, float softcap, float scale,
                                    void* stream) {
+  if (!head_size_ok(hd)) return (int)cudaErrorInvalidValue;
   if (B == 0 || Sq == 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
-  if (hd == 128) return launch_hd<128>(q, k, v, o, lse, starts, B, Sq, Sk, H, KVH, causal, window, softcap, scale, s);
-  if (hd == 80) return launch_hd<80>(q, k, v, o, lse, starts, B, Sq, Sk, H, KVH, causal, window, softcap, scale, s);
-  if (hd == 64) return launch_hd<64>(q, k, v, o, lse, starts, B, Sq, Sk, H, KVH, causal, window, softcap, scale, s);
-  return (int)cudaErrorInvalidValue;
+#define FA_LAUNCH(HD_, PAD_) \
+  return launch_hd<HD_, PAD_>(q, k, v, o, lse, starts, B, Sq, Sk, H, KVH, hd, causal, window, softcap, scale, s);
+  if (hd == 128) FA_LAUNCH(128, false)
+  if (hd == 80) FA_LAUNCH(80, false)
+  if (hd == 64) FA_LAUNCH(64, false)
+  if (hd <= 32) FA_LAUNCH(32, true)
+  if (hd <= 64) FA_LAUNCH(64, true)
+  if (hd <= 80) FA_LAUNCH(80, true)
+  FA_LAUNCH(128, true)
+#undef FA_LAUNCH
+}
+
+// The same arguments for f32 q, k, v, o.
+extern "C" int flash_attention_fwd_f32(const void* q, const void* k, const void* v, void* o, void* lse,
+                                       const void* starts, int B, int Sq, int Sk, int H, int KVH,
+                                       int hd, int causal, int window, float softcap, float scale,
+                                       void* stream) {
+  if (!head_size_ok(hd)) return (int)cudaErrorInvalidValue;
+  if (B == 0 || Sq == 0) return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  if (hd <= 32) return launch_f32_cap<32>(q, k, v, o, lse, starts, B, Sq, Sk, H, KVH, hd, causal, window, softcap, scale, s);
+  if (hd <= 64) return launch_f32_cap<64>(q, k, v, o, lse, starts, B, Sq, Sk, H, KVH, hd, causal, window, softcap, scale, s);
+  return launch_f32_cap<128>(q, k, v, o, lse, starts, B, Sq, Sk, H, KVH, hd, causal, window, softcap, scale, s);
 }

@@ -14,14 +14,16 @@ with q (E*B, 1, H, hd): row r of q is slot r % B of member plane r // B,
 and the ONE table serves every plane.  No ``starts``.
 
 On a CUDA tensor each launches its kernel of ``csrc/decode_attention.cu``
-(bf16, hd in {64, 128}, G = H / KVH in ``GROUPS``, any S or
-page_size; the dense kernel also takes hd 80 at G = 1, zamba2's shared
-attention), which replace ``src/repro/kernels/decode_attention/kernel.py``
-``decode_attention_bkgd`` and ``decode_attention_paged_bkgd``; both are
-bound by the cache bytes they read.  On a CPU tensor the plain versions
-run — the JAX package's ``_xla_decode_bksd`` and ``_xla_decode_paged``
-(gather each slot's view of exactly ``n_pg * page_size`` rows, then the
-dense sweep).  Both kernels are inference-only: a CUDA input that
+(hd a multiple of 8 from 8 to 128, zero-padded to the next of the built
+widths 32, 64, 80 and 128; G = H / KVH from 1 to ``MAX_GROUP``; any S or
+page_size; bf16 on the tensor cores or f32 on the SIMT cores, the inputs
+never rounded), which replace
+``src/repro/kernels/decode_attention/kernel.py`` ``decode_attention_bkgd``
+and ``decode_attention_paged_bkgd``; both are bound by the cache bytes
+they read.  Any other shape or dtype raises: there is no fallback.  On a
+CPU tensor the plain versions run — the JAX package's
+``_xla_decode_bksd`` and ``_xla_decode_paged`` (gather each slot's view
+of exactly ``n_pg * page_size`` rows, then the dense sweep).  Both kernels are inference-only: a CUDA input that
 requires grad under grad mode raises (``build.inference_only``).
 """
 from __future__ import annotations
@@ -34,10 +36,10 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.compaction.ops import gather_rows_plain, member_pool, paged_pool_view
+from repro_torch.kernels.flash_attention.ops import head_size_ok, same_dtype
 
-# the head-group sizes the kernels take: the powers of two, llama4's 5,
-# mixtral's and internvl2's 6, command-r-plus's 12 (the body pads G to 16 MMA rows)
-GROUPS = (1, 2, 4, 5, 6, 8, 12, 16)
+# the largest head group the kernels take: the bf16 body pads G to 16 MMA rows
+MAX_GROUP = 16
 _LAUNCHES = build.launch_counter("decode_attention")
 _PAGED_LAUNCHES = build.launch_counter("decode_attention_paged")
 NEG_INF = -1e30
@@ -73,15 +75,15 @@ def decode_attention_plain(q, k_cache, v_cache, cur_len, *, window=None, softcap
 def _decode_cuda(q, k_cache, v_cache, cur_len, *, window, softcap, starts):
     build.inference_only("decode_attention", q, k_cache, v_cache)
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
-        build.require_cuda(t, f"decode_attention {name}", (torch.bfloat16,))
+        build.require_cuda(t, f"decode_attention {name}", same_dtype(q))
     B, _, H, hd = q.shape
     KVH, S = k_cache.shape[1], k_cache.shape[2]
     G = H // KVH
-    shapes_ok = (hd in (64, 128) and G in GROUPS) or (hd == 80 and G == 1)
-    if (not shapes_ok or H % KVH
+    if (not head_size_ok(hd) or not 1 <= G <= MAX_GROUP or H % KVH or k_cache.shape[3] != hd
             or k_cache.shape != v_cache.shape or k_cache.shape[0] != B):
         raise ValueError(
-            f"decode_attention: unsupported shapes q {tuple(q.shape)} cache {tuple(k_cache.shape)}"
+            f"decode_attention: unsupported shapes q {tuple(q.shape)} cache {tuple(k_cache.shape)} "
+            f"(hd a multiple of 8 from 8 to 128, G = H / KVH from 1 to {MAX_GROUP})"
         )
     if isinstance(cur_len, int):  # shared position: passed by value, no host->device copy
         cur, cur_scalar = None, cur_len
@@ -92,7 +94,7 @@ def _decode_cuda(q, k_cache, v_cache, cur_len, *, window, softcap, starts):
         starts = starts.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty_like(q)
     lib = build.library("decode_attention")
-    rc = lib.decode_attention_fwd(
+    rc = (lib.decode_attention_fwd_f32 if q.dtype == torch.float32 else lib.decode_attention_fwd)(
         build.ptr(q), build.ptr(k_cache), build.ptr(v_cache), build.ptr(out),
         ctypes.c_void_p(None if cur is None else cur.data_ptr()), ctypes.c_int(cur_scalar),
         ctypes.c_void_p(None if starts is None else starts.data_ptr()),
@@ -100,7 +102,7 @@ def _decode_cuda(q, k_cache, v_cache, cur_len, *, window, softcap, starts):
         ctypes.c_int(window or 0), ctypes.c_float(softcap or 0.0),
         ctypes.c_float(1.0 / math.sqrt(hd)), build.stream_ptr(q),
     )
-    build.check(lib, rc, "decode_attention_fwd")
+    build.check(lib, rc, f"decode_attention_fwd ({q.dtype})")
     _LAUNCHES.add(1)
     return out
 
@@ -139,7 +141,7 @@ def decode_attention_paged_plain(q, k_pool, v_pool, pages, cur_len, *, window=No
 def _paged_cuda(q, k_pool, v_pool, pages, cur_len, *, window, softcap):
     build.inference_only("decode_attention_paged", q, k_pool, v_pool)
     for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
-        build.require_cuda(t, f"decode_attention_paged {name}", (torch.bfloat16,))
+        build.require_cuda(t, f"decode_attention_paged {name}", same_dtype(q))
     # the table and positions must already be on the card: the caller moves
     # them once per decode step, not once per layer
     build.require_cuda(pages, "decode_attention_paged pages", (torch.int32,), align=4)
@@ -149,13 +151,14 @@ def _paged_cuda(q, k_pool, v_pool, pages, cur_len, *, window, softcap):
     B, n_pg = pages.shape
     H = q.shape[2]
     G = H // KVH
-    if hd not in (64, 128) or G not in GROUPS or H % KVH or q.shape[3] != hd:
+    if not head_size_ok(hd) or not 1 <= G <= MAX_GROUP or H % KVH or q.shape[3] != hd:
         raise ValueError(
-            f"decode_attention_paged: unsupported shapes q {tuple(q.shape)} pool {tuple(k_pool.shape)}"
+            f"decode_attention_paged: unsupported shapes q {tuple(q.shape)} pool {tuple(k_pool.shape)} "
+            f"(hd a multiple of 8 from 8 to 128, G = H / KVH from 1 to {MAX_GROUP})"
         )
     out = torch.empty_like(q)
     lib = build.library("decode_attention")
-    rc = lib.decode_attention_paged_fwd(
+    rc = (lib.decode_attention_paged_fwd_f32 if q.dtype == torch.float32 else lib.decode_attention_paged_fwd)(
         build.ptr(q), build.ptr(k_pool), build.ptr(v_pool), build.ptr(out),
         build.ptr(cur_len), build.ptr(pages),
         ctypes.c_int(E), ctypes.c_int(B), ctypes.c_int(P), ctypes.c_int(KVH), ctypes.c_int(G),
@@ -163,7 +166,7 @@ def _paged_cuda(q, k_pool, v_pool, pages, cur_len, *, window, softcap):
         ctypes.c_int(window or 0), ctypes.c_float(softcap or 0.0),
         ctypes.c_float(1.0 / math.sqrt(hd)), build.stream_ptr(q),
     )
-    build.check(lib, rc, "decode_attention_paged_fwd")
+    build.check(lib, rc, f"decode_attention_paged_fwd ({q.dtype})")
     _PAGED_LAUNCHES.add(1)
     return out
 

@@ -5,12 +5,17 @@ hd) — the JAX package's public layout.  Causal masking, sliding window,
 tanh softcap and per-row ``starts`` (the left-pad carve-out: row b attends
 no column < starts[b]; rows that are pure padding emit zeros).
 
-On a CUDA tensor it launches ``csrc/flash_attention.cu`` (bf16, hd in
-{64, 80, 128}, any Sq and Sk), which replaces
-``src/repro/kernels/flash_attention/kernel.py`` ``flash_attention_bhsd``;
-its bound is the tensor-core operations for long prompts and the q/k/v/out
-bytes for short ones.  On a CPU tensor the plain version runs — the same
-masked softmax as the JAX package's ``impl='xla'`` path.
+On a CUDA tensor it launches ``csrc/flash_attention.cu``, which replaces
+``src/repro/kernels/flash_attention/kernel.py`` ``flash_attention_bhsd``:
+any Sq and Sk, any GQA group, hd a multiple of 8 from 8 to 128 (built at
+widths 32, 64, 80 and 128; a smaller hd runs zero-padded to the next), in
+bf16 on the tensor cores or in f32 on the SIMT cores (plain FFMA: the
+inputs are not rounded, as the reference computes them in f32).  Its
+bound is the tensor-core operations for long prompts and the q/k/v/out
+bytes for short ones.  Any other shape or dtype (hd past 128 or off the
+multiples of 8, f16) raises: there is no fallback.  On a CPU tensor the
+plain version runs — the same masked softmax as the JAX package's
+``impl='xla'`` path.
 
 Training: when grad mode is on and q, k or v requires grad,
 ``flash_attention`` goes through ``FlashAttention`` (a
@@ -36,6 +41,7 @@ import torch
 from repro_torch.kernels import build
 
 _LAUNCHES = build.launch_counter("flash_attention")
+DTYPES = (torch.bfloat16, torch.float32)  # the kernels' routes: tensor cores, SIMT f32
 NEG_INF = -1e30
 BWD_BLOCK_Q = 512  # the backward's query block, ``_flash_diff_bwd``'s constant
 
@@ -118,19 +124,32 @@ def flash_attention_bwd(q, k, v, out, lse, do, *, causal=True, window=None, soft
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def head_size_ok(hd: int) -> bool:
+    """The head sizes the attention kernels take (flash and decode): a
+    multiple of 8 (16-byte rows of bf16) from 8 to 128."""
+    return hd % 8 == 0 and 8 <= hd <= 128
+
+
+def same_dtype(q) -> tuple:
+    """The dtypes a kernel's other inputs may have: q's, when q's is one of
+    ``DTYPES`` (else ``DTYPES``, so that q itself is refused)."""
+    return (q.dtype,) if q.dtype in DTYPES else DTYPES
+
+
 def _flash_cuda(q, k, v, *, causal, window, softcap, starts, return_lse=False):
     for name, t in (("q", q), ("k", k), ("v", v)):
-        build.require_cuda(t, f"flash_attention {name}", (torch.bfloat16,))
+        build.require_cuda(t, f"flash_attention {name}", same_dtype(q))
     B, Sq, H, hd = q.shape
     Sk, KVH = k.shape[1], k.shape[2]
-    if hd not in (64, 80, 128) or H % KVH or k.shape != v.shape or k.shape[0] != B:
-        raise ValueError(f"flash_attention: unsupported shapes q {tuple(q.shape)} k {tuple(k.shape)}")
+    if not head_size_ok(hd) or H % KVH or k.shape != v.shape or k.shape[0] != B or k.shape[3] != hd:
+        raise ValueError(f"flash_attention: unsupported shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+                         "(hd must be a multiple of 8 from 8 to 128)")
     if starts is not None:
         starts = starts.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty_like(q)
     lse = torch.empty((B, Sq, H), dtype=torch.float32, device=q.device) if return_lse else None
     lib = build.library("flash_attention")
-    rc = lib.flash_attention_fwd(
+    rc = (lib.flash_attention_fwd_f32 if q.dtype == torch.float32 else lib.flash_attention_fwd)(
         build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(out),
         ctypes.c_void_p(None if lse is None else lse.data_ptr()),
         ctypes.c_void_p(None if starts is None else starts.data_ptr()),
@@ -139,7 +158,7 @@ def _flash_cuda(q, k, v, *, causal, window, softcap, starts, return_lse=False):
         ctypes.c_int(window or 0), ctypes.c_float(softcap or 0.0),
         ctypes.c_float(1.0 / math.sqrt(hd)), build.stream_ptr(q),
     )
-    build.check(lib, rc, "flash_attention_fwd")
+    build.check(lib, rc, f"flash_attention_fwd ({q.dtype})")
     _LAUNCHES.add(1)
     return (out, lse) if return_lse else out
 

@@ -7,8 +7,10 @@ where only PyTorch is installed:
 
 Tolerances: argmax, max, index maps, compacted payloads and paged K/V
 views exact; sumexp rel 1e-5; bf16 attention outputs abs 2e-2 (inputs
-~N(0, 1); the flash kernel rounds P to bf16 before the PV product); the
-paged decode kernel bitwise equal to the dense one on the gathered view.  The SSD and WKV6
+~N(0, 1); the flash kernel rounds P to bf16 before the PV product), f32
+attention outputs (the SIMT route) normwise 1e-5; the paged decode kernel
+bitwise equal to the dense one on the gathered view, in both dtypes and at
+every head size.  The SSD and WKV6
 scans (the WKV6 kernel and the SSD's f32 route run the per-step
 recurrence, the SSD's bf16 route the chunked dual form on TF32 tensor
 cores, the plain versions the chunked form in f32): outputs
@@ -231,14 +233,32 @@ FLASH_CASES = [
 ]
 
 
-@pytest.mark.parametrize("hd,heads", [(64, (8, 2)), (128, (8, 2)), (80, (4, 4))])
+def _held(got, ref, dtype):
+    """bf16 outputs abs 2e-2; f32 outputs (the SIMT route) normwise 1e-5."""
+    if dtype == torch.float32:
+        assert got.dtype == torch.float32
+        _normwise(got, ref, 1e-5)
+    else:
+        torch.testing.assert_close(got.float(), ref.float(), rtol=0, atol=2e-2)
+
+
+# head sizes: the built widths (64, 80, 128) and the padded ones of the
+# examples (16, 24, 32, 40) and beyond (8, 56, 96); G 3 and 7 among the groups
+ATTN_DTYPES = [torch.bfloat16, torch.float32]
+
+
+@pytest.mark.parametrize("dtype", ATTN_DTYPES, ids=["bf16", "f32"])
+@pytest.mark.parametrize("hd,heads", [(64, (8, 2)), (128, (8, 2)), (80, (4, 4)), (16, (4, 2)), (24, (6, 2)),
+                                      (32, (8, 8)), (40, (7, 1)), (8, (2, 2)), (56, (3, 1)), (96, (4, 2))])
 @pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "-".join(f"{k}={v}" for k, v in c.items() if v))
-def test_flash_attention(cuda, case, hd, heads):
-    q, k, v = (_randn(3, 100, h, hd, seed=i).to(cuda, torch.bfloat16) for i, h in enumerate(heads + heads[1:]))
+def test_flash_attention(cuda, case, hd, heads, dtype):
+    q, k, v = (_randn(3, 100, h, hd, seed=i).to(cuda, dtype) for i, h in enumerate(heads + heads[1:]))
     starts = None if case["starts"] is None else torch.tensor(case["starts"], dtype=torch.int32, device=cuda)
     kw = dict(causal=case["causal"], window=case["window"], softcap=case["softcap"], starts=starts)
-    got = flash.flash_attention(q, k, v, **kw).float()
-    torch.testing.assert_close(got, flash.flash_attention_plain(q, k, v, **kw).float(), rtol=0, atol=2e-2)
+    before = kernels.launch_counts()["flash_attention"]
+    got = flash.flash_attention(q, k, v, **kw)
+    assert kernels.launch_counts()["flash_attention"] == before + 1
+    _held(got, flash.flash_attention_plain(q, k, v, **kw), dtype)
     if starts is not None:
         for b, s in enumerate(case["starts"]):
             assert not got[b, :s].any()
@@ -282,18 +302,24 @@ DECODE_CASES = [
 ]
 
 
-@pytest.mark.parametrize("G,hd", [(8, 128), (2, 64), (1, 128), (1, 80)])
+@pytest.mark.parametrize("dtype", ATTN_DTYPES, ids=["bf16", "f32"])
+@pytest.mark.parametrize("G,hd", [(8, 128), (2, 64), (1, 128), (1, 80), (3, 16), (7, 24), (1, 32), (16, 40),
+                                  (4, 80), (11, 56)])
 @pytest.mark.parametrize("case", DECODE_CASES, ids=lambda c: "-".join(f"{k}={v}" for k, v in c.items() if v))
-def test_decode_attention(cuda, case, G, hd):
+def test_decode_attention(cuda, case, G, hd, dtype):
     B, KVH, S = 3, 2, 130
-    q = _randn(B, 1, KVH * G, hd, seed=0).to(cuda, torch.bfloat16)
-    kc = _randn(B, KVH, S, hd, seed=1).to(cuda, torch.bfloat16)
-    vc = _randn(B, KVH, S, hd, seed=2).to(cuda, torch.bfloat16)
+    q = _randn(B, 1, KVH * G, hd, seed=0).to(cuda, dtype)
+    kc = _randn(B, KVH, S, hd, seed=1).to(cuda, dtype)
+    vc = _randn(B, KVH, S, hd, seed=2).to(cuda, dtype)
     cur = case["cur_len"] if np.isscalar(case["cur_len"]) else torch.tensor(case["cur_len"], dtype=torch.int32, device=cuda)
     starts = None if case["starts"] is None else torch.tensor(case["starts"], dtype=torch.int32, device=cuda)
     kw = dict(window=case["window"], softcap=case["softcap"], starts=starts)
-    got = decode.decode_attention_bksd(q, kc, vc, cur, **kw).float()
-    torch.testing.assert_close(got, decode.decode_attention_plain(q, kc, vc, cur, **kw).float(), rtol=0, atol=2e-2)
+    before = kernels.launch_counts()["decode_attention"]
+    got = decode.decode_attention_bksd(q, kc, vc, cur, **kw)
+    assert kernels.launch_counts()["decode_attention"] == before + 1
+    _held(got, decode.decode_attention_plain(q, kc, vc, cur, **kw), dtype)
+    if starts is not None:  # rows with nothing visible are exact zeros
+        assert not got[starts >= torch.as_tensor(cur, device=cuda).expand(B)].any()
 
 
 # long caches split across a thread-block cluster (128-row tiles, up to 8
@@ -340,7 +366,7 @@ def test_decode_attention_long(cuda, case, G, hd, S):
 @pytest.mark.parametrize("hd", [64, 128])
 @pytest.mark.parametrize("case", DECODE_CASES, ids=lambda c: "-".join(f"{k}={v}" for k, v in c.items() if v))
 def test_decode_attention_odd_groups(cuda, case, G, hd):
-    test_decode_attention(cuda, case, G, hd)
+    test_decode_attention(cuda, case, G, hd, torch.bfloat16)
 
 
 @pytest.mark.parametrize("G", [5, 6, 12])
@@ -353,6 +379,85 @@ def test_decode_attention_odd_groups_every_split(cuda, G, n_split):
     for cur in (S, S - 77, 1):
         got = decode.decode_attention_bksd(q, kc, vc, cur).float()
         torch.testing.assert_close(got, decode.decode_attention_plain(q, kc, vc, cur).float(), rtol=0, atol=2e-2)
+
+
+def _paged_case(E, B, KVH, G, hd, S, ps, dtype, seed):
+    """(q, k pool, v pool, shuffled table, cur_len) on the host: B slots of
+    random lengths up to S in ps-row pages, E member planes."""
+    n_pg = S // ps
+    gen = torch.Generator().manual_seed(seed)
+    cur_l = torch.randint(1, S + 1, (B,), generator=gen).tolist()
+    P = sum(-(-c // ps) for c in cur_l) + 1
+    pages = torch.full((B, n_pg), -1, dtype=torch.int32)
+    perm, used = torch.randperm(P - 1, generator=gen), 0
+    for b, c in enumerate(cur_l):
+        n = -(-c // ps)
+        pages[b, :n] = perm[used:used + n].to(torch.int32)
+        used += n
+    q = _randn(E * B, 1, KVH * G, hd, seed=3).to(dtype)
+    kp, vp = (_randn(E, P, KVH, ps, hd, seed=i).to(dtype) for i in (4, 5))
+    return q, kp, vp, pages, torch.tensor(cur_l, dtype=torch.int32)
+
+
+def _paged_held(got, q, kp, vp, pages, cur, dtype, **kw):
+    """Within tolerance of the plain version and bitwise the dense kernel
+    on the gathered view."""
+    E = kp.shape[0] if kp.dim() == 5 else 1
+    view_k, view_v = (decode.paged_pool_view(t, pages, compact.gather_rows_plain) for t in (kp, vp))
+    assert torch.equal(got, decode.decode_attention_bksd(q, view_k, view_v, cur.repeat(E), **kw))
+    _held(got, decode.decode_attention_paged_plain(q, kp, vp, pages, cur, **kw), dtype)
+
+
+@pytest.mark.parametrize("dtype", ATTN_DTYPES, ids=["bf16", "f32"])
+@pytest.mark.parametrize("hd", [128, 16, 24, 32, 40, 80])
+@pytest.mark.parametrize("G,KVH", [(8, 2), (2, 8), (3, 2), (7, 1), (16, 1)])
+def test_decode_attention_paged_bitwise_dense_head_sizes(cuda, G, KVH, hd, dtype):
+    """The paged kernel bitwise the dense kernel on the gathered view at
+    every head size and in f32 (3 members x 8 slots of 512 rows, 16-row
+    pages)."""
+    q, kp, vp, pages, cur = (t.to(cuda) for t in _paged_case(3, 8, KVH, G, hd, 512, 16, dtype, seed=hd + G))
+    before = kernels.launch_counts()["decode_attention_paged"]
+    got = decode.decode_attention_paged(q, kp, vp, pages, cur)
+    assert kernels.launch_counts()["decode_attention_paged"] == before + 1
+    _paged_held(got, q, kp, vp, pages, cur, dtype)
+
+
+@pytest.mark.parametrize("dtype", ATTN_DTYPES, ids=["bf16", "f32"])
+@pytest.mark.parametrize("hd", [40, 128])
+@pytest.mark.parametrize("G", list(range(1, 17)))
+def test_decode_attention_every_group(cuda, G, hd, dtype):
+    """Every G from 1 to 16, dense (with starts, a pure-pad row and a
+    window) and paged (bitwise the dense kernel), against the plain
+    versions; S 700 spans several splits of the bf16 plan."""
+    B, KVH, S = 3, 2, 700
+    q = _randn(B, 1, KVH * G, hd, seed=G).to(cuda, dtype)
+    kc, vc = (_randn(B, KVH, S, hd, seed=G + i).to(cuda, dtype) for i in (1, 2))
+    cur = torch.tensor([S, 300, 1], dtype=torch.int32, device=cuda)
+    for kw in (dict(), dict(starts=torch.tensor([0, 300, 0], dtype=torch.int32, device=cuda)), dict(window=129)):
+        got = decode.decode_attention_bksd(q, kc, vc, cur, **kw)
+        _held(got, decode.decode_attention_plain(q, kc, vc, cur, **kw), dtype)
+    q, kp, vp, pages, cur = (t.to(cuda) for t in _paged_case(2, 3, KVH, G, hd, 256, 16, dtype, seed=G))
+    _paged_held(decode.decode_attention_paged(q, kp, vp, pages, cur), q, kp, vp, pages, cur, dtype)
+
+
+def test_attention_kernels_refuse_what_they_do_not_take(cuda):
+    """No fallback: hd past 128 or off the multiples of 8, G past 16 and
+    f16 raise, with their reason."""
+    bf = torch.bfloat16
+    mk = lambda *s, dtype=bf: _randn(*s).to(cuda, dtype)  # noqa: E731
+    for hd in (136, 20):
+        with pytest.raises(ValueError, match="multiple of 8"):
+            flash.flash_attention(mk(1, 4, 2, hd), mk(1, 4, 2, hd), mk(1, 4, 2, hd))
+        with pytest.raises(ValueError, match="multiple of 8"):
+            decode.decode_attention_bksd(mk(1, 1, 2, hd), mk(1, 2, 8, hd), mk(1, 2, 8, hd), 8)
+    with pytest.raises(ValueError, match="G = H / KVH"):
+        decode.decode_attention_bksd(mk(1, 1, 17, 64), mk(1, 1, 8, 64), mk(1, 1, 8, 64), 8)
+    with pytest.raises(TypeError, match="dtype"):
+        flash.flash_attention(*(mk(1, 4, 2, 64, dtype=torch.float16) for _ in range(3)))
+    with pytest.raises(TypeError, match="dtype"):  # mixed dtypes
+        flash.flash_attention(mk(1, 4, 2, 64, dtype=torch.float32), mk(1, 4, 2, 64), mk(1, 4, 2, 64))
+    with pytest.raises(TypeError, match="dtype"):
+        decode.decode_attention_bksd(*(mk(1, 1, 2, 64, dtype=torch.float16) for _ in range(3)), 1)
 
 
 @pytest.mark.parametrize("G,KVH", [(8, 2), (2, 8), (5, 8), (6, 8), (12, 8)])
@@ -391,10 +496,12 @@ PAGED_CASES = [
 ]
 
 
+@pytest.mark.parametrize("dtype", ATTN_DTYPES, ids=["bf16", "f32"])
 @pytest.mark.parametrize("E", [1, 3])
-@pytest.mark.parametrize("G,hd", [(8, 128), (2, 128), (1, 64), (5, 128), (6, 64), (12, 128)])
+@pytest.mark.parametrize("G,hd", [(8, 128), (2, 128), (1, 64), (5, 128), (6, 64), (12, 128), (3, 16), (7, 40),
+                                  (1, 80), (4, 32), (16, 24)])
 @pytest.mark.parametrize("case", PAGED_CASES, ids=lambda c: f"ps={c['ps']}-cur={c['cur']}-w={c['window']}")
-def test_decode_attention_paged(cuda, case, G, hd, E):
+def test_decode_attention_paged(cuda, case, G, hd, E, dtype):
     """Shuffled tables, -1 entries past and inside cur_len, member planes
     under one table: within 2e-2 of the plain version and bitwise the dense
     kernel on the gathered view."""
@@ -411,18 +518,15 @@ def test_decode_attention_paged(cuda, case, G, hd, E):
         used += n
     for b, i in case["holes"]:
         pages[b, i] = -1
-    q = _randn(E * B, 1, KVH * G, hd, seed=0).to(cuda, torch.bfloat16)
-    kp = _randn(E, P, KVH, ps, hd, seed=1).to(cuda, torch.bfloat16)
-    vp = _randn(E, P, KVH, ps, hd, seed=2).to(cuda, torch.bfloat16)
+    q = _randn(E * B, 1, KVH * G, hd, seed=0).to(cuda, dtype)
+    kp = _randn(E, P, KVH, ps, hd, seed=1).to(cuda, dtype)
+    vp = _randn(E, P, KVH, ps, hd, seed=2).to(cuda, dtype)
     pages, cur = pages.to(cuda), torch.tensor(case["cur"], dtype=torch.int32, device=cuda)
     kw = dict(window=case["window"], softcap=case["softcap"])
     before = kernels.launch_counts()["decode_attention_paged"]
     got = decode.decode_attention_paged(q, kp, vp, pages, cur, **kw)
     assert kernels.launch_counts()["decode_attention_paged"] == before + 1
-    ref = decode.decode_attention_paged_plain(q, kp, vp, pages, cur, **kw)
-    torch.testing.assert_close(got.float(), ref.float(), rtol=0, atol=2e-2)
-    view_k, view_v = (decode.paged_pool_view(t, pages, compact.gather_rows_plain) for t in (kp, vp))
-    assert torch.equal(got, decode.decode_attention_bksd(q, view_k, view_v, cur.repeat(E), **kw))
+    _paged_held(got, q, kp, vp, pages, cur, dtype, **kw)
 
 
 def test_decode_attention_paged_wants_device_table(cuda):
@@ -1008,26 +1112,32 @@ def _grads(fn, inputs, weights):
     return [t.grad for t in leaves]
 
 
-@pytest.mark.parametrize("hd,H,KVH,window,softcap", [(128, 16, 2, None, None), (80, 8, 8, None, None),
-                                                     (64, 8, 2, 48, 30.0)])
-def test_flash_lse_and_training_gradients(cuda, hd, H, KVH, window, softcap):
-    """The kernel's lse (abs 1e-3) and out (abs 2e-2) against the plain
-    version's; dq, dk, dv through the training route (kernel forward, one
-    launch) against autograd of the plain version, normwise 2e-2."""
+@pytest.mark.parametrize("hd,H,KVH,window,softcap,dtype", [
+    (128, 16, 2, None, None, torch.bfloat16), (80, 8, 8, None, None, torch.bfloat16),
+    (64, 8, 2, 48, 30.0, torch.bfloat16), (24, 6, 2, None, None, torch.bfloat16),
+    (40, 4, 4, 64, 5.0, torch.bfloat16), (16, 2, 2, None, None, torch.float32),
+    (40, 8, 2, 48, 30.0, torch.float32), (128, 16, 2, None, None, torch.float32)])
+def test_flash_lse_and_training_gradients(cuda, hd, H, KVH, window, softcap, dtype):
+    """The kernel's lse and out against the plain version's (bf16: abs 1e-3
+    and 2e-2; f32: abs 1e-5 and normwise 1e-5); dq, dk, dv through the
+    training route (kernel forward, one launch) against autograd of the
+    plain version, normwise 2e-2 (bf16) and 1e-4 (f32)."""
     g = torch.Generator().manual_seed(hd)
-    mk = lambda *s: torch.randn(*s, generator=g).to(torch.bfloat16).to(cuda)
+    mk = lambda *s: torch.randn(*s, generator=g).to(dtype).to(cuda)
     B, S = 2, 300
     q, k, v, do = mk(B, S, H, hd), mk(B, S, KVH, hd), mk(B, S, KVH, hd), mk(B, S, H, hd)
     kw = dict(causal=True, window=window, softcap=softcap)
     o, lse = flash._flash_cuda(q, k, v, starts=None, return_lse=True, **kw)
     po, plse = flash.flash_attention_plain(q, k, v, return_lse=True, **kw)
-    assert (lse - plse).abs().max().item() <= 1e-3 and (o.float() - po.float()).abs().max().item() <= 2e-2
+    f32 = dtype == torch.float32
+    assert (lse - plse).abs().max().item() <= (1e-5 if f32 else 1e-3)
+    _held(o, po, dtype)
     before = kernels.launch_counts()["flash_attention"]
     got = _grads(lambda q, k, v: flash.flash_attention(q, k, v, **kw), (q, k, v), (do,))
     assert kernels.launch_counts()["flash_attention"] == before + 1
     ref = _grads(lambda q, k, v: flash.flash_attention_plain(q, k, v, **kw), (q, k, v), (do,))
     for a, b in zip(got, ref):
-        _normwise(a, b, 2e-2)
+        _normwise(a, b, 1e-4 if f32 else 2e-2)
 
 
 def test_scans_under_autograd_launch_and_match_plain(cuda):

@@ -1,8 +1,10 @@
 """Parity of the port's kernel modules (their plain PyTorch versions on the
 CPU) with the JAX package's ``impl='xla'`` paths, on the same numpy
 inputs.  Float outputs: rtol 1e-5 / atol 1e-6 for f32 (two frameworks sum
-in different orders); discrete outputs (argmax, votes, index maps, counts,
-compacted payloads, paged K/V views) must be equal.  ``test_torch_cuda.py``
+in different orders); bf16 attention outputs one bf16 step (rtol 2**-7,
+atol 2**-8: both compute in f32 and round once); discrete outputs (argmax,
+votes, index maps, counts, compacted payloads, paged K/V views) must be
+equal.  ``test_torch_cuda.py``
 holds the CUDA kernels against these plain versions on the card."""
 import jax.numpy as jnp
 import ml_dtypes
@@ -262,7 +264,25 @@ FLASH_CASES = [
     dict(causal=True, window=None, softcap=None, starts=[0, 5, 16]),
     dict(causal=True, window=6, softcap=2.0, starts=[3, 0, 9]),
     dict(causal=False, window=None, softcap=None, starts=None),
+    # the head sizes the card's kernels run padded (16, 24, 32, 40), G 3 and
+    # 7, and bf16 inputs (the JAX kernel upcasts any dtype to f32 inside)
+    dict(causal=True, window=None, softcap=None, starts=None, hd=16, H=6, KVH=2),
+    dict(causal=True, window=5, softcap=None, starts=[0, 5, 16], hd=24, H=7, KVH=1),
+    dict(causal=True, window=None, softcap=3.0, starts=None, hd=32, H=4, KVH=4),
+    dict(causal=False, window=None, softcap=None, starts=None, hd=40, H=6, KVH=2),
+    dict(causal=True, window=None, softcap=None, starts=None, hd=24, H=6, KVH=2, dtype="bfloat16"),
+    dict(causal=True, window=6, softcap=2.0, starts=[3, 0, 9], hd=40, H=7, KVH=1, dtype="bfloat16"),
 ]
+BF16_TOL = dict(rtol=2.0**-7, atol=2.0**-8)
+
+
+def _as(x, dtype):
+    """numpy f32 -> the case's dtype (ml_dtypes bfloat16 for the JAX side)."""
+    return x if dtype == "float32" else x.astype(ml_dtypes.bfloat16)
+
+
+def _torch_in(x):
+    return torch.from_numpy(x) if x.dtype == np.float32 else torch.from_numpy(x.astype(np.float32)).to(torch.bfloat16)
 
 
 def _qkv(B, Sq, Sk, H, KVH, hd, seed):
@@ -274,23 +294,26 @@ def _qkv(B, Sq, Sk, H, KVH, hd, seed):
 
 @pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "-".join(f"{k}={v}" for k, v in c.items() if v))
 def test_flash_attention_matches_jax(case):
-    q, k, v = _qkv(3, 16, 16, 4, 2, 8, seed=7)
+    dtype = case.get("dtype", "float32")
+    q, k, v = (_as(x, dtype) for x in _qkv(3, 16, 16, case.get("H", 4), case.get("KVH", 2), case.get("hd", 8), seed=7))
     starts = case["starts"]
     kw = dict(causal=case["causal"], window=case["window"], softcap=case["softcap"])
     got = t_flash.flash_attention(
-        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), **kw,
+        _torch_in(q), _torch_in(k), _torch_in(v), **kw,
         starts=None if starts is None else torch.tensor(starts, dtype=torch.int32),
     )
     ref = j_flash.flash_attention(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), **kw,
         starts=None if starts is None else jnp.asarray(starts, jnp.int32),
     )
-    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+    tol = dict(rtol=1e-5, atol=1e-5) if dtype == "float32" else BF16_TOL
+    assert got.dtype == (torch.float32 if dtype == "float32" else torch.bfloat16)
+    np.testing.assert_allclose(_np(got), _np(np.asarray(ref).astype(np.float32)), **tol)
     oracle = t_flash_ref.attention_ref(
-        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), **kw,
+        _torch_in(q), _torch_in(k), _torch_in(v), **kw,
         starts=None if starts is None else torch.tensor(starts),
     )
-    np.testing.assert_allclose(got.numpy(), oracle.numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(_np(got), _np(oracle), **tol)
     if starts is not None:  # pure-padding rows emit zeros
         for b, s in enumerate(starts):
             assert not got[b, :s].any()
@@ -306,20 +329,27 @@ DECODE_CASES = [
     dict(cur_len=12, window=4, softcap=None, starts=None),
     dict(cur_len=[5, 12, 16], window=None, softcap=2.5, starts=[0, 4, 10]),
     dict(cur_len=12, window=None, softcap=None, starts=[0, 12, 3]),
+    # padded head sizes, G 3 and 7, bf16 inputs
+    dict(cur_len=[3, 16, 9], window=None, softcap=None, starts=None, hd=16, G=3),
+    dict(cur_len=12, window=4, softcap=None, starts=None, hd=24, G=7),
+    dict(cur_len=[5, 12, 16], window=None, softcap=2.5, starts=[0, 4, 10], hd=32, G=1),
+    dict(cur_len=9, window=None, softcap=None, starts=None, hd=40, G=3, dtype="bfloat16"),
+    dict(cur_len=12, window=None, softcap=None, starts=[0, 12, 3], hd=24, G=7, dtype="bfloat16"),
 ]
 
 
 @pytest.mark.parametrize("case", DECODE_CASES, ids=lambda c: "-".join(f"{k}={v}" for k, v in c.items() if v))
 def test_decode_attention_matches_jax(case):
     rng = np.random.default_rng(8)
-    B, KVH, G, S, hd = 3, 2, 4, 16, 8
-    q = rng.standard_normal((B, 1, KVH * G, hd)).astype(np.float32)
-    kc = rng.standard_normal((B, KVH, S, hd)).astype(np.float32)
-    vc = rng.standard_normal((B, KVH, S, hd)).astype(np.float32)
+    B, KVH, S = 3, 2, 16
+    G, hd, dtype = case.get("G", 4), case.get("hd", 8), case.get("dtype", "float32")
+    q = _as(rng.standard_normal((B, 1, KVH * G, hd)).astype(np.float32), dtype)
+    kc = _as(rng.standard_normal((B, KVH, S, hd)).astype(np.float32), dtype)
+    vc = _as(rng.standard_normal((B, KVH, S, hd)).astype(np.float32), dtype)
     cur, starts = case["cur_len"], case["starts"]
     kw = dict(window=case["window"], softcap=case["softcap"])
     got = t_decode.decode_attention_bksd(
-        torch.from_numpy(q), torch.from_numpy(kc), torch.from_numpy(vc),
+        _torch_in(q), _torch_in(kc), _torch_in(vc),
         cur if np.isscalar(cur) else torch.tensor(cur, dtype=torch.int32), **kw,
         starts=None if starts is None else torch.tensor(starts, dtype=torch.int32),
     )
@@ -327,9 +357,11 @@ def test_decode_attention_matches_jax(case):
         jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc), jnp.asarray(cur, jnp.int32), **kw,
         starts=None if starts is None else jnp.asarray(starts, jnp.int32),
     )
-    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+    tol = dict(rtol=1e-5, atol=1e-5) if dtype == "float32" else BF16_TOL
+    assert got.dtype == (torch.float32 if dtype == "float32" else torch.bfloat16)
+    np.testing.assert_allclose(_np(got), _np(np.asarray(ref).astype(np.float32)), **tol)
     oracle = t_decode_ref.decode_attention_ref(
-        torch.from_numpy(q), torch.from_numpy(kc), torch.from_numpy(vc),
+        _torch_in(q), _torch_in(kc), _torch_in(vc),
         torch.as_tensor(cur), **kw, starts=None if starts is None else torch.tensor(starts),
     )
-    np.testing.assert_allclose(got.numpy(), oracle.numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(_np(got), _np(oracle), **tol)
