@@ -191,7 +191,22 @@ Phases, in order; any failure raises and exits non-zero:
    grad_norm read inf; device memory by stage); then examples/train_then_cascade.py on the card
    (``trained_cascade``) at its own widths, hd 24 and 40, calibrated and
    serving 1024 fresh requests through ``CascadeServer``.  Its launches join the kernels line
-   under ``train/`` runs (``train_launches``).
+   under ``train/`` runs (``train_launches``).  Last, ``pod_classify``
+   (``pod_classify_path``): the first cascade's classify on 32 x 256 at
+   published width over ``pod_placement`` of a (2, 1, 1) mesh (tier i on
+   rank i), a (4, 1, 1) one (each tier on two ranks, every chunk of tier
+   2's rows landing half on each) and a (6, 1, 1) one (tier 1's three
+   members one a rank, tier 2 replicated on three), the ranks spawned on this card under ``gloo``
+   (NCCL takes one rank a card), computing on ``cuda:0`` and loading the
+   kernels phase 1 built: eager, graphed twice and the replicated
+   baseline, every rank's pred, tier_of and tier_counts bitwise this
+   process's unplaced server's, the hop metered as the replicated link's,
+   each rank holding only its slice's tier and fed its block of each of
+   tier 2's chunks; rank 0's walls, each rank's
+   peak memory, the hop's bytes, and each mesh's launches (summed over its
+   ranks, the second graphed run) in the kernels line as
+   ``pod_classify_2``, ``_4`` and ``_6``.  The ranks time-share one
+   card, so the walls are no multi-GPU speed.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -4296,6 +4311,258 @@ def train_path(dev, seed):
     }
 
 
+# ---------------------------------------------------------------------------
+# pod_classify: the first cascade's classify over a mesh placement, its
+# ranks time-sharing the one card
+# ---------------------------------------------------------------------------
+
+POD_TIERS = ("qwen2.5-3b", "internlm2-1.8b")
+POD_MESHES = {"pod_classify_2": 2, "pod_classify_4": 4, "pod_classify_6": 6}
+POD_NEED = ("agreement", "compaction", "flash_attention")
+
+
+def pod_values(arch, k, seed, device):
+    """Tier weights of the pod phase, each tier from a generator of its own
+    (``seed`` + 10 for tier 1, + 11 for tier 2), so a rank draws one tier
+    without the other; on ``"meta"`` nothing is drawn."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import ensemble as ens
+
+    gen = torch.Generator(device=device if device != "meta" else "cpu").manual_seed(seed)
+    return ens.init_ensemble(get_config(arch), k, gen, device)
+
+
+def pod_specs(theta):
+    from repro_torch.core.cascade import TierSpec
+
+    return (TierSpec(f"{POD_TIERS[0]}-x3", "score", theta, k=3, cost=3.0),
+            TierSpec(POD_TIERS[1], "confidence", -1.0, k=1, cost=1.0))
+
+
+def pod_inputs(seed):
+    """The calibration batch and the classify batch, 32 x 256 each, below
+    both tiers' vocabularies."""
+    from repro_torch.configs import get_config
+
+    vocab = min(get_config(a).vocab_size for a in POD_TIERS)
+    rng = np.random.default_rng(seed + 12)
+    return rng.integers(0, vocab, (32, 256)).astype(np.int32), rng.integers(0, vocab, (32, 256)).astype(np.int32)
+
+
+def pod_server(dev, seed, theta, placement):
+    """The cascade over ``placement`` on this rank: the tier of this rank's
+    slice drawn whole, placed (a rank keeps its members), then dropped; the
+    other tier meta.  The ranks of a slice draw one after another, so one
+    whole tier 1 at a time lives on the card."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.serve import CascadeServer, CascadeTier
+
+    from repro_torch.serve.placement import place_tier_values
+
+    ks, seeds = (3, 1), (seed + 10, seed + 11)
+    mine = [h.mesh.get_coordinate() is not None for h in placement.hosts]
+    server, times = None, {}
+    # the first DTensor a process makes costs seconds of one-time setup
+    # (torch._dynamo's import; ~8 s on an H100 host, PERF.md §6): every
+    # rank pays it at once here, not one after another in the turns below
+    t0 = time.perf_counter()
+    place_tier_values({"w": torch.zeros(3, 1, device=dev)}, placement.hosts[mine.index(True)])
+    times["warm_s"] = time.perf_counter() - t0
+    for r in range(dist.get_world_size()):
+        if r == dist.get_rank():
+            t0 = time.perf_counter()
+            values = [pod_values(a, k, sd, dev if here else "meta") for a, k, sd, here in zip(POD_TIERS, ks, seeds, mine)]
+            torch.cuda.synchronize()
+            times["draw_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            tiers = [CascadeTier(get_config(a), v, spec, device=dev)
+                     for a, v, spec in zip(POD_TIERS, values, pod_specs(theta))]
+            del values
+            server = CascadeServer(tiers, device=dev, placement=placement)
+            del tiers
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()  # the whole tier goes back to the card for the next rank
+            times["place_s"] = time.perf_counter() - t0
+        dist.barrier()
+    return server, times
+
+
+def pod_rank(rank, world, root, seed, theta):
+    """One rank of a pod world: a ``gloo`` group (NCCL takes one rank a
+    card), compute on ``cuda:0``, kernels loaded as the parent built them.
+    Runs the mesh placement's classify eager, graphed twice (the launch
+    counters zeroed just before the second and read just after), then the
+    replicated baseline's graphed classify, and writes its JSON."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.device import rank_device
+    from repro_torch.kernels import build
+    from repro_torch.serve.placement import pod_placement
+    from repro_torch.sharding.mesh import device_mesh
+
+    build.load_only()
+    dist.init_process_group("gloo", store=dist.FileStore(str(Path(root) / "store"), world), rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=600))
+    dev = rank_device()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = device_mesh(dev, (world, 1, 1), ("pod", "data", "model"))
+    _, toks = pod_inputs(seed)
+    out = {"rank": rank, "device": str(dev)}
+    with torch.no_grad():
+        for shard_examples in (True, False):
+            placement = pod_placement(mesh, 2, shard_examples=shard_examples)
+            t0 = time.perf_counter()
+            server, times = pod_server(dev, seed, theta, placement)
+            build_s = time.perf_counter() - t0
+            # the rows tier 2 is fed a call on this rank: its block of each
+            # chunk of the cover
+            fed, tier2 = [], server.tiers[1]
+            if placement.hosts[1].mesh.get_coordinate() is not None:
+                def spy(tokens, *, eager=False, inner=tier2.last_logits):
+                    fed.append(int(tokens.shape[0]))
+                    return inner(tokens, eager=eager)
+
+                tier2.last_logits = spy
+            torch.cuda.reset_peak_memory_stats()
+            runs = ("eager", "graphed_1", "graphed_2") if shard_examples else ("graphed_1",)
+            res = {}
+            for run in runs:
+                if run == "graphed_2":
+                    build.reset_launch_counts()
+                dist.barrier()
+                t0 = time.perf_counter()
+                r = server.classify(toks, eager=run == "eager")
+                wall = time.perf_counter() - t0
+                if run == "graphed_2":
+                    res["launches"] = build.launch_counts()
+                res[run] = {"wall_s": wall, "pred": r.pred.tolist(), "tier_of": r.tier_of.tolist(),
+                            "tier_counts": r.tier_counts.tolist(), "link": placement.link(0).stats(),
+                            "fed_rows": list(fed)}
+                placement.link(0).hops.clear()
+                fed.clear()
+            res["build_s"], res["build_own_s"] = build_s, times
+            res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            res["members"] = [int(t.k) for t in server.tiers]
+            res["meta"] = [all(x.is_meta for x in leaves(t.values)) for t in server.tiers]
+            out["sharded" if shard_examples else "replicated"] = res
+            del server
+            torch.cuda.empty_cache()
+    Path(root, f"rank{rank}.json").write_text(json.dumps(out))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def pod_classify_path(dev, seed):
+    """The first cascade (3 x qwen2.5-3b -> internlm2-1.8b) at published
+    width, classify on 32 x 256, over ``pod_placement`` of a (2, 1, 1)
+    mesh (tier i on rank i), a (4, 1, 1) one (each tier replicated on its
+    two ranks; the hop lands each chunk of tier 2's cover sharded over
+    slice 1's 'pod' axis, half on each rank) and a (6, 1, 1) one (tier 1's
+    three members one a rank of slice 0, tier 2 replicated on slice 1's
+    three ranks, where a chunk of 8 or 16 rows does not split in three and
+    lands whole), ranks spawned on the one card under ``gloo``.  Every
+    rank's pred, tier_of and tier_counts must equal, bitwise, this
+    process's unplaced server's on the same weights, with the replicated
+    baseline's metered hop; each rank must hold only its slice's tier
+    (slice 0's ranks of the (6, 1, 1) mesh one member each), and each rank
+    of slice 1 be fed its block of every chunk, as the logical rules shard
+    it.  Returns (results, launches a mesh, summed over its ranks, of the
+    second graphed run)."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import ensemble as ens
+    from repro_torch.core.cascade import bucket_chunks
+    from repro_torch.kernels.agreement import ops as agree_ops
+    from repro_torch.serve import CascadeServer, CascadeTier
+    from repro_torch.sharding.logical import logical_to_pspec, make_rules
+
+    t0 = time.perf_counter()
+    cal, toks = pod_inputs(seed)
+    with torch.no_grad():
+        v1 = pod_values(POD_TIERS[0], 3, seed + 10, dev)
+        theta = float(agree_ops.agreement(ens.ensemble_last_logits(v1, {"tokens": cal}, get_config(POD_TIERS[0])))
+                      ["mean_score"].median())
+        v2 = pod_values(POD_TIERS[1], 1, seed + 11, dev)
+        server = CascadeServer([CascadeTier(get_config(a), v, spec, device=dev)
+                                for a, v, spec in zip(POD_TIERS, (v1, v2), pod_specs(theta))], device=dev)
+        server.classify(toks)
+        ref = server.classify(toks)
+    del server, v1, v2
+    torch.cuda.empty_cache()
+    n_def = int(ref.tier_counts[1])
+    hop_bytes = min(sum(bucket_chunks(n_def, 8)), 32) * (256 * 4 + 4) if n_def else 0
+    results = {"theta": theta, "tier_counts": ref.tier_counts.tolist(), "hop_bytes": hop_bytes,
+               "reference_s": time.perf_counter() - t0}
+    log(f"[pod_classify] unplaced reference: tier_counts {ref.tier_counts.tolist()}, theta {theta:.6g}, "
+        f"{results['reference_s']:.1f}s")
+    launches = {}
+    for name, world in POD_MESHES.items():
+        with tempfile.TemporaryDirectory(prefix="pod_classify_") as root:
+            t0 = time.perf_counter()
+            mp.start_processes(pod_rank, args=(world, root, seed, theta), nprocs=world, join=True,
+                               start_method="spawn")
+            wall = time.perf_counter() - t0
+            ranks = [json.loads(Path(root, f"rank{r}.json").read_text()) for r in range(world)]
+        half = world // 2
+
+        def block(c):
+            """The rows of a chunk of ``c`` each rank of slice 1 holds."""
+            spec = logical_to_pspec(("act_batch", None), make_rules("decode", pod=True), shape=(c, 256),
+                                    mesh={"pod": half, "data": 1, "model": 1})
+            return c // (half if spec[0] is not None and "pod" in spec[0] else 1)
+
+        chunks = bucket_chunks(n_def, 8)
+        for out in ranks:
+            r = out["rank"]
+            for mode in ("sharded", "replicated"):
+                for run, got in out[mode].items():
+                    if not isinstance(got, dict) or "pred" not in got:
+                        continue
+                    what = f"{name} rank {r} {mode} {run}"
+                    require(got["pred"] == ref.pred.tolist(), f"{what}: pred differs from the unplaced server's")
+                    require(got["tier_of"] == ref.tier_of.tolist(), f"{what}: tier_of differs")
+                    require(got["tier_counts"] == ref.tier_counts.tolist(), f"{what}: tier_counts differ")
+                    require(got["link"]["bytes"] == hop_bytes and got["link"]["examples"] == n_def,
+                            f"{what}: metered {got['link']} != one copy of the payload, {hop_bytes} bytes")
+                    want = ([] if r < half else [block(c) if mode == "sharded" else c for c in chunks])
+                    require(got["fed_rows"] == want, f"{what}: tier 2 fed {got['fed_rows']} rows, not {want}")
+            tier = 0 if r < half else 1
+            res = out["sharded"]
+            require(res["meta"] == [tier != 0, tier != 1], f"{name} rank {r} holds another slice's weights")
+            k1 = 3 // half if 3 % half == 0 else 3  # 'pod' does not divide the members: replicated
+            require(res["members"][tier] == (k1 if tier == 0 else 1), f"{name} rank {r}: members {res}")
+        sums = {k: sum(out["sharded"]["launches"][k] for out in ranks) for k in ranks[0]["sharded"]["launches"]}
+        for k in POD_NEED:
+            require(sums[k] > 0, f"{name}: {k} was not launched")
+        launches[name] = sums
+        r0 = ranks[0]["sharded"]
+        results[name] = {
+            "world_s": wall,
+            "rank0_walls_s": {run: r0[run]["wall_s"] for run in ("eager", "graphed_1", "graphed_2")},
+            "peak_gib": [out["sharded"]["peak_gib"] for out in ranks],
+            "replicated_peak_gib": [out["replicated"]["peak_gib"] for out in ranks],
+            "build_s": [out["sharded"]["build_s"] for out in ranks],
+            "build_own_s": [out["sharded"]["build_own_s"] for out in ranks],
+            "hop": r0["graphed_2"]["link"], "members": [out["sharded"]["members"] for out in ranks],
+            "tier2_fed_rows": [out["sharded"]["graphed_2"]["fed_rows"] for out in ranks],
+            "launches": sums,
+        }
+        log(f"[pod_classify] {name}: {world} ranks on one card, {wall:.1f}s; rank 0 walls "
+            f"{json.dumps(results[name]['rank0_walls_s'])}; peak GiB by rank {results[name]['peak_gib']}; "
+            f"hop {json.dumps(results[name]['hop'])}; tier 2 fed rows by rank "
+            f"{results[name]['tier2_fed_rows']}; launches {json.dumps(sums)}; pred, tier_of, tier_counts "
+            f"bitwise the unplaced server's, bytes the replicated link's")
+    return results, launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4418,6 +4685,13 @@ def main(argv=None):
     launches.update({f"train/{run}": c for run, c in per_run.items()})
     gc.collect()
     torch.cuda.empty_cache()
+    # last: the first cascade's classify over mesh placements, ranks spawned
+    # on this card (they load the kernels phase 1 built)
+    t0 = time.perf_counter()
+    results["pod_classify"], per_mesh = pod_classify_path(dev, args.seed)
+    launches.update(per_mesh)
+    results["pod_classify"]["phase_s"] = time.perf_counter() - t0
+    log(f"[pod_classify] phase {results['pod_classify']['phase_s']:.1f}s")
 
     sources = {
         "agreement": ("src/repro_torch/csrc/agreement.cu", "src/repro/kernels/agreement/kernel.py:67"),

@@ -12,11 +12,18 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import api
+from repro_torch.models.params import tree_map
 
 
 def init_ensemble(cfg: ModelConfig, k: int, generator: torch.Generator, device):
     """k members' parameters, stacked on a leading axis, drawn in one pass."""
     return api.init_params(cfg, generator, device, lead=(k,))
+
+
+def ensemble_axes(cfg: ModelConfig) -> dict:
+    """``api.param_axes`` with ``'ensemble'`` before every leaf's axes: the
+    axes of ``init_ensemble``'s tree (the JAX package's boxed ensemble)."""
+    return tree_map(lambda axes: ("ensemble",) + axes, api.param_axes(cfg))
 
 
 def ensemble_logits(values, batch, cfg: ModelConfig):

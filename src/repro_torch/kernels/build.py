@@ -64,6 +64,15 @@ SIGNATURES = {
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_LOAD_ONLY = False
+
+
+def load_only() -> None:
+    """From now on this process loads the kernels and builds none:
+    ``build_all`` raises where a library is missing.  For ranks that share a
+    card with the process that built the kernels before starting them."""
+    global _LOAD_ONLY
+    _LOAD_ONLY = True
 
 
 def launch_counter(name: str):
@@ -115,8 +124,11 @@ def _target(name: str) -> Path:
 def build_all() -> Dict[str, Path]:
     """Compile every source whose library is missing, all at once.
     Returns name -> library path; ptxas reports go to ``<lib>.log``."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     targets = {n: _target(n) for n in SOURCES}
+    missing = [str(so) for so in targets.values() if not so.exists()]
+    if _LOAD_ONLY and missing:
+        raise RuntimeError(f"this process only loads kernels, and these are not built: {missing}")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for n, so in targets.items():
         if so.exists():

@@ -67,7 +67,7 @@ from repro_torch.models import blocks_dense as BD
 from repro_torch.models import blocks_mamba2 as BM
 from repro_torch.models import blocks_rwkv6 as BR
 from repro_torch.models import layers as L
-from repro_torch.models.params import Initializer, torch_dtype, tree_map
+from repro_torch.models.params import AxesInitializer, Initializer, torch_dtype, tree_map
 
 ATTENTION_FAMILIES = ("dense", "moe", "vlm", "encoder")
 
@@ -88,12 +88,22 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device, *, lead=()
     tree is the JAX package's: no ``embed`` for the encoder, a
     ``frontend.proj`` (frontend_dim, D) where the config has a frontend,
     the interleaved ``{"dense", "moe"}`` layer stacks for llama4."""
-    ini = Initializer(generator, cfg.dtype, device, lead)
+    return _init_tree(cfg, Initializer(generator, cfg.dtype, device, lead))
+
+
+def param_axes(cfg: ModelConfig) -> dict:
+    """The logical axes of every leaf of ``init_params``' tree, the tuples
+    the JAX package's ``Box``es carry (``'layers'`` first on the stacked
+    layer leaves): the ``axes`` of ``unbox(init_params(...))``."""
+    return _init_tree(cfg, AxesInitializer())
+
+
+def _init_tree(cfg: ModelConfig, ini):
     p = {}
     if not cfg.is_encoder:
-        p["embed"] = ini.normal((cfg.vocab_size, cfg.d_model), std=0.02)
+        p["embed"] = ini.normal((cfg.vocab_size, cfg.d_model), ("vocab", "embed"), std=0.02)
     if cfg.frontend_dim:
-        p["frontend"] = {"proj": ini.normal((cfg.frontend_dim, cfg.d_model))}
+        p["frontend"] = {"proj": ini.normal((cfg.frontend_dim, cfg.d_model), (None, "embed"))}
     if interleaved_moe(cfg):
         me = cfg.moe_every
         assert cfg.n_layers % me == 0, (cfg.n_layers, me)
@@ -112,7 +122,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device, *, lead=()
         p["shared_attn"] = BD.init_dense_layer(ini, cfg)  # one block, shared by depth
     p["final_norm"] = L.init_norm(ini, cfg, cfg.d_model)
     if not cfg.tie_embeddings:
-        p["lm_head"] = ini.normal((cfg.d_model, cfg.vocab_size), std=0.02)
+        p["lm_head"] = ini.normal((cfg.d_model, cfg.vocab_size), ("embed", "vocab"), std=0.02)
     return p
 
 
@@ -751,6 +761,33 @@ def forward_logits(params, batch, cfg: ModelConfig):
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device, dtype=None):
     """Zero caches in the JAX package's layout (see the module docstring)."""
     return _single_cache(init_cache_members(cfg, 1, batch, max_seq, device, dtype))
+
+
+def cache_axes(cfg: ModelConfig) -> dict:
+    """The logical axes of every leaf of ``init_cache``' tree (the JAX
+    layout), as the JAX package's ``init_cache`` boxes them: attention k, v
+    ``('layers', 'kv_batch', 'cache_kv_heads', 'kv_seq', 'head_dim')``, the
+    recurrent state's batch axis ``'kv_batch'``, the hybrid's
+    per-invocation ``attn_k``/``attn_v`` without the layer axis."""
+    _require_decoder(cfg)
+    kv = ("kv_batch", "cache_kv_heads", "kv_seq", "head_dim")
+    if attention_family(cfg):
+        return {"k": ("layers",) + kv, "v": ("layers",) + kv}
+    if cfg.family == "ssm_rwkv6":
+        return {
+            "tm_x": ("layers", "kv_batch", None),
+            "cm_x": ("layers", "kv_batch", None),
+            "wkv": ("layers", "kv_batch", "ssm_heads", None, None),
+        }
+    axes = {
+        "conv": ("layers", "kv_batch", None, "ssm_inner"),
+        "ssm": ("layers", "kv_batch", "ssm_heads", None, None),
+    }
+    if cfg.family == "hybrid":
+        n_inv = cfg.n_layers // cfg.attn_every
+        axes["attn_k"] = [kv] * n_inv
+        axes["attn_v"] = [kv] * n_inv
+    return axes
 
 
 def prefill(params, batch, cfg: ModelConfig, *, cache=None):

@@ -34,14 +34,14 @@ def init_mamba2_block(ini: Initializer, cfg: ModelConfig):
     d_in, nh, G, N, conv_dim, proj_dim = _dims(cfg)
     f32 = torch.float32
     return {
-        "in_proj": ini.normal((cfg.d_model, proj_dim)),
-        "conv_w": ini.normal((cfg.ssm_conv, conv_dim), std=0.5),
-        "conv_b": ini.zeros((conv_dim,)),
-        "A_log": ini.const(torch.log(torch.linspace(1.0, 16.0, nh)), dtype=f32),
-        "D": ini.ones((nh,), dtype=f32),
-        "dt_bias": ini.const(torch.full((nh,), math.log(math.expm1(1e-2))), dtype=f32),
-        "norm": ini.ones((d_in,), dtype=f32),
-        "out_proj": ini.normal((d_in, cfg.d_model)),
+        "in_proj": ini.normal((cfg.d_model, proj_dim), ("embed", "ssm_inner")),
+        "conv_w": ini.normal((cfg.ssm_conv, conv_dim), ("conv_kernel", "ssm_inner"), std=0.5),
+        "conv_b": ini.zeros((conv_dim,), ("ssm_inner",)),
+        "A_log": ini.const(torch.log(torch.linspace(1.0, 16.0, nh)), ("ssm_heads",), dtype=f32),
+        "D": ini.ones((nh,), ("ssm_heads",), dtype=f32),
+        "dt_bias": ini.const(torch.full((nh,), math.log(math.expm1(1e-2))), ("ssm_heads",), dtype=f32),
+        "norm": ini.ones((d_in,), ("ssm_inner",), dtype=f32),
+        "out_proj": ini.normal((d_in, cfg.d_model), ("ssm_inner", "embed")),
     }
 
 

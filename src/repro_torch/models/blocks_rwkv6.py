@@ -27,31 +27,31 @@ def init_rwkv6_block(ini: Initializer, cfg: ModelConfig):
     H = D // hd
     f32 = torch.float32
     return {
-        "ln1": {"scale": ini.ones((D,), dtype=f32), "bias": ini.zeros((D,), dtype=f32)},
-        "ln2": {"scale": ini.ones((D,), dtype=f32), "bias": ini.zeros((D,), dtype=f32)},
+        "ln1": {"scale": ini.ones((D,), ("norm",), dtype=f32), "bias": ini.zeros((D,), ("norm",), dtype=f32)},
+        "ln2": {"scale": ini.ones((D,), ("norm",), dtype=f32), "bias": ini.zeros((D,), ("norm",), dtype=f32)},
         "tm": {
-            "mu_base": ini.zeros((D,)),
-            "mu": ini.normal((_MIX, D), std=0.2),
-            "lora_w1": ini.normal((D, _MIX * R)),
-            "lora_w2": ini.normal((_MIX, R, D), std=0.01),
-            "wr": ini.normal((D, D)),
-            "wk": ini.normal((D, D)),
-            "wv": ini.normal((D, D)),
-            "wg": ini.normal((D, D)),
-            "wo": ini.normal((D, D)),
-            "decay_base": ini.const(torch.full((D,), -6.0), dtype=f32),
-            "decay_w1": ini.normal((D, R)),
-            "decay_w2": ini.normal((R, D), std=0.01),
-            "u": ini.normal((H, hd), std=0.5),
-            "gn_scale": ini.ones((D,), dtype=f32),
-            "gn_bias": ini.zeros((D,), dtype=f32),
+            "mu_base": ini.zeros((D,), ("embed",)),
+            "mu": ini.normal((_MIX, D), (None, "embed"), std=0.2),
+            "lora_w1": ini.normal((D, _MIX * R), ("embed", "rwkv_lora")),
+            "lora_w2": ini.normal((_MIX, R, D), (None, "rwkv_lora", "embed"), std=0.01),
+            "wr": ini.normal((D, D), ("embed", "mlp")),
+            "wk": ini.normal((D, D), ("embed", "mlp")),
+            "wv": ini.normal((D, D), ("embed", "mlp")),
+            "wg": ini.normal((D, D), ("embed", "mlp")),
+            "wo": ini.normal((D, D), ("mlp", "embed")),
+            "decay_base": ini.const(torch.full((D,), -6.0), ("embed",), dtype=f32),
+            "decay_w1": ini.normal((D, R), ("embed", "rwkv_lora")),
+            "decay_w2": ini.normal((R, D), ("rwkv_lora", "embed"), std=0.01),
+            "u": ini.normal((H, hd), ("ssm_heads", "head_dim"), std=0.5),
+            "gn_scale": ini.ones((D,), ("norm",), dtype=f32),
+            "gn_bias": ini.zeros((D,), ("norm",), dtype=f32),
         },
         "cm": {
-            "mu_k": ini.normal((D,), std=0.2),
-            "mu_r": ini.normal((D,), std=0.2),
-            "wk": ini.normal((D, cfg.d_ff)),
-            "wv": ini.normal((cfg.d_ff, D)),
-            "wr": ini.normal((D, D)),
+            "mu_k": ini.normal((D,), ("embed",), std=0.2),
+            "mu_r": ini.normal((D,), ("embed",), std=0.2),
+            "wk": ini.normal((D, cfg.d_ff), ("embed", "mlp")),
+            "wv": ini.normal((cfg.d_ff, D), ("mlp", "embed")),
+            "wr": ini.normal((D, D), ("embed", "mlp")),
         },
     }
 

@@ -34,11 +34,11 @@ def _per_member(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 def init_norm(ini: Initializer, cfg: ModelConfig, d: int):
     if cfg.norm_type == "rmsnorm":
-        return {"scale": ini.ones((d,), dtype=torch.float32)}
+        return {"scale": ini.ones((d,), ("norm",), dtype=torch.float32)}
     if cfg.norm_type == "layernorm":
         return {
-            "scale": ini.ones((d,), dtype=torch.float32),
-            "bias": ini.zeros((d,), dtype=torch.float32),
+            "scale": ini.ones((d,), ("norm",), dtype=torch.float32),
+            "bias": ini.zeros((d,), ("norm",), dtype=torch.float32),
         }
     if cfg.norm_type == "nonparametric_ln":
         return {}
@@ -88,15 +88,15 @@ def init_mlp(ini: Initializer, cfg: ModelConfig, d: Optional[int] = None, d_ff: 
     d, f = d or cfg.d_model, d_ff or cfg.d_ff
     if cfg.mlp_activation == "silu":
         return {
-            "w_gate": ini.normal((d, f)),
-            "w_up": ini.normal((d, f)),
-            "w_down": ini.normal((f, d)),
+            "w_gate": ini.normal((d, f), ("embed", "mlp")),
+            "w_up": ini.normal((d, f), ("embed", "mlp")),
+            "w_down": ini.normal((f, d), ("mlp", "embed")),
         }
     return {
-        "w_in": ini.normal((d, f)),
-        "b_in": ini.zeros((f,)),
-        "w_out": ini.normal((f, d)),
-        "b_out": ini.zeros((d,)),
+        "w_in": ini.normal((d, f), ("embed", "mlp")),
+        "b_in": ini.zeros((f,), ("mlp",)),
+        "w_out": ini.normal((f, d), ("mlp", "embed")),
+        "b_out": ini.zeros((d,), ("embed",)),
     }
 
 
@@ -119,10 +119,10 @@ def apply_mlp(p, x, cfg: ModelConfig):
 def init_moe(ini: Initializer, cfg: ModelConfig):
     d, f, n = cfg.d_model, cfg.d_ff, cfg.n_experts
     p = {
-        "router": ini.normal((d, n), dtype=torch.float32),
-        "w_gate": ini.normal((n, d, f)),
-        "w_up": ini.normal((n, d, f)),
-        "w_down": ini.normal((n, f, d)),
+        "router": ini.normal((d, n), ("embed", "experts"), dtype=torch.float32),
+        "w_gate": ini.normal((n, d, f), ("experts", "embed", "expert_mlp")),
+        "w_up": ini.normal((n, d, f), ("experts", "embed", "expert_mlp")),
+        "w_down": ini.normal((n, f, d), ("experts", "expert_mlp", "embed")),
     }
     if cfg.n_shared_experts:
         p["shared"] = init_mlp(ini, cfg, d, f * cfg.n_shared_experts)
@@ -233,17 +233,17 @@ def apply_moe(p, x, cfg: ModelConfig, *, with_aux: bool = False):
 def init_attention(ini: Initializer, cfg: ModelConfig):
     d, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     p = {
-        "wq": ini.normal((d, H, hd)),
-        "wk": ini.normal((d, K, hd)),
-        "wv": ini.normal((d, K, hd)),
-        "wo": ini.normal((H, hd, d), std=1.0 / math.sqrt(H * hd)),
+        "wq": ini.normal((d, H, hd), ("embed", "heads", "head_dim")),
+        "wk": ini.normal((d, K, hd), ("embed", "kv_heads", "head_dim")),
+        "wv": ini.normal((d, K, hd), ("embed", "kv_heads", "head_dim")),
+        "wo": ini.normal((H, hd, d), ("heads", "head_dim", "embed"), std=1.0 / math.sqrt(H * hd)),
     }
     if cfg.qkv_bias:
-        p["bq"] = ini.zeros((H, hd))
-        p["bk"] = ini.zeros((K, hd))
-        p["bv"] = ini.zeros((K, hd))
+        p["bq"] = ini.zeros((H, hd), ("heads", "head_dim"))
+        p["bk"] = ini.zeros((K, hd), ("kv_heads", "head_dim"))
+        p["bv"] = ini.zeros((K, hd), ("kv_heads", "head_dim"))
     if cfg.attn_out_bias:
-        p["bo"] = ini.zeros((d,))
+        p["bo"] = ini.zeros((d,), ("embed",))
     return p
 
 

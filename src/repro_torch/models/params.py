@@ -24,6 +24,9 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 class Initializer:
+    """Draws each leaf; ``axes`` (the leaf's logical axes, as the JAX
+    package's ``Box`` carries them) is what ``AxesInitializer`` records."""
+
     def __init__(self, generator: torch.Generator, dtype, device, lead: Tuple[int, ...] = ()):
         self.generator = generator
         self.dtype = dtype if isinstance(dtype, torch.dtype) else torch_dtype(dtype)
@@ -34,23 +37,42 @@ class Initializer:
         """The same stream with one more leading (layer) axis of size n."""
         return Initializer(self.generator, self.dtype, self.device, self.lead + (n,))
 
-    def normal(self, shape, *, std: Optional[float] = None, dtype=None) -> torch.Tensor:
+    def normal(self, shape, axes, *, std: Optional[float] = None, dtype=None) -> torch.Tensor:
         if std is None:
             fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
             std = 1.0 / math.sqrt(fan_in)
         t = torch.empty(self.lead + tuple(shape), dtype=dtype or self.dtype, device=self.device)
+        if t.is_meta:  # shapes only: nothing to draw
+            return t
         return t.normal_(0.0, std, generator=self.generator)
 
-    def zeros(self, shape, dtype=None) -> torch.Tensor:
+    def zeros(self, shape, axes, dtype=None) -> torch.Tensor:
         return torch.zeros(self.lead + tuple(shape), dtype=dtype or self.dtype, device=self.device)
 
-    def ones(self, shape, dtype=None) -> torch.Tensor:
+    def ones(self, shape, axes, dtype=None) -> torch.Tensor:
         return torch.ones(self.lead + tuple(shape), dtype=dtype or self.dtype, device=self.device)
 
-    def const(self, value, dtype=None) -> torch.Tensor:
+    def const(self, value, axes, dtype=None) -> torch.Tensor:
         """A fixed per-layer value, repeated over the lead axes."""
         v = torch.as_tensor(value, dtype=dtype or self.dtype, device=self.device)
         return v.expand(self.lead + tuple(v.shape)).clone()
+
+
+class AxesInitializer:
+    """The init functions' tree with each leaf's logical axes in place of a
+    tensor: ``lead_axes`` first (``'layers'`` for each stacked axis), then
+    the leaf's own.  Nothing is drawn."""
+
+    def __init__(self, lead_axes: Tuple[Optional[str], ...] = ()):
+        self.lead_axes = tuple(lead_axes)
+
+    def stacked(self, n: int) -> "AxesInitializer":
+        return AxesInitializer(self.lead_axes + ("layers",))
+
+    def normal(self, shape, axes, **_):
+        return self.lead_axes + tuple(axes)
+
+    zeros = ones = const = normal
 
 
 def tree_map(fn, tree):

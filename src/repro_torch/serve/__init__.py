@@ -20,6 +20,7 @@ from repro_torch.serve.transport import (
     Hop,
     LoopbackTransport,
     SendHandle,
+    ShardedDevicePutTransport,
     SimulatedLinkTransport,
     Transport,
     shutdown_async_workers,
@@ -46,6 +47,7 @@ __all__ = [
     "SendHandle",
     "ServeConfig",
     "ServingEngine",
+    "ShardedDevicePutTransport",
     "SimulatedLinkTransport",
     "SlotStream",
     "TierBackend",

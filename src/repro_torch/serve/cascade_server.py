@@ -71,9 +71,11 @@ from repro_torch.serve.config import ServeConfig
 from repro_torch.serve import sampling
 from repro_torch.serve.engine import grow_cache
 from repro_torch.serve.graphs import BATCH_BUCKETS, GraphPool, GraphSet, Program
+from repro_torch.serve.placement import place_tier_values
 from repro_torch.serve.slot_stream import SlotStream, TierBackend
 from repro_torch.serve.speculative import verify_choices
 from repro_torch.serve.workload import VirtualClock, Workload
+from repro_torch.sharding import collectives
 
 
 def stable_digest(tokens) -> int:
@@ -213,7 +215,9 @@ class CascadeTier:
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
-        self.values = tree_map(lambda t: t.to(self.device), self.values)
+        # meta values: a tier this rank does not serve (a mesh placement's
+        # other slices), never computed here
+        self.values = tree_map(lambda t: t if t.is_meta else t.to(self.device), self.values)
         self.graphs = GraphSet(self.device, self.graph_pool, BATCH_BUCKETS)
         self.k = ens.member_count(self.values)
         programs = tier_programs(self.cfg, float(self.temperature))
@@ -479,6 +483,17 @@ class _CascadeRun:
         self.streams[i + 1].submit_inflight(handle, land)
 
 
+def _placed_tier(tier: CascadeTier, placed, host) -> CascadeTier:
+    """The tier a rank serves under a mesh placement: its own members
+    (``placed``' local blocks) on a rank of ``host``'s slice, meta tensors
+    of their shapes elsewhere."""
+    if host.mesh.get_coordinate() is None:
+        local = tree_map(lambda t: t.to_local().new_empty(t.shape, device="meta"), placed)
+    else:
+        local = tree_map(lambda t: t.to_local(), placed)
+    return dataclasses.replace(tier, values=local)
+
+
 def _host_int32(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         x = x.cpu().numpy()
@@ -492,28 +507,82 @@ class CascadeServer:
     def __init__(self, tiers: Sequence[CascadeTier], *, pad_to: int = 8, device=None, placement=None):
         """``placement`` (``serve/placement.py``) pins each tier to a host
         and makes every cross-host deferral a metered ``Transport`` hop.
-        Each tier must live on its host's device (a simulated host's is the
-        server's): the tiers are used as they are, so a placed server
-        replays the graphs an unplaced one over the same tiers captured.
-        Each link is bound to land its payloads on the device of the tier
-        it feeds."""
+        Each tier must live on the server's device, where every host
+        computes (a simulated host, and a mesh host's rank): the tiers are
+        used as they are, so a
+        placed server replays the graphs an unplaced one over the same tiers
+        captured.  Each link is bound to land its payloads on the device of
+        the tier it feeds.
+
+        A mesh placement (``pod_placement``) runs the server on every rank
+        of the world, ``device`` the rank's (``device.rank_device``), with
+        the same tiers on every rank: a tier's values whole on the ranks of
+        its slice, meta tensors (or whole) elsewhere.  Each tier's values
+        are put on its slice (``place_tier_values``, kept in
+        ``placed_values``); on a rank of slice i, tier i becomes a copy of
+        the given tier over this rank's members, and on any other rank a
+        copy over meta tensors, never computed.  ``classify`` runs tier i's
+        program, eager or graphed, on slice i's ranks."""
         self.device = resolve_device(device)
         self.tiers = list(tiers)
         self.placement = placement
+        self.placed_values = None
         hosts = [None] * len(self.tiers)
         if placement is not None:
             assert placement.n_tiers == len(self.tiers), (placement.n_tiers, len(self.tiers))
             hosts = placement.hosts
-        for t, host in zip(self.tiers, hosts):
-            want = self.device if host is None or host.device is None else resolve_device(host.device)
-            if t.device != want:
-                where = "server" if host is None or host.device is None else f"host {host.name}"
-                raise ValueError(f"tier {t.spec.name} lives on {t.device}, {where} on {want}")
+        meshes = [h is not None and h.mesh is not None for h in hosts]
+        if any(meshes) and not all(meshes):
+            raise ValueError("a mesh placement puts every tier on a mesh")
+        if all(meshes) and hosts:
+            self.placed_values = [place_tier_values(t.values, h) for t, h in zip(self.tiers, hosts)]
+            self.tiers = [_placed_tier(t, v, h) for t, v, h in zip(self.tiers, self.placed_values, hosts)]
+        for t in self.tiers:
+            if t.device != self.device:
+                raise ValueError(f"tier {t.spec.name} lives on {t.device}, the server on {self.device}")
         if placement is not None:
             for link, dst in zip(placement.links, self.tiers[1:]):
                 if link is not None:
                     link.bind(dst.device)
         self.pad_to = pad_to
+
+    def _refuse_mesh(self, what: str) -> None:
+        if self.placed_values is not None:
+            raise NotImplementedError(
+                f"{what} over a mesh placement is not ported yet (ROADMAP Queue 1: generate and "
+                f"serve_continuous over a mesh placement); classify runs over one")
+
+    def _placed_fn(self, i: int, eager: bool):
+        """Tier i's logits on a rank of its slice: its members on the rows
+        it was fed, all members' logits (gathered over 'pod' where the
+        members are split over it)."""
+        from torch.distributed.tensor import DTensor, Shard
+
+        tier, mesh = self.tiers[i], self.placement.hosts[i].mesh
+        names = list(mesh.mesh_dim_names)
+        pod = names.index("pod") if "pod" in names else None
+        split = pod is not None and mesh.mesh.shape[pod] > 1 and isinstance(
+            api._anchor(self.placed_values[i]).placements[pod], Shard)
+
+        def fn(batch):
+            group = mesh.get_group("pod") if split else None
+            toks = batch["tokens"]
+            rows = isinstance(toks, DTensor) and split and isinstance(toks.placements[pod], Shard)
+            local = toks.to_local() if isinstance(toks, DTensor) else toks
+            if rows:
+                # the members split over 'pod' need the rows of every
+                # 'pod' peer: gather them, keep this rank's block after
+                local = collectives.all_gather_rows(local, group)
+            logits = tier.last_logits(local.to(tier.device), eager=eager)
+            if split:
+                logits = collectives.all_gather_rows(logits, group)
+            if rows:
+                b = logits.shape[1] // mesh.mesh.shape[pod]
+                c = mesh.get_coordinate()[pod]
+                logits = logits[:, c * b:(c + 1) * b]
+            return logits
+
+        return fn
 
     def _hop_transports(self):
         """Per-boundary transports from the placement (None: no metering)."""
@@ -534,10 +603,15 @@ class CascadeServer:
 
             return fn
 
+        meshes = None
+        fns = [tier_fn(t) for t in self.tiers]
+        if self.placed_values is not None:
+            meshes = [h.mesh for h in self.placement.hosts]
+            fns = [self._placed_fn(i, eager) for i in range(len(self.tiers))]
         return cascade_apply_routed(
-            [tier_fn(t) for t in self.tiers], [t.spec for t in self.tiers],
+            fns, [t.spec for t in self.tiers],
             {"tokens": tokens}, pad_to=self.pad_to, device=self.device,
-            transport=self._hop_transports(), hosts=self._host_names(),
+            transport=self._hop_transports(), hosts=self._host_names(), meshes=meshes,
         )
 
     def generate(self, tokens: np.ndarray, max_new_tokens: int = 8, seed: int = 0, *,
@@ -545,6 +619,7 @@ class CascadeServer:
         """Each tier's members generate (``CascadeTier.generate``: greedy or
         sampled under ``seed``, graphed unless ``eager``); answers are
         digested to stable ids and vote-compared."""
+        self._refuse_mesh("generate")
 
         def tier_fn(tier: CascadeTier):
             def fn(batch):
@@ -585,6 +660,7 @@ class CascadeServer:
         loop steps every runnable stream meanwhile, blocking on the oldest
         hop only when no stream has runnable work.  Returns completed
         requests."""
+        self._refuse_mesh("serve_continuous")
         cfg = config.with_max_seq_default(256)
         for r in requests:
             assert len(r.tokens) + r.max_new_tokens <= cfg.max_seq, (
@@ -623,6 +699,7 @@ class CascadeServer:
         ``serve_continuous``'s (``set_slot_limit`` changes no shape), so an
         open-loop run after a closed-loop run of the same geometry captures
         nothing."""
+        self._refuse_mesh("serve_open_loop")
         cfg = config.with_max_seq_default(256)
         assert slo_s > 0 and step_time_s > 0, (slo_s, step_time_s)
         ob = cfg.obs if cfg.obs is not None else Observability(clock=VirtualClock())

@@ -28,8 +28,11 @@ Backends:
 ``LoopbackTransport``       in-process hand-off (same host).  No latency,
                             but it meters bytes, so tests can hold that only
                             the compacted deferral payload crosses.
-``DevicePutTransport``      device -> device inside one process: the payload
-                            is moved with ``.to`` the destination device.
+``DevicePutTransport``      rank -> ranks: the payload replicated on every
+                            rank of a pod slice (a destination mesh).
+``ShardedDevicePutTransport``  rank -> ranks with the payload's example axis
+                            sharded over the slice's ('pod', 'data') axes
+                            through the logical rule table (DESIGN.md §8).
 ``SimulatedLinkTransport``  the §5.2.1 delay grid plus a bandwidth term
                             (seconds = delay + bytes / bandwidth).  The bytes
                             really move (a snapshot to the host, then
@@ -57,11 +60,15 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.cost_model import EDGE_DELAYS
 from repro_torch.device import resolve_device
-from repro_torch.models.params import tree_map
+from repro_torch.models.params import tree_leaves, tree_map
 from repro_torch.obs import perf_clock
+from repro_torch.sharding import collectives
+from repro_torch.sharding.logical import NamedSharding, PartitionSpec, logical_sharding, make_rules, mesh_axis_sizes
+from repro_torch.sharding.mesh import first_rank
 
 
 def tree_bytes(tree) -> int:
@@ -257,12 +264,76 @@ class LoopbackTransport(Transport):
 
 
 class DevicePutTransport(Transport):
-    """Device -> device hand-off inside one process: every leaf is moved
-    with ``.to`` the bound device.  Bytes are metered like any hop; latency
-    stays zero."""
+    """Rank -> ranks hand-off onto ``dst_mesh`` (a ``DeviceMesh``, say a pod
+    slice of ``pod_placement``): bytes are metered like any hop; latency
+    stays zero.
+
+    The hop runs across ranks: every rank calls
+    ``send_async`` with the same tree (the source rank the payload, every
+    other rank tensors of the payload's shapes and dtypes, meta ones
+    welcome), the source — the first rank of ``src_mesh``, rank 0 without
+    one — sends each rank of the slice its block, and each leaf arrives as
+    a ``DTensor`` on the slice, its local block on the bound device.  Here
+    every row is replicated over the whole slice (``example_sharding``):
+    the parity baseline of ``ShardedDevicePutTransport``.  Every rank
+    meters the same hop: one copy of the payload."""
+
+    def __init__(self, dst_mesh, *, src_mesh=None):
+        super().__init__()
+        self.dst_mesh = dst_mesh
+        self.src_rank = first_rank(src_mesh) if src_mesh is not None else 0
+
+    def example_sharding(self, leaf) -> NamedSharding:
+        """The destination sharding of one (B, ...) payload leaf: every dim
+        replicated over the slice."""
+        return NamedSharding(self.dst_mesh, PartitionSpec(*(None,) * len(leaf.shape)))
 
     def _deliver(self, tree):
-        return _to_device(tree, self._landing())
+        dev = self._landing()
+
+        def put(leaf):
+            t = torch.as_tensor(leaf)
+            return collectives.scatter_rows(
+                t if dist.get_rank() == self.src_rank else None, self.src_rank, self.dst_mesh,
+                self.example_sharding(t).placements(t.ndim), tuple(t.shape), t.dtype, dev)
+
+        return tree_map(put, tree)
+
+
+class ShardedDevicePutTransport(DevicePutTransport):
+    """Data-sharded hand-off across ranks (DESIGN.md §8): the compacted
+    payload's leading example axis lands sharded over the destination
+    slice's ('pod', 'data') axes through the logical rule table (the
+    ``'act_batch'`` row of ``sharding.logical``), instead of replicated on
+    every rank of the slice; trailing axes stay replicated.
+
+    The bytes metered are the bytes sent (one copy of the payload), the
+    same number the replicated transport meters; what changes is each
+    rank's residency on arrival, ``1 / shard_count`` of the payload.
+    ``logical_to_pspec`` drops a mesh axis that does not divide the
+    example count, so an odd-sized payload degrades to replication."""
+
+    def __init__(self, dst_mesh, *, kind: str = "decode", src_mesh=None):
+        super().__init__(dst_mesh, src_mesh=src_mesh)
+        self.rules = make_rules(kind, pod=True)
+
+    def example_sharding(self, leaf) -> NamedSharding:
+        """The destination sharding of one (B, ...) payload leaf: leading
+        axis 'act_batch' -> the slice's ('pod', 'data'), rest replicated."""
+        axes = ("act_batch",) + (None,) * (len(leaf.shape) - 1)
+        return logical_sharding(self.dst_mesh, tuple(leaf.shape), axes, self.rules)
+
+    def shard_counts(self, tree) -> List[int]:
+        """Per leaf, the number of example-axis shards the payload lands in
+        (1: that leaf degraded to replication)."""
+        sizes = mesh_axis_sizes(self.dst_mesh)
+        counts = []
+        for leaf in tree_leaves(tree):
+            spec = self.example_sharding(leaf).spec
+            axes = spec[0] if len(spec) else None
+            names = () if axes is None else (axes,) if isinstance(axes, str) else tuple(axes)
+            counts.append(int(np.prod([sizes[a] for a in names])))
+        return counts
 
 
 class SimulatedLinkTransport(Transport):

@@ -14,12 +14,15 @@ link.  The bench's check is a test: the metered latency per request within
 2 % of ``EdgeCloudCost.mean_latency(defer_rate)`` at every delay of the
 grid, on the bench's synthetic pool logits.
 
-``pod_placement`` runs with every host on the CPU: a degenerate placement
-(the hosts are not disjoint), which exercises its routing and metering but
-not two devices.  Left out: the JAX test that forces 8 host devices in a
-subprocess (``test_pod_placement_disjoint_hosts_subprocess``) — PyTorch
-has no forced host devices, and the port's pod placement over disjoint
-devices needs a machine with two cards."""
+A pod placement puts tiers on slices of a ``torch.distributed`` mesh, so it
+runs in a world of ranks, which no pytest worker starts: here both tiers
+sit on the one rank's (1, 1, 1) mesh of a one-rank ``gloo`` world in a
+subprocess (``tests/torch_mesh_world.py``, run once a session by
+``test_torch_sharding.py``'s ``mesh_worlds`` fixture), a degenerate placement (the
+hosts are not disjoint) that runs the mesh path's routing and metering,
+but not two ranks.  The JAX test that forces 8 host devices
+(``test_pod_placement_disjoint_hosts_subprocess``) has its counterpart in
+``tests/test_torch_sharding.py``, on 8 spawned ranks."""
 import jax
 import numpy as np
 import pytest
@@ -47,12 +50,11 @@ from repro_torch.serve import (
     bursty,
     edge_cloud,
     hosts_disjoint,
-    place_tier_values,
-    pod_placement,
     single_host,
 )
 from test_torch_open_loop import SMALL_TRACE, _key
 from test_torch_cascade import numpy_values
+from test_torch_sharding import _unplaced, mesh_worlds  # noqa: F401 (a fixture)
 from test_torch_speculative import DENSE, _prompts, _servers
 from test_torch_transport import hop_list, jax_server, jax_stacks, outputs, port_server, prompts, serve_port
 
@@ -219,24 +221,28 @@ def test_open_loop_inflight_branch(stacks):
 # ---------------------------------------------------------------------------
 
 
-def test_pod_placement_on_one_device_is_degenerate(stacks):
-    """Two 'pods' on the one CPU device: not disjoint hosts, so this holds
-    the routing and metering of a pod placement, not two devices."""
-    pl = pod_placement(["cpu", "cpu"])
-    assert [h.name for h in pl.hosts] == ["pod0", "pod1"] and pl.describe() == "pod0(pod) -> pod1(pod)"
-    assert not hosts_disjoint(pl)
-    server = port_server(stacks, pl)
-    for t, h in zip(server.tiers, pl.hosts):
-        assert place_tier_values(t.values, h)["embed"] is t.values["embed"]  # already there
-    toks = np.random.default_rng(3).integers(0, 64, (16, 12)).astype(np.int32)
-    res, ref = server.classify(toks), port_server(stacks).classify(toks)
-    np.testing.assert_array_equal(res.pred, ref.pred)
-    np.testing.assert_array_equal(res.tier_of, ref.tier_of)
-    n_def = int(res.tier_counts[1])
-    assert pl.link(0).total_examples == n_def > 0
-    assert pl.link(0).total_bytes == min(sum(bucket_chunks(n_def, 8)), 16) * (12 * 4 + 4)
-    assert hosts_disjoint(TierPlacement((Host("a", device=torch.device("cpu")),
-                                         Host("b", device=torch.device("meta"))), (None,)))
+def test_pod_placement_on_one_device_is_degenerate(mesh_worlds):
+    """Two 'pods' on one rank's mesh: not disjoint hosts, so this holds the
+    routing and metering of a pod placement (values as DTensors on the
+    slice, the hop from the slice's first rank, here its own destination,
+    the answers broadcast), not two ranks; ``pod_placement`` itself needs a
+    pod a tier.  Equal to the unplaced server.  Simulated hosts own no
+    ranks, so they are disjoint."""
+    setup = mesh_worlds.setup
+    ref = _unplaced(setup, ("small", "big"), setup["theta"])
+    (world,) = mesh_worlds.worlds["one_rank"]
+    out = world["degenerate"]
+    assert out["describe"] == "pod0(pod) -> pod1(pod)" and out["devices"] == [[0], [0]]
+    assert not out["disjoint"] and "do not split into 2 slices" in out["split"]
+    assert out["placed"] == ["DTensor", "DTensor"]
+    np.testing.assert_array_equal(out["result"]["pred"], ref.pred)
+    np.testing.assert_array_equal(out["result"]["tier_of"], ref.tier_of)
+    n_def = int(ref.tier_counts[1])
+    assert out["result"]["tier_counts"] == ref.tier_counts.tolist()
+    assert out["link"]["examples"] == n_def > 0
+    B, S = setup["tokens"].shape
+    assert out["link"]["bytes"] == min(sum(bucket_chunks(n_def, 8)), B) * (S * 4 + 4)
+    assert hosts_disjoint(edge_cloud()) and hosts_disjoint(single_host(2))
 
 
 def test_server_binds_each_link_to_the_tier_it_feeds(stacks):
@@ -263,10 +269,12 @@ def test_server_binds_each_link_to_the_tier_it_feeds(stacks):
 
 
 def test_tier_off_its_hosts_device_is_refused(stacks):
+    """Every host computes on the server's device (a simulated host, and a
+    mesh host's rank): a tier elsewhere is refused, placed or not."""
     tiers = port_server(stacks).tiers
-    pl = TierPlacement((Host("a", "pod", torch.device("meta")), Host("b")), (None,))
-    with pytest.raises(ValueError, match="host a"):
-        CascadeServer(tiers, device="cpu", placement=pl)
+    pl = TierPlacement((Host("a", "edge"), Host("b", "cloud")), (None,))
+    with pytest.raises(ValueError, match="lives on cpu, the server on meta"):
+        CascadeServer(tiers, device="meta", placement=pl)
     with pytest.raises(ValueError, match="server"):
         CascadeServer(tiers, device="meta")
 

@@ -12,10 +12,10 @@ port-internally: bitwise equal with no placement, ``single_host``, and the
 
 Weights have the JAX package's structure, shapes and dtypes (float32),
 filled from a numpy seed (``test_torch_cascade.numpy_values``) and carried
-into the port through ``repro_torch.bridge``.  Real sleeps are 20 ms or less.  Left out: the
-sharded hand-off (``ShardedDevicePutTransport`` needs the port's
-``sharding/``, not ported) and the transfer guard (no PyTorch
-counterpart; the port meters every read through ``host_fetch``)."""
+into the port through ``repro_torch.bridge``.  Real sleeps are 20 ms or less.  The
+sharded hand-off (``ShardedDevicePutTransport``) runs across ranks and is
+held in ``tests/test_torch_sharding.py``; left out: the transfer guard (no
+PyTorch counterpart; the port meters every read through ``host_fetch``)."""
 import dataclasses
 import time
 
