@@ -205,8 +205,27 @@ Phases, in order; any failure raises and exits non-zero:
    tier 2's chunks; rank 0's walls, each rank's
    peak memory, the hop's bytes, and each mesh's launches (summed over its
    ranks, the second graphed run) in the kernels line as
-   ``pod_classify_2``, ``_4`` and ``_6``.  The ranks time-share one
-   card, so the walls are no multi-GPU speed.
+   ``pod_classify_2``, ``_4`` and ``_6``.  On the (2, 1, 1) and (6, 1, 1)
+   meshes the same ranks then run the cascade's generate (8 x 128, 16
+   new, digests voted, θ 0.5) and serve_continuous (8 requests of 16-128
+   tokens, 16 new, 4 slots; greedy and T = 0.8) over the same placed
+   weights, graphed (``pod_serve_runs``): every rank's pred, tier_of,
+   tier_counts, tokens, tiers and completion order bitwise this process's
+   unplaced server's, one metered hop a deferral, tier 1's member offsets
+   [0] and [0, 1, 2] (the global index its draws key on).  Random members
+   never agree, so at θ 0.5 every request defers; generate and serve at T
+   = 0.8 and θ 0.25 (a 1-of-3 vote answers) make tier 1's sampled
+   generations the outputs.  There a (2, 1, 1) rank holds all three
+   members and must equal the unplaced server bitwise, every member's
+   generation included; a (6, 1, 1) rank holds one, whose products run at
+   another batch count than the stacked tier's (``chip_member_products.py``:
+   other bits), so each member's generations must equal that member
+   alone, unplaced and drawing as its global index (``pod_member_refs``),
+   and every rank's answers the vote over them; members 1 or 2 must win
+   some votes; rank 0's walls,
+   peak memory and launches (``pod_generate_2`` / ``_6``,
+   ``pod_serve_2`` / ``_6``) in the kernels line.  The ranks time-share
+   one card, so the walls are no multi-GPU speed.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -230,10 +249,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-BF16_FLOPS = 989e12  # dense tensor-core bf16
-TF32_FLOPS = 495e12  # dense tensor-core TF32
-F32_FLOPS = 67e12  # f32 outside the tensor cores
+# the card's rates (``repro_torch.core.cost_model.H100_SXM``, read in main
+# once the port is importable): bytes a second from HBM, operations a second
+# on the bf16 and TF32 tensor cores and on the f32 CUDA cores
+HBM_BYTES_PER_S = BF16_FLOPS = TF32_FLOPS = F32_FLOPS = None
 
 
 def log(*a):
@@ -396,6 +415,13 @@ def bound(n_bytes, n_ops, peak_ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def bound_of(cost):
+    """``bound`` of a kernel call's ``cost(...)`` (``kernels/*/ops.py``: the
+    one place a kernel's bytes and operations are counted)."""
+    peak = {"bf16": BF16_FLOPS, "tf32": TF32_FLOPS, "f32": F32_FLOPS}[cost["unit"]]
+    return bound(cost["bytes"], cost["flops"], peak)
+
+
 def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
@@ -453,8 +479,7 @@ def check_agreement(dev, g, gx):
         run(E, B, V, ties=True, gen=gx)
     x, err = run(3, 32, 151936, ties=True)  # tier-1 classify logits (clusters of 4)
     E, B, V = x.shape
-    n_bytes = nbytes(x) + E * B * 12
-    b_ms, b_by = bound(n_bytes, 4 * x.numel(), F32_FLOPS)
+    b_ms, b_by = bound_of(ops.cost(x))
     out = dict(
         name="agreement", tol="argmax and max exact, sumexp rel 1e-5",
         shape=[E, B, V], max_abs_err=err,
@@ -507,8 +532,6 @@ def check_compaction(dev, g, gx):
     }
     mask = torch.rand(B, device=dev, generator=g) < 0.5
     n = run(tree, mask)
-    row_bytes = sum(v[0].numel() * v.element_size() for v in tree.values())
-    n_bytes = B + 4 * B + 4 + n * row_bytes + B * row_bytes
 
     def library():
         idx = torch.nonzero(mask).flatten()
@@ -518,7 +541,7 @@ def check_compaction(dev, g, gx):
         im, _ = ops.compact_indices_plain(mask)
         return {k: ops.gather_rows_plain(v, im) for k, v in tree.items()}
 
-    b_ms, b_by = bound(n_bytes, 0, F32_FLOPS)
+    b_ms, b_by = bound_of(ops.compact_cost(tree, mask, n))
     out = dict(
         name="compaction", tol="exact", shape={"tokens": [B, 256], "__idx": [B], "deferred": n},
         max_abs_err=0.0,
@@ -555,9 +578,7 @@ def check_paged_kv_view(dev, g):
         require(all(torch.equal(a, b) for a, b in zip(views, plain)), f"paged K/V view differs ({tier})")
         require(all(torch.equal(a, b) for a, b in zip(two_calls(), plain)), f"paged_pool_view differs ({tier})")
         mapped = int((pages >= 0).sum())
-        tile = ps * hd * 2
-        n_bytes = 2 * (E * mapped * KVH * tile + E * n_pg * KVH * tile) + nbytes(pages)
-        b_ms, b_by = bound(n_bytes, 0, F32_FLOPS)
+        b_ms, b_by = bound_of(ops.paged_kv_view_cost(kp, vp, pages, mapped))
         idx = ops.pool_row_index(pages, E, P).clamp(min=0).long()
 
         def library():
@@ -617,9 +638,7 @@ def check_flash(dev, g):
     run(*qkv(3, 20, 20, 4, 4, 80), causal=True, softcap=5.0)
 
     def timed(q, k, v):
-        B, S, H, hd = q.shape
-        pairs = B * H * S * (S + 1) // 2
-        b_ms, b_by = bound(nbytes(q, k, v, q), 4 * hd * pairs, BF16_FLOPS)  # q, k, v read; out written
+        b_ms, b_by = bound_of(ops.cost(q, k, v, causal=True))  # q, k, v read; out written
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         return dict(
             **timings(lambda: ops.flash_attention(q, k, v, causal=True),
@@ -683,10 +702,7 @@ def check_decode(dev, g):
         run(*inputs(2, 4, 4, S, 80), T(S, 300), window=200)
 
     def timed(q, kc, vc, cur):
-        B, _, H, hd = q.shape
-        KVH = kc.shape[1]
-        n_bytes = 2 * nbytes(q) + 2 * B * KVH * cur * hd * 2
-        b_ms, b_by = bound(n_bytes, 4 * B * H * cur * hd, BF16_FLOPS)
+        b_ms, b_by = bound_of(ops.cost(q, kc, vc, cur))
         qt, ks, vs = q.transpose(1, 2), kc[:, :, :cur], vc[:, :, :cur]
         return dict(
             **timings(lambda: ops.decode_attention_bksd(q, kc, vc, cur),
@@ -764,9 +780,7 @@ def check_decode_paged(dev, g):
     cur = torch.randint(1, 513, (B,), generator=torch.Generator().manual_seed(0)).tolist()
     q, kp, vp, pages, cur_t, err = run(E, B, 16, 2, 128, B * n_pg + 1, ps, n_pg, cur)
     H, hd, KVH = q.shape[2], q.shape[3], kp.shape[2]
-    visible = E * sum(cur)  # K/V rows the kernel must read
-    n_bytes = 2 * nbytes(q) + 2 * visible * KVH * hd * 2 + nbytes(pages, cur_t)
-    b_ms, b_by = bound(n_bytes, 4 * H * hd * visible, BF16_FLOPS)
+    b_ms, b_by = bound_of(ops.paged_cost(q, kp, vp, pages, cur_t))  # the K/V rows of E * sum(cur)
     idx = pool_row_index(pages, E, kp.shape[1]).clamp(min=0).long()
     S = n_pg * ps
     valid = (torch.arange(S, device=dev)[None, :] < cur_t.repeat(E)[:, None])[:, None, None, :]
@@ -882,7 +896,7 @@ def check_attention_groups(dev, g):
         cur = 143
         err = decode(q, kc, vc, cur, f"G {G} generate shape")
         qt, ks, vs = q.transpose(1, 2), kc[:, :, :cur], vc[:, :, :cur]
-        b_ms, b_by = bound(2 * nbytes(q) + 2 * 8 * KVH * cur * 128 * 2, 4 * 8 * H * cur * 128, BF16_FLOPS)
+        b_ms, b_by = bound_of(dec.cost(q, kc, vc, cur))
         out["decode_attention"]["groups"][G] = dict(
             rows, shape={"q": list(q.shape), "cache": list(kc.shape), "cur_len": cur}, max_abs_err=err,
             **timings(lambda: dec.decode_attention_bksd(q, kc, vc, cur),
@@ -895,9 +909,7 @@ def check_attention_groups(dev, g):
         B, ps, n_pg = 8, 16, 32
         cur_l = torch.randint(1, 513, (B,), generator=torch.Generator().manual_seed(G)).tolist()
         q, kp, vp, pages, cur_t, err = paged(1, B, H, KVH, 128, ps, n_pg, cur_l, f"G {G} serve shape")
-        visible = sum(cur_l)
-        b_ms, b_by = bound(2 * nbytes(q) + 2 * visible * KVH * 128 * 2 + nbytes(pages, cur_t),
-                           4 * H * 128 * visible, BF16_FLOPS)
+        b_ms, b_by = bound_of(dec.paged_cost(q, kp, vp, pages, cur_t))
         idx = pool_row_index(pages, 1, kp.shape[1]).clamp(min=0).long()
         S = n_pg * ps
         valid = (torch.arange(S, device=dev)[None, :] < cur_t[:, None])[:, None, None, :]
@@ -919,8 +931,7 @@ def check_attention_groups(dev, g):
         # tier 2's classify prefill (32 prompts of 256 tokens), causal
         q, k, v = mk(32, 256, H, 128), mk(32, 256, KVH, 128), mk(32, 256, KVH, 128)
         err = flash(q, k, v, f"G {G} classify shape", causal=True)
-        pairs = 32 * H * 256 * 257 // 2
-        b_ms, b_by = bound(nbytes(q, k, v, q), 4 * 128 * pairs, BF16_FLOPS)
+        b_ms, b_by = bound_of(fl.cost(q, k, v, causal=True))
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         row = dict(
             rows, shape={"q": list(q.shape), "kv": list(k.shape)}, max_abs_err=err,
@@ -934,8 +945,7 @@ def check_attention_groups(dev, g):
             S = MIXTRAL_WINDOW + 256
             q, k, v = mk(1, S, H, 128), mk(1, S, KVH, 128), mk(1, S, KVH, 128)
             err = flash(q, k, v, f"G {G} window {MIXTRAL_WINDOW} at S {S}", causal=True, window=MIXTRAL_WINDOW)
-            visible = sum(min(i + 1, MIXTRAL_WINDOW) for i in range(S))
-            b_ms, b_by = bound(nbytes(q, k, v, q), 4 * 128 * H * visible, BF16_FLOPS)
+            b_ms, b_by = bound_of(fl.cost(q, k, v, causal=True, window=MIXTRAL_WINDOW))
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             i = torch.arange(S, device=dev)
             win = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - MIXTRAL_WINDOW)
@@ -1060,8 +1070,8 @@ def check_attention_widths(dev, g):
                    T(700, 300, 1), w, starts=T(0, 300, 0))
             paged(2, 3, 2 * G, 2, 40, 16, 16, [256, 100, 1], w, dtype)
 
-    def row(name, what, shape, err, timed, n_bytes, n_ops, peak):
-        b_ms, b_by = bound(n_bytes, n_ops, peak)
+    def row(name, what, shape, err, timed, cost):
+        b_ms, b_by = bound_of(cost)
         out[name]["widths"][what] = dict(shape=shape, max_abs_err=err, **timed, bound_ms=b_ms, bound_by=b_by)
         log(f"  [widths] {name} {what}: {json.dumps(out[name]['widths'][what])}")
 
@@ -1073,7 +1083,7 @@ def check_attention_widths(dev, g):
                     lambda: fl.flash_attention_plain(q, k, v, causal=True),
                     lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True), plain_iters=5)
         row("flash_attention", what, {"q": list(q.shape), "kv": list(k.shape), "dtype": str(dtype)}, err, t,
-            nbytes(q, k, v, q), 4 * hd * B * H * S * (S + 1) // 2, BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
+            fl.cost(q, k, v, causal=True))
 
     def decode_timed(what, B, H, KVH, S, cur, hd, dtype):
         q, kc, vc = mk(B, 1, H, hd, dtype=dtype), mk(B, KVH, S, hd, dtype=dtype), mk(B, KVH, S, hd, dtype=dtype)
@@ -1082,8 +1092,7 @@ def check_attention_widths(dev, g):
         t = timings(lambda: dec.decode_attention_bksd(q, kc, vc, cur), lambda: dec.decode_attention_plain(q, kc, vc, cur),
                     lambda: F.scaled_dot_product_attention(qt, ks, vs, enable_gqa=True))
         row("decode_attention", what, {"q": list(q.shape), "cache": list(kc.shape), "cur_len": cur, "dtype": str(dtype)},
-            err, t, 2 * nbytes(q) + 2 * B * KVH * cur * hd * q.element_size(), 4 * B * H * cur * hd,
-            BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
+            err, t, dec.cost(q, kc, vc, cur))
 
     def paged_timed(what, E, B, H, KVH, hd, ps, n_pg, seed, dtype):
         cur_l = torch.randint(1, n_pg * ps + 1, (B,), generator=torch.Generator().manual_seed(seed)).tolist()
@@ -1103,8 +1112,7 @@ def check_attention_widths(dev, g):
                     lambda: dec.decode_attention_paged_plain(q, kp, vp, pages, cur_t), library)
         row("decode_attention_paged", what, {"q": list(q.shape), "pool": list(kp.shape), "pages": list(pages.shape),
                                              "cur_len": cur_l, "dtype": str(dtype)}, err, t,
-            2 * nbytes(q) + 2 * visible * KVH * hd * q.element_size() + nbytes(pages, cur_t), 4 * H * hd * visible,
-            BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
+            dec.paged_cost(q, kp, vp, pages, cur_t))
 
     for what, (B, S, H, KVH, hd) in EXAMPLE_FLASH.items():
         flash_timed(f"bf16 {what}", B, S, H, KVH, hd, torch.bfloat16)
@@ -1149,18 +1157,6 @@ def check_scan(name, got, ref, tol=None):
     require(math.isfinite(ey) and ey <= ty, f"{name}: output normwise err {ey} > {ty}")
     require(math.isfinite(es) and es <= ts, f"{name}: state normwise err {es} > {ts}")
     return ey, es, (y.float() - py.float()).abs().max().item()
-
-
-def ssd_dual_flops(B, S, H, N, P, L=64):
-    """Operations of the chunked dual form the bf16 SSD kernel runs, for
-    chunks of L steps at this run's length: per chunk of m steps and head the
-    causal C·Bᵀ and M·x (m(m+1)/2 · (N + P) multiply-adds), C·h and the state
-    update (2·m·N·P)."""
-    macs = 0
-    for t0 in range(0, S, L):
-        m = min(L, S - t0)
-        macs += m * (m + 1) // 2 * (N + P) + 2 * m * N * P
-    return 2 * B * H * macs
 
 
 def check_ssd(dev, g):
@@ -1208,13 +1204,10 @@ def check_ssd(dev, g):
         x, dt, A, Bm, Cm = args
         B, S, H, P = x.shape
         N = Bm.shape[-1]
-        y, hT = ops.ssd(*args, initial_state=s0, return_final_state=True)
-        # bytes the kernel reads and writes: x, B, C in their own dtype, dt f32 (the prescale is fused)
-        n_bytes = nbytes(*args, y, hT, *(() if s0 is None else (s0,)))
-        if x.dtype == torch.bfloat16:  # the dual form on TF32 tensor cores
-            b_ms, b_by = bound(n_bytes, ssd_dual_flops(B, S, H, N, P), TF32_FLOPS)
-        else:  # the per-step form on the f32 cores
-            b_ms, b_by = bound(n_bytes, 5 * B * S * H * N * P, F32_FLOPS)
+        # bytes the kernel reads and writes: x, B, C in their own dtype, dt f32
+        # (the prescale is fused); the dual form on TF32 tensor cores in
+        # bf16, the per-step form on the f32 cores in f32
+        b_ms, b_by = bound_of(ops.cost(*args, initial_state=s0))
         out = dict(
             shape={"x": list(x.shape), "B": list(Bm.shape), "E": A.shape[0], "initial_state": s0 is not None},
             **timings(lambda: ops.ssd(*args, initial_state=s0, return_final_state=True),
@@ -1264,12 +1257,9 @@ def check_wkv6(dev, g):
     ]
 
     def timed(args, s0):
-        r, k, v, logw, u = args
-        B, S, H, D = r.shape
-        y, sT = ops.wkv6(*args, initial_state=s0, return_final_state=True)
-        ins = (r, k, v, logw, u) + (() if s0 is None else (s0,))
+        r = args[0]
         # the per-step form on the f32 cores: k v, S w + k v, r S (5 operations a state element a step)
-        b_ms, b_by = bound(nbytes(*ins, y, sT), 5 * B * S * H * D * D, F32_FLOPS)
+        b_ms, b_by = bound_of(ops.cost(*args, initial_state=s0))
         return dict(
             shape={"r": list(r.shape), "initial_state": s0 is not None},
             **timings(lambda: ops.wkv6(*args, initial_state=s0, return_final_state=True),
@@ -4319,6 +4309,150 @@ def train_path(dev, seed):
 POD_TIERS = ("qwen2.5-3b", "internlm2-1.8b")
 POD_MESHES = {"pod_classify_2": 2, "pod_classify_4": 4, "pod_classify_6": 6}
 POD_NEED = ("agreement", "compaction", "flash_attention")
+# generate and serve over the mesh: on (2, 1, 1) and on (6, 1, 1), where
+# tier 1's three members lie one a rank and draw on their global index
+POD_SERVE_WORLDS = (2, 6)
+POD_SERVE_NEED = {"generate": ("compaction", "flash_attention", "decode_attention"),
+                  "serve": ("compaction", "decode_attention_paged")}
+POD_SERVE_CONFIG = dict(n_slots=4, max_seq=256, page_size=16)
+
+
+POD_ANSWER_THETA = 0.25  # a vote share of 1/3 exceeds it: one member's vote answers
+
+
+def pod_serve_specs(theta=0.5):
+    """generate's and serve's specs: defer unless 2 of 3 members agree
+    (θ 0.5), or never (``POD_ANSWER_THETA``)."""
+    from repro_torch.core.cascade import TierSpec
+
+    return (TierSpec(f"{POD_TIERS[0]}-x3", "vote", theta, k=3, cost=3.0),
+            TierSpec(POD_TIERS[1], "confidence", -1.0, k=1, cost=1.0))
+
+
+def pod_serve_inputs(seed):
+    """generate's batch (8 x 128, the main path's) and serve's 8 requests of
+    16-128 tokens and 16 new, below both tiers' vocabularies."""
+    from repro_torch.configs import get_config
+
+    vocab = min(get_config(a).vocab_size for a in POD_TIERS)
+    rng = np.random.default_rng(seed + 13)
+    toks = rng.integers(0, vocab, (8, 128)).astype(np.int32)
+    prompts = [rng.integers(0, vocab, int(rng.integers(16, 129))).astype(np.int32) for _ in range(8)]
+    return toks, prompts
+
+
+def retiered(server, specs, temperature=0.0):
+    """``server`` over the same (placed) weights with other tier specs and
+    temperature: new tier objects (graphs of their own) on the same
+    tensors, each keeping its member offset and 'pod' group."""
+    import copy
+
+    out = copy.copy(server)
+    out.tiers = [dataclasses.replace(t, spec=sp, temperature=temperature) for t, sp in zip(server.tiers, specs)]
+    return out
+
+
+def pod_serve_runs(server, seed, link=None, *, timed=False):
+    """generate (greedy, 16 new) and serve_continuous (greedy and T = 0.8)
+    of ``server``'s tiers under the serving specs, then both at T = 0.8
+    and ``POD_ANSWER_THETA``, where tier 1 answers with its sampled
+    generations, each graphed once.  With ``timed`` every rank meets at a
+    barrier before each call, and the launch counters are zeroed just
+    before it and read just after.  The last run also keeps, on the rank
+    that votes, every member's generation of each tier-1 vote, in the
+    order the slots completed (``votes``)."""
+    from repro_torch.kernels import build
+    from repro_torch.serve import Request, ServeConfig
+
+    toks, prompts = pod_serve_inputs(seed)
+    res = {}
+
+    def run(key, call):
+        if timed:
+            import torch.distributed as dist
+
+            dist.barrier()
+            build.reset_launch_counts()
+        n0 = len(link.hops) if link is not None else 0
+        t0 = time.perf_counter()
+        out = call()
+        torch.cuda.synchronize()
+        out["wall_s"] = time.perf_counter() - t0
+        if timed:
+            out["launches"] = build.launch_counts()
+        if link is not None:
+            out["hops"] = [[h.n_examples, h.payload_bytes] for h in link.hops[n0:]]
+        res[key] = out
+
+    def generate(T=0.0, theta=0.5):
+        r = retiered(server, pod_serve_specs(theta), T).generate(toks, 16)
+        return {"pred": r.pred.tolist(), "tier_of": r.tier_of.tolist(), "tier_counts": r.tier_counts.tolist()}
+
+    def serve(T, theta=0.5):
+        reqs = [Request(tokens=t, max_new_tokens=16) for t in prompts]
+        done = retiered(server, pod_serve_specs(theta), T).serve_continuous(
+            reqs, ServeConfig(**POD_SERVE_CONFIG, seed=seed))
+        order = {id(r): i for i, r in enumerate(reqs)}
+        return {"out": [[r.output.tolist(), r.tier, r.truncated] for r in reqs], "order": [order[id(r)] for r in done]}
+
+    run("generate", generate)
+    for T in (0.0, 0.8):
+        run(f"serve@{T:g}", functools.partial(serve, T))
+    run("generate@0.8/answer", functools.partial(generate, 0.8, POD_ANSWER_THETA))
+    from repro_torch.serve import cascade_server
+
+    votes, vote = [], cascade_server._CascadeRun._vote
+
+    def spy(self, i, gen):
+        if i == 0:
+            votes.append(gen.tolist())
+        return vote(self, i, gen)
+
+    cascade_server._CascadeRun._vote = spy
+    try:
+        run("serve@0.8/answer", functools.partial(serve, 0.8, POD_ANSWER_THETA))
+    finally:
+        cascade_server._CascadeRun._vote = vote
+    res["votes"] = votes
+    return res
+
+
+def vote_winner(gens):
+    """(digest, generation) tier 1's vote picks among its members'
+    generations (``vote_rule_from_preds`` on their digests: most votes,
+    then the smallest digest)."""
+    from repro_torch.serve.cascade_server import stable_digest
+
+    d = np.asarray([stable_digest(np.asarray(g, np.int32)) for g in gens], np.int32)
+    counts = np.asarray([(d == x).sum() for x in d])
+    best = d[counts == counts.max()].min()
+    return int(best), list(gens[int(np.argmax(d == best))])
+
+
+def pod_member_refs(v1, seed, dev):
+    """Each tier-1 member alone, unplaced: a one-member tier of member e's
+    weights drawing as member e (``member_offset``), generate (8 x 128,
+    16 new) and serve_continuous of the pod's requests at T = 0.8.  This
+    is what a rank holding that member alone computes, at the same shapes;
+    the stacked three-member tier runs its products at another batch count
+    and need not give the same bits."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.cascade import TierSpec
+    from repro_torch.models.params import tree_map
+    from repro_torch.serve import CascadeServer, CascadeTier, Request, ServeConfig
+
+    toks, prompts = pod_serve_inputs(seed)
+    out = {"generate": [], "serve": []}
+    for e in range(3):
+        tier = CascadeTier(get_config(POD_TIERS[0]), tree_map(lambda t: t[e:e + 1].clone(), v1),
+                           TierSpec(f"m{e}", "vote", POD_ANSWER_THETA, k=1), temperature=0.8, member_offset=e,
+                           device=dev)
+        out["generate"].append(tier.generate(toks, 16)[0].tolist())
+        reqs = [Request(tokens=t, max_new_tokens=16) for t in prompts]
+        CascadeServer([tier], device=dev).serve_continuous(reqs, ServeConfig(**POD_SERVE_CONFIG, seed=seed))
+        out["serve"].append([r.output.tolist() for r in reqs])
+        del tier
+    return out
 
 
 def pod_values(arch, k, seed, device):
@@ -4450,11 +4584,85 @@ def pod_rank(rank, world, root, seed, theta):
             res["members"] = [int(t.k) for t in server.tiers]
             res["meta"] = [all(x.is_meta for x in leaves(t.values)) for t in server.tiers]
             out["sharded" if shard_examples else "replicated"] = res
+            if shard_examples and world in POD_SERVE_WORLDS:
+                # generate and serve_continuous over the same placed weights
+                torch.cuda.reset_peak_memory_stats()
+                out["serving"] = pod_serve_runs(server, seed, placement.link(0), timed=True)
+                out["serving"]["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+                out["serving"]["member_offsets"] = [int(t.member_offset) for t in server.tiers]
             del server
             torch.cuda.empty_cache()
     Path(root, f"rank{rank}.json").write_text(json.dumps(out))
     dist.barrier()
     dist.destroy_process_group()
+
+
+def check_pod_serving(ranks, ref, world, launches, members):
+    """Every rank's generate and serve_continuous equal, bitwise, the
+    unplaced server's (pred, tier_of, tier_counts; tokens, tiers,
+    truncation and completion order), each deferral one metered hop; each
+    mode launched the kernels of its path on the ranks (summed into
+    ``launches`` as ``pod_generate_<world>`` / ``pod_serve_<world>``).
+    Where tier 1 answers (``POD_ANSWER_THETA``) on the (6, 1, 1) mesh, a
+    rank runs one member, so each member's generations must equal those of
+    that member alone (``members``), the vote over them must be every
+    rank's answer, and some answers must be members 1 and 2's."""
+    split = world == 6
+    want = {k: v for k, v in ref.items() if k != "votes"}
+    if split:
+        gen = [vote_winner([members["generate"][e][b] for e in range(3)])[0] for b in range(8)]
+        want["generate@0.8/answer"] = dict(want["generate@0.8/answer"], pred=gen, tier_of=[0] * 8,
+                                           tier_counts=[8, 0])
+        out = [[vote_winner([members["serve"][e][q] for e in range(3)])[1], 0, False] for q in range(8)]
+        want["serve@0.8/answer"] = dict(want["serve@0.8/answer"], out=out)
+    for o in ranks:
+        r, got = o["rank"], o["serving"]
+        for key, w in want.items():
+            same = {k: v for k, v in got[key].items() if k in w and k != "wall_s"}
+            require(same == {k: v for k, v in w.items() if k != "wall_s"},
+                    f"({world}, 1, 1) rank {r} {key}: differs from the "
+                    + ("members' alone" if split and key.endswith("answer") else "unplaced server's"))
+        for key in ("generate", "generate@0.8/answer"):
+            n_def = sum(t != 0 for t in want[key]["tier_of"])
+            require(len(got[key]["hops"]) == (1 if n_def else 0), f"rank {r} {key}: hops {got[key]['hops']}")
+        for key in ("serve@0", "serve@0.8", "serve@0.8/answer"):
+            deferred = sum(t == 1 for _, t, _ in want[key]["out"])
+            require(len(got[key]["hops"]) == deferred, f"rank {r} {key}: {deferred} deferred, hops {got[key]['hops']}")
+    votes = ranks[0]["serving"]["votes"]
+    if split:  # every member's draws on its own rank, not only the winners
+        for e in range(3):
+            require(sorted(v[e] for v in votes) == sorted(members["serve"][e]),
+                    f"(6, 1, 1): member {e}'s generations on its rank differ from the member's alone")
+    else:
+        require(votes == ref["votes"], f"({world}, 1, 1): tier 1's member generations differ from the unplaced's")
+    winners = [next(e for e, g in enumerate(v) if g == vote_winner(v)[1]) for v in votes]
+    require(len(winners) == 8 and any(w != 0 for w in winners),
+            f"({world}, 1, 1): tier 1's winning members {winners}: no answer holds member 1's or 2's draws")
+    off = [o["serving"]["member_offsets"][0] for o in ranks[:world // 2]]
+    require(off == ([0, 1, 2] if split else [0]), f"tier 1's member offsets by rank {off}")
+    summary = {"member_offsets": off, "answer_winners": winners}
+    if split:
+        # the stacked three-member tier against each member alone: the same
+        # draws, products at another batch count
+        stacked = [sorted(v[e] for v in ref["votes"]) for e in range(3)]
+        summary["alone_equal_to_stacked"] = sum(
+            a == b for e in range(3) for a, b in zip(stacked[e], sorted(members["serve"][e])))
+    for mode, keys in (("generate", ("generate",)), ("serve", ("serve@0", "serve@0.8"))):
+        sums = {k: sum(o["serving"][key]["launches"][k] for o in ranks for key in keys)
+                for k in ranks[0]["serving"]["generate"]["launches"]}
+        for k in POD_SERVE_NEED[mode]:
+            require(sums[k] > 0, f"({world}, 1, 1) {mode}: {k} was not launched")
+        launches[f"pod_{mode}_{world}"] = sums
+        summary[mode] = {"launches": sums, "rank0_wall_s": {key: ranks[0]["serving"][key]["wall_s"] for key in keys}}
+    summary["answer_wall_s"] = {key: ranks[0]["serving"][key]["wall_s"]
+                                for key in ("generate@0.8/answer", "serve@0.8/answer")}
+    summary["peak_gib"] = [o["serving"]["peak_gib"] for o in ranks]
+    summary["tier_counts"] = ref["generate"]["tier_counts"]
+    summary["serve_tiers"] = {T: [t for _, t, _ in want[f"serve@{T}"]["out"]] for T in ("0", "0.8", "0.8/answer")}
+    log(f"[pod_serve] ({world}, 1, 1): generate and serve_continuous (greedy, T = 0.8) bitwise the unplaced "
+        f"server's on every rank, and tier 1 answering at T = 0.8 bitwise "
+        f"{'each member alone' if split else 'the unplaced server'}; {json.dumps(summary)}")
+    return summary
 
 
 def pod_classify_path(dev, seed):
@@ -4495,6 +4703,15 @@ def pod_classify_path(dev, seed):
                                 for a, v, spec in zip(POD_TIERS, (v1, v2), pod_specs(theta))], device=dev)
         server.classify(toks)
         ref = server.classify(toks)
+        # generate and serve_continuous, unplaced: what the ranks must
+        # equal; and each tier-1 member alone, what a rank holding it alone
+        # must equal where tier 1 answers
+        serve_ref = pod_serve_runs(server, seed)
+        members = pod_member_refs(v1, seed, dev)
+    answered = [t for _, t, _ in serve_ref["serve@0.8/answer"]["out"]]
+    require(answered == [0] * 8 and serve_ref["generate@0.8/answer"]["tier_counts"] == [8, 0],
+            f"at θ {POD_ANSWER_THETA} tier 1 did not answer every request: serve tiers {answered}, generate "
+            f"{serve_ref['generate@0.8/answer']['tier_counts']}")
     del server, v1, v2
     torch.cuda.empty_cache()
     n_def = int(ref.tier_counts[1])
@@ -4543,6 +4760,8 @@ def pod_classify_path(dev, seed):
         for k in POD_NEED:
             require(sums[k] > 0, f"{name}: {k} was not launched")
         launches[name] = sums
+        if world in POD_SERVE_WORLDS:
+            results[f"pod_serve_{world}"] = check_pod_serving(ranks, serve_ref, world, launches, members)
         r0 = ranks[0]["sharded"]
         results[name] = {
             "world_s": wall,
@@ -4572,7 +4791,12 @@ def main(argv=None):
         print("chip_smoke: no CUDA device; this script measures the port on a GPU only", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.core.cost_model import H100_SXM
     from repro_torch.kernels import build
+
+    global HBM_BYTES_PER_S, BF16_FLOPS, TF32_FLOPS, F32_FLOPS
+    HBM_BYTES_PER_S, BF16_FLOPS = H100_SXM["hbm_bw"], H100_SXM["peak_flops_bf16"]
+    TF32_FLOPS, F32_FLOPS = H100_SXM["peak_flops_tf32"], H100_SXM["peak_flops_f32"]
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -1,3 +1,3 @@
-from repro_torch.configs.base import ARCH_IDS, ModelConfig, ShapeConfig, get_config
+from repro_torch.configs.base import ARCH_IDS, INPUT_SHAPES, ModelConfig, ShapeConfig, get_config, shape_supported
 
-__all__ = ["ARCH_IDS", "ModelConfig", "ShapeConfig", "get_config"]
+__all__ = ["ARCH_IDS", "INPUT_SHAPES", "ModelConfig", "ShapeConfig", "get_config", "shape_supported"]

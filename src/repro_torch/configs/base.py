@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import importlib
 from dataclasses import dataclass, replace
-from typing import Optional
+from typing import Optional, Tuple
 
 FAMILIES = ("dense", "moe", "ssm_mamba2", "ssm_rwkv6", "hybrid", "encoder", "vlm")
 
@@ -132,6 +132,13 @@ class ShapeConfig:
     kind: str  # 'train' | 'prefill' | 'decode'
 
 
+INPUT_SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
 ARCH_IDS = (
     "zamba2-2.7b",
     "internvl2-26b",
@@ -153,3 +160,11 @@ def get_config(arch: str) -> ModelConfig:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(_MODULE_FOR)}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULE_FOR[arch]}")
     return mod.CONFIG
+
+
+def shape_supported(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """The skip matrix (DESIGN.md §Arch-applicability): an encoder has no
+    decode step."""
+    if cfg.is_encoder and shape.kind == "decode":
+        return False, "encoder-only architecture has no decode step"
+    return True, ""

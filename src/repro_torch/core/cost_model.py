@@ -3,8 +3,9 @@ constants (a copy of ``repro.core.cost_model``, numpy only), kept verbatim
 so the dollar and latency tables reproduce offline.
 
 The JAX package's TPU roofline constants are not copied: no TPU figure
-enters the port, and the card's numbers come from measurement
-(``chip_smoke.py``).
+enters the port.  Its counterpart is ``H100_SXM``, the card's spec-sheet
+figures, which the roofline (``launch/roofline.py``) and ``chip_smoke.py``'s
+bounds read; the card's own numbers come from measurement.
 """
 from __future__ import annotations
 
@@ -52,6 +53,19 @@ LAMBDA_GPU_PRICES = {"V100": 0.50, "A6000": 0.80, "A100": 1.29, "H100": 2.49}
 
 # §5.2.1 — edge-to-cloud delay grid (seconds)
 EDGE_DELAYS = {"local_ipc": 1e-6, "small": 10e-3, "medium": 100e-3, "large": 1.0}
+
+# NVIDIA H100 SXM5 roofline constants, from NVIDIA's H100 datasheet (dense
+# tensor-core rates, no sparsity), with the keys of the JAX package's
+# ``TPU_V5E``.  ``ici_bw`` is the link figure: NVLink 4, 450e9 B/s each way
+# per GPU (900e9 both ways) between the 8 GPUs of one node; ranks past one
+# node cross InfiniBand, at far less (50e9 B/s a 400 Gb/s NIC).
+H100_SXM = {
+    "peak_flops_bf16": 989e12,  # FLOP/s per GPU, dense bf16 tensor cores
+    "peak_flops_tf32": 495e12,  # dense TF32 tensor cores
+    "peak_flops_f32": 67e12,  # f32 on the CUDA cores, outside the tensor cores
+    "hbm_bw": 3.35e12,  # B/s per GPU, HBM3
+    "ici_bw": 450e9,  # B/s per GPU each way, NVLink 4 within a node
+}
 
 # Table 1 — Together.ai serverless pricing (USD per million tokens)
 TOGETHER_PRICES = {

@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.obs import op_charges
 
 _LAUNCHES = build.launch_counter("agreement")
 
@@ -47,12 +48,28 @@ def _member_stats_cuda(logits: torch.Tensor):
     return m, idx, l
 
 
+def cost(logits: torch.Tensor) -> dict:
+    """The V sweep's work: the logits read once, (m, idx, l) written (12
+    bytes a row), 4 f32 operations a logit (max, compare, exp, add)."""
+    E, B = logits.shape[:2]
+    return build.kernel_cost(build.nbytes(logits) + E * B * 12, 4 * logits.numel(), "f32")
+
+
 def member_stats(logits: torch.Tensor):
     """(m, idx, l), each (E, B): per-member max, argmax (first index on
-    ties) and sum exp(x - max) over V."""
+    ties) and sum exp(x - max) over V.  On meta tensors: outputs of these
+    shapes, the call's ``cost`` charged to the active op counter."""
     if logits.device.type == "cpu":
         return member_stats_plain(logits)
+    if logits.device.type == "meta":
+        return op_charges.meta_call(_member_stats_meta, logits)
     return _member_stats_cuda(logits)
+
+
+def _member_stats_meta(logits: torch.Tensor):
+    op_charges.charge_kernel("agreement", cost(logits))
+    m = logits.new_empty(logits.shape[:2], dtype=torch.float32)
+    return m, logits.new_empty(logits.shape[:2], dtype=torch.int32), torch.empty_like(m)
 
 
 def _epilogue(logits, m, idx, l):

@@ -237,3 +237,23 @@ def require_cuda(t: torch.Tensor, name: str, dtypes, *, align: int = 16) -> None
         raise ValueError(f"{name}: tensor must be contiguous")
     if t.data_ptr() % align:
         raise ValueError(f"{name}: data pointer must be {align}-byte aligned")
+
+
+# ---------------------------------------------------------------------------
+# a kernel's work, which its meta route charges (``obs.op_charges``) and
+# chip_smoke.py's bounds divide by the card's rates.  A meta tensor
+# computes nothing, so that route is no fallback.
+# ---------------------------------------------------------------------------
+
+
+def nbytes(*ts) -> int:
+    """Bytes of the given tensors (None skipped), numel x element size."""
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def kernel_cost(n_bytes: int, n_ops: int, unit: str) -> dict:
+    """A kernel call's work: the bytes it must move (each operand read
+    once, each output written once), the operations it does and the unit
+    they run on ('bf16' or 'tf32' tensor cores, 'f32' CUDA cores) — what a
+    bound divides by the card's rates and the op counter charges."""
+    return {"bytes": int(n_bytes), "flops": int(n_ops), "unit": unit}

@@ -27,6 +27,7 @@ import math
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.obs import op_charges
 
 _LAUNCHES = build.launch_counter("compaction")
 MAX_LEAVES = 8  # leaves one launch copies (kMaxLeaves in csrc/compaction.cu)
@@ -198,11 +199,62 @@ def _paged_kv_view_cuda(k_pool: torch.Tensor, v_pool: torch.Tensor, pages: torch
 # ---------------------------------------------------------------------------
 
 
+def compact_cost(tree: dict, mask: torch.Tensor, count=None) -> dict:
+    """``compact_tree``'s work: the mask read, the index map and count
+    written, the ``count`` deferred rows of every leaf read and the
+    compacted leaves written (all B rows, zeros past the count).  ``count``
+    None (a meta call): every row deferred."""
+    B = mask.shape[0]
+    n = B if count is None else int(count)
+    row_bytes = sum(v[0].numel() * v.element_size() for v in tree.values())
+    return build.kernel_cost(B * mask.element_size() + 4 * B + 4 + n * row_bytes + B * row_bytes, 0, "f32")
+
+
+def gather_cost(x: torch.Tensor, index_map: torch.Tensor) -> dict:
+    """``gather_rows``' work: the map read, each output row read and written."""
+    row_bytes = math.prod(x.shape[1:]) * x.element_size()
+    return build.kernel_cost(build.nbytes(index_map) + 2 * index_map.shape[0] * row_bytes, 0, "f32")
+
+
+def paged_kv_view_cost(k_pool: torch.Tensor, v_pool: torch.Tensor, pages: torch.Tensor, mapped=None) -> dict:
+    """``paged_kv_view``'s work: the ``mapped`` pages of both pools read
+    (default: every table entry), both views written whole, the table
+    read."""
+    E, P, KVH, ps, hd = member_pool(k_pool).shape
+    B, n_pg = pages.shape
+    n = B * n_pg if mapped is None else int(mapped)
+    tile = ps * hd * k_pool.element_size()
+    return build.kernel_cost(2 * (E * n * KVH * tile + E * B * n_pg * KVH * tile) + build.nbytes(pages), 0, "f32")
+
+
+def _meta_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
+    return x.new_empty((rows,) + tuple(x.shape[1:]))
+
+
+def _gather_rows_meta(x, index_map):
+    op_charges.charge_kernel("compaction", gather_cost(x, index_map))
+    return _meta_rows(x, index_map.shape[0])
+
+
+def _compact_tree_meta(tree, mask):
+    op_charges.charge_kernel("compaction", compact_cost(tree, mask))
+    B = mask.shape[0]
+    return ({k: _meta_rows(v, B) for k, v in tree.items()}, mask.new_empty((B,), dtype=torch.int32),
+            mask.new_empty((), dtype=torch.int32))
+
+
+def _paged_kv_view_meta(k_pool, v_pool, pages):
+    op_charges.charge_kernel("compaction", paged_kv_view_cost(k_pool, v_pool, pages))
+    E, P, KVH, ps, hd = member_pool(k_pool).shape
+    B, n_pg = pages.shape
+    return tuple(k_pool.new_empty((E * B, KVH, n_pg * ps, hd)) for _ in range(2))
+
+
 def compact_indices(mask: torch.Tensor):
     """(index_map (B,) i32, count () i32) for a (B,) defer mask."""
     if mask.device.type == "cpu":
         return compact_indices_plain(mask)
-    _, index_map, count = _compact_tree_cuda({}, mask)
+    _, index_map, count = compact_tree({}, mask)
     return index_map, count
 
 
@@ -211,6 +263,8 @@ def gather_rows(x: torch.Tensor, index_map: torch.Tensor):
     for every dtype.  The output has index_map's row count."""
     if x.device.type == "cpu":
         return gather_rows_plain(x, index_map)
+    if x.device.type == "meta":
+        return op_charges.meta_call(_gather_rows_meta, x, index_map)
     return _gather_rows_cuda(x, index_map)
 
 
@@ -228,6 +282,8 @@ def compact_tree(tree: dict, mask: torch.Tensor):
     if mask.device.type == "cpu":
         index_map, count = compact_indices_plain(mask)
         return {k: gather_rows_plain(v, index_map) for k, v in tree.items()}, index_map, count
+    if mask.device.type == "meta":
+        return op_charges.meta_call(_compact_tree_meta, tree, mask)
     return _compact_tree_cuda(tree, mask)
 
 
@@ -238,6 +294,8 @@ def paged_kv_view(k_pool: torch.Tensor, v_pool: torch.Tensor, pages: torch.Tenso
     rows — bitwise ``paged_pool_view`` of each pool.  One launch on the card."""
     if k_pool.device.type == "cpu":
         return paged_kv_view_plain(k_pool, v_pool, pages)
+    if k_pool.device.type == "meta":
+        return op_charges.meta_call(_paged_kv_view_meta, k_pool, v_pool, pages)
     return _paged_kv_view_cuda(k_pool, v_pool, pages)
 
 

@@ -23,7 +23,10 @@ and ``decode_attention_paged_bkgd``; both are bound by the cache bytes
 they read.  Any other shape or dtype raises: there is no fallback.  On a
 CPU tensor the plain versions run — the JAX package's
 ``_xla_decode_bksd`` and ``_xla_decode_paged`` (gather each slot's view
-of exactly ``n_pg * page_size`` rows, then the dense sweep).  Both kernels are inference-only: a CUDA input that
+of exactly ``n_pg * page_size`` rows, then the dense sweep).  On a meta
+tensor (the dry run) nothing is computed: each returns the output's shape
+and charges the active op counter its ``cost`` (``paged_cost``), every
+cache row counted where ``cur_len`` is unknown.  Both kernels are inference-only: a CUDA input that
 requires grad under grad mode raises (``build.inference_only``).
 """
 from __future__ import annotations
@@ -32,9 +35,11 @@ import ctypes
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.obs import op_charges
 from repro_torch.kernels.compaction.ops import gather_rows_plain, member_pool, paged_pool_view
 from repro_torch.kernels.flash_attention.ops import head_size_ok, same_dtype
 
@@ -107,6 +112,54 @@ def _decode_cuda(q, k_cache, v_cache, cur_len, *, window, softcap, starts):
     return out
 
 
+def _rows_len(cur_len, B: int, S: int, window=None) -> int:
+    """Cache rows a call reads over its B rows: each row's ``cur_len``
+    (every row of the cache where it is unknown, a meta tensor), at most
+    the window."""
+    if isinstance(cur_len, torch.Tensor) and cur_len.device.type == "meta":
+        cur = np.full(B, S, np.int64)
+    else:
+        cur = np.broadcast_to(np.asarray(cur_len.cpu() if isinstance(cur_len, torch.Tensor) else cur_len,
+                                         np.int64), (B,))
+    if window:
+        cur = np.minimum(cur, window)
+    return int(cur.sum())
+
+
+def cost(q, k_cache, v_cache, cur_len, *, window=None) -> dict:
+    """A dense call's work: q read and the output written, the K and V rows
+    of every row's ``cur_len`` read once; 4·hd operations a visible row and
+    head."""
+    B, _, H, hd = q.shape
+    KVH, S = k_cache.shape[1], k_cache.shape[2]
+    rows = _rows_len(cur_len, B, S, window)
+    return build.kernel_cost(2 * build.nbytes(q) + 2 * rows * KVH * hd * k_cache.element_size(), 4 * H * rows * hd,
+                             "bf16" if q.dtype == torch.bfloat16 else "f32")
+
+
+def paged_cost(q, k_pool, v_pool, pages, cur_len, *, window=None) -> dict:
+    """A paged call's work: q read and the output written, every member
+    plane's K and V rows of each slot's ``cur_len`` read once, the table
+    and the lengths read; 4·hd operations a visible row and head."""
+    E, P, KVH, ps, hd = member_pool(k_pool).shape
+    B, n_pg = pages.shape
+    H = q.shape[2]
+    visible = E * _rows_len(cur_len, B, n_pg * ps, window)
+    return build.kernel_cost(2 * build.nbytes(q) + 2 * visible * KVH * hd * k_pool.element_size()
+                             + build.nbytes(pages, cur_len), 4 * H * hd * visible,
+                             "bf16" if q.dtype == torch.bfloat16 else "f32")
+
+
+def _decode_meta(q, k_cache, v_cache, cur_len, *, window, softcap, starts):
+    op_charges.charge_kernel("decode_attention", cost(q, k_cache, v_cache, cur_len, window=window))
+    return torch.empty_like(q)
+
+
+def _paged_meta(q, k_pool, v_pool, pages, cur_len, *, window):
+    op_charges.charge_kernel("decode_attention_paged", paged_cost(q, k_pool, v_pool, pages, cur_len, window=window))
+    return torch.empty_like(q)
+
+
 def decode_attention_bksd(
     q: torch.Tensor,
     k_cache: torch.Tensor,
@@ -121,6 +174,9 @@ def decode_attention_bksd(
         return decode_attention_plain(
             q, k_cache, v_cache, cur_len, window=window, softcap=softcap, starts=starts
         )
+    if q.device.type == "meta":
+        return op_charges.meta_call(_decode_meta, q, k_cache, v_cache, cur_len, kv_head_dim=1, window=window,
+                                    softcap=softcap, starts=starts)
     return _decode_cuda(q, k_cache, v_cache, cur_len, window=window, softcap=softcap, starts=starts)
 
 
@@ -194,4 +250,6 @@ def decode_attention_paged(
         return decode_attention_paged_plain(
             q, k_pool, v_pool, pages, cur_len, window=window, softcap=softcap
         )
+    if q.device.type == "meta":
+        return op_charges.meta_call(_paged_meta, q, k_pool, v_pool, pages, cur_len, window=window)
     return _paged_cuda(q, k_pool, v_pool, pages, cur_len, window=window, softcap=softcap)

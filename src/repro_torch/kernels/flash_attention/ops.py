@@ -15,7 +15,11 @@ bound is the tensor-core operations for long prompts and the q/k/v/out
 bytes for short ones.  Any other shape or dtype (hd past 128 or off the
 multiples of 8, f16) raises: there is no fallback.  On a CPU tensor the
 plain version runs — the same masked softmax as the JAX package's
-``impl='xla'`` path.
+``impl='xla'`` path.  On a meta tensor (the dry run, ``launch/dryrun.py``)
+it computes nothing: it returns the output's shape and charges the active
+op counter ``cost(...)``, the work the kernel would do
+(``obs.op_charges.meta_call``: the dry run's ``DTensor`` inputs are taken
+by each rank's rows and heads).
 
 Training: when grad mode is on and q, k or v requires grad,
 ``flash_attention`` goes through ``FlashAttention`` (a
@@ -36,9 +40,11 @@ import ctypes
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.obs import op_charges
 
 _LAUNCHES = build.launch_counter("flash_attention")
 DTYPES = (torch.bfloat16, torch.float32)  # the kernels' routes: tensor cores, SIMT f32
@@ -124,6 +130,34 @@ def flash_attention_bwd(q, k, v, out, lse, do, *, causal=True, window=None, soft
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def visible_pairs(Sq: int, Sk: int, causal: bool, window=None) -> int:
+    """(query, key) pairs the masks leave visible, of one (row, head):
+    query i sees keys j < Sk with j <= i (causal) and i - j < window."""
+    i = np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(i, Sk - 1) if causal else np.full(Sq, Sk - 1, np.int64)
+    lo = np.maximum(i - window + 1, 0) if window else np.zeros(Sq, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def cost(q, k, v, *, causal=True, window=None, return_lse=False) -> dict:
+    """A call's work: q, k and v read once, the output (and the lse) written
+    once; 4·hd operations a visible (query, key) pair and head (the two
+    products), on the tensor cores in bf16, the CUDA cores in f32.  A row's
+    ``starts`` hides more: this counts the masks' pairs."""
+    B, Sq, H, hd = q.shape
+    pairs = B * H * visible_pairs(Sq, k.shape[1], causal, window)
+    out = build.nbytes(q) + (B * Sq * H * 4 if return_lse else 0)
+    return build.kernel_cost(build.nbytes(q, k, v) + out, 4 * hd * pairs, "bf16" if q.dtype == torch.bfloat16 else "f32")
+
+
+def _flash_meta(q, k, v, *, causal, window, return_lse=False):
+    op_charges.charge_kernel("flash_attention", cost(q, k, v, causal=causal, window=window, return_lse=return_lse))
+    out = torch.empty_like(q)
+    if return_lse:
+        return out, q.new_empty(q.shape[:3], dtype=torch.float32)
+    return out
+
+
 def head_size_ok(hd: int) -> bool:
     """The head sizes the attention kernels take (flash and decode): a
     multiple of 8 (16-byte rows of bf16) from 8 to 128."""
@@ -171,6 +205,8 @@ class FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, causal, window, softcap):
         if q.device.type == "cpu":
             out, lse = flash_attention_plain(q, k, v, causal=causal, window=window, softcap=softcap, return_lse=True)
+        elif q.device.type == "meta":
+            out, lse = _flash_meta(q, k, v, causal=causal, window=window, return_lse=True)
         else:
             out, lse = _flash_cuda(q, k, v, causal=causal, window=window, softcap=softcap, starts=None,
                                    return_lse=True)
@@ -195,6 +231,13 @@ def flash_attention(
     softcap: Optional[float] = None,
     starts: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
+    kw = dict(causal=causal, window=window, softcap=softcap, starts=starts)
+    if q.device.type == "meta":  # the dry run: rows and heads are independent, so DTensors go by blocks
+        return op_charges.meta_call(_flash_attention, q, k, v, kv_head_dim=2, **kw)
+    return _flash_attention(q, k, v, **kw)
+
+
+def _flash_attention(q, k, v, *, causal, window, softcap, starts):
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         if starts is not None:
             raise RuntimeError("flash_attention: starts (the left-pad carve-out) is inference-only; "
@@ -204,4 +247,6 @@ def flash_attention(
         return flash_attention_plain(
             q, k, v, causal=causal, window=window, softcap=softcap, starts=starts
         )
+    if q.device.type == "meta":
+        return _flash_meta(q, k, v, causal=causal, window=window)
     return _flash_cuda(q, k, v, causal=causal, window=window, softcap=softcap, starts=starts)

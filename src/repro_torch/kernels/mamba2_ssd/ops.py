@@ -15,7 +15,9 @@ package's ``_xla_ssd``, chunk 128, with intra-chunk (C·Bᵀ ⊙ exp(cum_t -
 cum_s))·x~, inter-chunk C·e^cum·h and the state update h·e^total +
 (B·e^(total-cum))ᵀ·x~ (every exponent <= 0), and zero padding of a ragged
 last chunk.  ``ssd_step`` (one decode step) is plain PyTorch on every
-device, as in the JAX package.
+device, as in the JAX package.  On a meta tensor (the dry run) ``ssd``
+computes nothing: it returns the outputs' shapes and charges the active op
+counter its ``cost``.
 
 Training: when grad mode is on and an input requires grad, a CUDA call
 goes through ``SSDFunction`` (a ``torch.autograd.Function``): its forward
@@ -33,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import build
+from repro_torch.obs import op_charges
 from repro_torch.kernels.mamba2_ssd.ref import a_rows, ssd_step_ref
 
 _LAUNCHES = build.launch_counter("mamba2_ssd")
@@ -134,6 +137,29 @@ def _ssd_cuda(x, dt, A, Bm, Cm, *, initial_state):
     return y, hT
 
 
+def dual_flops(B, S, H, N, P, L=64):
+    """Operations of the chunked dual form the bf16 kernel runs, for chunks
+    of L steps at this run's length: per chunk of m steps and head the
+    causal C·Bᵀ and M·x (m(m+1)/2 · (N + P) multiply-adds), C·h and the state
+    update (2·m·N·P)."""
+    full, m = divmod(S, L)
+    macs = full * (L * (L + 1) // 2 * (N + P) + 2 * L * N * P) + m * (m + 1) // 2 * (N + P) + 2 * m * N * P
+    return 2 * B * H * macs
+
+
+def cost(x, dt, A, Bm, Cm, *, initial_state=None) -> dict:
+    """A call's work: x, dt, A, B, C (and the initial state) read once in
+    their own dtypes, y and the final f32 state written once; the dual form
+    on the TF32 tensor cores in bf16 (``dual_flops``), the per-step
+    recurrence's 5 f32 operations a state element and step in f32."""
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    n_bytes = build.nbytes(x, dt, A, Bm, Cm, initial_state) + build.nbytes(x) + B * H * N * P * 4
+    if x.dtype == torch.bfloat16:
+        return build.kernel_cost(n_bytes, dual_flops(B, S, H, N, P), "tf32")
+    return build.kernel_cost(n_bytes, 5 * B * S * H * N * P, "f32")
+
+
 class SSDFunction(torch.autograd.Function):
     """(y, hT) of the kernel forward, gradients by recompute of ``ssd_plain``."""
 
@@ -141,12 +167,26 @@ class SSDFunction(torch.autograd.Function):
     def forward(ctx, x, dt, A, Bm, Cm, initial_state):
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(x, dt, A, Bm, Cm, initial_state)
-        return _ssd_cuda(x, dt, A, Bm, Cm, initial_state=initial_state)
+        return (_ssd_meta if x.device.type == "meta" else _ssd_cuda)(x, dt, A, Bm, Cm, initial_state=initial_state)
 
     @staticmethod
     def backward(ctx, gy, ghT):
         plain = lambda x, dt, A, Bm, Cm, h0: ssd_plain(x, dt, A, Bm, Cm, initial_state=h0)
         return build.recompute_grads(ctx, plain, ctx.saved_tensors, (gy, ghT))
+
+
+def _ssd_meta(x, dt, A, Bm, Cm, *, initial_state):
+    op_charges.charge_kernel("mamba2_ssd", cost(x, dt, A, Bm, Cm, initial_state=initial_state))
+    B, S, H, P = x.shape
+    return x.new_empty((B, S, H, P)), x.new_empty((B, H, Bm.shape[-1], P), dtype=torch.float32)
+
+
+def _ssd_on_meta(x, dt, A, Bm, Cm, initial_state):
+    """The meta route: under grad through ``SSDFunction``, so that its
+    backward (the plain version's recompute) is counted too."""
+    if build.needs_grad(x, dt, A, Bm, Cm, initial_state):
+        return SSDFunction.apply(x, dt, A, Bm, Cm, initial_state)
+    return _ssd_meta(x, dt, A, Bm, Cm, initial_state=initial_state)
 
 
 def ssd(
@@ -163,6 +203,8 @@ def ssd(
     final (B, H, N, P) f32 state."""
     if x.device.type == "cpu":
         y, hT = ssd_plain(x, dt, A, Bm, Cm, initial_state=initial_state)
+    elif x.device.type == "meta":
+        y, hT = op_charges.meta_call(_ssd_on_meta, x, dt, A, Bm, Cm, initial_state)
     elif build.needs_grad(x, dt, A, Bm, Cm, initial_state):
         y, hT = SSDFunction.apply(x, dt, A, Bm, Cm, initial_state)
     else:

@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import build
+from repro_torch.obs import op_charges
 from repro_torch.kernels.rwkv6_wkv.ref import u_rows, wkv6_step_ref
 
 _LAUNCHES = build.launch_counter("rwkv6_wkv")
@@ -115,6 +116,29 @@ def _wkv6_cuda(r, k, v, logw, u, *, initial_state):
     return y, sT
 
 
+def cost(r, k, v, logw, u, *, initial_state=None) -> dict:
+    """A call's work: r, k, v, logw, u (and the initial state) read once, y
+    and the final f32 state written once; the per-step recurrence's 5 f32
+    operations a state element and step (k v, S w + k v, r S)."""
+    B, S, H, D = r.shape
+    n_bytes = build.nbytes(r, k, v, logw, u, initial_state) + build.nbytes(r) + B * H * D * D * 4
+    return build.kernel_cost(n_bytes, 5 * B * S * H * D * D, "f32")
+
+
+def _wkv6_meta(r, k, v, logw, u, *, initial_state):
+    op_charges.charge_kernel("rwkv6_wkv", cost(r, k, v, logw, u, initial_state=initial_state))
+    B, S, H, D = r.shape
+    return torch.empty_like(r), r.new_empty((B, H, D, D), dtype=torch.float32)
+
+
+def _wkv6_on_meta(r, k, v, logw, u, initial_state):
+    """The meta route: under grad through ``WKV6Function``, so that its
+    backward (the plain version's recompute) is counted too."""
+    if build.needs_grad(r, k, v, logw, u, initial_state):
+        return WKV6Function.apply(r, k, v, logw, u, initial_state)
+    return _wkv6_meta(r, k, v, logw, u, initial_state=initial_state)
+
+
 class WKV6Function(torch.autograd.Function):
     """(y, sT) of the kernel forward, gradients by recompute of ``wkv6_plain``."""
 
@@ -122,7 +146,7 @@ class WKV6Function(torch.autograd.Function):
     def forward(ctx, r, k, v, logw, u, initial_state):
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(r, k, v, logw, u, initial_state)
-        return _wkv6_cuda(r, k, v, logw, u, initial_state=initial_state)
+        return (_wkv6_meta if r.device.type == "meta" else _wkv6_cuda)(r, k, v, logw, u, initial_state=initial_state)
 
     @staticmethod
     def backward(ctx, gy, gsT):
@@ -144,6 +168,8 @@ def wkv6(
     final (B, H, D, D) f32 state."""
     if r.device.type == "cpu":
         y, sT = wkv6_plain(r, k, v, logw, u, initial_state=initial_state)
+    elif r.device.type == "meta":
+        y, sT = op_charges.meta_call(_wkv6_on_meta, r, k, v, logw, u, initial_state)
     elif build.needs_grad(r, k, v, logw, u, initial_state):
         y, sT = WKV6Function.apply(r, k, v, logw, u, initial_state)
     else:

@@ -68,6 +68,13 @@ from repro_torch.models import blocks_mamba2 as BM
 from repro_torch.models import blocks_rwkv6 as BR
 from repro_torch.models import layers as L
 from repro_torch.models.params import AxesInitializer, Initializer, torch_dtype, tree_map
+from repro_torch.sharding.logical import constrain
+
+# the activation and logit layouts the JAX package constrains its
+# (member-vmapped) arrays to, with the port's leading member axis: a no-op
+# unless a rule table is active and the tensor is a DTensor (the dry run)
+_ACT_AXES = ("act_ensemble", "act_batch", "act_seq", "act_embed")
+_LOGIT_AXES = ("act_ensemble", "act_batch", "act_vocab")
 
 ATTENTION_FAMILIES = ("dense", "moe", "vlm", "encoder")
 
@@ -185,12 +192,13 @@ def embed_batch(params, batch, cfg: ModelConfig) -> torch.Tensor:
     embeddings."""
     device = param_device(params)
     if cfg.is_encoder:
-        return _project_frontend(params, batch["embeds"], device).to(torch_dtype(cfg.dtype))
-    tok = embed_inputs(params, _tokens(batch, device))
-    if _has_prefix(batch, cfg):
-        vis = _project_frontend(params, batch["embeds"], device).to(tok.dtype)
-        tok = torch.cat([vis, tok], dim=2)
-    return tok
+        tok = _project_frontend(params, batch["embeds"], device).to(torch_dtype(cfg.dtype))
+    else:
+        tok = embed_inputs(params, _tokens(batch, device))
+        if _has_prefix(batch, cfg):
+            vis = _project_frontend(params, batch["embeds"], device).to(tok.dtype)
+            tok = torch.cat([vis, tok], dim=2)
+    return constrain(tok, _ACT_AXES)
 
 
 def _has_prefix(batch, cfg: ModelConfig) -> bool:
@@ -395,7 +403,7 @@ def prefill_members(params, batch, cfg: ModelConfig, *, collect_kv=True, cache=N
     if cache is None and collect_kv:
         cache = init_cache_members(cfg, E, B, S, x.device, dtype=x.dtype)
     x = backbone_fwd(params, x, cfg, positions=positions, starts=starts, cache=cache)
-    return L.project_logits(params, x[:, :, -1], cfg), cache
+    return constrain(L.project_logits(params, x[:, :, -1], cfg), _LOGIT_AXES), cache
 
 
 def _positions(pos, B: int, device):
@@ -423,14 +431,14 @@ def decode_step_members(params, token, cache, pos, cfg: ModelConfig, *, starts=N
     if starts is not None:
         _require_carveout(cfg)
         starts = torch.as_tensor(starts, device=device).to(torch.int32)
-    x = embed_inputs(params, torch.as_tensor(token, device=device).to(torch.int64))
+    x = constrain(embed_inputs(params, torch.as_tensor(token, device=device).to(torch.int64)), _ACT_AXES)
     if attention_family(cfg):
         for l in range(cfg.n_layers):
             x = BD.dense_layer_decode(
                 _layer(params, l, cfg), x, cfg, cache["k"][l], cache["v"][l], pos,
                 sliding_window=cfg.sliding_window, starts=starts,
             )
-        return L.project_logits(params, x[:, :, 0], cfg), cache
+        return constrain(L.project_logits(params, x[:, :, 0], cfg), _LOGIT_AXES), cache
     for l in range(cfg.n_layers):
         x, st = _recurrent_layer(params, l, x, cfg, {n: cache[n][l] for n in _state_keys(cfg)}, step=True)
         # written in place into the stacked leaf (never rebound): a
@@ -443,7 +451,7 @@ def decode_step_members(params, token, cache, pos, cfg: ModelConfig, *, starts=N
                 params["shared_attn"], x, cfg, cache["attn_k"][inv], cache["attn_v"][inv], pos,
                 sliding_window=cfg.sliding_window,
             )
-    return L.project_logits(params, x[:, :, 0], cfg), cache
+    return constrain(L.project_logits(params, x[:, :, 0], cfg), _LOGIT_AXES), cache
 
 
 # ---------------------------------------------------------------------------
@@ -454,7 +462,10 @@ def decode_step_members(params, token, cache, pos, cfg: ModelConfig, *, starts=N
 def _ce_chunk(h, head, t, m):
     """One chunk's sums: (nll, z, mask, correct), f32 (4,).  The logits
     (B, c, V) are f32 and live only inside this call."""
-    logits = (h @ head).float()
+    # the vocabulary whole on each rank (the dry run's placed step: a
+    # target gather from vocabulary-sharded logits is a masked partial
+    # result DTensor cannot reduce); a no-op on plain tensors
+    logits = constrain((h @ head).float(), ("act_batch", "act_seq", None))
     logz = torch.logsumexp(logits, -1)
     tgt = logits.gather(-1, t[..., None])[..., 0]
     acc = (logits.argmax(-1) == t).float()  # the first index of the maximum

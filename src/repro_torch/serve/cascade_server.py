@@ -35,6 +35,12 @@ JAX's PRNG cannot be reproduced, so sampled tokens are held to the port's
 own invariants (paged == dense, graphed == eager, slot reuse, n_slots),
 and greedy ones to the JAX package's tokens.
 
+Over a mesh placement (``pod_placement``) every rank of the world runs
+the server (SPMD): tier i computes on the ranks of pod slice i, each on the
+members it holds (sampling each as its index in the whole ensemble), and
+the answers and verdicts come together on the slice's first rank; see
+``CascadeServer.__init__`` and ``_MeshRun``.
+
 Placement (``serve/placement.py``): ``CascadeServer(placement=...)`` pins
 each tier to a host and makes every cross-host deferral an explicit metered
 ``Transport`` hop (``serve/transport.py``).  In the batch modes only the
@@ -52,11 +58,13 @@ from __future__ import annotations
 import dataclasses
 import functools
 import zlib
+from collections import deque
 from types import SimpleNamespace
 from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import deferral
@@ -76,6 +84,7 @@ from repro_torch.serve.slot_stream import SlotStream, TierBackend
 from repro_torch.serve.speculative import verify_choices
 from repro_torch.serve.workload import VirtualClock, Workload
 from repro_torch.sharding import collectives
+from repro_torch.sharding.mesh import first_rank
 
 
 def stable_digest(tokens) -> int:
@@ -92,8 +101,16 @@ def digest_generations(out: np.ndarray) -> np.ndarray:
     return np.asarray([[stable_digest(out[e, b]) for b in range(B)] for e in range(E)], np.int32)
 
 
+def _program_key(cfg: ModelConfig, temperature: float, member_offset: int) -> str:
+    """``"<cfg.name>@T<temperature>"``, the JAX package's key; a tier whose
+    first member is not member 0 (a rank's members of a tier split over a
+    mesh's 'pod' axis) draws on other member indices: ``+m<offset>``."""
+    key = f"{cfg.name}@T{temperature:g}"
+    return key if member_offset == 0 else f"{key}+m{member_offset}"
+
+
 @functools.lru_cache(maxsize=None)
-def tier_programs(cfg: ModelConfig, temperature: float) -> SimpleNamespace:
+def tier_programs(cfg: ModelConfig, temperature: float, member_offset: int = 0) -> SimpleNamespace:
     """The programs of one tier, with the JAX package's key inputs:
 
     ``last_logits(values, batch) -> (E, B, V)``
@@ -112,7 +129,7 @@ def tier_programs(cfg: ModelConfig, temperature: float) -> SimpleNamespace:
 
     ``rng`` and ``slot_keys`` are (B,) int64 keys (``serve/sampling.py``):
     a token is sampled from (key, position of the token whose logits pick
-    it, member), the argmax at ``temperature`` 0.  ``pos`` is an int or a
+    it, member ``member_offset + e``), the argmax at ``temperature`` 0.  ``pos`` is an int or a
     (B,) device tensor (a captured step's); ``prefill`` draws at S - 1 and
     writes into ``cache`` when one is given (``api.prefill_members``).
 
@@ -120,10 +137,10 @@ def tier_programs(cfg: ModelConfig, temperature: float) -> SimpleNamespace:
     the JAX package's keys; a tier captures ``last_logits``, ``prefill``
     and ``decode`` per batch bucket and ``decode_slots``, ``prefill_chunk``
     and ``verify_chunk`` per slot geometry (``serve/graphs.py``)."""
-    key = f"{cfg.name}@T{temperature:g}"
+    key = _program_key(cfg, temperature, member_offset)
 
     def _tokens(logits, keys, pos):
-        return sampling.sample(logits, keys, pos, temperature)[..., None]
+        return sampling.sample(logits, keys, pos, temperature, member_offset)[..., None]
 
     def last_logits(values, batch):
         return ens.ensemble_last_logits(values, batch, cfg)
@@ -141,7 +158,7 @@ def tier_programs(cfg: ModelConfig, temperature: float) -> SimpleNamespace:
 
     def verify_chunk(values, caches, tokens, slot, start, slot_key):
         logits, caches = ens.ensemble_prefill_into_slot_logits(values, tokens, caches, slot, start, cfg)
-        return verify_choices(logits, slot_key, start, temperature), caches
+        return verify_choices(logits, slot_key, start, temperature, member_offset), caches
 
     return SimpleNamespace(
         last_logits=Program(f"{key}/ens_last_logits", last_logits),
@@ -162,7 +179,7 @@ def tier_programs(cfg: ModelConfig, temperature: float) -> SimpleNamespace:
 
 
 @functools.lru_cache(maxsize=None)
-def tier_paged_programs(cfg: ModelConfig, temperature: float) -> SimpleNamespace:
+def tier_paged_programs(cfg: ModelConfig, temperature: float, member_offset: int = 0) -> SimpleNamespace:
     """Block-paged counterparts of the continuous-mode programs: E pool
     planes advance under ONE shared (n_slots, n_pg) page table, with the
     per-slot admission keys for sampling:
@@ -170,18 +187,18 @@ def tier_paged_programs(cfg: ModelConfig, temperature: float) -> SimpleNamespace
     ``prefill_chunk(values, pools, tokens, pages_row, start)`` and
     ``verify_chunk(values, pools, tokens, pages_row, start, slot_key)``."""
     assert api.supports_paging(cfg), cfg.family
-    key = f"{cfg.name}@T{temperature:g}"
+    key = _program_key(cfg, temperature, member_offset)
 
     def decode_slots(values, tok, pools, pos, pages, slot_keys):
         logits, pools = ens.ensemble_decode_step_paged(values, tok, pools, pos, pages, cfg)
-        return sampling.sample(logits, slot_keys, pos, temperature)[..., None], pools
+        return sampling.sample(logits, slot_keys, pos, temperature, member_offset)[..., None], pools
 
     def prefill_chunk(values, pools, tokens, pages_row, start):
         return ens.ensemble_prefill_into_slot_paged(values, tokens, pools, pages_row, start, cfg)
 
     def verify_chunk(values, pools, tokens, pages_row, start, slot_key):
         logits, pools = ens.ensemble_prefill_into_slot_paged_logits(values, tokens, pools, pages_row, start, cfg)
-        return verify_choices(logits, slot_key, start, temperature), pools
+        return verify_choices(logits, slot_key, start, temperature, member_offset), pools
 
     return SimpleNamespace(
         decode_slots=Program(f"{key}/ens_decode_paged", decode_slots),
@@ -203,13 +220,22 @@ class CascadeTier:
     ``BATCH_BUCKETS`` buckets, the least recently used evicted) and
     ``slot_memory`` (slot geometry -> ``SlotMemory``: the pools or slot
     caches of the tier's slot streams and their graphs), all allocating
-    from ``graph_pool``."""
+    from ``graph_pool``.
+
+    ``k`` counts the members in ``values``.  Under a mesh placement whose
+    slice splits the members over 'pod' that is a rank's share of
+    ``spec.k``: ``member_offset`` is the stacked index of its first member
+    (what it samples as, ``serve/sampling.py``) and ``member_group`` the
+    'pod' group of the ranks that hold the others (None: the tier holds
+    every member)."""
 
     cfg: ModelConfig
     values: dict
     spec: TierSpec
     temperature: float = 0.0
     device: object = None
+    member_offset: int = 0
+    member_group: object = dataclasses.field(default=None, repr=False, compare=False)
     graph_pool: GraphPool = dataclasses.field(default_factory=GraphPool, init=False, repr=False, compare=False)
     slot_memory: dict = dataclasses.field(default_factory=dict, init=False, repr=False, compare=False)
 
@@ -220,7 +246,7 @@ class CascadeTier:
         self.values = tree_map(lambda t: t if t.is_meta else t.to(self.device), self.values)
         self.graphs = GraphSet(self.device, self.graph_pool, BATCH_BUCKETS)
         self.k = ens.member_count(self.values)
-        programs = tier_programs(self.cfg, float(self.temperature))
+        programs = tier_programs(self.cfg, float(self.temperature), self.member_offset)
         self._last_logits = programs.last_logits
         self._prefill = programs.prefill
         self._decode = programs.decode
@@ -239,16 +265,19 @@ class CascadeTier:
                                bucket=("classify", tuple(tokens.shape)))
 
     def generate(self, tokens: np.ndarray, max_new_tokens: int, seed: int = 0, *,
-                 eager: bool = False) -> np.ndarray:
+                 eager: bool = False, rows=None) -> np.ndarray:
         """Ensemble generation, greedy or sampled (``temperature``) under
         ``seed``: tokens (B, S) -> (E, B, max_new).  The prefill writes into
         the tier's static cache of (B, S + max_new) rows and the decode step
         runs over it at a (B,) device position, each captured once a (B, S,
         max_new) and replayed after; ``eager`` runs the oracle (a fresh
-        cache grown by ``grow_cache``, scalar positions)."""
+        cache grown by ``grow_cache``, scalar positions).  ``rows`` (B,)
+        are the rows' indices in the whole batch (default 0..B-1), which
+        key their draws: a rank that holds a block of the batch samples
+        what the whole batch's generation samples for it."""
         assert max_new_tokens >= 1, max_new_tokens
         B, S = tokens.shape
-        keys = sampling.batch_keys(seed, B)
+        keys = sampling.batch_keys(seed, B, rows)
         if eager:
             return self._generate_eager(tokens, max_new_tokens, torch.as_tensor(keys, device=self.device))
         bucket = (B, S, max_new_tokens)
@@ -351,22 +380,22 @@ class _CascadeRun:
         self.h_accept = [sc.histogram("draft_accept_rate", buckets=UNIT_BUCKETS) for sc in tier_sc]
         self.speculative = bool(cfg.speculative)
         self.theta_offset: List[float] = [0.0] * len(self.tiers)
-        self.streams = [
-            SlotStream(
-                TierBackend(
-                    t, n_slots=cfg.n_slots, max_seq=cfg.max_seq, seed=cfg.seed + i, paged=cfg.paged,
-                    page_size=cfg.page_size, n_pages=cfg.n_pages,
-                    obs=ob, pool_name=f"paging.tier{i}", eager=eager,
-                ),
-                dataclasses.replace(cfg, obs=ob),
-                name=f"slot_stream.tier{i}",
-            )
-            for i, t in enumerate(self.tiers)
-        ]
+        self.streams = [self._stream(i, t, cfg, ob, eager) for i, t in enumerate(self.tiers)]
         for h, st in zip(self.h_accept[1:], self.streams[1:]):
             st.on_draft_verified = self._accept_recorder(h)
         self.t_start: dict = {}
         self.done: List[Request] = []
+
+    def _stream(self, i: int, tier: CascadeTier, cfg: ServeConfig, ob: Observability, eager: bool):
+        return SlotStream(
+            TierBackend(
+                tier, n_slots=cfg.n_slots, max_seq=cfg.max_seq, seed=cfg.seed + i, paged=cfg.paged,
+                page_size=cfg.page_size, n_pages=cfg.n_pages,
+                obs=ob, pool_name=f"paging.tier{i}", eager=eager,
+            ),
+            dataclasses.replace(cfg, obs=ob),
+            name=f"slot_stream.tier{i}",
+        )
 
     @staticmethod
     def _accept_recorder(h):
@@ -414,27 +443,36 @@ class _CascadeRun:
                 self._finish_slot(i, r, gen)
 
     def _finish_slot(self, i: int, r: Request, gen: np.ndarray) -> None:
-        tier = self.tiers[i]
-        tr = self.tr
-        digests = np.asarray([stable_digest(gen[e]) for e in range(tier.k)], np.int32)
+        defer_h, votes, winner = self._vote(i, gen)
+        self._route(i, r, defer_h, votes / gen.shape[0], winner)
+
+    def _vote(self, i: int, gen: np.ndarray):
+        """Tier i's vote over a completed slot's member generations (E, T):
+        -> (defer, the winning digest's vote count, the winning generation)."""
+        digests = np.asarray([stable_digest(gen[e]) for e in range(gen.shape[0])], np.int32)
         out = deferral.vote_rule_from_preds(
             torch.as_tensor(digests[:, None], device=self.device), self.effective_theta(i)
         )
         # one metered fetch per completed slot: the vote verdict and the
         # winning digest
         defer_h, pred_h = host_fetch((out.defer[0], out.pred[0]))
-        defer = bool(defer_h) and i < len(self.streams) - 1
-        # agreement margin: the winning digest's vote share (1.0 = unanimous)
-        margin = float(np.unique(digests, return_counts=True)[1].max()) / tier.k
+        votes = int(np.unique(digests, return_counts=True)[1].max())
+        return bool(defer_h), votes, gen[int(np.argmax(digests == pred_h))]
+
+    def _route(self, i: int, r: Request, defer_h: bool, margin: float, winner: np.ndarray) -> None:
+        """A verdict's consequences: the request exits with ``winner`` (T,)
+        as its output, or is re-queued on tier i + 1.  ``margin`` is the
+        winning digest's vote share (1.0 = unanimous)."""
+        tr = self.tr
+        defer = defer_h and i < len(self.streams) - 1
         self.h_margin[i].record(margin)
         if tr.enabled:
-            tr.instant(r.rid, "defer_vote", tier=i, margin=margin, defer=bool(defer_h))
-        winner = int(np.argmax(digests == pred_h))
+            tr.instant(r.rid, "defer_vote", tier=i, margin=margin, defer=defer_h)
         if defer:
             self.c_deferred[i].add(1)
             # cascade-as-drafter: the plurality generation this tier voted
             # on becomes the next tier's draft
-            draft = gen[winner].astype(np.int32) if self.speculative and gen.shape[1] else None
+            draft = winner.astype(np.int32) if self.speculative and winner.shape[0] else None
             link = self.placement.link(i) if self.placement is not None else None
             if link is None:
                 r.draft = draft
@@ -443,8 +481,8 @@ class _CascadeRun:
                 self._send_deferral(i, link, r, draft)
             return
         self.c_answered[i].add(1)
-        self.c_tokens[i].add(int(gen.shape[1]))
-        r.output = gen[winner].astype(np.int32)
+        self.c_tokens[i].add(int(winner.shape[0]))
+        r.output = winner.astype(np.int32)
         r.tier = i
         self.h_lat.record(self.clk() - self.t_start[r.rid])
         if tr.enabled:
@@ -483,15 +521,211 @@ class _CascadeRun:
         self.streams[i + 1].submit_inflight(handle, land)
 
 
+class _RemoteStream:
+    """A tier's stream as a rank outside the tier's slice sees it under a
+    mesh placement: no slots and no computation.  Its queue depth (the
+    gauge the open-loop controller reads) is what the slice's first rank
+    broadcast after the tier's last step plus what was submitted since, so
+    it equals the stream's own on the slice; its slot cap follows the
+    controller as the stream's does."""
+
+    def __init__(self, n_slots: int, ob: Observability, name: str):
+        self.n_slots = self.slot_limit = n_slots
+        self.inflight: deque = deque()  # a mesh hop lands where it is sent
+        self.stats: dict = {}
+        self._g_queue = ob.scope(name).gauge("queue_depth")
+
+    def submit(self, requests: Sequence[Request]) -> None:
+        self._g_queue.set(self._g_queue.value + len(requests))
+
+    def sync_queue(self, depth: int) -> None:
+        self._g_queue.set(depth)
+
+    def set_slot_limit(self, k: int) -> None:
+        self.slot_limit = max(1, min(int(k), self.n_slots))
+
+
+class _MeshRun(_CascadeRun):
+    """``_CascadeRun`` over a mesh placement: every rank of the world runs
+    the same control loop, and a rank steps tier i's ``SlotStream`` only
+    where it belongs to slice i, decoding its own members.  Generation has
+    no EOS, so every slot runs to its budget and the ranks of a slice
+    admit, step and complete the same slots without hearing from each
+    other (a speculative verify pass agrees its accepted prefix over 'pod',
+    ``TierBackend.accepted_prefix``); only the vote needs every member.
+
+    After each step of tier i its completed slots' generations are
+    gathered over 'pod' in one gather onto the slice's first rank, which
+    votes and broadcasts the verdicts to the world: a header (completions,
+    body length, the stream's queue depth) and one packed int32 body
+    (request, defer, votes, truncated, length and the winning generation a
+    completion).  Every rank applies them in the same order, so requests,
+    counters, histograms and the controller's inputs are the same on every
+    rank.  A deferral is a hop of the prompt (and under ``speculative`` the
+    draft) from that rank over the boundary's mesh transport, which every
+    rank meters; its delivery moves the rows point to point inside
+    ``send_async``, at the same place in every rank's loop and in the same
+    order, on the caller's thread (never a worker's, which could deadlock
+    the group).  A request's progress is counted on every rank
+    (``pending``), so the loop's runnable and active tests agree too."""
+
+    def __init__(self, server: "CascadeServer", cfg: ServeConfig, ob: Observability, eager: bool):
+        self.meshes = [h.mesh for h in server.placement.hosts]
+        self.here = [collectives.in_mesh(m) for m in self.meshes]
+        self.members = [api._anchor(v).shape[0] for v in server.placed_values]
+        self.pods = [_pod_split(v, m) for v, m in zip(server.placed_values, self.meshes)]
+        super().__init__(server, cfg, ob, eager)
+        self.pending = [0] * len(self.tiers)
+        self.reqs: List[Request] = []
+        self.seq: dict = {}
+
+    def _stream(self, i, tier, cfg, ob, eager):
+        if self.here[i]:
+            return super()._stream(i, tier, cfg, ob, eager)
+        return _RemoteStream(cfg.n_slots, ob, f"slot_stream.tier{i}")
+
+    def submit(self, requests: Sequence[Request], *, t0=None) -> None:
+        for r in requests:
+            self.seq[id(r)] = len(self.reqs)
+            self.reqs.append(r)
+        self.pending[0] += len(requests)
+        super().submit(requests, t0=t0)
+
+    @property
+    def runnable(self) -> bool:
+        return any(self.pending)
+
+    @property
+    def active(self) -> bool:
+        return any(self.pending)
+
+    def sweep(self) -> None:
+        for i, st in enumerate(self.streams):
+            if self.pending[i]:
+                for q, defer_h, votes, truncated, winner in self._verdicts(i, st.step() if self.here[i] else []):
+                    r = self.reqs[q]
+                    r.truncated = truncated
+                    self.pending[i] -= 1
+                    if defer_h and i < len(self.streams) - 1:
+                        self.pending[i + 1] += 1
+                    self._route(i, r, defer_h, votes / self.members[i], winner)
+
+    def _gathered(self, i: int, done) -> list:
+        """Every member's generations of tier i's completed slots, on the
+        ranks of the slice's first rank's 'pod' line (one gather over 'pod'
+        for the whole step); the rank's own members' elsewhere."""
+        gens = [gen for _, gen in done]
+        pod, split = self.pods[i]
+        coord = self.meshes[i].get_coordinate()
+        if not (split and done and all(c == 0 for j, c in enumerate(coord) if j != pod)):
+            return gens
+        widths = np.cumsum([g.shape[1] for g in gens])
+        flat = np.concatenate(gens + [np.zeros((gens[0].shape[0], 1), np.int32)], 1)  # never empty
+        full = collectives.all_gather_rows(torch.from_numpy(np.ascontiguousarray(flat, np.int32)),
+                                           self.tiers[i].member_group).numpy()
+        return np.split(full[:, :-1], widths[:-1], axis=1)
+
+    def _verdicts(self, i: int, done) -> list:
+        """Tier i's step's verdicts on every rank of the world, in the
+        order its slots completed: (request index, defer, votes, truncated,
+        winning generation) a completion."""
+        src = first_rank(self.meshes[i])
+        header = body = None
+        if self.here[i]:
+            gens = self._gathered(i, done)
+            if dist.get_rank() == src:
+                rows = []
+                for (r, _), gen in zip(done, gens):
+                    defer_h, votes, winner = self._vote(i, gen)
+                    rows += [self.seq[id(r)], int(defer_h), votes, int(r.truncated), len(winner), *winner.tolist()]
+                body = torch.tensor(rows, dtype=torch.int32)
+                header = torch.tensor([len(done), len(rows), len(self.streams[i].queue)], dtype=torch.int32)
+        n, size, depth = (int(x) for x in collectives.broadcast(header, src, (3,), torch.int32, self.device))
+        if not self.here[i]:
+            self.streams[i].sync_queue(depth)
+        if n == 0:
+            return []
+        flat = collectives.broadcast(body, src, (size,), torch.int32, self.device).numpy()
+        out, at = [], 0
+        for _ in range(n):
+            q, defer_h, votes, truncated, T = (int(x) for x in flat[at:at + 5])
+            out.append((q, bool(defer_h), votes, bool(truncated), flat[at + 5:at + 5 + T].copy()))
+            at += 5 + T
+        return out
+
+    def _send_deferral(self, i: int, link, r: Request, draft: Optional[np.ndarray]) -> None:
+        """The re-queue over a mesh boundary: the prompt (and the draft), a
+        leading axis of one example, sent from slice i's first rank, every
+        other rank passing meta tensors of its shapes; the ranks of slice
+        i + 1 take it whole and submit the request, the others count it."""
+        tr = self.tr
+        hosts = self.hosts
+        leaves = {"tokens": np.asarray(r.tokens, np.int32)}
+        if draft is not None:
+            leaves["draft"] = draft  # rides the same metered hop
+        src = dist.get_rank() == link.src_rank
+        payload = {k: torch.from_numpy(v)[None] if src else torch.empty((1, v.size), dtype=torch.int32, device="meta")
+                   for k, v in leaves.items()}
+        if tr.enabled:
+            tr.begin(r.rid, "hop", src=hosts[i], dst=hosts[i + 1],
+                     n_bytes=int(sum(v.nbytes for v in leaves.values())))
+        delivered = link.send_async(hosts[i], hosts[i + 1], payload, n_examples=1).result()
+        if self.here[i + 1]:
+            r.tokens = _host_int32(collectives.materialize(delivered["tokens"]))[0]
+            r.draft = _host_int32(collectives.materialize(delivered["draft"]))[0] if "draft" in delivered else None
+        if tr.enabled:
+            hop = link.hops[-1]
+            tr.end(r.rid, "hop", link_s=float(hop.latency), blocked_s=0.0, hidden_s=float(hop.latency))
+        self.streams[i + 1].submit([r])
+
+
+def _pod_split(placed, mesh):
+    """(index of 'pod' among ``mesh``'s dims or None, True when a tier's
+    placed values split its members over 'pod')."""
+    from torch.distributed.tensor import Shard
+
+    names = list(mesh.mesh_dim_names)
+    pod = names.index("pod") if "pod" in names else None
+    split = pod is not None and mesh.mesh.shape[pod] > 1 and isinstance(
+        api._anchor(placed).placements[pod], Shard)
+    return pod, split
+
+
 def _placed_tier(tier: CascadeTier, placed, host) -> CascadeTier:
     """The tier a rank serves under a mesh placement: its own members
     (``placed``' local blocks) on a rank of ``host``'s slice, meta tensors
-    of their shapes elsewhere."""
-    if host.mesh.get_coordinate() is None:
+    of their shapes elsewhere.  Where the slice splits the members over
+    'pod', the rank's tier has ``k`` = its share of ``spec.k``, the stacked
+    index of its first member as ``member_offset`` and its 'pod' group as
+    ``member_group``."""
+    mesh = host.mesh
+    if mesh.get_coordinate() is None:
         local = tree_map(lambda t: t.to_local().new_empty(t.shape, device="meta"), placed)
-    else:
-        local = tree_map(lambda t: t.to_local(), placed)
-    return dataclasses.replace(tier, values=local)
+        return dataclasses.replace(tier, values=local)
+    local = tree_map(lambda t: t.to_local(), placed)
+    _, split = _pod_split(placed, mesh)
+    if not split:
+        return dataclasses.replace(tier, values=local)
+    anchor = api._anchor(placed)
+    block = collectives.block_of(mesh, anchor.placements, mesh.get_coordinate())
+    return dataclasses.replace(tier, values=local, member_offset=block * anchor.to_local().shape[0],
+                               member_group=mesh.get_group("pod"))
+
+
+def _row_ids(toks, mesh, pod) -> np.ndarray:
+    """The indices, in the fed chunk, of the rows a rank of ``mesh``
+    computes on: its block of ``toks`` (a plain tensor: every row), or with
+    ``pod`` (the rows gathered over 'pod') the blocks of its 'pod' peers in
+    the group's order.  They key the rows' sampling draws."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(toks, DTensor):
+        return np.arange(toks.shape[0], dtype=np.int64)
+    b = toks.to_local().shape[0]
+    coord = list(mesh.get_coordinate())
+    coords = [coord] if pod is None else [coord[:pod] + [p] + coord[pod + 1:] for p in range(mesh.mesh.shape[pod])]
+    blocks = [collectives.block_of(mesh, toks.placements, c) for c in coords]
+    return np.concatenate([np.arange(k * b, (k + 1) * b, dtype=np.int64) for k in blocks])
 
 
 def _host_int32(x) -> np.ndarray:
@@ -521,8 +755,15 @@ class CascadeServer:
         are put on its slice (``place_tier_values``, kept in
         ``placed_values``); on a rank of slice i, tier i becomes a copy of
         the given tier over this rank's members, and on any other rank a
-        copy over meta tensors, never computed.  ``classify`` runs tier i's
-        program, eager or graphed, on slice i's ranks."""
+        copy over meta tensors, never computed.  All four modes run over
+        it, every rank calling them with the same inputs: ``classify`` and
+        ``generate`` run tier i's programs, eager or graphed, on slice i's
+        ranks and route through ``cascade_apply_routed(meshes=)``;
+        ``serve_continuous`` and ``serve_open_loop`` step tier i's slot
+        stream on slice i's ranks (``_MeshRun``).  Where slice i splits
+        its members over 'pod', a rank's tier i holds ``k`` members, its
+        share of ``spec.k``; the vote gathers every member's answers over
+        'pod' first, and ``spec.k`` stays the whole ensemble's count."""
         self.device = resolve_device(device)
         self.tiers = list(tiers)
         self.placement = placement
@@ -546,43 +787,42 @@ class CascadeServer:
                     link.bind(dst.device)
         self.pad_to = pad_to
 
-    def _refuse_mesh(self, what: str) -> None:
-        if self.placed_values is not None:
-            raise NotImplementedError(
-                f"{what} over a mesh placement is not ported yet (ROADMAP Queue 1: generate and "
-                f"serve_continuous over a mesh placement); classify runs over one")
-
-    def _placed_fn(self, i: int, eager: bool):
-        """Tier i's logits on a rank of its slice: its members on the rows
-        it was fed, all members' logits (gathered over 'pod' where the
-        members are split over it)."""
+    def _placed_fn(self, i: int, per_rows):
+        """Tier i's answers on a rank of its slice, for every member, on the
+        rows the rank was fed.  ``per_rows(tier, local, rows)`` computes this
+        rank's members' answers (E_local, b, ...) on ``local``, the rows at
+        ``rows`` of the fed chunk.  Where the members are split over 'pod'
+        the rank first gathers its 'pod' peers' rows (when the rows are
+        split over 'pod' too), then gathers every member's answers over
+        'pod' and keeps its own block of rows."""
         from torch.distributed.tensor import DTensor, Shard
 
         tier, mesh = self.tiers[i], self.placement.hosts[i].mesh
-        names = list(mesh.mesh_dim_names)
-        pod = names.index("pod") if "pod" in names else None
-        split = pod is not None and mesh.mesh.shape[pod] > 1 and isinstance(
-            api._anchor(self.placed_values[i]).placements[pod], Shard)
+        pod, split = _pod_split(self.placed_values[i], mesh)
 
         def fn(batch):
             group = mesh.get_group("pod") if split else None
             toks = batch["tokens"]
             rows = isinstance(toks, DTensor) and split and isinstance(toks.placements[pod], Shard)
             local = toks.to_local() if isinstance(toks, DTensor) else toks
+            ids = _row_ids(toks, mesh, pod if rows else None)
             if rows:
                 # the members split over 'pod' need the rows of every
                 # 'pod' peer: gather them, keep this rank's block after
                 local = collectives.all_gather_rows(local, group)
-            logits = tier.last_logits(local.to(tier.device), eager=eager)
+            out = per_rows(tier, local.to(tier.device), ids)
             if split:
-                logits = collectives.all_gather_rows(logits, group)
+                out = collectives.all_gather_rows(out, group)
             if rows:
-                b = logits.shape[1] // mesh.mesh.shape[pod]
+                b = out.shape[1] // mesh.mesh.shape[pod]
                 c = mesh.get_coordinate()[pod]
-                logits = logits[:, c * b:(c + 1) * b]
-            return logits
+                out = out[:, c * b:(c + 1) * b]
+            return out
 
         return fn
+
+    def _run(self, cfg: ServeConfig, ob: Observability, eager: bool) -> _CascadeRun:
+        return (_CascadeRun if self.placed_values is None else _MeshRun)(self, cfg, ob, eager)
 
     def _hop_transports(self):
         """Per-boundary transports from the placement (None: no metering)."""
@@ -607,7 +847,8 @@ class CascadeServer:
         fns = [tier_fn(t) for t in self.tiers]
         if self.placed_values is not None:
             meshes = [h.mesh for h in self.placement.hosts]
-            fns = [self._placed_fn(i, eager) for i in range(len(self.tiers))]
+            fns = [self._placed_fn(i, lambda tier, local, rows: tier.last_logits(local, eager=eager))
+                   for i in range(len(self.tiers))]
         return cascade_apply_routed(
             fns, [t.spec for t in self.tiers],
             {"tokens": tokens}, pad_to=self.pad_to, device=self.device,
@@ -618,22 +859,29 @@ class CascadeServer:
                  eager: bool = False) -> CascadeResult:
         """Each tier's members generate (``CascadeTier.generate``: greedy or
         sampled under ``seed``, graphed unless ``eager``); answers are
-        digested to stable ids and vote-compared."""
-        self._refuse_mesh("generate")
+        digested to stable ids and vote-compared.
 
-        def tier_fn(tier: CascadeTier):
-            def fn(batch):
-                toks = host_fetch(batch["tokens"])
-                out = tier.generate(toks, max_new_tokens, seed=seed, eager=eager)
-                return torch.as_tensor(digest_generations(out), device=self.device)
+        Over a mesh placement a rank of slice i generates its members on
+        the rows it holds (its 'pod' peers' rows too where members and rows
+        are both split over 'pod'), each row keyed by its index in the fed
+        chunk and each member by its stacked index, so the draws are the
+        unplaced server's; the (E_local, b) digests are gathered over 'pod'
+        into every member's, and ``cascade_apply_routed(meshes=)`` routes
+        them as it routes classify's logits."""
 
-            return fn
+        def digests(tier, toks, rows=None):
+            out = tier.generate(host_fetch(toks), max_new_tokens, seed=seed, eager=eager, rows=rows)
+            return torch.as_tensor(digest_generations(out), device=tier.device)
 
+        meshes = None
+        fns = [lambda batch, tier=t: digests(tier, batch["tokens"]) for t in self.tiers]
+        if self.placed_values is not None:
+            meshes = [h.mesh for h in self.placement.hosts]
+            fns = [self._placed_fn(i, digests) for i in range(len(self.tiers))]
         specs = [dataclasses.replace(t.spec, rule="vote_preds") for t in self.tiers]
         return cascade_apply_routed(
-            [tier_fn(t) for t in self.tiers], specs, {"tokens": tokens},
-            pad_to=self.pad_to, device=self.device,
-            transport=self._hop_transports(), hosts=self._host_names(),
+            fns, specs, {"tokens": tokens}, pad_to=self.pad_to, device=self.device,
+            transport=self._hop_transports(), hosts=self._host_names(), meshes=meshes,
         )
 
     def serve_continuous(self, requests: Sequence[Request], config: ServeConfig = ServeConfig(), *,
@@ -660,14 +908,13 @@ class CascadeServer:
         loop steps every runnable stream meanwhile, blocking on the oldest
         hop only when no stream has runnable work.  Returns completed
         requests."""
-        self._refuse_mesh("serve_continuous")
         cfg = config.with_max_seq_default(256)
         for r in requests:
             assert len(r.tokens) + r.max_new_tokens <= cfg.max_seq, (
                 f"request {r.rid}: prompt+budget {len(r.tokens)}+{r.max_new_tokens} "
                 f"exceeds max_seq={cfg.max_seq}"
             )
-        run = _CascadeRun(self, cfg, cfg.resolved_obs(), eager)
+        run = self._run(cfg, cfg.resolved_obs(), eager)
         run.submit(requests)
         while run.active:
             if not run.runnable:
@@ -699,7 +946,6 @@ class CascadeServer:
         ``serve_continuous``'s (``set_slot_limit`` changes no shape), so an
         open-loop run after a closed-loop run of the same geometry captures
         nothing."""
-        self._refuse_mesh("serve_open_loop")
         cfg = config.with_max_seq_default(256)
         assert slo_s > 0 and step_time_s > 0, (slo_s, step_time_s)
         ob = cfg.obs if cfg.obs is not None else Observability(clock=VirtualClock())
@@ -714,7 +960,7 @@ class CascadeServer:
                 f"request {r.rid}: prompt+budget {len(r.tokens)}+{r.max_new_tokens} "
                 f"exceeds max_seq={cfg.max_seq}"
             )
-        run = _CascadeRun(self, cfg, ob, eager=False)
+        run = self._run(cfg, ob, eager=False)
         sc = ob.scope("serve.open_loop")
         c_offered, c_shed = sc.counter("offered"), sc.counter("shed")
         c_completed, c_in_slo = sc.counter("completed"), sc.counter("completed_in_slo")

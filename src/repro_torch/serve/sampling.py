@@ -25,6 +25,12 @@ Keys:
 * batch generation (``CascadeTier.generate``): row b's key is
   ``fold_in(base_key(seed), b)``, the draw position the fed token's.
 
+Member e of a tier draws on its index in the tier's stacked order, so a
+rank that holds members ``[offset, offset + E)`` of a tier split over a
+mesh's 'pod' axis passes ``member_offset=offset`` and draws what the
+unplaced tier draws for those members.  Likewise ``batch_keys(seed, B,
+rows=...)`` keys rows by their index in the whole batch.
+
 ``T <= 0`` is greedy: the first index of the largest logit.
 """
 from __future__ import annotations
@@ -61,17 +67,21 @@ def base_key(seed: int) -> int:
     return int(fold_in(_ROOT, int(seed) & M32))
 
 
-def batch_keys(seed: int, B: int) -> np.ndarray:
-    """(B,) int64 row keys of a batch generation under ``seed``."""
-    return fold_in(np.int64(base_key(seed)), np.arange(B, dtype=np.int64))
+def batch_keys(seed: int, B: int, rows=None) -> np.ndarray:
+    """(B,) int64 row keys of a batch generation under ``seed``: row b
+    keyed by ``rows[b]`` (default b), its index in the whole batch."""
+    rows = np.arange(B, dtype=np.int64) if rows is None else np.asarray(rows, np.int64)
+    assert rows.shape == (B,), (rows.shape, B)
+    return fold_in(np.int64(base_key(seed)), rows)
 
 
-def draw_bits(keys: torch.Tensor, pos: torch.Tensor, E: int, V: int) -> torch.Tensor:
+def draw_bits(keys: torch.Tensor, pos: torch.Tensor, E: int, V: int, member_offset: int = 0) -> torch.Tensor:
     """(E, B, V) int64 draws in [0, 2**32) for row keys (B,) at positions
-    (B,), member e and vocabulary index v."""
+    (B,), member ``member_offset + e`` and vocabulary index v."""
     dev = keys.device
     kp = fold_in(keys.to(torch.int64), pos.to(torch.int64))  # (B,)
-    ke = fold_in(kp[None, :], torch.arange(E, device=dev, dtype=torch.int64)[:, None])  # (E, B)
+    members = torch.arange(member_offset, member_offset + E, device=dev, dtype=torch.int64)
+    ke = fold_in(kp[None, :], members[:, None])  # (E, B)
     vcode = mix32((torch.arange(V, device=dev, dtype=torch.int64) + _GOLDEN) & M32)  # (V,)
     return mix32(ke[..., None] ^ vcode)
 
@@ -84,10 +94,11 @@ def gumbel(bits: torch.Tensor) -> torch.Tensor:
     return -torch.log(-torch.log(u))
 
 
-def sample(logits: torch.Tensor, keys, pos, temperature: float) -> torch.Tensor:
+def sample(logits: torch.Tensor, keys, pos, temperature: float, member_offset: int = 0) -> torch.Tensor:
     """Tokens (E, B) int32 from member logits (E, B, V): greedy at
     ``temperature <= 0``, else the Gumbel-max draw of row keys ``keys`` (B,)
-    at positions ``pos`` ((B,) or one int for every row)."""
+    at positions ``pos`` ((B,) or one int for every row), member e drawn
+    as the tier's member ``member_offset + e``."""
     if temperature <= 0.0:
         return logits.argmax(-1).to(torch.int32)
     E, B, V = logits.shape
@@ -99,5 +110,5 @@ def sample(logits: torch.Tensor, keys, pos, temperature: float) -> torch.Tensor:
     else:
         pos = torch.as_tensor(np.asarray(pos, np.int64), device=logits.device)
     pos = pos.expand(B)
-    g = gumbel(draw_bits(keys, pos, E, V))
+    g = gumbel(draw_bits(keys, pos, E, V, member_offset))
     return (logits.float() / temperature + g).argmax(-1).to(torch.int32)

@@ -56,6 +56,7 @@ and, for speculative deferral (``serve/speculative.py``), backends with
 ``supports_draft_verify`` take
 
     verify_draft(tokens (T+1,), slot, start, max_chunk) -> choices (E, T+1)
+    accepted_prefix(choices, draft) -> n_acc  (over every member of the tier)
     extend_slot(slot, n_rows) -> bool   (map private rows before the pass)
     rollback_slot(slot, keep_rows)      (unmap what the pass left past them)
 
@@ -103,6 +104,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import ensemble as ens
 from repro_torch.core.cascade import host_fetch, prompt_chunks
@@ -114,6 +116,7 @@ from repro_torch.serve import sampling
 from repro_torch.serve.graphs import GraphSet
 from repro_torch.serve.paging import PagePool
 from repro_torch.serve.speculative import accepted_prefix, plan_draft
+from repro_torch.sharding import collectives
 
 
 class SlotStream:
@@ -334,7 +337,7 @@ class SlotStream:
                 if tr.enabled:
                     tr.begin(r.rid, "verify_draft", draft_tokens=T_use)
                 choices = self.backend.verify_draft(plan.tokens, s, plan.start, self.max_chunk)
-                n_acc = accepted_prefix(choices, plan.draft)
+                n_acc = self.backend.accepted_prefix(choices, plan.draft)
                 # unmap pages wholly past the accepted span (dense: the
                 # position mask already hides the rejected rows)
                 self.backend.rollback_slot(s, P + n_acc)
@@ -733,7 +736,7 @@ class TierBackend(_SlotBackend):
         if self.paged:
             from repro_torch.serve.cascade_server import tier_paged_programs
 
-            progs = tier_paged_programs(tier.cfg, float(tier.temperature))
+            progs = tier_paged_programs(tier.cfg, float(tier.temperature), tier.member_offset)
             self._decode_paged = progs.decode_slots
             self._chunk_paged = progs.prefill_chunk
             self._verify_paged = progs.verify_chunk
@@ -800,6 +803,19 @@ class TierBackend(_SlotBackend):
             outs.append(t.clone())
             off += c
         return host_fetch(torch.cat(outs, dim=1))
+
+    def accepted_prefix(self, choices, draft) -> int:
+        """``speculative.accepted_prefix`` over every member of the tier: a
+        rank that holds some of the members of a tier split over a mesh's
+        'pod' axis (``tier.member_group``) takes the least of its 'pod'
+        group's prefixes, so every rank emits the same span."""
+        n = accepted_prefix(choices, draft)
+        group = self.tier.member_group
+        if group is not None:
+            t = torch.tensor([n], dtype=torch.int64, device=collectives.wire_device(self.tier.device))
+            dist.all_reduce(t, op=dist.ReduceOp.MIN, group=group)
+            n = int(t.item())
+        return n
 
     def _verify_fn(self, tokens, slot, start, key):
         return self._verify(self.tier.values, self.mem.state, tokens, slot, start, key)[0]

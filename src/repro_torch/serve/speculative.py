@@ -87,10 +87,11 @@ def accepted_prefix(choices: np.ndarray, draft: np.ndarray) -> int:
     return T if ok.all() else int(np.argmin(ok))
 
 
-def verify_choices(logits: torch.Tensor, slot_key, start, temperature: float) -> torch.Tensor:
+def verify_choices(logits: torch.Tensor, slot_key, start, temperature: float,
+                   member_offset: int = 0) -> torch.Tensor:
     """Member choices (E, C) int32 for the verify chunk's logits (E, C, V):
-    token (e, j) draws on (slot key, start + j, e), exactly what the decode
-    step draws for that slot at that position; the argmax at
+    token (e, j) draws on (slot key, start + j, member_offset + e), exactly
+    what the decode step draws for that slot at that position; the argmax at
     ``temperature <= 0``.  ``slot_key`` and ``start`` are ints or (1,)
     device tensors (a captured chunk's staged inputs)."""
     if temperature <= 0.0:
@@ -98,4 +99,4 @@ def verify_choices(logits: torch.Tensor, slot_key, start, temperature: float) ->
     C, dev = logits.shape[1], logits.device
     keys = torch.as_tensor(slot_key, device=dev).to(torch.int64).reshape(-1).expand(C)
     pos = torch.as_tensor(start, device=dev).to(torch.int64).reshape(-1) + torch.arange(C, device=dev)
-    return sampling.sample(logits, keys, pos, temperature)
+    return sampling.sample(logits, keys, pos, temperature, member_offset)

@@ -9,6 +9,11 @@ major, as DTensor lays them out.  Blocks move point to point, from the
 rank that holds them to the rank that needs them, so a hop or a gather
 costs the bytes it moves and needs no group beyond the world.
 
+Each move adds the bytes it sends or gathers to every active op counter
+(``obs.op_charges``: a point-to-point send or a broadcast as a
+``collective-permute``, a 'pod' gather as an ``all-gather``); with none
+active that is a no-op.
+
 Every collective runs on the process group's own device: host tensors
 under ``gloo`` (the tensor is staged through the host and back), the
 rank's card under ``nccl``.  Each function is called by every rank of the
@@ -22,6 +27,7 @@ from typing import Optional, Sequence
 import torch
 import torch.distributed as dist
 
+from repro_torch.obs.op_charges import charge_collective
 from repro_torch.sharding.mesh import mesh_ranks
 
 
@@ -125,6 +131,7 @@ def scatter_rows(full: Optional[torch.Tensor], src: int, mesh, placements, shape
             if r == me:
                 local = block.to(device, copy=True)
             else:
+                charge_collective("collective-permute", block.numel() * block.element_size())
                 works.append(dist.isend(block, r))
         for w in works:
             w.wait()
@@ -150,6 +157,7 @@ def gather_rows(x, dst: int) -> Optional[torch.Tensor]:
         holders.setdefault(block_of(mesh, placements, coord), r)
     if me != dst:
         if holders[block_of(mesh, placements, mesh.get_coordinate())] == me:
+            charge_collective("collective-permute", local.numel() * local.element_size())
             dist.send(local.to(wire_device(local.device)).contiguous(), dst)
         return None
     blocks = []
@@ -177,6 +185,7 @@ def materialize(x) -> Optional[torch.Tensor]:
     dev = x.to_local().device
     if me == first:
         wire = full.to(wire_device(dev)).contiguous()
+        charge_collective("collective-permute", (len(ranks) - 1) * wire.numel() * wire.element_size())
         works = [dist.isend(wire, r) for r in ranks[1:]]
         for w in works:
             w.wait()
@@ -192,6 +201,7 @@ def broadcast(t: Optional[torch.Tensor], src: int, shape, dtype, device) -> torc
     ``shape`` and ``dtype`` it has."""
     wire = wire_device(device)
     buf = t.to(wire).contiguous() if dist.get_rank() == src else torch.empty(tuple(shape), dtype=dtype, device=wire)
+    charge_collective("collective-permute", buf.numel() * buf.element_size())
     dist.broadcast(buf, src)
     return buf
 
@@ -204,5 +214,6 @@ def all_gather_rows(t: torch.Tensor, group) -> torch.Tensor:
         return t
     wire = t.to(wire_device(t.device)).contiguous()
     out = [torch.empty_like(wire) for _ in range(n)]
+    charge_collective("all-gather", n * wire.numel() * wire.element_size())
     dist.all_gather(out, wire, group=group)
     return torch.cat(out).to(t.device)

@@ -179,10 +179,12 @@ def with_logical_constraint(x, axes: Sequence[Optional[str]]):
     """Redistribute a ``DTensor`` to the active rule table's placements on
     its own mesh.  A no-op with no rules installed, on a plain tensor, or
     when the tensor's rank does not match the annotation."""
+    rules = _CTX.rules
+    if rules is None:  # the serving and training paths: no rule table, no import
+        return x
     from torch.distributed.tensor import DTensor
 
-    rules = _CTX.rules
-    if rules is None or not isinstance(x, DTensor) or len(axes) != x.ndim:
+    if not isinstance(x, DTensor) or len(axes) != x.ndim:
         return x
     spec = logical_to_pspec(axes, rules, shape=x.shape, mesh=x.device_mesh)
     return x.redistribute(x.device_mesh, logical_placements(spec, x.device_mesh, x.ndim))

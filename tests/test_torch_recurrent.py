@@ -420,15 +420,27 @@ def test_port_configs_match_jax():
 
 
 def test_no_fallback_off_the_cpu(monkeypatch):
-    """A tensor that is not on the CPU never takes the plain version: the
-    scans go to their kernel wrappers, which refuse anything but a CUDA
-    tensor; and without a card an entry point raises instead of running on
-    the CPU."""
+    """A tensor that is not on the CPU never takes the plain version: a meta
+    tensor (the dry run) gets its outputs' shapes and computes nothing; the
+    kernel wrappers refuse anything but a CUDA tensor; and without a card an
+    entry point raises instead of running on the CPU."""
     meta = lambda *s: torch.empty(*s, device="meta")
+
+    def plain(*a, **k):
+        raise AssertionError("the plain version ran off the CPU")
+
+    monkeypatch.setattr(t_wkv_ops, "wkv6_plain", plain)
+    monkeypatch.setattr(t_ssd_ops, "ssd_plain", plain)
+    wkv_args = (meta(1, 4, 2, 16), meta(1, 4, 2, 16), meta(1, 4, 2, 16), meta(1, 4, 2, 16), meta(2, 16))
+    ssd_args = (meta(1, 4, 2, 16), meta(1, 4, 2), meta(2), meta(1, 4, 1, 8), meta(1, 4, 1, 8))
+    y = t_wkv_ops.wkv6(*wkv_args)
+    assert y.is_meta and y.shape == (1, 4, 2, 16)
+    y = t_ssd_ops.ssd(*ssd_args)
+    assert y.is_meta and y.shape == (1, 4, 2, 16)
     with pytest.raises(ValueError, match="CUDA tensor"):
-        t_wkv_ops.wkv6(meta(1, 4, 2, 16), meta(1, 4, 2, 16), meta(1, 4, 2, 16), meta(1, 4, 2, 16), meta(2, 16))
+        t_wkv_ops._wkv6_cuda(*wkv_args, initial_state=None)
     with pytest.raises(ValueError, match="CUDA tensor"):
-        t_ssd_ops.ssd(meta(1, 4, 2, 16), meta(1, 4, 2), meta(2), meta(1, 4, 1, 8), meta(1, 4, 1, 8))
+        t_ssd_ops._ssd_cuda(*ssd_args, initial_state=None)
     from repro_torch.serve import ServingEngine
 
     cfg = get_config("rwkv6-7b").reduced()

@@ -17,9 +17,11 @@ classify of ``tests/test_placement_transport.py``'s ``_POD_SCRIPT`` on a
 members a 'pod' rank, on the JAX package's own initial weights carried
 over through numpy; a one-rank world holds the counterpart of
 ``test_sharded_transport_single_device_degrades_to_replication`` and the
-mesh placement's refusal of generate and serve_continuous, in the same
+check that generate, serve_continuous and serve_open_loop run over a
+one-tier mesh placement and equal the unplaced server, in the same
 subprocess, which also runs ``tests/test_torch_placement.py``'s
-degenerate placement.  Both worlds meet through a ``FileStore`` under the
+degenerate placement.  Both worlds then run the serving modes over a pod
+placement (``test_serving_modes_over_a_mesh_equal_unplaced``).  Both worlds meet through a ``FileStore`` under the
 session's temporary directory and import no JAX; the ``mesh_worlds``
 fixture runs them once a session for both files.
 """
@@ -59,6 +61,17 @@ from repro_torch.sharding.mesh import local_mesh
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 KINDS = ("train", "prefill", "decode", "decode_long")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for the tiny serving cascade run in this process:
+    the suite runs several workers on the CPU at once, and idle threads of
+    each spin against the others."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _jmesh(sizes):
@@ -254,8 +267,47 @@ def _setup():
     logits = {name: np.asarray(jax.jit(lambda v, t: j_ens.ensemble_last_logits(v, {"tokens": t}, jcfg))(
         jv, jnp.asarray(toks))) for name, jv, jcfg in (("small", j_small, SMALL), ("big2", j_big2, BIG))}
     logits["big"] = logits["big2"][:1]  # 'big' is big2's first member
-    return setup, {f"{names[1]}/{hi}": _jax_routing(logits, names, setup[hi])
-                   for names in (("small", "big"), ("small", "big2")) for hi in ("theta", "theta_hi")}
+    ref = {f"{names[1]}/{hi}": _jax_routing(logits, names, setup[hi])
+           for names in (("small", "big"), ("small", "big2")) for hi in ("theta", "theta_hi")}
+    # the serving cascade: tier 1 'small' with its second member a nudged
+    # copy of its first, so the members agree on some rows and not others
+    near = jax.tree.map(lambda x: np.array(x, copy=True), j_small)
+    rng = np.random.default_rng(4)
+
+    def nudge(x):
+        if x.dtype.kind == "f":
+            x[1] = x[0] + NUDGE * float(x[0].std() or 1.0) * rng.standard_normal(x[0].shape).astype(x.dtype)
+        return x
+
+    near = jax.tree.map(nudge, near)
+    setup["near"] = dict(small, values=params_from_numpy(near, small["cfg"], device="cpu"))
+    prng = np.random.default_rng(5)
+    setup["serve"] = {"theta": 0.5, "prompts": [(prng.integers(0, 64, int(prng.integers(3, 13))).astype(np.int32),
+                                                 int(prng.integers(2, 5))) for _ in range(8)]}
+    return setup, ref
+
+
+NUDGE = 0.05  # member 1 of the serving tier 1: member 0 plus this much noise (in its leaf's std)
+
+
+def _jax_serving(setup):
+    """The JAX package's greedy generate and serve_continuous of the
+    serving cascade on the same weights (carried back through numpy)."""
+    from repro.core.cascade import TierSpec as JTierSpec
+    from repro.serve import CascadeServer as JServer
+    from repro.serve import CascadeTier as JTier
+    from repro.serve import Request as JRequest
+    from repro.serve import ServeConfig as JServeConfig
+
+    specs = [JTierSpec("t1", "vote", setup["serve"]["theta"], k=2, cost=1.0),
+             JTierSpec("t2", "confidence", -1.0, k=2, cost=50.0)]
+    j_values = [jax.tree.map(jnp.asarray, numpy_values(setup[n]["values"])) for n in ("near", "big2")]
+    server = JServer([JTier(SMALL, j_values[0], specs[0]), JTier(BIG, j_values[1], specs[1])])
+    res = server.generate(setup["tokens"].numpy(), 3, seed=5)
+    reqs = [JRequest(tokens=t, max_new_tokens=m) for t, m in setup["serve"]["prompts"]]
+    server.serve_continuous(reqs, JServeConfig(n_slots=4, max_seq=32, page_size=8, seed=3))
+    return {"generate": {"pred": np.asarray(res.pred).tolist(), "tier_of": np.asarray(res.tier_of).tolist()},
+            "serve": [[np.asarray(r.output).tolist(), int(r.tier)] for r in reqs]}
 
 
 def _jax_routing(logits, names, theta):
@@ -343,8 +395,9 @@ def test_pod_placement_across_eight_ranks(mesh_worlds):
     transition, keeps each tier's weights on its slice, and feeds each
     tier-2 chunk ``rows / shard_count`` rows a rank.  Then, in the same
     subprocess, a world of one rank: the counterpart of
-    ``test_sharded_transport_single_device_degrades_to_replication`` and
-    the mesh placement's refusals."""
+    ``test_sharded_transport_single_device_degrades_to_replication``, and
+    generate, serve_continuous and serve_open_loop over a one-tier mesh
+    placement equal to the unplaced server."""
     setup, worlds = mesh_worlds.setup, mesh_worlds.worlds
     ranks = worlds["pods"]
     assert len(ranks) == 8
@@ -419,9 +472,8 @@ def test_pod_placement_across_eight_ranks(mesh_worlds):
             assert run["link"]["examples"] == n
     # then a world of one rank: a (1, 1, 1) pod mesh has nowhere to shard, so
     # the sharded hand-off degrades to replication with metering unchanged;
-    # a one-tier pod placement classifies as the unplaced server; generate
-    # and serve_continuous over a mesh placement raise; the production mesh
-    # needs its 256 ranks
+    # a one-tier pod placement classifies, generates and serves as the
+    # unplaced server; the production mesh needs its 256 ranks
     (out,) = worlds["one_rank"]
     assert out["mesh_shape"] == [1, 1, 1]
     sh = out["sharded"]
@@ -430,5 +482,84 @@ def test_pod_placement_across_eight_ranks(mesh_worlds):
     assert sh["data_size"] == 1 and sh["spec"] == [["pod", "data"], None]  # size-1 axes divide: one shard
     assert "needs 256 ranks" in out["production_mesh"] and out["submeshes"] == 1
     assert out["classify_equal"]
-    for what in ("generate", "serve_continuous"):
-        assert out["refused"][what].startswith(f"{what} over a mesh placement is not ported yet")
+    # the modes a mesh placement once refused run over it and equal the
+    # unplaced server
+    assert out["refused"] == {"generate": True, "serve_continuous": True, "serve_open_loop": True}
+
+
+def numpy_values(values):
+    """The port's values tree (a dict of tensors) as numpy, for JAX."""
+    if isinstance(values, dict):
+        return {k: numpy_values(v) for k, v in values.items()}
+    if isinstance(values, list):
+        return [numpy_values(v) for v in values]
+    return values.detach().cpu().numpy()
+
+
+@pytest.fixture(scope="session")
+def jax_serving(mesh_worlds, tmp_path_factory):
+    """The JAX package's serving of the same cascade, computed once a
+    session beside the worlds (its compiles are the costly part): the
+    first worker that asks computes it under a lock, the others read it."""
+    shared = os.environ.get("PYTEST_XDIST_WORKER") is not None
+    root = (tmp_path_factory.getbasetemp().parent if shared else tmp_path_factory.getbasetemp()) / "mesh_worlds"
+    with FileLock(str(root / "jax_serving.lock")):
+        path = root / "jax_serving.json"
+        if not path.exists():
+            path.write_text(json.dumps(_jax_serving(mesh_worlds.setup)))
+    return json.loads(path.read_text())
+
+
+@pytest.fixture(scope="module")
+def serving_refs(mesh_worlds):
+    """The serving cascade on one process: unplaced (what every rank must
+    equal) and over ``single_host(2)`` (the hops a boundary meters)."""
+    from torch_mesh_world import serve_modes
+
+    from repro_torch.serve.placement import single_host
+
+    setup = mesh_worlds.setup
+    names = ("near", "big2")
+    return (serve_modes(setup, lambda: None, names, (True, True)),
+            serve_modes(setup, lambda: single_host(2), names, (True, True)))
+
+
+@pytest.mark.parametrize("world,key", [("pods", "serve222"), ("pods", "serve421"), ("one_rank", "serve111")])
+def test_serving_modes_over_a_mesh_equal_unplaced(mesh_worlds, serving_refs, jax_serving, world, key):
+    """generate (greedy and T = 0.8), serve_continuous (greedy, T = 0.8 and
+    speculative) and serve_open_loop under the greedy controller over a
+    pod placement: on (2, 2, 2), on (4, 2, 1) with each tier's two members
+    one a 'pod' rank (the global member index keys their draws), and with
+    both tiers on one rank's (1, 1, 1) mesh.  Every rank's results equal
+    the port's unplaced server's bitwise (pred, tier_of, scores, tokens,
+    r.tier, completion order, the open-loop report and the controller's
+    actions), its hops those a ``single_host`` boundary meters, and the
+    unplaced server's greedy generate and serve_continuous equal the JAX
+    package's on the same weights."""
+    plain, hosted = serving_refs
+    want = jax_serving
+    # the unplaced server against the JAX package (greedy)
+    np.testing.assert_array_equal(plain["generate@0"]["result"]["pred"], want["generate"]["pred"])
+    np.testing.assert_array_equal(plain["generate@0"]["result"]["tier_of"], want["generate"]["tier_of"])
+    assert [[o, t] for o, t, _ in plain["serve@0"]["out"]] == want["serve"]
+    # the cascade defers some requests and answers others at tier 1
+    assert {t for _, t, _ in plain["serve@0"]["out"]} == {0, 1}
+    assert 0 < sum(plain["generate@0"]["result"]["tier_of"]) < B
+    assert hosted["speculative"]["drafts"] > 0
+    ranks = mesh_worlds.worlds[world]
+    assert len(ranks) == (8 if world == "pods" else 1)
+    for r, out in enumerate(ranks):
+        got = out[key]
+        assert set(got) == set(plain)
+        for mode, ref in plain.items():
+            g = got[mode]
+            if mode.startswith("generate"):
+                for f in ("pred", "tier_of", "tier_counts", "scores", "evaluated", "cost"):
+                    assert g["result"][f] == ref["result"][f], (r, mode, f)
+            elif mode == "open_loop":
+                assert {k: v for k, v in g.items() if k != "hops"} == {k: v for k, v in ref.items() if k != "hops"}, \
+                    (r, mode)
+            else:
+                assert (g["out"], g["order"]) == (ref["out"], ref["order"]), (r, mode)
+            assert g["hops"] == hosted[mode]["hops"], (r, mode)
+        assert got["open_loop"]["actions"], "the controller acted"

@@ -17,6 +17,7 @@ package's weights over through numpy.  A rank that raises fails the run
 """
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import json
 import multiprocessing
@@ -106,6 +107,98 @@ def _placed_run(setup, mesh, names, theta, *, shard_examples=True, spy=False):
     return out, pl, server
 
 
+def _serve_tiers(setup, names, here, temperature=0.0):
+    """The serving cascade: tier 1 a two-member digest vote (defer when
+    the members disagree), tier 2 answering every row."""
+    from repro_torch.core.cascade import TierSpec
+    from repro_torch.serve import CascadeTier
+
+    specs = [TierSpec("t1", "vote", setup["serve"]["theta"], k=setup[names[0]]["k"], cost=1.0),
+             TierSpec("t2", "confidence", -1.0, k=setup[names[1]]["k"], cost=50.0)]
+    return [CascadeTier(setup[n]["cfg"], setup[n]["values"] if h else _meta(setup[n]["values"]), spec,
+                        temperature=temperature, device="cpu")
+            for n, spec, h in zip(names, specs, here)]
+
+
+def _requests(setup):
+    from repro_torch.serve import Request
+
+    return [Request(tokens=np.asarray(t, np.int32), max_new_tokens=m) for t, m in setup["serve"]["prompts"]]
+
+
+def _served(reqs, done):
+    order = {id(r): i for i, r in enumerate(reqs)}
+    return {"out": [[r.output.tolist(), r.tier, r.truncated] for r in reqs], "order": [order[id(r)] for r in done]}
+
+
+def _hops(link, n0):
+    return [[h.n_examples, h.payload_bytes] for h in link.hops[n0:]]
+
+
+def _report(report, arrivals):
+    """An open-loop report with each request named by its arrival index."""
+    idx = {id(r): i for i, r in enumerate(arrivals)}
+    return {"offered": report.offered, "completed": [[idx[id(r)], r.tier, r.output.tolist()] for r in report.completed],
+            "shed": [idx[id(r)] for r in report.shed], "goodput": report.goodput, "p50": report.p50_s,
+            "p99": report.p99_s, "makespan": report.makespan_s, "actions": report.controller_actions}
+
+
+def serve_modes(setup, placement_of, names, here):
+    """generate (greedy and T = 0.8 under a seed), serve_continuous (greedy,
+    T = 0.8 and speculative) and serve_open_loop under the greedy
+    controller, each on a server over ``placement_of()`` (None: unplaced;
+    a placement reused across the modes, its hops sliced a mode)."""
+    from repro_torch.serve import CascadeServer, ServeConfig
+    from repro_torch.serve.controller import ControllerConfig, GreedyController
+
+    pl = placement_of()
+    link = pl.link(0) if pl is not None else None
+    out = {}
+    toks = setup["tokens"].numpy()
+    cfg = ServeConfig(n_slots=4, max_seq=32, page_size=8, seed=3)
+    for T in (0.0, 0.8):
+        server = CascadeServer(_serve_tiers(setup, names, here, T), device="cpu", placement=pl)
+        n0 = len(link.hops) if link is not None else 0
+        res = server.generate(toks, 3, seed=5)
+        out[f"generate@{T:g}"] = {"result": _result(res), "hops": _hops(link, n0) if link is not None else None}
+        reqs = _requests(setup)
+        n0 = len(link.hops) if link is not None else 0
+        done = server.serve_continuous(reqs, cfg)
+        out[f"serve@{T:g}"] = dict(_served(reqs, done), hops=_hops(link, n0) if link is not None else None)
+    server = CascadeServer(_serve_tiers(setup, names, here), device="cpu", placement=pl)
+    reqs = _requests(setup)
+    n0 = len(link.hops) if link is not None else 0
+    done = server.serve_continuous(reqs, dataclasses.replace(cfg, speculative=True))
+    out["speculative"] = dict(_served(reqs, done), hops=_hops(link, n0) if link is not None else None,
+                              drafts=server.last_stream_stats[1].get("spec_drafts"))
+    wl = _workload(setup)
+    ctl = GreedyController(ControllerConfig(interval_s=0.05, shed_margin=1.0))
+    n0 = len(link.hops) if link is not None else 0
+    arrivals = []
+    report = server.serve_open_loop(_Recorded(wl, arrivals), cfg, slo_s=0.2, step_time_s=0.01, controller=ctl)
+    out["open_loop"] = dict(_report(report, arrivals), hops=_hops(link, n0) if link is not None else None)
+    return out
+
+
+class _Recorded:
+    """A workload that keeps the requests it hands out, in arrival order."""
+
+    def __init__(self, wl, into):
+        self.wl, self.into = wl, into
+
+    def __iter__(self):
+        for t, r in self.wl:
+            self.into.append(r)
+            yield t, r
+
+
+def _workload(setup):
+    from repro_torch.serve.workload import bursty
+
+    return bursty(2.0, 400.0, 16, seed=3, mean_on_s=0.5, mean_off_s=0.3, prompt_len=(4, 12),
+                  max_new_tokens=(2, 4), vocab=64)
+
+
 def world_of_8(setup, rank):
     from torch.distributed.device_mesh import init_device_mesh
 
@@ -148,6 +241,15 @@ def world_of_8(setup, rank):
     out["pod421"] = run
     run, _, _ = _placed_run(setup, mesh421, ("small", "big2"), setup["theta_hi"], spy=True)
     out["pod421_two_chunks"] = run
+
+    # generate, serve_continuous and serve_open_loop over both meshes: on
+    # (4, 2, 1) each tier's two members are split one a 'pod' rank
+    from repro_torch.serve.placement import pod_placement
+
+    for key, m in (("serve222", mesh), ("serve421", mesh421)):
+        pl = pod_placement(m, 2)
+        here = [h.mesh.get_coordinate() is not None for h in pl.hosts]
+        out[key] = serve_modes(setup, lambda pl=pl: pl, ("near", "big2"), here)
     return out
 
 
@@ -186,18 +288,33 @@ def world_of_1(setup, rank):
     plain = CascadeServer([tier], device="cpu")
     toks = setup["tokens"].numpy()
     out["classify_equal"] = bool(np.array_equal(placed.classify(toks).pred, plain.classify(toks).pred))
-    refused = {}
-    for what, call in (("generate", lambda: placed.generate(toks[:2], 2)),
-                       ("serve_continuous", lambda: placed.serve_continuous(
-                           [Request(tokens=toks[0], max_new_tokens=2)], ServeConfig(n_slots=2, max_seq=32)))):
-        try:
-            call()
-            refused[what] = "ran"
-        except NotImplementedError as e:
-            refused[what] = str(e)
-    out["refused"] = refused
+    # the three modes a mesh placement once refused run and equal the
+    # unplaced server's
+    ran = {}
+    reqs = [Request(tokens=toks[i], max_new_tokens=2) for i in range(4)]
+    plain_reqs = [Request(tokens=toks[i], max_new_tokens=2) for i in range(4)]
+    ran["generate"] = bool(np.array_equal(placed.generate(toks[:2], 2).pred, plain.generate(toks[:2], 2).pred))
+    cfg2 = ServeConfig(n_slots=2, max_seq=32)
+    placed.serve_continuous(reqs, cfg2)
+    plain.serve_continuous(plain_reqs, cfg2)
+    ran["serve_continuous"] = all(np.array_equal(a.output, b.output) for a, b in zip(reqs, plain_reqs))
+    reports = [s.serve_open_loop(_workload(setup), cfg2, slo_s=0.2) for s in (placed, plain)]
+    ran["serve_open_loop"] = all(
+        [r.output.tolist() for r in a.completed] == [r.output.tolist() for r in b.completed]
+        and (a.goodput, a.makespan_s) == (b.goodput, b.makespan_s) for a, b in [reports])
+    out["refused"] = ran
     out["degenerate"] = _degenerate(setup, mesh)
+    # both tiers of the serving cascade on the one rank's (1, 1, 1) mesh
+    out["serve111"] = serve_modes(setup, lambda: _one_mesh_placement(mesh), ("near", "big2"), (True, True))
     return out
+
+
+def _one_mesh_placement(mesh):
+    from repro_torch.serve.placement import Host, TierPlacement
+    from repro_torch.serve.transport import ShardedDevicePutTransport
+
+    return TierPlacement((Host("pod0", "pod", mesh=mesh), Host("pod1", "pod", mesh=mesh)),
+                         (ShardedDevicePutTransport(mesh, src_mesh=mesh),))
 
 
 def _degenerate(setup, mesh):
