@@ -54,6 +54,15 @@ Phases, in order; any failure raises and exits non-zero:
    f32 (normwise 1e-5), every G from 1 to 16 at hd 40 in both, paged
    bitwise the dense kernel at each; timed at the examples' shapes (bf16)
    and the main path's (f32), each a row under its kernel's ``widths``.
+   Then the routes past those (``check_wide_routes``, its own generator):
+   flash, dense and paged decode at hd 256, 200, 100, 20, 3 and 300 and at
+   G 32 and 71 in bf16, f16 and f32 (paged bitwise the dense kernel), the SSD
+   on the dual form at N 128, P 128 and P 96 and on the run-time (P, N)
+   scan in bf16 and f32, WKV6 on the run-time-D scan at D 128 and 48;
+   timed: flash hd 256 (bf16) and f16 hd 128 against SDPA, decode at G 32
+   and 64 against SDPA, the SSD at N 128 and WKV6 at D 128 against their
+   bounds, each a row under its kernel's ``routes`` (and in the kernels
+   line).
    Then training (``check_flash_training``, its own generator): flash's
    lse output against the plain version's (abs 1e-3) at B 4 x S 1024 with
    qwen2.5-3b's heads (16, 2) at hd 128, zamba2's hd 80 at G 1, and a window
@@ -418,7 +427,7 @@ def bound(n_bytes, n_ops, peak_ops):
 def bound_of(cost):
     """``bound`` of a kernel call's ``cost(...)`` (``kernels/*/ops.py``: the
     one place a kernel's bytes and operations are counted)."""
-    peak = {"bf16": BF16_FLOPS, "tf32": TF32_FLOPS, "f32": F32_FLOPS}[cost["unit"]]
+    peak = {"bf16": BF16_FLOPS, "f16": BF16_FLOPS, "tf32": TF32_FLOPS, "f32": F32_FLOPS}[cost["unit"]]
     return bound(cost["bytes"], cost["flops"], peak)
 
 
@@ -1122,6 +1131,161 @@ def check_attention_widths(dev, g):
     for what, (E, B, H, KVH, hd) in EXAMPLE_PAGED.items():
         paged_timed(f"bf16 {what}", E, B, H, KVH, hd, 16, 2, hd, torch.bfloat16)
     paged_timed("f32 hd128", 3, 8, 16, 2, 128, 16, 32, 0, torch.float32)  # tier 1's serve decode
+    return out
+
+
+# The inputs the reference's kernels take past the port's earlier routes:
+# hd 129-256 (the 256-wide bodies), hd off the multiples of 8 (zero-padded
+# by the wrappers in 16 bits), hd past 256 (attend_any), G 32 and 71 (the
+# heads in tiles of 16), in bf16, f16 and f32: (hd, H, KVH)
+WIDE_ATTN = ((256, 8, 2), (200, 4, 2), (100, 6, 2), (20, 4, 1), (3, 2, 1), (300, 4, 2), (64, 32, 1), (64, 71, 1))
+WIDE_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
+
+
+def check_wide_routes(dev, g):
+    """The routes this slice added, against their plain versions: flash,
+    dense and paged decode at every ``WIDE_ATTN`` shape in every
+    ``WIDE_DTYPES`` type (the cases of ``check_attention_widths``), the SSD
+    on the dual form at N 128 and P 128 and on the run-time (P, N) scan in
+    both types, WKV6 on the run-time-D scan at D 128 and 48.  Timed: flash
+    at hd 256 (Gemma 2 9B's 16 heads on 8) in bf16 and at hd 128 in f16
+    (cell 1's classify prefill), against SDPA at the same shape and type;
+    decode at G 32 and 64 against SDPA; the SSD at N 128 (mamba2-2.7b's 80
+    heads of 64 at d_state 128 over 32 x 256 prompts) and WKV6 at D 128
+    against their bounds.  Draws from its own generator.  Returns {kernel
+    name: {"max_abs_err", "routes": {route: row}}}."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.compaction.ops import gather_rows_plain
+    from repro_torch.kernels.decode_attention import ops as dec
+    from repro_torch.kernels.flash_attention import ops as fl
+    from repro_torch.kernels.mamba2_ssd import ops as ssd
+    from repro_torch.kernels.rwkv6_wkv import ops as wkv
+
+    out = {n: {"max_abs_err": 0.0, "routes": {}} for n in
+           ("flash_attention", "decode_attention", "decode_attention_paged", "mamba2_ssd", "rwkv6_wkv")}
+    T = lambda *xs: torch.tensor(xs, dtype=torch.int32, device=dev)  # noqa: E731
+    mk = lambda *s, dtype=torch.bfloat16: torch.randn(*s, device=dev, generator=g).to(dtype)  # noqa: E731
+
+    def held(name, got, ref, what):
+        require(got.dtype == ref.dtype and got.shape == ref.shape, f"{name} {what}: {got.dtype} {tuple(got.shape)} "
+                f"against the plain version's {ref.dtype} {tuple(ref.shape)}")
+        err = (got.float() - ref.float()).abs().max().item()
+        if got.dtype == torch.float32:
+            e32 = normwise_err(got, ref)
+            require(math.isfinite(e32) and e32 <= F32_ATTN_TOL, f"{name} {what}: f32 normwise err {e32} > {F32_ATTN_TOL}")
+        else:
+            tol = FLASH_TOL if name == "flash_attention" else DECODE_TOL
+            require(math.isfinite(err) and err <= tol, f"{name} {what}: err {err} > {tol}")
+        out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
+        return err
+
+    def flash(q, k, v, what, **kw):
+        return held("flash_attention", fl.flash_attention(q, k, v, **kw), fl.flash_attention_plain(q, k, v, **kw), what)
+
+    def decode(q, kc, vc, cur, what, **kw):
+        return held("decode_attention", dec.decode_attention_bksd(q, kc, vc, cur, **kw),
+                    dec.decode_attention_plain(q, kc, vc, cur, **kw), what)
+
+    def paged(E, B, H, KVH, hd, ps, n_pg, cur, what, dtype, holes=(), **kw):
+        P = B * n_pg + 1
+        q, kp, vp = mk(E * B, 1, H, hd, dtype=dtype), mk(E, P, KVH, ps, hd, dtype=dtype), mk(E, P, KVH, ps, hd, dtype=dtype)
+        pages, cur_t = shuffled_table(cur, n_pg, ps, P, holes, dev=dev, g=g), T(*cur)
+        got = dec.decode_attention_paged(q, kp, vp, pages, cur_t, **kw)
+        held("decode_attention_paged", got, dec.decode_attention_paged_plain(q, kp, vp, pages, cur_t, **kw), what)
+        kv, vv = (dec.paged_pool_view(t, pages, gather_rows_plain) for t in (kp, vp))
+        require(torch.equal(got, dec.decode_attention_bksd(q, kv, vv, cur_t.repeat(E), **kw)),
+                f"paged decode {what} is not bitwise the dense kernel on the gathered view")
+
+    for dtype in WIDE_DTYPES:
+        dn = str(dtype).split(".")[-1]
+        for hd, H, KVH in WIDE_ATTN:
+            w = f"{dn} hd {hd} G {H // KVH}"
+            flash(mk(2, 200, H, hd, dtype=dtype), mk(2, 200, KVH, hd, dtype=dtype), mk(2, 200, KVH, hd, dtype=dtype),
+                  f"{w} causal", causal=True, starts=T(0, 37))
+            flash(mk(2, 77, H, hd, dtype=dtype), mk(2, 150, KVH, hd, dtype=dtype), mk(2, 150, KVH, hd, dtype=dtype),
+                  f"{w} window softcap", causal=False, window=40, softcap=20.0)
+            S = 600
+            q, kc, vc = mk(3, 1, H, hd, dtype=dtype), mk(3, KVH, S, hd, dtype=dtype), mk(3, KVH, S, hd, dtype=dtype)
+            decode(q, kc, vc, T(1, 300, S), f"{w} cur_len")
+            decode(q, kc, vc, T(S, 129, 1), f"{w} starts", starts=T(S - 1, 128, 1))
+            decode(q, kc, vc, T(513, S, 65), f"{w} window softcap", window=200, softcap=20.0)
+            paged(2, 3, H, KVH, hd, 16, 8, [100, 5, 128], f"{w} holes", dtype, holes=[(0, 2), (2, 7)])
+            paged(1, 4, H, KVH, hd, 16, 8, [120, 33, 128, 9], f"{w} window", dtype, window=40, softcap=20.0)
+
+    def row(name, what, shape, err, timed, cost):
+        b_ms, b_by = bound_of(cost)
+        out[name]["routes"][what] = dict(shape=shape, max_abs_err=err, **timed, bound_ms=b_ms, bound_by=b_by)
+        log(f"  [wide] {name} {what}: {json.dumps(out[name]['routes'][what])}")
+
+    def flash_timed(what, B, S, H, KVH, hd, dtype):
+        q, k, v = mk(B, S, H, hd, dtype=dtype), mk(B, S, KVH, hd, dtype=dtype), mk(B, S, KVH, hd, dtype=dtype)
+        err = flash(q, k, v, f"{what} timed", causal=True)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        t = timings(lambda: fl.flash_attention(q, k, v, causal=True),
+                    lambda: fl.flash_attention_plain(q, k, v, causal=True),
+                    lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True), plain_iters=5)
+        row("flash_attention", what, {"q": list(q.shape), "kv": list(k.shape), "dtype": str(dtype)}, err, t,
+            fl.cost(q, k, v, causal=True))
+
+    def decode_timed(what, B, H, KVH, S, cur, hd, dtype):
+        q, kc, vc = mk(B, 1, H, hd, dtype=dtype), mk(B, KVH, S, hd, dtype=dtype), mk(B, KVH, S, hd, dtype=dtype)
+        err = decode(q, kc, vc, cur, f"{what} timed")
+        qt, ks, vs = q.transpose(1, 2), kc[:, :, :cur], vc[:, :, :cur]
+        t = timings(lambda: dec.decode_attention_bksd(q, kc, vc, cur), lambda: dec.decode_attention_plain(q, kc, vc, cur),
+                    lambda: F.scaled_dot_product_attention(qt, ks, vs, enable_gqa=True))
+        row("decode_attention", what, {"q": list(q.shape), "cache": list(kc.shape), "cur_len": cur, "dtype": str(dtype)},
+            err, t, dec.cost(q, kc, vc, cur))
+
+    flash_timed("bf16 hd256", 4, 1024, 16, 8, 256, torch.bfloat16)
+    flash_timed("f16 hd128", 96, 256, 16, 2, 128, torch.float16)
+    decode_timed("bf16 G32", 8, 32, 1, 2048, 2047, 128, torch.bfloat16)
+    decode_timed("bf16 G64", 8, 64, 1, 2048, 2047, 128, torch.bfloat16)
+
+    def scan_inputs(shape, dtype, scan):
+        if scan == "ssd":
+            B, S, H, P, G, N = shape
+            x = mk(B, S, H, P, dtype=dtype)
+            Bm, Cm = (torch.randn(B, S, G, N, device=dev, generator=g).mul(0.5).to(dtype) for _ in range(2))
+            dt = F.softplus(torch.randn(B, S, H, device=dev, generator=g) - 2.0)
+            A = -torch.exp(torch.randn(H, device=dev, generator=g) * 0.3)
+            s0 = torch.randn(B, H, N, P, device=dev, generator=g).mul(0.2)
+            return (x, dt, A, Bm, Cm), s0, ssd
+        B, S, H, D = shape
+        r, k, v = (mk(B, S, H, D, dtype=dtype) for _ in range(3))
+        logw = -torch.exp(torch.randn(B, S, H, D, device=dev, generator=g) * 0.5 - 2.0)
+        u = torch.randn(H, D, device=dev, generator=g).mul(0.5)
+        s0 = torch.randn(B, H, D, D, device=dev, generator=g).mul(0.1)
+        return (r, k, v, logw, u), s0, wkv
+
+    def scan(name, what, shape, dtype, timed=False):
+        kind = "ssd" if name == "mamba2_ssd" else "wkv6"
+        args, s0, mod = scan_inputs(shape, dtype, kind)
+        fn = mod.ssd if kind == "ssd" else mod.wkv6
+        plain = mod.ssd_plain if kind == "ssd" else mod.wkv6_plain
+        got = fn(*args, initial_state=s0, return_final_state=True)
+        ey, es, err = check_scan(f"{name} {what}", got, plain(*args, initial_state=s0))
+        out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
+        if timed:
+            t = timings(lambda: fn(*args, initial_state=s0, return_final_state=True),
+                        lambda: plain(*args, initial_state=s0), None, plain_iters=3)
+            row(name, what, {"x": list(args[0].shape), "dtype": str(dtype), "normwise_err": ey, "state_normwise_err": es},
+                err, t, mod.cost(*args, initial_state=s0))
+
+    # (B, S, H, P, G, N): the dual form at N 128 (P 64 and 128, in blocks of
+    # 64 columns; P 96 in blocks of 32), the run-time scan in bf16 and f32
+    scan("mamba2_ssd", "bf16 dual P64 N128", (2, 300, 4, 64, 1, 128), torch.bfloat16)
+    scan("mamba2_ssd", "bf16 dual P128 N128", (2, 200, 4, 128, 2, 128), torch.bfloat16)
+    scan("mamba2_ssd", "bf16 dual P96 N32", (2, 100, 4, 96, 2, 32), torch.bfloat16)
+    scan("mamba2_ssd", "bf16 scan P48 N24", (2, 77, 4, 48, 2, 24), torch.bfloat16)
+    scan("mamba2_ssd", "f32 scan P64 N128", (2, 100, 2, 64, 1, 128), torch.float32)
+    scan("mamba2_ssd", "f32 scan P200 N16", (2, 50, 2, 200, 1, 16), torch.float32)
+    scan("mamba2_ssd", "bf16 dual N128 classify", (32, 256, 80, 64, 1, 128), torch.bfloat16, timed=True)
+    # (B, S, H, D): the run-time-D scan
+    scan("rwkv6_wkv", "bf16 D48", (3, 77, 4, 48), torch.bfloat16)
+    scan("rwkv6_wkv", "f32 D128", (2, 50, 2, 128), torch.float32)
+    scan("rwkv6_wkv", "bf16 D128 decode", (8, 1, 32, 128), torch.bfloat16)
+    scan("rwkv6_wkv", "bf16 D128 prefill", (8, 256, 32, 128), torch.bfloat16, timed=True)
     return out
 
 
@@ -4839,6 +5003,13 @@ def main(argv=None):
             c["f32_normwise_err"], c["widths"] = w["f32_normwise_err"], w["widths"]
             log(f"kernel {c['name']} at the padded head sizes and in f32: f32 normwise err "
                 f"{w['f32_normwise_err']:.3g}, bf16/f32 max abs err {w['max_abs_err']:.3g}")
+    # the routes this slice added (hd to 256, any hd, any G, f16; every SSD
+    # (P, N) and WKV6 D), from a generator of their own, under "routes"
+    wide = check_wide_routes(dev, torch.Generator(device=dev).manual_seed(args.seed + 7))
+    for c in checks:
+        c["max_abs_err"] = max(c["max_abs_err"], wide.get(c["name"], {}).get("max_abs_err", 0.0))
+        c["routes"] = wide.get(c["name"], {}).get("routes", {})
+        log(f"kernel {c['name']} on this slice's routes: {json.dumps(c['routes'])}")
     # training: flash's lse forward and gradients, the scans under autograd
     # (generators of their own), and the kernels that refuse grad
     by_name = {c["name"]: c for c in checks}
@@ -4936,6 +5107,10 @@ def main(argv=None):
             "bound_ms": c["bound_ms"], "bound_by": c["bound_by"], "library_ms": c["library_ms"],
             "device_ms": c["device_ms"], "library_device_ms": c["library_device_ms"],
             "host_us": c["host_us"], "device_launches_per_call": c["device_launches_per_call"],
+            # every timed route past the main path's (hd 256, f16, G 32 / 64, SSD N 128, WKV6 D 128)
+            "routes": [{"route": what, **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                                              "library_ms", "device_ms", "library_device_ms")}}
+                       for what, r in c.get("routes", {}).items()],
         }
         for c in checks
     ]}

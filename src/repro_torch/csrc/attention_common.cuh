@@ -14,17 +14,22 @@
 //
 // The f32 route of both kernels (attend_f32 below) is plain FFMA on the SIMT
 // cores with the same masks and online softmax: f32 inputs are never rounded,
-// as a TF32 product would round them.
+// as a TF32 product would round them.  A head size past 256 in any type
+// takes attend_any (below): a block a query row, its keys one at a time.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace attn {
 
 typedef __nv_bfloat16 bf16;
+typedef __half f16;
 
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -50,52 +55,76 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // four 8x8 b16 matrices; lane l gives the row address of matrix l / 8, row l % 8,
 // and receives (row l / 4, columns 2 (l % 4) and + 1) of each matrix
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_addr(p)));
 }
 
 // four 8x8 b16 matrices, each transposed: lane l receives (rows 2 (l % 4) and + 1, column l / 4)
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_addr(p)));
 }
 
+// Two f32 values as a pair of 16-bit elements of type T (bf16 by default,
+// or f16), rounded to nearest, lo in the low half
+template <class T = bf16>
 __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
+  if constexpr (std::is_same<T, f16>::value) {
+    const __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  } else {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  }
 }
 
-// d += a (16x16, row) * b (16x8, col); the PTX fragment layouts, lane = 4 g + t:
+// One f32 value as a T
+template <class T>
+__device__ __forceinline__ T from_float(float x) {
+  if constexpr (std::is_same<T, f16>::value) return __float2half_rn(x);
+  else return __float2bfloat16(x);
+}
+
+// d += a (16x16, row) * b (16x8, col) with T (bf16 by default, or f16)
+// inputs and f32 accumulation; the PTX fragment layouts, lane = 4 g + t:
 // a regs (g, 2t..), (g+8, 2t..), (g, 2t+8..), (g+8, 2t+8..);
 // b regs (k 2t.., n g), (k 2t+8.., n g); d (g, 2t..), (g+8, 2t..).
+template <class T = bf16>
 __device__ __forceinline__ void mma(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  if constexpr (std::is_same<T, f16>::value)
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+        "{%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  else
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+        "{%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // A fragment (16 rows x 16 columns at column c0) of a row-major tile of row stride LD
-template <int LD>
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* tile, int c0, int lane) {
+template <int LD, class T>
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const T* tile, int c0, int lane) {
   ldsm_x4(a, tile + (lane & 15) * LD + c0 + (lane >> 4) * 8);
 }
 
 // B fragments of S = Q K^T for keys [r0, r0 + 16) of a row-major K tile at
 // head columns [c0, c0 + 16): b[0], b[1] serve keys r0..r0+7, b[2], b[3] keys r0+8..r0+15
-template <int LD>
-__device__ __forceinline__ void load_b_keys(uint32_t (&b)[4], const bf16* tile, int r0, int c0, int lane) {
+template <int LD, class T>
+__device__ __forceinline__ void load_b_keys(uint32_t (&b)[4], const T* tile, int r0, int c0, int lane) {
   ldsm_x4(b, tile + (r0 + (lane & 7) + ((lane >> 4) << 3)) * LD + c0 + ((lane >> 3) & 1) * 8);
 }
 
 // B fragments of O += P V for keys [r0, r0 + 16) of a row-major V tile at head
 // columns [c0, c0 + 16): b[0], b[1] serve columns c0..c0+7, b[2], b[3] c0+8..c0+15
-template <int LD>
-__device__ __forceinline__ void load_b_values(uint32_t (&b)[4], const bf16* tile, int r0, int c0, int lane) {
+template <int LD, class T>
+__device__ __forceinline__ void load_b_values(uint32_t (&b)[4], const T* tile, int r0, int c0, int lane) {
   ldsm_x4_t(b, tile + (r0 + (lane & 15)) * LD + c0 + (lane >> 4) * 8);
 }
 
@@ -302,6 +331,65 @@ __device__ __forceinline__ void attend_f32(float* sm, const long* roff, const in
   if (lse)
     for (int r = tid; r < BM; r += NT)
       if (roff[r] >= 0) lse[roff[r] / hd] = l_s[r] == 0.f ? -INFINITY : m_s[r] + logf(l_s[r]);
+}
+
+// ---------------------------------------------------------------------------
+// Any head size past the built widths (hd > 256), any element type: one
+// block of ANY_NT threads a query row (a (position, head) pair of flash, a
+// (row, head) pair of decode), its keys one at a time.  Thread t owns
+// columns t, t + ANY_NT, ... of q (scaled) and of the f32 output
+// accumulator, both in dynamic shared memory (2 hd floats); a key's score
+// is the block's sum of the threads' partial dot products (warp shuffles,
+// then the warps' sums through shared memory), its weight the f32 online
+// softmax's (natural-log units, as attend_f32).  Every element is read as
+// it is stored and converted to f32 (load_f32), so the body takes bf16, f16
+// and f32 alike and any hd.  key(j) gives key j's element offset in the K
+// and V arrays, or -1 (a row of zeros, as an unmapped page reads); rows
+// [lo, hi) are visible.  A row with no visible key ends with l == 0 and
+// emits zeros; with an lse pointer the row writes its log-sum-exp there
+// (-inf where l == 0).  No speed is claimed: it exists so that no head size
+// the reference takes is refused.
+constexpr int ANY_NT = 128;
+
+__device__ __forceinline__ float load_f32(const float* p) { return *p; }
+__device__ __forceinline__ float load_f32(const bf16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ float load_f32(const f16* p) { return __half2float(*p); }
+__device__ __forceinline__ void store_from_f32(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_from_f32(bf16* p, float v) { *p = __float2bfloat16(v); }
+__device__ __forceinline__ void store_from_f32(f16* p, float v) { *p = __float2half_rn(v); }
+
+template <class T, bool CAP, class KeyFn>
+__device__ __forceinline__ void attend_any(float* sm, const T* __restrict__ qrow, const T* __restrict__ kc,
+                                           const T* __restrict__ vc, T* __restrict__ orow, float* __restrict__ lse,
+                                           int hd, int lo, int hi, float scale, float softcap, KeyFn key) {
+  float* qs = sm;        // hd floats: q * scale
+  float* os = sm + hd;   // hd floats: the unnormalised output
+  __shared__ float red[ANY_NT / 32];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  for (int d = tid; d < hd; d += ANY_NT) qs[d] = load_f32(qrow + d) * scale, os[d] = 0.f;
+  float m = -INFINITY, l = 0.f;  // the same in every thread
+  for (int j = lo; j < hi; ++j) {
+    const long off = key(j);
+    float part = 0.f;
+    if (off >= 0)
+      for (int d = tid; d < hd; d += ANY_NT) part = fmaf(qs[d], load_f32(kc + off + d), part);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
+    __syncthreads();  // the last key's sums are read (and, the first time, qs and os are set)
+    if (lane == 0) red[warp] = part;
+    __syncthreads();
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < ANY_NT / 32; ++w) s += red[w];
+    if (CAP) s = softcap * tanhf(s / softcap);
+    const float m_new = fmaxf(m, s), a = m == -INFINITY ? 0.f : expf(m - m_new), p = expf(s - m_new);
+    l = l * a + p;
+    m = m_new;
+    for (int d = tid; d < hd; d += ANY_NT) os[d] = os[d] * a + (off >= 0 ? p * load_f32(vc + off + d) : 0.f);
+  }
+  const float inv = l == 0.f ? 0.f : 1.f / l;
+  for (int d = tid; d < hd; d += ANY_NT) store_from_f32(orow + d, os[d] * inv);
+  if (lse && tid == 0) *lse = l == 0.f ? -INFINITY : m + logf(l);
 }
 
 }  // namespace attn

@@ -9,14 +9,22 @@
 //                               (-1 = unmapped) shared by the E member planes,
 //                               cur_len (B,) i32; no starts
 //
-// Window and tanh softcap optional on both; hd a multiple of 8 from 8 to 128,
-// any G from 1 to 16.  The bf16 body is built at HD 32, 64, 80 and 128; another
-// hd runs at the next of these widths (PAD: its hd columns copied, the rest
-// zero-filled in shared memory, only the real columns stored), so hd 64, 80
-// and 128 keep the code they had.  The f32 route (attention_common.cuh
-// attend_f32) is plain FFMA, one block a (row, kv head) pair with the G heads
-// as its rows, no split; the paged f32 entry is bitwise the dense one on the
-// gathered view, as the bf16 entries are.
+// Window and tanh softcap optional on both; any G >= 1 (the G query heads of
+// a kv head in tiles of 16, one block a tile: K and V are read once a tile).
+// The 16-bit body (bf16, or f16 through the _f16 entries: the same code,
+// mma.sync with f16 inputs) takes hd a multiple of 8 from 8 to 256 (the
+// wrapper zero-pads any other hd to one); it is built at HD 32, 64, 80, 128
+// and 256; another hd runs at the next of these widths (PAD: its hd columns
+// copied, the rest zero-filled in shared memory, only the real columns
+// stored), so bf16 hd 64, 80 and 128 keep the code they had; f16 is built at
+// the padded widths only.  HD 256's K and V tile take 135 KB, so it runs one
+// stage (load, wait, compute) where the others run a two-stage ring.  The
+// f32 route (attention_common.cuh attend_f32) is plain FFMA, any hd up to
+// 256, one block a (row, kv head, head tile) with the tile's heads as its
+// rows, no split; the paged f32 entry is bitwise the dense one on the
+// gathered view, as the 16-bit entries are.  An hd past 256, in any type,
+// runs attend_any (attention_common.cuh): a block a (row, head), the cache
+// rows one at a time.
 //
 // Replaces: src/repro/kernels/decode_attention/kernel.py
 // decode_attention_bkgd (dense, body _decode_kernel), which needs
@@ -93,46 +101,48 @@ struct Paged {
 template <int HD, int ST>
 struct Cfg {
   static constexpr int LD = HD + 8, CH = HD / 8;
-  static constexpr int q_elems = GM * LD;                // bf16
+  static constexpr int q_elems = GM * LD;                // bf16 or f16
   // floats the cluster's merge receives: a slot of m, l and an output chunk per split
   static constexpr int recv = (MAX_SPLITS * (2 * GM + 1) + GM * HD + 3) / 4 * 4;  // 16-byte multiple
-  static constexpr int stage_elems = 2 * BK * LD;        // bf16: a K tile and a V tile
-  static constexpr size_t bytes =
-      sizeof(bf16) * q_elems + sizeof(float) * recv + sizeof(bf16) * ST * stage_elems;
+  static constexpr int stage_elems = 2 * BK * LD;        // a K tile and a V tile
+  static constexpr size_t bytes = 2 * q_elems + sizeof(float) * recv + 2 * ST * stage_elems;  // 16-bit elements
 };
 
-template <int HD, int ST, bool PAGED, bool CAP, bool PAD>
+template <class T, int HD, int ST, bool PAGED, bool CAP, bool PAD>
 __global__ void __launch_bounds__(NT, 1)
-    decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kc,
-                  const bf16* __restrict__ vc, bf16* __restrict__ out,
+    decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
+                  const T* __restrict__ vc, T* __restrict__ out,
                   const int* __restrict__ cur_len, int cur_scalar, const int* __restrict__ starts,
                   Paged pg, int G, int KVH, int S, int hd_in, int rows_per_split, int window, float softcap,
                   float scale) {
   using C = Cfg<HD, ST>;
   constexpr int LD = C::LD, CH = C::CH;
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  float* Rv = reinterpret_cast<float*>(smem + sizeof(bf16) * C::q_elems);  // the merge's inbox
-  bf16* ring = reinterpret_cast<bf16*>(Rv + C::recv);
+  T* Qs = reinterpret_cast<T*>(smem);
+  float* Rv = reinterpret_cast<float*>(smem + 2 * C::q_elems);  // the merge's inbox
+  T* ring = reinterpret_cast<T*>(Rv + C::recv);
   constexpr int NTW = (HD / 8 + NW - 1) / NW;  // 8-column n-tiles of the output a warp owns
-  constexpr int PLD = BK + 8;                  // padded bf16 row stride of P
-  __shared__ __align__(16) bf16 Ps[GM * PLD];  // the tile's probabilities, bf16
+  constexpr int PLD = BK + 8;                  // padded 16-bit row stride of P
+  __shared__ __align__(16) T Ps[GM * PLD];     // the tile's probabilities, in T
   __shared__ float mx_s[NW][GM], sum_s[NW][GM];
 
   cg::cluster_group cluster = cg::this_cluster();
   const int split = blockIdx.x, n_split = gridDim.x;  // the cluster spans blockIdx.x
   // the first half of a barrier whose wait, before the merge, shows every peer has started
   if (n_split > 1) asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
-  const int kvh = blockIdx.y, b = blockIdx.z;
+  // blockIdx.y is (kv head, head tile): the G heads of a group in tiles of
+  // GM, heads g0 .. g0 + Gt - 1 here (one tile for G <= GM)
+  const int n_gt = (G + GM - 1) / GM, kvh = blockIdx.y / n_gt, g0 = blockIdx.y % n_gt * GM, b = blockIdx.z;
+  const int Gt = min(GM, G - g0);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const long row0 = (long)b * KVH + kvh;
+  const long row0 = (long)b * KVH + kvh, qrow0 = row0 * G + g0;  // the tile's first q / output row
   const int hd = PAD ? hd_in : HD;  // the real head size: columns [hd, HD) are zeros in shared memory
-  // the q row (heads past G as zeros) first: it depends on nothing the block reads
+  // the q rows (heads past Gt as zeros) first: they depend on nothing the block reads
   for (int c = tid; c < GM * CH; c += NT) {
     const int r = c / CH, cc = (c % CH) * 8;
     const bool col = !PAD || cc < hd;
-    cp_async16(Qs + r * LD + cc, q + (row0 * G + (r < G ? r : 0)) * hd + (col ? cc : 0), r < G && col);
+    cp_async16(Qs + r * LD + cc, q + (qrow0 + (r < Gt ? r : 0)) * hd + (col ? cc : 0), r < Gt && col);
   }
   // paged: row b of q is slot b % B of member plane b / B
   const int slot = PAGED ? b % pg.B : b;
@@ -150,13 +160,13 @@ __global__ void __launch_bounds__(NT, 1)
   const int n_tiles = va < vz ? (vz - origin + BK - 1) / BK : 0;
 
   const long base = PAGED ? (long)(b / pg.B) * pg.P * KVH * pg.ps * hd : row0 * (long)S * hd;
-  const bf16* kb = kc + base;
-  const bf16* vb = vc + base;
+  const T* kb = kc + base;
+  const T* vb = vc + base;
   const int* table = PAGED ? pg.pages + (long)slot * pg.n_pg : nullptr;
   auto load_tile = [&](int i) {  // tile i into stage i % ST
     const int k0 = origin + i * BK;
-    bf16* ks = ring + (i % ST) * C::stage_elems;
-    bf16* vs = ks + BK * LD;
+    T* ks = ring + (i % ST) * C::stage_elems;
+    T* vs = ks + BK * LD;
     for (int c = tid; c < BK * CH; c += NT) {
       const int r = c / CH, cc = (c % CH) * 8, row = k0 + r;
       long off = -1;  // element offset of cache row `row`, -1 = reads as zeros
@@ -194,19 +204,29 @@ __global__ void __launch_bounds__(NT, 1)
   uint32_t qa[HD / 16][4];
 
   for (int i = 0; i < n_tiles; ++i) {
-    // groups committed: ST in the prologue, one per iteration from the second
-    if (i == 0) cp_async_wait<ST - 1>(); else cp_async_wait<(ST >= 2 ? ST - 2 : 0)>();  // ST 1: one tile
-    __syncthreads();  // tile i landed; every warp is done with tile i - 1
-    if (i >= 1) {
-      if (i - 1 + ST < n_tiles) load_tile(i - 1 + ST);  // into tile i - 1's stage
-      cp_async_commit();
+    if constexpr (ST == 1) {  // one stage (HD 256's tiles fill the shared memory): load, wait, compute
+      if (i >= 1) {
+        __syncthreads();  // every warp is done with tile i - 1
+        load_tile(i);
+        cp_async_commit();
+      }
+      cp_async_wait<0>();
+      __syncthreads();  // tile i landed
+    } else {
+      // groups committed: ST in the prologue, one per iteration from the second
+      if (i == 0) cp_async_wait<ST - 1>(); else cp_async_wait<ST - 2>();
+      __syncthreads();  // tile i landed; every warp is done with tile i - 1
+      if (i >= 1) {
+        if (i - 1 + ST < n_tiles) load_tile(i - 1 + ST);  // into tile i - 1's stage
+        cp_async_commit();
+      }
     }
     if (i == 0) {
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk) load_a<LD>(qa[kk], Qs, kk * 16, lane);
     }
-    const bf16* ks = ring + (i % ST) * C::stage_elems;
-    const bf16* vs = ks + BK * LD;
+    const T* ks = ring + (i % ST) * C::stage_elems;
+    const T* vs = ks + BK * LD;
 
     // S = Q K^T over this warp's KW keys (two 8-key n-tiles); every head sees the same columns
     constexpr int NJ = KW / 8;
@@ -222,8 +242,8 @@ __global__ void __launch_bounds__(NT, 1)
       for (int kk = 0; kk < HD / 16; ++kk) {
         uint32_t kf[4];
         load_b_keys<LD>(kf, ks, warp * KW, kk * 16, lane);
-        mma(kk % 2 ? s2[0] : s[0], qa[kk], kf[0], kf[1]);
-        mma(kk % 2 ? s2[1] : s[1], qa[kk], kf[2], kf[3]);
+        mma<T>(kk % 2 ? s2[0] : s[0], qa[kk], kf[0], kf[1]);
+        mma<T>(kk % 2 ? s2[1] : s[1], qa[kk], kf[2], kf[3]);
       }
 #pragma unroll
       for (int j = 0; j < NJ; ++j)
@@ -252,7 +272,7 @@ __global__ void __launch_bounds__(NT, 1)
 #pragma unroll
       for (int j = 0; j < NJ; ++j)
         *reinterpret_cast<uint32_t*>(Ps + (g + 8 * rr) * PLD + warp * KW + j * 8 + 2 * t) =
-            pack(s[j][2 * rr], s[j][2 * rr + 1]);
+            pack<T>(s[j][2 * rr], s[j][2 * rr + 1]);
     }
     __syncthreads();  // P of the whole tile and its row sums
 #pragma unroll
@@ -281,8 +301,8 @@ __global__ void __launch_bounds__(NT, 1)
         if (n < HD / 8) {
           uint32_t vf[4];  // keys kp * 32 + lane: two k-steps of one 8-column n-tile
           ldsm_x4_t(vf, vs + (kp * 32 + lane) * LD + n * 8);
-          mma(acc[j], pa0, vf[0], vf[1]);
-          mma(acc2[j], pa1, vf[2], vf[3]);
+          mma<T>(acc[j], pa0, vf[0], vf[1]);
+          mma<T>(acc2[j], pa1, vf[2], vf[3]);
         }
       }
     }
@@ -304,19 +324,19 @@ __global__ void __launch_bounds__(NT, 1)
 #pragma unroll
       for (int j = 0; j < NTW; ++j) {
         const int n = warp + NW * j;
-        if (r < G && n * 8 < hd)
-          *reinterpret_cast<uint32_t*>(out + (row0 * G + r) * hd + n * 8 + 2 * t) =
-              pack(acc[j][2 * rr] * inv, acc[j][2 * rr + 1] * inv);
+        if (r < Gt && n * 8 < hd)
+          *reinterpret_cast<uint32_t*>(out + (qrow0 + r) * hd + n * 8 + 2 * t) =
+              pack<T>(acc[j][2 * rr] * inv, acc[j][2 * rr + 1] * inv);
       }
     }
     return;
   }
   // The cluster's merge.  Block sp owns outputs [sp * chunk, (sp + 1) * chunk)
-  // of the row's G * hd, and every block pushes into the owner's shared
+  // of the tile's Gt * hd, and every block pushes into the owner's shared
   // memory, box `split`, its m and l of every head row and its unnormalised
   // O on those outputs (posted remote stores); after one cluster barrier each
   // block merges its outputs from local memory, in split order.
-  const int E = G * HD, chunk = (E + n_split - 1) / n_split, box = 2 * GM + chunk;
+  const int E = Gt * HD, chunk = (E + n_split - 1) / n_split, box = 2 * GM + chunk;
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");  // every peer has started
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {
@@ -327,7 +347,7 @@ __global__ void __launch_bounds__(NT, 1)
         rv[r] = m[rr];
         rv[GM + r] = l[rr];
       }
-    if (r < G) {
+    if (r < Gt) {
 #pragma unroll
       for (int j = 0; j < NTW; ++j) {
         const int n = warp + NW * j;
@@ -355,11 +375,11 @@ __global__ void __launch_bounds__(NT, 1)
         ov += a * Rv[sp * box + 2 * GM + off];
         lv += a * Rv[sp * box + GM + r];
       }
-    const bf16 y = __float2bfloat16(ov / (lv == 0.f ? 1.f : lv));
+    const T y = from_float<T>(ov / (lv == 0.f ? 1.f : lv));
     if constexpr (PAD) {
-      if (e % HD < hd) out[(row0 * G + r) * hd + e % HD] = y;
+      if (e % HD < hd) out[(qrow0 + r) * hd + e % HD] = y;
     } else {
-      out[row0 * E + e] = y;
+      out[qrow0 * HD + e] = y;
     }
   }
 }
@@ -376,12 +396,12 @@ int plan_splits(int pairs, int S, int* rows_per_split) {
   return (rows + *rows_per_split - 1) / *rows_per_split;
 }
 
-template <int HD, int ST, bool PAGED, bool CAP, bool PAD>
+template <class T, int HD, int ST, bool PAGED, bool CAP, bool PAD>
 int launch_cap(const void* q, const void* k, const void* v, void* o, const void* cur, int cur_scalar,
            const void* st, Paged pg, int G, int rows, int KVH, int S, int hd, int n_split, int rps, int window,
            float softcap, float scale, cudaStream_t stream) {
   using C = Cfg<HD, ST>;
-  auto kernel = decode_kernel<HD, ST, PAGED, CAP, PAD>;
+  auto kernel = decode_kernel<T, HD, ST, PAGED, CAP, PAD>;
   static int attr_set_on = -1;  // the device whose attribute is set: once, not per call
   int dev = 0;
   cudaGetDevice(&dev);
@@ -392,7 +412,7 @@ int launch_cap(const void* q, const void* k, const void* v, void* o, const void*
     attr_set_on = dev;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(n_split, KVH, rows);
+  cfg.gridDim = dim3(n_split, KVH * ((G + GM - 1) / GM), rows);
   cfg.blockDim = dim3(NT);
   cfg.dynamicSmemBytes = C::bytes;
   cfg.stream = stream;
@@ -404,54 +424,106 @@ int launch_cap(const void* q, const void* k, const void* v, void* o, const void*
   cfg.attrs = attr;
   cfg.numAttrs = n_split > 1 ? 1 : 0;  // one split: a plain launch, no cluster
   const cudaError_t e = cudaLaunchKernelEx(
-      &cfg, kernel, (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (const int*)cur,
+      &cfg, kernel, (const T*)q, (const T*)k, (const T*)v, (T*)o, (const int*)cur,
       cur_scalar, (const int*)st, pg, G, KVH, S, hd, rps, window, softcap, scale);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
-template <int HD, int ST, bool PAGED, bool PAD>
+template <class T, int HD, int ST, bool PAGED, bool PAD>
 int launch(const void* q, const void* k, const void* v, void* o, const void* cur, int cur_scalar,
            const void* st, Paged pg, int G, int rows, int KVH, int S, int hd, int n_split, int rps, int window,
            float softcap, float scale, cudaStream_t stream) {
-  return softcap > 0.f ? launch_cap<HD, ST, PAGED, true, PAD>(q, k, v, o, cur, cur_scalar, st, pg, G, rows, KVH,
+  return softcap > 0.f ? launch_cap<T, HD, ST, PAGED, true, PAD>(q, k, v, o, cur, cur_scalar, st, pg, G, rows, KVH,
                                                               S, hd, n_split, rps, window, softcap, scale, stream)
-                       : launch_cap<HD, ST, PAGED, false, PAD>(q, k, v, o, cur, cur_scalar, st, pg, G, rows, KVH,
+                       : launch_cap<T, HD, ST, PAGED, false, PAD>(q, k, v, o, cur, cur_scalar, st, pg, G, rows, KVH,
                                                                S, hd, n_split, rps, window, softcap, scale, stream);
 }
 
-// hd a multiple of 8 from 8 to 128, G from 1 to GM: any G <= GM fits the
-// body (heads past G are zero rows, never stored) and the merge (chunk =
-// ceil(G * HD / n_split) per split: the n_split boxes of 2 * GM + chunk
-// floats stay within Cfg::recv)
-bool shapes_ok(int hd, int G) { return hd >= 8 && hd <= 128 && hd % 8 == 0 && G >= 1 && G <= GM; }
+// ---------------------------------------------------------------------------
+// hd past 256, any type: a block a (row, head) pair, attend_any
+// (attention_common.cuh) over the row's visible cache rows, dense or paged.
+template <class T, bool PAGED, bool CAP>
+__global__ void __launch_bounds__(ANY_NT)
+    decode_any_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __restrict__ vc,
+                      T* __restrict__ out, const int* __restrict__ cur_len, int cur_scalar,
+                      const int* __restrict__ starts, Paged pg, int G, int KVH, int S, int hd, int window,
+                      float softcap, float scale) {
+  extern __shared__ __align__(16) float any_sm[];
+  const int h = blockIdx.y, b = blockIdx.z, kvh = h / G;
+  const long row0 = (long)b * KVH + kvh, qoff = ((long)b * KVH * G + h) * hd;
+  const int slot = PAGED ? b % pg.B : b;
+  const int cur = min(cur_len ? cur_len[slot] : cur_scalar, S);
+  int lo = starts ? max(starts[b], 0) : 0;
+  if (window > 0) lo = max(lo, cur - window);
+  const long base = PAGED ? (long)(b / pg.B) * pg.P * KVH * pg.ps * hd : row0 * (long)S * hd;
+  const int* table = PAGED ? pg.pages + (long)slot * pg.n_pg : nullptr;
+  attend_any<T, CAP>(any_sm, q + qoff, kc + base, vc + base, out + qoff, nullptr, hd, lo, cur, scale, softcap,
+                     [&](int row) -> long {
+                       if (!PAGED) return (long)row * hd;
+                       const int page = table[row / pg.ps];
+                       return page >= 0 && page < pg.P ? (((long)page * KVH + kvh) * pg.ps + row % pg.ps) * hd
+                                                       : -1;
+                     });
+}
 
-template <bool PAGED>
+template <class T, bool PAGED>
+int launch_any(const void* q, const void* k, const void* v, void* o, const void* cur, int cur_scalar,
+               const void* st, Paged pg, int G, int rows, int KVH, int S, int hd, int window, float softcap,
+               float scale, cudaStream_t stream) {
+  const size_t bytes = 2 * sizeof(float) * hd;
+  auto kernel = softcap > 0.f ? decode_any_kernel<T, PAGED, true> : decode_any_kernel<T, PAGED, false>;
+  if (bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (rows == 0) return (int)cudaGetLastError();
+  kernel<<<dim3(1, KVH * G, rows), ANY_NT, bytes, stream>>>((const T*)q, (const T*)k, (const T*)v, (T*)o,
+                                                           (const int*)cur, cur_scalar, (const int*)st, pg, G, KVH,
+                                                           S, hd, window, softcap, scale);
+  return (int)cudaGetLastError();
+}
+
+// hd a multiple of 8 from 8 to 256, any G >= 1: a head tile of Gt <= GM
+// heads fits the body (heads past Gt are zero rows, never stored) and the
+// merge (chunk = ceil(Gt * HD / n_split) per split: the n_split boxes of
+// 2 * GM + chunk floats stay within Cfg::recv).  The f32 route reads
+// element by element and takes any hd up to 256.
+bool shapes_ok(int hd, int G) { return hd >= 8 && hd <= 256 && hd % 8 == 0 && G >= 1; }
+bool shapes_ok_f32(int hd, int G) { return hd >= 1 && hd <= 256 && G >= 1; }
+
+template <class T, bool PAGED>
 int dispatch(int hd, int G, const void* q, const void* k, const void* v, void* o, const void* cur,
              int cur_scalar, const void* st, Paged pg, int rows, int KVH, int S, int window,
              float softcap, float scale, cudaStream_t s) {
+  if (hd > 256 && G >= 1)
+    return launch_any<T, PAGED>(q, k, v, o, cur, cur_scalar, st, pg, G, rows, KVH, S, hd, window, softcap, scale, s);
   if (!shapes_ok(hd, G)) return (int)cudaErrorInvalidValue;
   if (rows == 0) return (int)cudaGetLastError();
   int rps = 1;
-  const int n_split = plan_splits(rows * KVH, S, &rps);
-#define DA_LAUNCH(HD_)                                                                                     \
-  return rps <= BK ? launch<HD_, 1, PAGED, false>(q, k, v, o, cur, cur_scalar, st, pg, G, rows, KVH, S, hd,  \
-                                                  n_split, rps, window, softcap, scale, s)                 \
-                   : launch<HD_, 2, PAGED, false>(q, k, v, o, cur, cur_scalar, st, pg, G, rows, KVH, S, hd,  \
-                                                  n_split, rps, window, softcap, scale, s);
-  if (hd == 128) DA_LAUNCH(128)
-  if (hd == 64) DA_LAUNCH(64)
-  if (hd == 80) DA_LAUNCH(80)
+  const int n_split = plan_splits(rows * KVH * ((G + GM - 1) / GM), S, &rps);
+#define DA_LAUNCH(HD_)                                                                                        \
+  return rps <= BK ? launch<T, HD_, 1, PAGED, false>(q, k, v, o, cur, cur_scalar, st, pg, G, rows, KVH, S, hd,  \
+                                                     n_split, rps, window, softcap, scale, s)                 \
+                   : launch<T, HD_, 2, PAGED, false>(q, k, v, o, cur, cur_scalar, st, pg, G, rows, KVH, S, hd,  \
+                                                     n_split, rps, window, softcap, scale, s);
+  if constexpr (std::is_same<T, bf16>::value) {  // f16 takes the padded bodies: half the instantiations
+    if (hd == 128) DA_LAUNCH(128)
+    if (hd == 64) DA_LAUNCH(64)
+    if (hd == 80) DA_LAUNCH(80)
+  }
 #undef DA_LAUNCH
   // a padded width always takes the two-stage ring (with one tile its second
-  // stage stays empty): half the instantiations, the same results
-#define DA_PAD(HD_) \
-  return launch<HD_, 2, PAGED, true>(q, k, v, o, cur, cur_scalar, st, pg, G, rows, KVH, S, hd, n_split, rps, window, \
-                                     softcap, scale, s);
-  if (hd <= 32) DA_PAD(32)
-  if (hd <= 64) DA_PAD(64)
-  if (hd <= 80) DA_PAD(80)
-  DA_PAD(128)
+  // stage stays empty): half the instantiations, the same results; HD 256
+  // takes one stage (two would not fit the shared memory)
+#define DA_PAD(HD_, ST_) \
+  return launch<T, HD_, ST_, PAGED, true>(q, k, v, o, cur, cur_scalar, st, pg, G, rows, KVH, S, hd, n_split, rps, \
+                                          window, softcap, scale, s);
+  if (hd <= 32) DA_PAD(32, 2)
+  if (hd <= 64) DA_PAD(64, 2)
+  if (hd <= 80) DA_PAD(80, 2)
+  if (hd <= 128) DA_PAD(128, 2)
+  DA_PAD(256, 1)
 #undef DA_PAD
 }
 
@@ -470,16 +542,17 @@ __global__ void __launch_bounds__(F32_NT)
   extern __shared__ __align__(16) float fsm[];
   __shared__ long roff[GM];
   __shared__ int rlo[GM], rhi[GM];
-  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int n_gt = (G + GM - 1) / GM, kvh = blockIdx.y / n_gt, g0 = blockIdx.y % n_gt * GM, b = blockIdx.z;
+  const int Gt = min(GM, G - g0);  // this block's heads g0 .. g0 + Gt - 1, as in the bf16 body
   const long row0 = (long)b * KVH + kvh;
   const int slot = PAGED ? b % pg.B : b;
   const int cur = min(cur_len ? cur_len[slot] : cur_scalar, S);
   int lo = starts ? max(starts[b], 0) : 0;
   if (window > 0) lo = max(lo, cur - window);
   for (int r = threadIdx.x; r < GM; r += F32_NT) {
-    roff[r] = r < G ? (row0 * G + r) * hd : -1;
-    rlo[r] = r < G ? lo : 0;
-    rhi[r] = r < G ? cur : 0;
+    roff[r] = r < Gt ? (row0 * G + g0 + r) * hd : -1;
+    rlo[r] = r < Gt ? lo : 0;
+    rhi[r] = r < Gt ? cur : 0;
   }
   __syncthreads();
   const long base = PAGED ? (long)(b / pg.B) * pg.P * KVH * pg.ps * hd : row0 * (long)S * hd;
@@ -508,7 +581,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, const void*
     if (e != cudaSuccess) return (int)e;
     attr_set_on = dev;
   }
-  kernel<<<dim3(1, KVH, rows), F32_NT, bytes, stream>>>((const float*)q, (const float*)k, (const float*)v,
+  kernel<<<dim3(1, KVH * ((G + GM - 1) / GM), rows), F32_NT, bytes, stream>>>((const float*)q, (const float*)k, (const float*)v,
                                                          (float*)o, (const int*)cur, cur_scalar, (const int*)st, pg,
                                                          G, KVH, S, hd, window, softcap, scale);
   return (int)cudaGetLastError();
@@ -518,7 +591,10 @@ template <bool PAGED>
 int dispatch_f32(int hd, int G, const void* q, const void* k, const void* v, void* o, const void* cur,
                  int cur_scalar, const void* st, Paged pg, int rows, int KVH, int S, int window, float softcap,
                  float scale, cudaStream_t s) {
-  if (!shapes_ok(hd, G)) return (int)cudaErrorInvalidValue;
+  if (hd > 256 && G >= 1)
+    return launch_any<float, PAGED>(q, k, v, o, cur, cur_scalar, st, pg, G, rows, KVH, S, hd, window, softcap, scale,
+                                    s);
+  if (!shapes_ok_f32(hd, G)) return (int)cudaErrorInvalidValue;
   if (rows == 0) return (int)cudaGetLastError();
 #define DF_LAUNCH(HD_)                                                                                        \
   return softcap > 0.f ? launch_f32<HD_, PAGED, true>(q, k, v, o, cur, cur_scalar, st, pg, G, rows, KVH, S, hd, \
@@ -527,7 +603,8 @@ int dispatch_f32(int hd, int G, const void* q, const void* k, const void* v, voi
                                                        window, softcap, scale, s);
   if (hd <= 32) DF_LAUNCH(32)
   if (hd <= 64) DF_LAUNCH(64)
-  DF_LAUNCH(128)
+  if (hd <= 128) DF_LAUNCH(128)
+  DF_LAUNCH(256)
 #undef DF_LAUNCH
 }
 
@@ -542,8 +619,18 @@ extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v,
                                     int B, int KVH,
                                     int G, int S, int hd, int window, float softcap, float scale,
                                     void* stream) {
-  return dispatch<false>(hd, G, q, k, v, o, cur_len, cur_scalar, starts, Paged{nullptr, B, 0, 0, 1},
-                         B, KVH, S, window, softcap, scale, (cudaStream_t)stream);
+  return dispatch<bf16, false>(hd, G, q, k, v, o, cur_len, cur_scalar, starts, Paged{nullptr, B, 0, 0, 1},
+                               B, KVH, S, window, softcap, scale, (cudaStream_t)stream);
+}
+
+// The same arguments for f16 q, caches and output.
+extern "C" int decode_attention_fwd_f16(const void* q, const void* k, const void* v, void* o,
+                                        const void* cur_len, int cur_scalar, const void* starts,
+                                        int B, int KVH,
+                                        int G, int S, int hd, int window, float softcap, float scale,
+                                        void* stream) {
+  return dispatch<f16, false>(hd, G, q, k, v, o, cur_len, cur_scalar, starts, Paged{nullptr, B, 0, 0, 1},
+                              B, KVH, S, window, softcap, scale, (cudaStream_t)stream);
 }
 
 // The same arguments for f32 q, caches and output.
@@ -561,8 +648,19 @@ extern "C" int decode_attention_paged_fwd(const void* q, const void* k_pool, con
                                           void* o, const void* cur_len, const void* pages, int E,
                                           int B, int P, int KVH, int G, int ps, int n_pg, int hd,
                                           int window, float softcap, float scale, void* stream) {
-  return dispatch<true>(hd, G, q, k_pool, v_pool, o, cur_len, 0, nullptr, Paged{(const int*)pages, B, P, n_pg, ps},
-                        E * B, KVH, n_pg * ps, window, softcap, scale, (cudaStream_t)stream);
+  return dispatch<bf16, true>(hd, G, q, k_pool, v_pool, o, cur_len, 0, nullptr,
+                              Paged{(const int*)pages, B, P, n_pg, ps}, E * B, KVH, n_pg * ps, window, softcap,
+                              scale, (cudaStream_t)stream);
+}
+
+// The same arguments for f16 q, pools and output.
+extern "C" int decode_attention_paged_fwd_f16(const void* q, const void* k_pool, const void* v_pool,
+                                              void* o, const void* cur_len, const void* pages, int E,
+                                              int B, int P, int KVH, int G, int ps, int n_pg, int hd,
+                                              int window, float softcap, float scale, void* stream) {
+  return dispatch<f16, true>(hd, G, q, k_pool, v_pool, o, cur_len, 0, nullptr,
+                             Paged{(const int*)pages, B, P, n_pg, ps}, E * B, KVH, n_pg * ps, window, softcap,
+                             scale, (cudaStream_t)stream);
 }
 
 // The same arguments for f32 q, pools and output.

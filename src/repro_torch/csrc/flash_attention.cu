@@ -1,7 +1,9 @@
 // Flash attention forward (prefill) for q (B, Sq, H, hd) and k, v
-// (B, Sk, KVH, hd), GQA by h / (H / KVH), any Sq and Sk, hd a multiple of 8
-// from 8 to 128: bf16 on the tensor cores (below), f32 on the SIMT cores
-// (flash_attention_fwd_f32, attention_common.cuh attend_f32).
+// (B, Sk, KVH, hd), GQA by h / (H / KVH), any Sq and Sk: bf16 or f16 on the
+// tensor cores (below; hd a multiple of 8 from 8 to 256, the wrapper
+// zero-pads any other hd to one), f32 on the SIMT cores (any hd up to 256;
+// flash_attention_fwd_f32, attention_common.cuh attend_f32); an hd past 256
+// in any type runs attend_any (a block a row, its keys one at a time).
 //
 // Replaces: src/repro/kernels/flash_attention/kernel.py flash_attention_bhsd
 // (body _flash_kernel), which needs Sq % block_q == 0 and Sk % block_k == 0.
@@ -43,10 +45,12 @@
 // where l == 0; LSE is a template parameter, so the kernel without it (the
 // serving path, lse null) is the same code as before.
 // hd 80 has 160-byte rows: 10 ldmatrix columns of 16 bytes, on the same ring.
-// The kernel is built at HD 32, 64, 80 and 128; another hd runs at the next
-// of these widths (PAD: its hd columns copied, the rest zero-filled in shared
-// memory, only the hd real columns stored), so hd 64, 80 and 128 keep the
-// code they had.
+// The kernel is built at HD 32, 64, 80, 128 and 256; another hd runs at the
+// next of these widths (PAD: its hd columns copied, the rest zero-filled in
+// shared memory, only the hd real columns stored), so hd 64, 80 and 128 keep
+// the code they had.  The element type T is bf16 or f16 (the same body:
+// ldmatrix moves 16-bit elements of either, and mma.sync takes either with
+// f32 accumulation); f16 is built at the padded widths only.
 #include "attention_common.cuh"
 
 using namespace attn;
@@ -61,6 +65,13 @@ template <int HD>
 struct Tune {
   static constexpr int MT = HD == 80 ? 1 : 2, BK = HD == 80 ? 64 : 32, MINB = HD == 80 ? 4 : 2;
 };
+// HD 256 (hd 129-256): one m-tile a warp, so the accumulators (HD / 2 floats
+// a thread) and a score tile fit the registers; 99 KB of shared memory, one
+// block an SM, untuned.
+template <>
+struct Tune<256> {
+  static constexpr int MT = 1, BK = 32, MINB = 1;
+};
 
 template <int HD>
 struct Cfg {
@@ -70,23 +81,23 @@ struct Cfg {
   static constexpr int LD = HD + 8;  // padded bf16 row stride: conflict-free ldmatrix
   static constexpr int CH = HD / 8;  // 16-byte chunks a row
   static constexpr int q_elems = BM * LD, kv_elems = BK * LD;
-  static constexpr size_t bytes = sizeof(bf16) * (q_elems + 2 * ST * kv_elems);
+  static constexpr size_t bytes = 2 * (q_elems + 2 * ST * kv_elems);  // bf16 or f16 elements
   static constexpr int MINB = Tune<HD>::MINB;  // blocks an SM must hold: caps the registers
 };
 
-template <int HD, bool CAP, bool LSE, bool PAD>
+template <class T, int HD, bool CAP, bool LSE, bool PAD>
 __global__ void __launch_bounds__(Cfg<HD>::NT, Cfg<HD>::MINB)
-    flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
                      const int* __restrict__ starts, int Sq, int Sk, int H, int KVH, int hd_in,
                      int causal, int window, float softcap, float scale) {
   using C = Cfg<HD>;
   constexpr int MT = C::MT, BM = C::BM, WM = C::WM, BK = C::BK, ST = C::ST, NT = C::NT, LD = C::LD,
                 CH = C::CH;
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + C::q_elems;        // ST stages
-  bf16* Vs = Ks + ST * C::kv_elems;  // ST stages
+  T* Qs = reinterpret_cast<T*>(smem);
+  T* Ks = Qs + C::q_elems;        // ST stages
+  T* Vs = Ks + ST * C::kv_elems;  // ST stages
   __shared__ long rbase[BM];         // each row's element offset in q and o, -1 past the end
 
   // rows are (position, head of the group) pairs, position-major: row m is
@@ -111,12 +122,12 @@ __global__ void __launch_bounds__(Cfg<HD>::NT, Cfg<HD>::MINB)
   const int t0 = k_lo / BK;
   const int n_tiles = k_hi > t0 * BK ? (k_hi - t0 * BK + BK - 1) / BK : 0;
 
-  const bf16* kb = k + (long)b * Sk * kv_row + (long)kvh * hd;
-  const bf16* vb = v + (long)b * Sk * kv_row + (long)kvh * hd;
+  const T* kb = k + (long)b * Sk * kv_row + (long)kvh * hd;
+  const T* vb = v + (long)b * Sk * kv_row + (long)kvh * hd;
   auto load_tile = [&](int i) {  // tile i of the range into stage i % ST
     const int k0 = (t0 + i) * BK;
-    bf16* ks = Ks + (i % ST) * C::kv_elems;
-    bf16* vs = Vs + (i % ST) * C::kv_elems;
+    T* ks = Ks + (i % ST) * C::kv_elems;
+    T* vs = Vs + (i % ST) * C::kv_elems;
     for (int c = tid; c < BK * CH; c += NT) {
       const int r = c / CH, cc = (c % CH) * 8;
       const bool col = !PAD || cc < hd, ok = k0 + r < k_hi && col;
@@ -179,8 +190,8 @@ __global__ void __launch_bounds__(Cfg<HD>::NT, Cfg<HD>::MINB)
 
     const int k0 = (t0 + i) * BK;
     if (w_rows && k0 < w_hi && k0 + BK > w_lo) {
-      const bf16* ks = Ks + (i % ST) * C::kv_elems;
-      const bf16* vs = Vs + (i % ST) * C::kv_elems;
+      const T* ks = Ks + (i % ST) * C::kv_elems;
+      const T* vs = Vs + (i % ST) * C::kv_elems;
       // S = Q K^T: per m-tile, BK / 8 tiles of 16 rows x 8 keys; each K fragment serves every m-tile
       float s[MT][BK / 8][4];
 #pragma unroll
@@ -198,8 +209,8 @@ __global__ void __launch_bounds__(Cfg<HD>::NT, Cfg<HD>::MINB)
           load_b_keys<LD>(kf, ks, j2 * 16, kk * 16, lane);
 #pragma unroll
           for (int mt = 0; mt < MT; ++mt) {
-            mma(s[mt][2 * j2], qa[mt], kf[0], kf[1]);
-            mma(s[mt][2 * j2 + 1], qa[mt], kf[2], kf[3]);
+            mma<T>(s[mt][2 * j2], qa[mt], kf[0], kf[1]);
+            mma<T>(s[mt][2 * j2 + 1], qa[mt], kf[2], kf[3]);
           }
         }
       }
@@ -231,10 +242,10 @@ __global__ void __launch_bounds__(Cfg<HD>::NT, Cfg<HD>::MINB)
         uint32_t pa[MT][4];
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
-          pa[mt][0] = pack(s[mt][2 * kk][0], s[mt][2 * kk][1]);
-          pa[mt][1] = pack(s[mt][2 * kk][2], s[mt][2 * kk][3]);
-          pa[mt][2] = pack(s[mt][2 * kk + 1][0], s[mt][2 * kk + 1][1]);
-          pa[mt][3] = pack(s[mt][2 * kk + 1][2], s[mt][2 * kk + 1][3]);
+          pa[mt][0] = pack<T>(s[mt][2 * kk][0], s[mt][2 * kk][1]);
+          pa[mt][1] = pack<T>(s[mt][2 * kk][2], s[mt][2 * kk][3]);
+          pa[mt][2] = pack<T>(s[mt][2 * kk + 1][0], s[mt][2 * kk + 1][1]);
+          pa[mt][3] = pack<T>(s[mt][2 * kk + 1][2], s[mt][2 * kk + 1][3]);
         }
 #pragma unroll
         for (int n2 = 0; n2 < HD / 16; ++n2) {
@@ -242,8 +253,8 @@ __global__ void __launch_bounds__(Cfg<HD>::NT, Cfg<HD>::MINB)
           load_b_values<LD>(vf, vs, kk * 16, n2 * 16, lane);
 #pragma unroll
           for (int mt = 0; mt < MT; ++mt) {
-            mma(acc[mt][2 * n2], pa[mt], vf[0], vf[1]);
-            mma(acc[mt][2 * n2 + 1], pa[mt], vf[2], vf[3]);
+            mma<T>(acc[mt][2 * n2], pa[mt], vf[0], vf[1]);
+            mma<T>(acc[mt][2 * n2 + 1], pa[mt], vf[2], vf[3]);
           }
         }
       }
@@ -259,7 +270,7 @@ __global__ void __launch_bounds__(Cfg<HD>::NT, Cfg<HD>::MINB)
     cp_async_wait<0>();
     __syncthreads();
   }
-  bf16* os = Qs + wr * LD;
+  T* os = Qs + wr * LD;
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -279,7 +290,7 @@ __global__ void __launch_bounds__(Cfg<HD>::NT, Cfg<HD>::MINB)
 #pragma unroll
       for (int n = 0; n < HD / 8; ++n)
         *reinterpret_cast<uint32_t*>(os + (mt * 16 + g + 8 * rr) * LD + n * 8 + 2 * t) =
-            pack(acc[mt][n][2 * rr] * inv, acc[mt][n][2 * rr + 1] * inv);
+            pack<T>(acc[mt][n][2 * rr] * inv, acc[mt][n][2 * rr + 1] * inv);
     }
   __syncwarp();
   for (int c = lane; c < WM * CH; c += 32) {
@@ -290,12 +301,12 @@ __global__ void __launch_bounds__(Cfg<HD>::NT, Cfg<HD>::MINB)
   }
 }
 
-template <int HD, bool CAP, bool LSE, bool PAD>
+template <class T, int HD, bool CAP, bool LSE, bool PAD>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse, const void* starts, int B,
            int Sq, int Sk, int H, int KVH, int hd, int causal, int window, float softcap, float scale,
            cudaStream_t stream) {
   using C = Cfg<HD>;
-  auto kernel = flash_fwd_kernel<HD, CAP, LSE, PAD>;
+  auto kernel = flash_fwd_kernel<T, HD, CAP, LSE, PAD>;
   static int attr_set_on = -1;  // the device whose attribute is set: once, not per call
   int dev = 0;
   cudaGetDevice(&dev);
@@ -309,30 +320,30 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse, cons
   // run together and share its K/V tiles in L2
   const long n_rows = (long)Sq * (H / KVH);
   dim3 grid((unsigned)((n_rows + C::BM - 1) / C::BM), KVH, B);
-  kernel<<<grid, C::NT, C::bytes, stream>>>((const bf16*)q, (const bf16*)k, (const bf16*)v,
-                                            (bf16*)o, (float*)lse, (const int*)starts, Sq, Sk, H, KVH, hd, causal,
+  kernel<<<grid, C::NT, C::bytes, stream>>>((const T*)q, (const T*)k, (const T*)v,
+                                            (T*)o, (float*)lse, (const int*)starts, Sq, Sk, H, KVH, hd, causal,
                                             window, softcap, scale);
   return (int)cudaGetLastError();
 }
 
-template <int HD, bool LSE, bool PAD>
+template <class T, int HD, bool LSE, bool PAD>
 int launch_cap(const void* q, const void* k, const void* v, void* o, void* lse, const void* starts, int B,
                int Sq, int Sk, int H, int KVH, int hd, int causal, int window, float softcap, float scale,
                cudaStream_t stream) {
   return softcap > 0.f
-             ? launch<HD, true, LSE, PAD>(q, k, v, o, lse, starts, B, Sq, Sk, H, KVH, hd, causal, window, softcap,
+             ? launch<T, HD, true, LSE, PAD>(q, k, v, o, lse, starts, B, Sq, Sk, H, KVH, hd, causal, window, softcap,
                                           scale, stream)
-             : launch<HD, false, LSE, PAD>(q, k, v, o, lse, starts, B, Sq, Sk, H, KVH, hd, causal, window, softcap,
+             : launch<T, HD, false, LSE, PAD>(q, k, v, o, lse, starts, B, Sq, Sk, H, KVH, hd, causal, window, softcap,
                                            scale, stream);
 }
 
-template <int HD, bool PAD>
+template <class T, int HD, bool PAD>
 int launch_hd(const void* q, const void* k, const void* v, void* o, void* lse, const void* starts, int B,
               int Sq, int Sk, int H, int KVH, int hd, int causal, int window, float softcap, float scale,
               cudaStream_t stream) {
-  return lse ? launch_cap<HD, true, PAD>(q, k, v, o, lse, starts, B, Sq, Sk, H, KVH, hd, causal, window, softcap,
+  return lse ? launch_cap<T, HD, true, PAD>(q, k, v, o, lse, starts, B, Sq, Sk, H, KVH, hd, causal, window, softcap,
                                          scale, stream)
-             : launch_cap<HD, false, PAD>(q, k, v, o, lse, starts, B, Sq, Sk, H, KVH, hd, causal, window, softcap,
+             : launch_cap<T, HD, false, PAD>(q, k, v, o, lse, starts, B, Sq, Sk, H, KVH, hd, causal, window, softcap,
                                           scale, stream);
 }
 
@@ -405,7 +416,69 @@ int launch_f32_cap(const void* q, const void* k, const void* v, void* o, void* l
                                      stream);
 }
 
-bool head_size_ok(int hd) { return hd >= 8 && hd <= 128 && hd % 8 == 0; }
+// ---------------------------------------------------------------------------
+// hd past 256, any type: a block a (position, head) row, attend_any
+// (attention_common.cuh) over its visible keys.
+template <class T, bool CAP>
+__global__ void __launch_bounds__(ANY_NT)
+    flash_fwd_any_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                         T* __restrict__ o, float* __restrict__ lse, const int* __restrict__ starts, int Sq, int Sk,
+                         int H, int KVH, int hd, int causal, int window, float softcap, float scale) {
+  extern __shared__ __align__(16) float any_sm[];
+  const int p = blockIdx.x, h = blockIdx.y, b = blockIdx.z, kvh = h / (H / KVH);
+  const int start = starts ? max(starts[b], 0) : 0;
+  const int lo = window > 0 ? max(start, p - window + 1) : start, hi = min(Sk, causal ? p + 1 : Sk);
+  const long row = ((long)b * Sq + p) * H + h;
+  const long kv_base = (long)b * Sk * KVH * hd + (long)kvh * hd, kv_row = (long)KVH * hd;
+  attend_any<T, CAP>(any_sm, q + row * hd, k, v, o + row * hd, lse ? lse + row : nullptr, hd, lo, hi, scale,
+                     softcap, [&](int j) { return kv_base + j * kv_row; });
+}
+
+template <class T>
+int launch_any(const void* q, const void* k, const void* v, void* o, void* lse, const void* starts, int B,
+               int Sq, int Sk, int H, int KVH, int hd, int causal, int window, float softcap, float scale,
+               cudaStream_t stream) {
+  const size_t bytes = 2 * sizeof(float) * hd;
+  auto kernel = softcap > 0.f ? flash_fwd_any_kernel<T, true> : flash_fwd_any_kernel<T, false>;
+  if (bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kernel<<<dim3(Sq, H, B), ANY_NT, bytes, stream>>>((const T*)q, (const T*)k, (const T*)v, (T*)o, (float*)lse,
+                                                    (const int*)starts, Sq, Sk, H, KVH, hd, causal, window,
+                                                    softcap, scale);
+  return (int)cudaGetLastError();
+}
+
+// 16-bit routes: hd a multiple of 8 (16-byte rows) up to 256; the f32
+// route reads element by element and takes any hd up to 256; past 256,
+// attend_any in every type
+bool head_size_ok(int hd) { return hd >= 8 && hd <= 256 && hd % 8 == 0; }
+bool head_size_ok_f32(int hd) { return hd >= 1 && hd <= 256; }
+
+// the tensor-core route for element type T: hd 64, 80 and 128 at their own
+// width (bf16 only: f16 takes the padded bodies, half the instantiations),
+// any other hd at the next built width
+template <class T>
+int dispatch_tc(const void* q, const void* k, const void* v, void* o, void* lse, const void* starts, int B, int Sq,
+                int Sk, int H, int KVH, int hd, int causal, int window, float softcap, float scale, cudaStream_t s) {
+  if (B == 0 || Sq == 0) return (int)cudaGetLastError();
+  if (hd > 256) return launch_any<T>(q, k, v, o, lse, starts, B, Sq, Sk, H, KVH, hd, causal, window, softcap, scale, s);
+  if (!head_size_ok(hd)) return (int)cudaErrorInvalidValue;
+#define FA_LAUNCH(HD_, PAD_) \
+  return launch_hd<T, HD_, PAD_>(q, k, v, o, lse, starts, B, Sq, Sk, H, KVH, hd, causal, window, softcap, scale, s);
+  if constexpr (std::is_same<T, bf16>::value) {
+    if (hd == 128) FA_LAUNCH(128, false)
+    if (hd == 80) FA_LAUNCH(80, false)
+    if (hd == 64) FA_LAUNCH(64, false)
+  }
+  if (hd <= 32) FA_LAUNCH(32, true)
+  if (hd <= 64) FA_LAUNCH(64, true)
+  if (hd <= 80) FA_LAUNCH(80, true)
+  if (hd <= 128) FA_LAUNCH(128, true)
+  FA_LAUNCH(256, true)
+#undef FA_LAUNCH
+}
 
 }  // namespace
 
@@ -418,19 +491,17 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
                                    const void* starts, int B, int Sq, int Sk, int H, int KVH,
                                    int hd, int causal, int window, float softcap, float scale,
                                    void* stream) {
-  if (!head_size_ok(hd)) return (int)cudaErrorInvalidValue;
-  if (B == 0 || Sq == 0) return (int)cudaGetLastError();
-  cudaStream_t s = (cudaStream_t)stream;
-#define FA_LAUNCH(HD_, PAD_) \
-  return launch_hd<HD_, PAD_>(q, k, v, o, lse, starts, B, Sq, Sk, H, KVH, hd, causal, window, softcap, scale, s);
-  if (hd == 128) FA_LAUNCH(128, false)
-  if (hd == 80) FA_LAUNCH(80, false)
-  if (hd == 64) FA_LAUNCH(64, false)
-  if (hd <= 32) FA_LAUNCH(32, true)
-  if (hd <= 64) FA_LAUNCH(64, true)
-  if (hd <= 80) FA_LAUNCH(80, true)
-  FA_LAUNCH(128, true)
-#undef FA_LAUNCH
+  return dispatch_tc<bf16>(q, k, v, o, lse, starts, B, Sq, Sk, H, KVH, hd, causal, window, softcap, scale,
+                           (cudaStream_t)stream);
+}
+
+// The same arguments for f16 q, k, v, o (mma.sync with f16 inputs, f32 accumulation).
+extern "C" int flash_attention_fwd_f16(const void* q, const void* k, const void* v, void* o, void* lse,
+                                       const void* starts, int B, int Sq, int Sk, int H, int KVH,
+                                       int hd, int causal, int window, float softcap, float scale,
+                                       void* stream) {
+  return dispatch_tc<f16>(q, k, v, o, lse, starts, B, Sq, Sk, H, KVH, hd, causal, window, softcap, scale,
+                          (cudaStream_t)stream);
 }
 
 // The same arguments for f32 q, k, v, o.
@@ -438,10 +509,12 @@ extern "C" int flash_attention_fwd_f32(const void* q, const void* k, const void*
                                        const void* starts, int B, int Sq, int Sk, int H, int KVH,
                                        int hd, int causal, int window, float softcap, float scale,
                                        void* stream) {
-  if (!head_size_ok(hd)) return (int)cudaErrorInvalidValue;
   if (B == 0 || Sq == 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
+  if (hd > 256) return launch_any<float>(q, k, v, o, lse, starts, B, Sq, Sk, H, KVH, hd, causal, window, softcap, scale, s);
+  if (!head_size_ok_f32(hd)) return (int)cudaErrorInvalidValue;
   if (hd <= 32) return launch_f32_cap<32>(q, k, v, o, lse, starts, B, Sq, Sk, H, KVH, hd, causal, window, softcap, scale, s);
   if (hd <= 64) return launch_f32_cap<64>(q, k, v, o, lse, starts, B, Sq, Sk, H, KVH, hd, causal, window, softcap, scale, s);
-  return launch_f32_cap<128>(q, k, v, o, lse, starts, B, Sq, Sk, H, KVH, hd, causal, window, softcap, scale, s);
+  if (hd <= 128) return launch_f32_cap<128>(q, k, v, o, lse, starts, B, Sq, Sk, H, KVH, hd, causal, window, softcap, scale, s);
+  return launch_f32_cap<256>(q, k, v, o, lse, starts, B, Sq, Sk, H, KVH, hd, causal, window, softcap, scale, s);
 }

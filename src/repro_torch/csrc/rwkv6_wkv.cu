@@ -40,6 +40,10 @@
 //    slower, and so did the general pass loop at the decode shape: PERF.md
 //    section 6).
 // Any S with a ragged last pass.  D in {16, 32, 64}.
+//
+// Every other D (say 128, or 48): wkv6_scan_kernel, the same per-step
+// recurrence with D read at run time, a thread a value column, the state in
+// shared memory (or, past 160 KB, in sT).  A D up to 10240 runs.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -278,6 +282,87 @@ __global__ void __launch_bounds__(Tl::NT)
   for (int e = 0; e < R; ++e) storen<CC>(sT + sbase + (long)key(e) * D, st[e]);
 }
 
+// ---------------------------------------------------------------------------
+// every other D: the per-step recurrence with D read at run time
+// ---------------------------------------------------------------------------
+
+constexpr int SCAN_NT = 128;                // the most value columns a block owns
+constexpr int SCAN_SMEM_MAX = 160 * 1024;   // the state in shared memory up to this, else in sT
+
+__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store1(bf16* p, float v) { *p = __float2bfloat16(v); }
+
+// One block of jb threads per (row, head, block of jb value columns): thread
+// j owns column j of the (D, D) state, in dynamic shared memory (column-
+// interleaved, conflict-free) when D * jb floats fit, else in sT itself (the
+// f32 output, updated in place; a warp's columns are adjacent, so each row
+// moves coalesced).  Each step the block stages r_t, k_t and exp(logw_t)
+// (and u, once) in shared memory; every thread then runs the f32 route's
+// arithmetic over all D keys: y_t[j] = sum_i r_i S_ij + v_j sum_i r_i u_i k_i,
+// S_ij <- S_ij e^(logw_i) + k_i v_j.
+template <typename T>
+__global__ void __launch_bounds__(SCAN_NT)
+    wkv6_scan_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
+                     const float* __restrict__ logw, const float* __restrict__ u, const float* __restrict__ s0,
+                     T* __restrict__ y, float* __restrict__ sT, int S, int H, int D, int rows_per_member,
+                     int smem_state) {
+  extern __shared__ float wsm[];
+  const int jb = blockDim.x, nb = (D + jb - 1) / jb, tid = threadIdx.x;
+  const int h = blockIdx.x / nb, j = blockIdx.x % nb * jb + tid, b = blockIdx.y;
+  const bool live = j < D;
+  float* rs = wsm;  // r_t, k_t, exp(logw_t) and u, D floats each, then (smem_state) the state
+  float* ks = rs + D;
+  float* ws = ks + D;
+  float* us = ws + D;
+  const long ts = (long)H * D, base = (long)b * S * ts + (long)h * D;
+  const long sbase = ((long)b * H + h) * D * D + j;  // S[i][j] at sbase + i * D
+  float* st = smem_state ? us + D + tid : sT + sbase;  // S[i][j] at st[i * sstride]
+  const long sstride = smem_state ? jb : D;
+  const float* urow = u + ((long)(b / rows_per_member) * H + h) * D;
+  for (int i = tid; i < D; i += jb) us[i] = urow[i];
+  if (live)
+    for (int i = 0; i < D; ++i) st[i * sstride] = s0 ? s0[sbase + (long)i * D] : 0.f;
+  for (int t = 0; t < S; ++t) {
+    __syncthreads();  // the last step's operands are consumed (the first time: u is staged)
+    const long off = base + t * ts;
+    for (int i = tid; i < D; i += jb) {
+      rs[i] = to_f32(r[off + i]);
+      ks[i] = to_f32(k[off + i]);
+      ws[i] = expf(logw[off + i]);
+    }
+    __syncthreads();
+    if (live) {
+      const float vj = to_f32(v[off + j]);
+      float acc = 0.f, bt = 0.f;
+      for (int i = 0; i < D; ++i) {
+        const float sv = st[i * sstride];
+        acc = fmaf(rs[i], sv, acc);
+        st[i * sstride] = fmaf(sv, ws[i], ks[i] * vj);
+        bt = fmaf(rs[i] * us[i], ks[i], bt);
+      }
+      store1(y + off + j, fmaf(vj, bt, acc));
+    }
+  }
+  if (smem_state && live)
+    for (int i = 0; i < D; ++i) sT[sbase + (long)i * D] = st[i * sstride];
+}
+
+template <typename T>
+int launch_scan(int D, const void* r, const void* k, const void* v, const void* logw, const void* u,
+                const void* s0, void* y, void* sT, int B, int S, int H, int rpm, cudaStream_t stream) {
+  const int jb = D >= SCAN_NT ? SCAN_NT : (D + 31) / 32 * 32;
+  const long state = (long)D * jb * sizeof(float), ops = 4L * D * sizeof(float);
+  const int smem_state = state + ops <= SCAN_SMEM_MAX;
+  if (ops > SCAN_SMEM_MAX) return (int)cudaErrorInvalidValue;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(wkv6_scan_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, SCAN_SMEM_MAX);
+  if (attr != cudaSuccess) return (int)attr;
+  wkv6_scan_kernel<T><<<dim3(H * ((D + jb - 1) / jb), B), jb, ops + (smem_state ? state : 0), stream>>>(
+      (const T*)r, (const T*)k, (const T*)v, (const float*)logw, (const float*)u, (const float*)s0, (T*)y,
+      (float*)sT, S, H, D, rpm, smem_state);
+  return (int)cudaGetLastError();
+}
+
 template <typename Tl, typename T>
 int launch_tile(const void* r, const void* k, const void* v, const void* logw, const void* u,
                 const void* s0, void* y, void* sT, int B, int S, int H, int rows_per_member,
@@ -313,7 +398,7 @@ int dispatch(int D, const void* r, const void* k, const void* v, const void* log
   if (D == 64) return launch<64, T>(r, k, v, logw, u, s0, y, sT, B, S, H, rpm, s);
   if (D == 32) return launch<32, T>(r, k, v, logw, u, s0, y, sT, B, S, H, rpm, s);
   if (D == 16) return launch<16, T>(r, k, v, logw, u, s0, y, sT, B, S, H, rpm, s);
-  return (int)cudaErrorInvalidValue;
+  return launch_scan<T>(D, r, k, v, logw, u, s0, y, sT, B, S, H, rpm, s);
 }
 
 }  // namespace
@@ -326,6 +411,7 @@ extern "C" int rwkv6_wkv_fwd(const void* r, const void* k, const void* v, const 
                              const void* u, const void* s0, void* y, void* sT, int B, int S,
                              int H, int D, int rows_per_member, int bf16_io, void* stream) {
   if (B == 0 || H == 0) return (int)cudaGetLastError();
+  if (D < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (bf16_io) return dispatch<bf16>(D, r, k, v, logw, u, s0, y, sT, B, S, H, rows_per_member, s);
   return dispatch<float>(D, r, k, v, logw, u, s0, y, sT, B, S, H, rows_per_member, s);

@@ -50,12 +50,15 @@ SIGNATURES = {
     },
     "flash_attention": {
         "flash_attention_fwd": [_P] * 6 + [_I] * 8 + [_F] * 2 + [_P],
+        "flash_attention_fwd_f16": [_P] * 6 + [_I] * 8 + [_F] * 2 + [_P],
         "flash_attention_fwd_f32": [_P] * 6 + [_I] * 8 + [_F] * 2 + [_P],
     },
     "decode_attention": {
         "decode_attention_fwd": [_P] * 5 + [_I, _P] + [_I] * 6 + [_F] * 2 + [_P],
+        "decode_attention_fwd_f16": [_P] * 5 + [_I, _P] + [_I] * 6 + [_F] * 2 + [_P],
         "decode_attention_fwd_f32": [_P] * 5 + [_I, _P] + [_I] * 6 + [_F] * 2 + [_P],
         "decode_attention_paged_fwd": [_P] * 6 + [_I] * 9 + [_F] * 2 + [_P],
+        "decode_attention_paged_fwd_f16": [_P] * 6 + [_I] * 9 + [_F] * 2 + [_P],
         "decode_attention_paged_fwd_f32": [_P] * 6 + [_I] * 9 + [_F] * 2 + [_P],
     },
     "mamba2_ssd": {"mamba2_ssd_fwd": [_P] * 8 + [_I] * 7 + [_L] * 6 + [_I, _P]},

@@ -7,13 +7,18 @@ no column < starts[b]; rows that are pure padding emit zeros).
 
 On a CUDA tensor it launches ``csrc/flash_attention.cu``, which replaces
 ``src/repro/kernels/flash_attention/kernel.py`` ``flash_attention_bhsd``:
-any Sq and Sk, any GQA group, hd a multiple of 8 from 8 to 128 (built at
-widths 32, 64, 80 and 128; a smaller hd runs zero-padded to the next), in
-bf16 on the tensor cores or in f32 on the SIMT cores (plain FFMA: the
-inputs are not rounded, as the reference computes them in f32).  Its
-bound is the tensor-core operations for long prompts and the q/k/v/out
-bytes for short ones.  Any other shape or dtype (hd past 128 or off the
-multiples of 8, f16) raises: there is no fallback.  On a CPU tensor the
+any Sq and Sk, any GQA group, any hd up to ``MAX_HEAD``: to 256 in bf16 or
+f16 on the tensor cores (built at widths 32, 64, 80, 128 and 256; a
+smaller hd runs zero-padded to the next inside the kernel, and an hd off
+the multiples of 8 is zero-padded to one here first: the scale stays
+1/sqrt of the real hd) or in f32 on the SIMT cores (plain FFMA: the inputs
+are not rounded, as the reference computes them in f32); past 256, in any
+of the three, a SIMT body that takes a query row a block and its keys one
+at a time (``attention_common.cuh`` ``attend_any``: no published
+configuration has such heads, and no speed is claimed for it).  Its bound
+is the tensor-core operations for long prompts and the q/k/v/out bytes
+for short ones.  Inputs of two of those types run in f32, the output in q's type.
+Any other shape or dtype raises: there is no fallback.  On a CPU tensor the
 plain version runs — the same masked softmax as the JAX package's
 ``impl='xla'`` path.  On a meta tensor (the dry run, ``launch/dryrun.py``)
 it computes nothing: it returns the output's shape and charges the active
@@ -47,7 +52,9 @@ from repro_torch.kernels import build
 from repro_torch.obs import op_charges
 
 _LAUNCHES = build.launch_counter("flash_attention")
-DTYPES = (torch.bfloat16, torch.float32)  # the kernels' routes: tensor cores, SIMT f32
+DTYPES = (torch.bfloat16, torch.float16, torch.float32)  # the kernels' routes: tensor cores (two), SIMT f32
+BUILT_HEAD = 256  # the widest head the tiled bodies are built for (Gemma 2 and 3)
+MAX_HEAD = 28 * 1024  # the widest attend_any takes: q and the f32 output (8 bytes a column) in shared memory
 NEG_INF = -1e30
 BWD_BLOCK_Q = 512  # the backward's query block, ``_flash_diff_bwd``'s constant
 
@@ -147,7 +154,7 @@ def cost(q, k, v, *, causal=True, window=None, return_lse=False) -> dict:
     B, Sq, H, hd = q.shape
     pairs = B * H * visible_pairs(Sq, k.shape[1], causal, window)
     out = build.nbytes(q) + (B * Sq * H * 4 if return_lse else 0)
-    return build.kernel_cost(build.nbytes(q, k, v) + out, 4 * hd * pairs, "bf16" if q.dtype == torch.bfloat16 else "f32")
+    return build.kernel_cost(build.nbytes(q, k, v) + out, 4 * hd * pairs, unit_of(q.dtype))
 
 
 def _flash_meta(q, k, v, *, causal, window, return_lse=False):
@@ -158,10 +165,34 @@ def _flash_meta(q, k, v, *, causal, window, return_lse=False):
     return out
 
 
+def unit_of(dtype) -> str:
+    """The unit an attention kernel's operations run on in ``dtype``: the
+    tensor cores ('bf16', 'f16': the same peak) or the CUDA cores ('f32')."""
+    return {torch.bfloat16: "bf16", torch.float16: "f16"}.get(dtype, "f32")
+
+
 def head_size_ok(hd: int) -> bool:
-    """The head sizes the attention kernels take (flash and decode): a
-    multiple of 8 (16-byte rows of bf16) from 8 to 128."""
-    return hd % 8 == 0 and 8 <= hd <= 128
+    """The head sizes the attention kernels take (flash and decode): 1 to
+    ``MAX_HEAD``."""
+    return 1 <= hd <= MAX_HEAD
+
+
+def padded_head(hd: int, dtype) -> int:
+    """The head size a kernel runs ``hd`` at: the 16-bit tiled routes copy
+    rows of 16 bytes, so their hd goes up to a multiple of 8 (zero columns,
+    which add nothing to a dot product); the f32 route and any hd past
+    ``BUILT_HEAD`` (``attend_any``) read element by element."""
+    return hd if dtype == torch.float32 or hd > BUILT_HEAD else -(-hd // 8) * 8
+
+
+def pad_head(t: torch.Tensor, hd: int) -> torch.Tensor:
+    """``t`` with its last dim zero-padded to ``hd`` (itself where it is)."""
+    return t if t.shape[-1] == hd else torch.nn.functional.pad(t, (0, hd - t.shape[-1])).contiguous()
+
+
+def entry_for(lib, fn: str, dtype):
+    """The C entry of ``fn`` for ``dtype``: ``fn`` (bf16), ``fn_f16`` or ``fn_f32``."""
+    return getattr(lib, fn + {torch.bfloat16: "", torch.float16: "_f16"}.get(dtype, "_f32"))
 
 
 def same_dtype(q) -> tuple:
@@ -170,30 +201,46 @@ def same_dtype(q) -> tuple:
     return (q.dtype,) if q.dtype in DTYPES else DTYPES
 
 
+def mixed(*ts) -> bool:
+    """Inputs of more than one of ``DTYPES``: a kernel then runs them all in
+    f32 (exact: bf16 and f16 widen without rounding, as the plain versions
+    compute) and casts its output to q's dtype."""
+    types = {t.dtype for t in ts}
+    return len(types) > 1 and types <= set(DTYPES)
+
+
 def _flash_cuda(q, k, v, *, causal, window, softcap, starts, return_lse=False):
+    if mixed(q, k, v):
+        out = _flash_cuda(q.float(), k.float(), v.float(), causal=causal, window=window, softcap=softcap,
+                          starts=starts, return_lse=return_lse)
+        return (out[0].to(q.dtype), out[1]) if return_lse else out.to(q.dtype)
     for name, t in (("q", q), ("k", k), ("v", v)):
         build.require_cuda(t, f"flash_attention {name}", same_dtype(q))
     B, Sq, H, hd = q.shape
     Sk, KVH = k.shape[1], k.shape[2]
     if not head_size_ok(hd) or H % KVH or k.shape != v.shape or k.shape[0] != B or k.shape[3] != hd:
         raise ValueError(f"flash_attention: unsupported shapes q {tuple(q.shape)} k {tuple(k.shape)} "
-                         "(hd must be a multiple of 8 from 8 to 128)")
+                         f"(hd from 1 to {MAX_HEAD}, H a multiple of KVH)")
     if starts is not None:
         starts = starts.to(device=q.device, dtype=torch.int32).contiguous()
-    out = torch.empty_like(q)
+    hp = padded_head(hd, q.dtype)
+    q_in, k, v = pad_head(q, hp), pad_head(k, hp), pad_head(v, hp)
+    out = torch.empty_like(q_in)
     lse = torch.empty((B, Sq, H), dtype=torch.float32, device=q.device) if return_lse else None
     lib = build.library("flash_attention")
-    rc = (lib.flash_attention_fwd_f32 if q.dtype == torch.float32 else lib.flash_attention_fwd)(
-        build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(out),
+    rc = entry_for(lib, "flash_attention_fwd", q.dtype)(
+        build.ptr(q_in), build.ptr(k), build.ptr(v), build.ptr(out),
         ctypes.c_void_p(None if lse is None else lse.data_ptr()),
         ctypes.c_void_p(None if starts is None else starts.data_ptr()),
         ctypes.c_int(B), ctypes.c_int(Sq), ctypes.c_int(Sk), ctypes.c_int(H),
-        ctypes.c_int(KVH), ctypes.c_int(hd), ctypes.c_int(int(causal)),
+        ctypes.c_int(KVH), ctypes.c_int(hp), ctypes.c_int(int(causal)),
         ctypes.c_int(window or 0), ctypes.c_float(softcap or 0.0),
         ctypes.c_float(1.0 / math.sqrt(hd)), build.stream_ptr(q),
     )
     build.check(lib, rc, f"flash_attention_fwd ({q.dtype})")
     _LAUNCHES.add(1)
+    if hp != hd:
+        out = out[..., :hd].contiguous()
     return (out, lse) if return_lse else out
 
 

@@ -8,9 +8,10 @@ On a CUDA tensor ``ssd`` launches ``csrc/mamba2_ssd.cu``, which replaces
 and C in place with their strides (views of the block's xBC tensor), dt and
 A as they come: the pre-scaling x~ = dt·x, l = A·dt is fused into it, so a
 call is one device launch.  x, B and C share one dtype.  bf16 takes the
-chunked dual form on the tensor cores (TF32, P in {32, 64}, N in {16, 32,
-64}); f32 the exact per-step recurrence (P <= 128, N in {8, 16, 32, 64});
-any G dividing H, any S.  On a CPU tensor the plain version runs: the JAX
+chunked dual form on the tensor cores (TF32, P a multiple of 32, N in {16,
+32, 64, 128}); f32 the exact per-step recurrence (P <= 128, N in {8, 16,
+32, 64}); every other (P, N), in either dtype, the per-step recurrence
+with P and N read at run time (``route``); any G dividing H, any S.  On a CPU tensor the plain version runs: the JAX
 package's ``_xla_ssd``, chunk 128, with intra-chunk (C·Bᵀ ⊙ exp(cum_t -
 cum_s))·x~, inter-chunk C·e^cum·h and the state update h·e^total +
 (B·e^(total-cum))ᵀ·x~ (every exponent <= 0), and zero padding of a ragged
@@ -88,12 +89,21 @@ def _aligned(t):
     return t.data_ptr() % 16 == 0 and all(st * t.element_size() % 16 == 0 for st in t.stride()[:-1])
 
 
+def route(dtype, P: int, N: int) -> str:
+    """The kernel a call runs: 'dual' (bf16, the chunked dual form on the
+    TF32 tensor cores), 'step' (f32, the per-step recurrence built for its
+    N) or 'scan' (any other shape, the per-step recurrence with run-time P
+    and N) — ``csrc/mamba2_ssd.cu``'s ``dual_ok`` and ``step_ok``."""
+    if dtype == torch.bfloat16:
+        return "dual" if P % 32 == 0 and N in (16, 32, 64, 128) else "scan"
+    return "step" if P <= 128 and N in (8, 16, 32, 64) else "scan"
+
+
 def _ssd_cuda(x, dt, A, Bm, Cm, *, initial_state):
     B, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
-    dual = x.dtype == torch.bfloat16  # the chunked dual form on the tensor cores; f32: per step
-    fits = (P in (32, 64) and N in (16, 32, 64)) if dual else (P <= 128 and N in (8, 16, 32, 64))
-    if not fits or H % G or Bm.shape != Cm.shape or Bm.shape[:2] != (B, S) or dt.shape != (B, S, H):
+    dual = route(x.dtype, P, N) == "dual"  # its 16-byte row copies need aligned rows
+    if H % G or Bm.shape != Cm.shape or Bm.shape[:2] != (B, S) or dt.shape != (B, S, H):
         raise ValueError(f"ssd: unsupported shapes x {tuple(x.shape)} ({x.dtype}) dt {tuple(dt.shape)} "
                          f"B {tuple(Bm.shape)} C {tuple(Cm.shape)}")
     for name, t in (("x", x), ("B", Bm), ("C", Cm)):
@@ -130,7 +140,7 @@ def _ssd_cuda(x, dt, A, Bm, Cm, *, initial_state):
         build.ptr(y), build.ptr(hT),
         *(ctypes.c_int(n) for n in (B, S, H, P, G, N, B // E)),
         *(ctypes.c_long(n) for n in (*x.stride()[:3], *Bm.stride()[:3])),
-        ctypes.c_int(int(dual)), build.stream_ptr(x),
+        ctypes.c_int(int(x.dtype == torch.bfloat16)), build.stream_ptr(x),
     )
     build.check(lib, rc, "mamba2_ssd_fwd")
     _LAUNCHES.add(1)
@@ -150,12 +160,13 @@ def dual_flops(B, S, H, N, P, L=64):
 def cost(x, dt, A, Bm, Cm, *, initial_state=None) -> dict:
     """A call's work: x, dt, A, B, C (and the initial state) read once in
     their own dtypes, y and the final f32 state written once; the dual form
-    on the TF32 tensor cores in bf16 (``dual_flops``), the per-step
-    recurrence's 5 f32 operations a state element and step in f32."""
+    on the TF32 tensor cores where it runs (``route``, ``dual_flops``), the
+    per-step recurrence's 5 f32 operations a state element and step
+    elsewhere."""
     B, S, H, P = x.shape
     N = Bm.shape[-1]
     n_bytes = build.nbytes(x, dt, A, Bm, Cm, initial_state) + build.nbytes(x) + B * H * N * P * 4
-    if x.dtype == torch.bfloat16:
+    if route(x.dtype, P, N) == "dual":
         return build.kernel_cost(n_bytes, dual_flops(B, S, H, N, P), "tf32")
     return build.kernel_cost(n_bytes, 5 * B * S * H * N * P, "f32")
 

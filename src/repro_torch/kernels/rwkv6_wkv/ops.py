@@ -4,11 +4,12 @@
 (row b reads member b // (B / E)).
 
 On a CUDA tensor it launches ``csrc/rwkv6_wkv.cu`` (r, k, v bf16 or f32,
-logw f32, D in {16, 32, 64}, any S including 1), which replaces
+logw f32, any D, any S including 1), which replaces
 ``src/repro/kernels/rwkv6_wkv/kernel.py`` ``wkv6_pallas``: the exact
-per-step recurrence, register-tiled (a thread owns 16 keys of 4 value
-columns, or 8 of 2 when the call has few (row, head) pairs) and bound by
-its f32 operations at S > 1, by the state's bytes at S = 1.  Its inputs
+per-step recurrence, register-tiled at D in {16, 32, 64} (a thread owns 16
+keys of 4 value columns, or 8 of 2 when the call has few (row, head)
+pairs), a thread a value column with D read at run time at any other D;
+bound by its f32 operations at S > 1, by the state's bytes at S = 1.  Its inputs
 are read with 16-byte loads, so a view off a 16-byte boundary is copied
 first.  On a CPU tensor the plain version runs: the JAX package's
 ``_xla_wkv6``, chunk 32, exact pairwise decay exp(ecum_t - cum_s) (every
@@ -90,7 +91,7 @@ def _wkv6_cuda(r, k, v, logw, u, *, initial_state):
     for name, t in (("r", r), ("k", k), ("v", v)):
         build.require_cuda(t, f"wkv6 {name}", (torch.bfloat16, torch.float32))
     build.require_cuda(logw, "wkv6 logw", (torch.float32,))
-    if D not in (16, 32, 64) or not (k.shape == v.shape == logw.shape == r.shape) or not (k.dtype == v.dtype == r.dtype):
+    if not (k.shape == v.shape == logw.shape == r.shape) or not (k.dtype == v.dtype == r.dtype):
         raise ValueError(f"wkv6: unsupported shapes r {tuple(r.shape)} logw {tuple(logw.shape)} or dtypes")
     uu = _aligned_or_copy((u[None] if u.ndim == 2 else u).to(device=r.device, dtype=torch.float32))
     E = uu.shape[0]

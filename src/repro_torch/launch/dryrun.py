@@ -31,6 +31,10 @@ partitioner or ``memory_analysis``, so the pieces are the port's own:
   the step itself, forward, backward and AdamW on meta tensors (the
   kernels' autograd routes), prefill ``api.prefill``, decode
   ``api.decode_step``; ``lower_s`` is that run's seconds;
+* the placed train step is the whole step too (``_placed_train_step``):
+  gradients on their parameters' placements, the gradient norm's scalar
+  all-reduce, AdamW on each rank's shards of the parameters and of the
+  moments, which are placed like the parameters;
 * ``collectives``: the same step on parameters, batch and cache as
   ``DTensor``s placed by ``logical_placements`` (their local blocks meta
   tensors), counted by an ``OpCounter``: what DTensor's sharding
@@ -41,12 +45,18 @@ partitioner or ``memory_analysis``, so the pieces are the port's own:
   dim, with DTensor's own transition costs (``_greedy_strategy_costs``;
   on a 3-D mesh the planner otherwise searches a graph for each new
   (source, target) pair, hundreds a model), so a strategy it picks may
-  differ from the one DTensor would.  The kernels take plain tensors: a
+  differ from the one DTensor would.  A shard moved from one dim to another
+  is charged as the all-to-all NCCL runs (``_shard_moves_as_all_to_all``),
+  not as the all-gather DTensor falls back to on a CPU mesh.  The loss's
+  logits stay sharded by vocabulary (``_vocab_sharded_ce``).  The kernels
+  take plain tensors: a
   kernel entry's meta route given ``DTensor``s runs on each rank's blocks
   (``sharding.dtensor_calls``: the attention kernels by rows and heads,
-  K and V gathered to the heads a rank reads; the others on inputs
-  gathered whole), and those all-gathers are counted, as XLA would
-  gather around an opaque custom call.  The ops ``op_cost`` replicates
+  K and V gathered to the heads a rank reads, except a decode cache
+  sharded along its sequence, which each rank attends in its own slice,
+  the partial softmaxes merged by all-reduces of O(B·H·hd); the others on
+  inputs gathered whole), and those collectives are counted, as XLA would
+  issue them around an opaque custom call.  The ops ``op_cost`` replicates
   or writes locally are recorded (``replicated_ops``, ``local_writes``).
   The per-rank counts of that run are ``xla_cost`` (XLA's per-device
   ``cost_analysis`` counterpart) and its seconds ``compile_s``.  Any
@@ -88,7 +98,7 @@ from repro_torch.launch.roofline import collective_terms, roofline_terms
 from repro_torch.models import api
 from repro_torch.models.counting import count_params, model_flops_per_token
 from repro_torch.models.params import tree_leaves, tree_unflatten
-from repro_torch.optim.adamw import OptimConfig
+from repro_torch.optim.adamw import OptimConfig, adamw_update
 from repro_torch.sharding.logical import axis_rules, logical_placements, logical_to_pspec, rules_for
 from repro_torch.train.step import init_train_state, make_train_step
 
@@ -204,11 +214,10 @@ def _program(cfg, shape, window, rules, sizes, mesh=None):
         arg_bytes += 2 * bytes_per_rank(p_axes, state.opt["m"], rules, sizes)
         if mesh is None:
             return make_train_step(cfg, ocfg, window_override=window), (state, batch), arg_bytes
-        # placed: the loss and its gradients.  AdamW is elementwise on each
-        # rank's shards (its flattened slices of a 2-D sharded leaf only
-        # send DTensor's planner searching); it adds no collective but the
-        # gradient norm's scalar all-reduce, which is left out
-        return _loss_grads(cfg, window), (put(p_axes, params), put(b_axes, batch)), arg_bytes
+        # placed: the whole step, the moments placed like the parameters
+        return (_placed_train_step(cfg, ocfg, window),
+                (put(p_axes, params), put(b_axes, batch), put(p_axes, state.opt["m"]), put(p_axes, state.opt["v"])),
+                arg_bytes)
     run_cfg = dataclasses.replace(cfg, sliding_window=window) if window else cfg
     params = put(p_axes, params)
     if shape.kind == "prefill":
@@ -267,6 +276,62 @@ def _greedy_strategy_costs():
         ops_utils.redistribute_cost = saved
 
 
+@contextlib.contextmanager
+def _shard_moves_as_all_to_all():
+    """DTensor moves a shard from one dim to another (``Shard._to_new_shard_dim``)
+    as an all-to-all, except on a mesh of device type 'cpu' (the dry run's
+    world), where it gathers the whole dim and keeps its chunk, as gloo has
+    no all-to-all.  On the cards the placed program models, NCCL runs the
+    all-to-all: within this context the move keeps DTensor's local result
+    and is charged as one all-to-all of that result's bytes, not as the
+    all-gather of the whole dim.  It replaces a private internal of
+    ``torch.distributed.tensor`` and raises where the installed torch lacks
+    it."""
+    import torch.distributed.tensor.placement_types as pt
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    from repro_torch.obs import op_charges
+
+    if not hasattr(pt, "shard_dim_alltoall") or not hasattr(pt.Shard, "_custom_chunk"):
+        raise RuntimeError(f"torch {torch.__version__}: the dry run charges shard moves through internals this "
+                           "version lacks (placement_types.shard_dim_alltoall)")
+
+    def all_to_all(local, gather_dim, shard_dim, mesh, mesh_dim):
+        # the local result is built from this rank's block alone: right in
+        # shape only, so only the dry run's meta blocks may pass
+        assert local.device.type == "meta", f"shard move charged on a {local.device.type} tensor"
+        n = mesh.size(mesh_dim)
+        with _disable_current_modes():  # the local result's shape; no work of its own
+            out = pt.Shard._custom_chunk(torch.cat([local] * n, dim=gather_dim), n, dim=shard_dim)
+            out = out[mesh.get_local_rank(mesh_dim)].contiguous()
+        op_charges.charge_collective("all-to-all", out.numel() * out.element_size())
+        return out
+
+    saved = pt.shard_dim_alltoall
+    pt.shard_dim_alltoall = all_to_all
+    try:
+        yield
+    finally:
+        pt.shard_dim_alltoall = saved
+
+
+@contextlib.contextmanager
+def _vocab_sharded_ce():
+    """Within this context the loss's chunk sums keep the vocabulary sharded
+    (``sharding.dtensor_calls.ce_chunk_vocab_sharded`` in place of
+    ``models.api._ce_chunk``, whose target gather and argmax would gather
+    the f32 logits whole on DTensors): the layout the JAX package
+    constrains its logits to."""
+    from repro_torch.sharding.dtensor_calls import ce_chunk_vocab_sharded
+
+    saved = api._ce_chunk
+    api._ce_chunk = ce_chunk_vocab_sharded
+    try:
+        yield
+    finally:
+        api._ce_chunk = saved
+
+
 def _loss_grads(cfg, window):
     """(params, batch) -> every parameter's gradient of ``api.loss_fn``."""
     def fn(params, batch):
@@ -275,6 +340,47 @@ def _loss_grads(cfg, window):
         return torch.autograd.grad(loss, leaves, allow_unused=True)
 
     return fn
+
+
+def _replicas(x) -> int:
+    """How many ranks hold each block of the ``DTensor`` ``x``: the sizes of
+    the mesh dims it is not sharded over."""
+    return math.prod(n for n, p in zip(x.device_mesh.mesh.shape, x.placements) if not p.is_shard())
+
+
+def _placed_train_step(cfg, ocfg: OptimConfig, window):
+    """(params, batch, m, v) as ``DTensor``s -> the train step of
+    ``make_train_step`` on each rank's shards: the loss and its gradients,
+    each gradient brought to its parameter's placements (the reduction a
+    data-parallel step issues); the global gradient norm as each rank's sum
+    of squares over its shards, each leaf's weighted by 1 / the ranks that
+    hold the same block, then one all-reduce of that scalar over the mesh
+    (a partial sum reduced to replicated); then AdamW leaf by leaf on the
+    local shards (``to_local()``: elementwise, so DTensor's planner never
+    sees the update's flattened slices), the clip by that norm included."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    from repro_torch.optim.schedule import cosine_schedule
+
+    loss_grads = _loss_grads(cfg, window)
+
+    def step(params, batch, m, v):
+        leaves = tree_leaves(params)
+        grads = [torch.zeros_like(p) if g is None else g for g, p in zip(loss_grads(params, batch), leaves)]
+        grads = [g.redistribute(p.device_mesh, p.placements) for g, p in zip(grads, leaves)]
+        local = [g.to_local() for g in grads]
+        sq = sum(g.float().square().sum() / _replicas(p) for g, p in zip(local, leaves))
+        mesh = leaves[0].device_mesh
+        total = DTensor.from_local(sq, mesh, [Partial()] * mesh.ndim, run_check=False)
+        gnorm = total.redistribute(mesh, [Replicate()] * mesh.ndim).to_local().sqrt()
+        shards = lambda tree: tree_unflatten(params, [t.to_local() for t in tree_leaves(tree)])  # noqa: E731
+        opt = {"m": shards(m), "v": shards(v), "count": torch.zeros((), dtype=torch.int32, device=gnorm.device)}
+        step_no = torch.zeros((), dtype=torch.int32, device=gnorm.device)
+        with torch.no_grad():
+            return adamw_update(tree_unflatten(params, local), opt, shards(params), ocfg,
+                                lr_scale=cosine_schedule(step_no, 10_000, 100), grad_norm=gnorm)
+
+    return step
 
 
 def _count(fn, args, kind: str, rules=None, mesh=None) -> tuple:
@@ -294,7 +400,9 @@ def _count(fn, args, kind: str, rules=None, mesh=None) -> tuple:
     with torch.enable_grad() if kind == "train" else torch.no_grad(), \
             implicit_replication() if placed else contextlib.nullcontext(), \
             axis_rules(rules, mesh) if placed else contextlib.nullcontext(), \
-            _greedy_strategy_costs() if placed else contextlib.nullcontext():
+            _greedy_strategy_costs() if placed else contextlib.nullcontext(), \
+            _shard_moves_as_all_to_all() if placed else contextlib.nullcontext(), \
+            _vocab_sharded_ce() if placed else contextlib.nullcontext():
         cost = estimate_fn_cost(run)
     return cost, out["v"]
 

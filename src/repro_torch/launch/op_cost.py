@@ -56,17 +56,20 @@ records the combination as ``status: "error"``):
 
 * an op DTensor has no sharding strategy for (its ``NotImplementedError``),
   and a ``view`` / ``reshape`` whose sharding DTensor cannot carry through
-  (its propagation fails and asks for a redistribution first), get their
+  (its propagation fails and asks for a redistribution first, or it shards
+  the output unevenly and the local view then fails: mixtral-8x22b's
+  training backward on the 512-rank mesh unflattens 2^20 rows sharded 512
+  ways into 256 x 4096), get their
   inputs redistributed to ``Replicate`` (the all-gathers counted), run on
   the local tensors and come back replicated; counted by op in
   ``replicated_ops``.  So does any other in-place op into a plain tensor
   (DTensor refuses it), which the plain tensor, replicated under
   ``implicit_replication``, then holds whole.  The sweep of all 80
-  combinations meets three: the MoE dispatch's ``scatter_add_`` into the
+  combinations meets four: the MoE dispatch's ``scatter_add_`` into the
   zero buffer it makes (mixtral-8x22b and llama4-maverick, every shape),
-  and two views of rwkv6-7b on the 512-rank mesh, its LoRA mix
-  unflattening 320 columns into 5 groups over 16 ranks (decode) and its
-  (B, S) rows flattened (prefill);
+  two views of rwkv6-7b on the 512-rank mesh, its LoRA mix unflattening
+  320 columns into 5 groups over 16 ranks (decode) and its (B, S) rows
+  flattened (prefill), and mixtral's uneven training view above;
 * a slice write (``copy_``, ``index_copy_``, ``index_put_``) into a plain
   tensor, or into a DTensor whose placement DTensor cannot keep in place,
   is each rank's write into its own block, with no collective, as XLA
@@ -131,6 +134,7 @@ COLLECTIVES = {
 _VIEWS = {"view", "_unsafe_view", "reshape"}
 _NO_STRATEGY = "does not have a sharding strategy"
 _VIEW_FAILED = "Sharding propagation failed"
+_VIEW_UNEVEN = "is invalid for input of size"  # a view whose output DTensor would shard unevenly
 _INPLACE_PLACEMENT = "in-place operations that require placement changes are not supported"
 
 
@@ -253,7 +257,7 @@ class OpCounter(TorchDispatchMode):
                     if _NO_STRATEGY not in str(e):
                         raise
                 except RuntimeError as e:
-                    if name not in _VIEWS or _VIEW_FAILED not in str(e):
+                    if name not in _VIEWS or not (_VIEW_FAILED in str(e) or _VIEW_UNEVEN in str(e)):
                         raise
                 out = replicated_call(func, *args, **kwargs)
                 self.replicated_ops[name] = self.replicated_ops.get(name, 0) + 1
@@ -266,12 +270,12 @@ class OpCounter(TorchDispatchMode):
         self.local_writes[name] = self.local_writes.get(name, 0) + 1
         return dst
 
-    def kernel_call(self, fn, args, kwargs, kv_head_dim):
+    def kernel_call(self, fn, args, kwargs, kv_head_dim, seq_partial=None):
         """A kernel entry's meta route (``obs.op_charges.meta_call``): on
         each rank's blocks where an argument is a ``DTensor``."""
         from repro_torch.sharding.dtensor_calls import kernel_call
 
-        return kernel_call(fn, args, kwargs, kv_head_dim)
+        return kernel_call(fn, args, kwargs, kv_head_dim, seq_partial)
 
     def _alloc(self, out) -> None:
         for t in tensors_of(out):

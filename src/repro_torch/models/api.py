@@ -462,10 +462,7 @@ def decode_step_members(params, token, cache, pos, cfg: ModelConfig, *, starts=N
 def _ce_chunk(h, head, t, m):
     """One chunk's sums: (nll, z, mask, correct), f32 (4,).  The logits
     (B, c, V) are f32 and live only inside this call."""
-    # the vocabulary whole on each rank (the dry run's placed step: a
-    # target gather from vocabulary-sharded logits is a masked partial
-    # result DTensor cannot reduce); a no-op on plain tensors
-    logits = constrain((h @ head).float(), ("act_batch", "act_seq", None))
+    logits = (h @ head).float()
     logz = torch.logsumexp(logits, -1)
     tgt = logits.gather(-1, t[..., None])[..., 0]
     acc = (logits.argmax(-1) == t).float()  # the first index of the maximum

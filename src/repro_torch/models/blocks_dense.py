@@ -11,6 +11,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.params import Initializer
+from repro_torch.sharding.logical import constrain
 
 
 def init_dense_layer(ini: Initializer, cfg: ModelConfig, *, moe: bool = False):
@@ -35,7 +36,7 @@ def _mlp_residual(p, x, cfg: ModelConfig, *, with_aux: bool = False):
         if with_aux:
             return x + out[0], out[1]
         return x + out
-    x = x + L.apply_mlp(p["mlp"], h, cfg)
+    x = constrain(x + L.apply_mlp(p["mlp"], h, cfg), ("act_ensemble", "act_batch", "act_seq", "act_embed"))
     return (x, x.new_zeros((x.shape[0],), dtype=torch.float32)) if with_aux else x
 
 

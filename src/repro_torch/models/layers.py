@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.sharding.logical import constrain
 from repro_torch.kernels.compaction import ops as compaction_ops
 from repro_torch.kernels.decode_attention import ops as dec_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -106,8 +107,10 @@ def apply_mlp(p, x, cfg: ModelConfig):
         h = F.silu(torch.einsum("ebsd,edf->ebsf", x, p["w_gate"])) * torch.einsum(
             "ebsd,edf->ebsf", x, p["w_up"]
         )
+        h = constrain(h, ("act_ensemble", "act_batch", "act_seq", "act_mlp"))
         return torch.einsum("ebsf,efd->ebsd", h, p["w_down"])
     h = F.gelu(torch.einsum("ebsd,edf->ebsf", x, p["w_in"]) + _per_member(p["b_in"], x), approximate="tanh")
+    h = constrain(h, ("act_ensemble", "act_batch", "act_seq", "act_mlp"))
     return torch.einsum("ebsf,efd->ebsd", h, p["w_out"]) + _per_member(p["b_out"], x)
 
 
@@ -258,6 +261,9 @@ def qkv_project(p, x, cfg: ModelConfig, positions):
         v = v + _per_member(p["bv"], v)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    q = constrain(q, ("act_ensemble", "act_batch", "act_seq", "act_heads", "act_head_dim"))
+    k = constrain(k, ("act_ensemble", "act_batch", "act_seq", "act_kv_heads", "act_head_dim"))
+    v = constrain(v, ("act_ensemble", "act_batch", "act_seq", "act_kv_heads", "act_head_dim"))
     return q, k, v
 
 
@@ -265,7 +271,7 @@ def attn_output(p, ctx, cfg: ModelConfig):
     out = torch.einsum("ebshk,ehkd->ebsd", ctx, p["wo"])
     if "bo" in p:
         out = out + _per_member(p["bo"], out)
-    return out
+    return constrain(out, ("act_ensemble", "act_batch", "act_seq", "act_embed"))
 
 
 def _fold(t: torch.Tensor) -> torch.Tensor:

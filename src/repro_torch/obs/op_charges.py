@@ -41,14 +41,16 @@ def charge_collective(kind: str, n_bytes: int) -> None:
         c.collective(kind, n_bytes)
 
 
-def meta_call(fn, *args, kv_head_dim: Optional[int] = None, **kwargs):
+def meta_call(fn, *args, kv_head_dim: Optional[int] = None, seq_partial=None, **kwargs):
     """A kernel entry's meta route, ``fn(*args, **kwargs)``: ``fn`` charges
     the kernel's cost and returns outputs of the right shapes.  The
     innermost active counter runs it instead (``counter.kernel_call``),
     which places ``DTensor`` arguments.  ``kv_head_dim`` marks an attention
     call: ``args[0]`` is q (rows at dim 0, heads at dim 2), ``args[1:3]`` K
     and V with their heads at that dim, and rows and heads are
-    independent; without it the call reads its arguments whole."""
+    independent; without it the call reads its arguments whole.
+    ``seq_partial`` (the dense decode's) attends one slice of a cache
+    sharded along its sequence, for the counter to merge across ranks."""
     if _ACTIVE:
-        return _ACTIVE[-1].kernel_call(fn, args, kwargs, kv_head_dim)
+        return _ACTIVE[-1].kernel_call(fn, args, kwargs, kv_head_dim, seq_partial)
     return fn(*args, **kwargs)

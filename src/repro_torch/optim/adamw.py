@@ -71,7 +71,7 @@ def _groups(sizes, limit: int = GROUP_ELEMENTS):
     return out
 
 
-def adamw_update(grads, state, params, cfg: OptimConfig, lr_scale=1.0):
+def adamw_update(grads, state, params, cfg: OptimConfig, lr_scale=1.0, grad_norm=None):
     """Returns (params, state, metrics {grad_norm, lr}) with the new values
     written into the tensors of ``params`` and ``state`` (under no_grad):
     the JAX package returns new trees of the same values; updating in place
@@ -79,7 +79,10 @@ def adamw_update(grads, state, params, cfg: OptimConfig, lr_scale=1.0):
     qwen2.5-3b's width, 27 GB of f32 moments a copy).  A leaf larger than
     ``GROUP_ELEMENTS`` is updated a slice at a time (at that width a
     36-layer MLP stack holds 812 M elements, 3 GiB for each f32 temporary);
-    the parameters and moments must be contiguous."""
+    the parameters and moments must be contiguous.  ``grad_norm`` is the
+    global gradient norm where the caller has it (the dry run's placed
+    step: each rank holds shards, and the norm is reduced across ranks);
+    by default ``global_norm(grads)``."""
     flat_p, flat_g = tree_leaves(params), tree_leaves(grads)
     flat_m, flat_v = tree_leaves(state["m"]), tree_leaves(state["v"])
     pieces = _pieces(flat_p, GROUP_ELEMENTS)
@@ -89,7 +92,7 @@ def adamw_update(grads, state, params, cfg: OptimConfig, lr_scale=1.0):
 
     flat_g = cut([g.reshape(-1) for g in flat_g])  # a gradient may be a non-contiguous view: copied once
     flat_p, flat_m, flat_v = (cut([t.view(-1) for t in leaves]) for leaves in (flat_p, flat_m, flat_v))
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0) if cfg.clip_norm is not None else None
 
     count = state["count"] + 1

@@ -5,13 +5,17 @@ and to the aten ops DTensor has no sharding strategy for.
 The inputs are redistributed to what the call reads on each rank (the
 all-gathers a partitioner would issue around an opaque call, counted by an
 active ``launch.op_cost.OpCounter``), the call runs on the local blocks,
-and its outputs come back as ``DTensor``s.  Nothing here runs on the
-serving path.
+and its outputs come back as ``DTensor``s; a decode over a cache sharded
+along its sequence merges each rank's partial softmax instead
+(``lse_merge``).  ``ce_chunk_vocab_sharded`` is the loss's chunk sums
+with the vocabulary kept sharded.  Nothing here runs on the serving path.
 """
 from __future__ import annotations
 
 import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
+
+from repro_torch.sharding.logical import constrain
 
 
 def _dtensors(a):
@@ -73,17 +77,55 @@ def replicated_call(fn, *args, **kwargs):
     return wrap(fn(*local(args), **local(kwargs)))
 
 
-def attention_call(fn, q, kvs, kv_head_dim: int, *rest, **kwargs):
+def lse_merge(o, m, l, groups):
+    """The merge of a softmax over an axis sharded across ``groups`` (each a
+    ``(mesh, dim)`` of the functional collectives): every rank's partial
+    (o (B, 1, H, hd) unnormalised, m and l (B, H), all f32) is rescaled to
+    the all-reduced row maximum, then the sums and outputs are all-reduced
+    — the log-sum-exp reduction a partitioner issues.  Returns the
+    normalised output (zeros where no rank saw a key), f32."""
+    import torch.distributed._functional_collectives as funcol
+
+    M = m
+    for grp in groups:
+        M = funcol.all_reduce(M, "max", grp)
+    scale = torch.where(m == -torch.inf, 0.0, torch.exp(m - torch.where(M == -torch.inf, 0.0, M)))
+    l, o = l * scale, o * scale[:, None, :, None]
+    for grp in groups:
+        l = funcol.all_reduce(l, "sum", grp)
+        o = funcol.all_reduce(o, "sum", grp)
+    return o / torch.where(l == 0, 1.0, l)[:, None, :, None]
+
+
+def attention_call(fn, q, kvs, kv_head_dim: int, *rest, seq_partial=None, **kwargs):
     """An attention call over ``DTensor``s: q (batch first, heads at dim 2)
     keeps its batch and head shards and is reduced elsewhere; each of
     ``kvs`` is brought to q's batch shards with every head and sliced to
     the heads q's local heads read (``H / KVH`` query heads share one);
-    the other tensor arguments are gathered whole.  ``fn(q, *kvs, *rest,
+    the other tensor arguments are gathered whole, a per-row one (B,) cut
+    to q's local rows.  ``fn(q, *kvs, *rest,
     **kwargs)`` runs on the local blocks and its output keeps q's
-    placements."""
+    placements (q, where it holds every row, first takes the rows of the
+    cache's shards).
+
+    With ``seq_partial`` (the dense decode: caches (B, KVH, S, hd)), a
+    cache sharded along its sequence stays so: on each mesh dim that
+    shards it, q is gathered whole (O(B·H·hd), never the O(S) cache),
+    ``seq_partial`` attends each rank's slice of keys at its global offset
+    and ``lse_merge`` all-reduces the partial softmaxes over those dims."""
     mesh = q.device_mesh
-    qp = [p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate() for p in q.placements]
-    kvp = [Shard(0) if p == Shard(0) else Replicate() for p in qp]
+    seq = []
+    if seq_partial is not None and isinstance(kvs[0], DTensor):
+        seq = [j for j, p in enumerate(kvs[0].placements) if p == Shard(2)]
+    keep = [p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate() for p in q.placements]
+    # where q holds every row and the cache is cut by rows (q a partial sum
+    # or replicated), q goes to the cache's row shards: O(B·H·hd) moved,
+    # where gathering the cache's rows would move all of it
+    kv_place = kvs[0].placements if isinstance(kvs[0], DTensor) else [Replicate()] * mesh.ndim
+    keep = [Shard(0) if j not in seq and not p.is_shard() and kv_place[j] == Shard(0) else p
+            for j, p in enumerate(keep)]
+    qp = [Replicate() if j in seq else p for j, p in enumerate(keep)]
+    kvp = [Shard(2) if j in seq else Shard(0) if p == Shard(0) else Replicate() for j, p in enumerate(qp)]
     H, KVH = q.shape[2], kvs[0].shape[kv_head_dim]
     n, c = 1, 0
     coord = mesh.get_coordinate()
@@ -100,12 +142,26 @@ def attention_call(fn, q, kvs, kv_head_dim: int, *rest, **kwargs):
     def whole(t):
         return t.redistribute(mesh, [Replicate()] * mesh.ndim).to_local() if isinstance(t, DTensor) else t
 
-    out = fn(q.redistribute(mesh, qp).to_local(), *(kv(t) for t in kvs), *(whole(t) for t in rest),
-             **{k: whole(v) for k, v in kwargs.items()})
-    return DTensor.from_local(out, mesh, qp, run_check=False)
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    (n_rows, *_), (row0, *_) = compute_local_shape_and_global_offset(q.shape, mesh, qp)
+
+    def rows(t):  # a per-row argument (cur_len, starts: (B,)) cut to q's local rows
+        t = whole(t)
+        return t[row0:row0 + n_rows] if isinstance(t, torch.Tensor) and t.ndim and t.shape[0] == q.shape[0] else t
+
+    q_local, kv_local = q.redistribute(mesh, qp).to_local(), [kv(t) for t in kvs]
+    rest, kwargs = [rows(t) for t in rest], {k: rows(v) for k, v in kwargs.items()}
+    if not seq:
+        return DTensor.from_local(fn(q_local, *kv_local, *rest, **kwargs), mesh, qp, run_check=False)
+    offset = compute_local_shape_and_global_offset(kvs[0].shape, mesh, kvp)[1][2]
+    o, m, l = seq_partial(q_local, *kv_local, *rest, key_offset=offset, **kwargs)
+    out = lse_merge(o, m, l, [(mesh, j) for j in seq]).to(q.dtype)
+    # replicated over the sequence's dims: q's own head shards are local slices of it
+    return DTensor.from_local(out, mesh, qp, run_check=False).redistribute(mesh, keep)
 
 
-def kernel_call(fn, args, kwargs, kv_head_dim=None):
+def kernel_call(fn, args, kwargs, kv_head_dim=None, seq_partial=None):
     """A kernel entry's meta route ``fn`` (``obs.op_charges.meta_call``) on
     each rank's blocks: ``attention_call`` where ``kv_head_dim`` marks an
     attention call, ``replicated_call`` otherwise, and ``fn`` as called
@@ -113,5 +169,30 @@ def kernel_call(fn, args, kwargs, kv_head_dim=None):
     if not has_dtensor(args, kwargs):
         return fn(*args, **kwargs)
     if kv_head_dim is not None:
-        return attention_call(fn, args[0], args[1:3], kv_head_dim, *args[3:], **kwargs)
+        return attention_call(fn, args[0], args[1:3], kv_head_dim, *args[3:], seq_partial=seq_partial, **kwargs)
     return replicated_call(fn, *args, **kwargs)
+
+
+def ce_chunk_vocab_sharded(h, head, t, m):
+    """``models.api._ce_chunk``'s sums (nll, z, mask, correct) on
+    ``DTensor``s with the vocabulary sharded, as the JAX package constrains
+    the logits ("act_vocab"): the head's embedding dim is gathered (a
+    weight) and the hidden rows kept whole on it, so the product comes out
+    sharded by vocabulary with no partial sum (whose gradient would gather
+    the logits).  Every reduction over the vocabulary is then a local one
+    and an all-reduce of (B, c): its max, its sum of exponentials, the
+    target's logit picked by a one-hot mask, and the first index of the
+    maximum (a min over the indices where the maximum lies), where a gather
+    or an argmax would gather the logits whole.  A row is correct when that
+    index is its target, as ``argmax`` decides a tie."""
+    h = constrain(h, ("act_batch", "act_seq", None))
+    head = constrain(head, (None, "vocab"))
+    logits = constrain((h @ head).float(), ("act_batch", "act_seq", "act_vocab"))
+    V = logits.shape[-1]
+    mx = logits.amax(-1)
+    logz = (logits - mx[..., None]).exp().sum(-1).log() + mx
+    idx = torch.arange(V, device=t.device)
+    tgt = torch.where(idx == t[..., None], logits, 0.0).sum(-1)
+    first = torch.where(logits == mx[..., None], idx, V).amin(-1)
+    acc = (first == t).float()
+    return torch.stack([((logz - tgt) * m).sum(), (logz.square() * m).sum(), m.sum(), (acc * m).sum()])

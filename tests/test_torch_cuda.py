@@ -6,8 +6,9 @@ where only PyTorch is installed:
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
 Tolerances: argmax, max, index maps, compacted payloads and paged K/V
-views exact; sumexp rel 1e-5; bf16 attention outputs abs 2e-2 (inputs
-~N(0, 1); the flash kernel rounds P to bf16 before the PV product), f32
+views exact; sumexp rel 1e-5; bf16 and f16 attention outputs abs 2e-2
+(inputs ~N(0, 1); the flash kernel rounds P to 16 bits before the PV
+product), f32
 attention outputs (the SIMT route) normwise 1e-5; the paged decode kernel
 bitwise equal to the dense one on the gathered view, in both dtypes and at
 every head size.  The SSD and WKV6
@@ -93,6 +94,38 @@ def _device_kernels(fn):
         if dev:
             return len([e for e in dev if not e.name.lower().startswith(("memcpy", "memset"))])
     pytest.fail("torch.profiler recorded no device activity")
+
+
+# CUgraphNodeType (the CUDA driver API's cuda.h)
+_GRAPH_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph", 5: "empty"}
+
+
+def _graph_nodes(fn):
+    """The device work one call of ``fn`` issues: ``fn`` captured as a CUDA
+    graph (on a side stream, ``keep_graph`` so the graph outlives its
+    instantiation; nothing runs) and its nodes' types read through the
+    driver API, by type name ('kernel', 'memcpy', ...).  Unlike a profiler
+    trace, a captured graph always holds every launch."""
+    import ctypes
+
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.graph(graph, stream=stream):
+        fn()
+    torch.cuda.synchronize()
+    cu = ctypes.CDLL("libcuda.so.1")
+    handle, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    assert cu.cuGraphGetNodes(handle, None, ctypes.byref(n)) == 0
+    nodes = (ctypes.c_void_p * n.value)()
+    assert cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) == 0
+    kinds = []
+    for node in nodes:
+        t = ctypes.c_int(-1)
+        assert cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t)) == 0
+        kinds.append(_GRAPH_NODE_TYPES.get(t.value, t.value))
+    graph.reset()
+    return kinds
 
 
 def _mixed_leaves(B, n, cuda):
@@ -234,7 +267,7 @@ FLASH_CASES = [
 
 
 def _held(got, ref, dtype):
-    """bf16 outputs abs 2e-2; f32 outputs (the SIMT route) normwise 1e-5."""
+    """bf16 and f16 outputs abs 2e-2; f32 outputs (the SIMT route) normwise 1e-5."""
     if dtype == torch.float32:
         assert got.dtype == torch.float32
         _normwise(got, ref, 1e-5)
@@ -262,6 +295,34 @@ def test_flash_attention(cuda, case, hd, heads, dtype):
     if starts is not None:
         for b, s in enumerate(case["starts"]):
             assert not got[b, :s].any()
+
+
+# the widths and types past the examples': hd 256 (Gemma 2 and 3), 200 (the
+# 256 body, padded), 100 and 20 and 3 (off the multiples of 8: zero-padded
+# by the wrapper, the scale of the real hd), 300 and 520 (attend_any), G 32
+# (multi-query), in bf16, f16 and f32
+WIDE_DTYPES = [torch.bfloat16, torch.float16, torch.float32]
+
+
+@pytest.mark.parametrize("dtype", WIDE_DTYPES, ids=["bf16", "f16", "f32"])
+@pytest.mark.parametrize("hd,heads", [(256, (8, 2)), (256, (4, 4)), (200, (4, 2)), (100, (6, 2)), (20, (4, 2)),
+                                      (3, (2, 1)), (128, (32, 1)), (64, (8, 2)), (80, (4, 4)), (128, (8, 2)),
+                                      (300, (4, 2)), (520, (2, 1))])
+@pytest.mark.parametrize("case", [FLASH_CASES[0], FLASH_CASES[4], FLASH_CASES[5]],
+                         ids=lambda c: "-".join(f"{k}={v}" for k, v in c.items() if v))
+def test_flash_attention_wide_heads_and_f16(cuda, case, hd, heads, dtype):
+    test_flash_attention(cuda, case, hd, heads, dtype)
+
+
+@pytest.mark.parametrize("dtype", WIDE_DTYPES, ids=["bf16", "f16", "f32"])
+@pytest.mark.parametrize("hd", [256, 100])
+def test_flash_attention_wide_heads_long(cuda, hd, dtype):
+    """hd 256 and 100 over 1100 keys: the ring wraps many times."""
+    q = _randn(2, 1100, 8, hd, seed=0).to(cuda, dtype)
+    k, v = (_randn(2, 1100, 2, hd, seed=i).to(cuda, dtype) for i in (1, 2))
+    starts = torch.tensor([500, 3], dtype=torch.int32, device=cuda)
+    for kw in (dict(causal=True), dict(causal=True, window=300, starts=starts)):
+        _held(flash.flash_attention(q, k, v, **kw), flash.flash_attention_plain(q, k, v, **kw), dtype)
 
 
 # long and ragged: Sq, Sk of 1000 and more (not multiples of the tiles, so the
@@ -320,6 +381,57 @@ def test_decode_attention(cuda, case, G, hd, dtype):
     _held(got, decode.decode_attention_plain(q, kc, vc, cur, **kw), dtype)
     if starts is not None:  # rows with nothing visible are exact zeros
         assert not got[starts >= torch.as_tensor(cur, device=cuda).expand(B)].any()
+
+
+# past the examples' widths and groups: hd 256, 100, 20 and 3, G 32, 64 and
+# 71 (Falcon-7B's multi-query: the heads in tiles of 16, the last one short),
+# in bf16, f16 and f32
+@pytest.mark.parametrize("dtype", WIDE_DTYPES, ids=["bf16", "f16", "f32"])
+@pytest.mark.parametrize("G,hd", [(2, 256), (8, 256), (32, 128), (64, 128), (71, 64), (17, 20), (3, 100), (1, 3),
+                                  (2, 300), (1, 520)])
+@pytest.mark.parametrize("case", DECODE_CASES, ids=lambda c: "-".join(f"{k}={v}" for k, v in c.items() if v))
+def test_decode_attention_wide_groups_and_f16(cuda, case, G, hd, dtype):
+    test_decode_attention(cuda, case, G, hd, dtype)
+
+
+@pytest.mark.parametrize("dtype", WIDE_DTYPES, ids=["bf16", "f16", "f32"])
+@pytest.mark.parametrize("G,hd", [(4, 256), (32, 128), (71, 64)])
+@pytest.mark.parametrize("S", [512, 4096])
+def test_decode_attention_wide_long(cuda, S, G, hd, dtype):
+    """Long caches at the new widths and groups: every split count, hd
+    256's one-stage loop over many tiles, window and starts edges."""
+    case = DECODE_LONG_CASES[0] if S == 512 else DECODE_LONG_CASES[1]
+    B, KVH = 3, 1
+    q = _randn(B, 1, KVH * G, hd, seed=0).to(cuda, dtype)
+    kc, vc = (_randn(B, KVH, S, hd, seed=i).to(cuda, dtype) for i in (1, 2))
+    cur = torch.tensor(_long_cur(case["cur"], S), dtype=torch.int32, device=cuda)
+    starts = None
+    if case["starts"] is not None:
+        starts = torch.tensor([x if x >= 0 else S + x for x in case["starts"]], dtype=torch.int32, device=cuda)
+    kw = dict(window=S // 3 if case["window"] else None, softcap=case["softcap"], starts=starts)
+    _held(decode.decode_attention_bksd(q, kc, vc, cur, **kw), decode.decode_attention_plain(q, kc, vc, cur, **kw), dtype)
+
+
+@pytest.mark.parametrize("qt,kt", [(torch.float32, torch.bfloat16), (torch.bfloat16, torch.float16),
+                                   (torch.float16, torch.float32)])
+def test_attention_mixed_dtypes(cuda, qt, kt):
+    """q in one type and K, V in another: the kernels run all three in f32
+    (one launch of the f32 route) and return q's type, as the plain
+    versions compute; held to the plain versions at the tolerance of q's
+    type."""
+    q = _randn(2, 50, 8, 64, seed=1).to(cuda, qt)
+    k, v = (_randn(2, 50, 2, 64, seed=i).to(cuda, kt) for i in (2, 3))
+    before = kernels.launch_counts()["flash_attention"]
+    got = flash.flash_attention(q, k, v, causal=True)
+    assert kernels.launch_counts()["flash_attention"] == before + 1 and got.dtype == qt
+    _held(got, flash.flash_attention_plain(q, k, v, causal=True), qt)
+    qd = _randn(3, 1, 8, 64, seed=4).to(cuda, qt)
+    kc, vc = (_randn(3, 2, 130, 64, seed=i).to(cuda, kt) for i in (5, 6))
+    cur = torch.tensor([130, 7, 64], dtype=torch.int32, device=cuda)
+    _held(decode.decode_attention_bksd(qd, kc, vc, cur), decode.decode_attention_plain(qd, kc, vc, cur), qt)
+    qp, kp, vp, pages, cur = (t.to(cuda) for t in _paged_case(2, 3, 2, 4, 64, 256, 16, kt, seed=7))
+    qp = qp.to(qt)
+    _held(decode.decode_attention_paged(qp, kp, vp, pages, cur), decode.decode_attention_paged_plain(qp, kp, vp, pages, cur), qt)
 
 
 # long caches split across a thread-block cluster (128-row tiles, up to 8
@@ -422,6 +534,18 @@ def test_decode_attention_paged_bitwise_dense_head_sizes(cuda, G, KVH, hd, dtype
     _paged_held(got, q, kp, vp, pages, cur, dtype)
 
 
+@pytest.mark.parametrize("dtype", WIDE_DTYPES, ids=["bf16", "f16", "f32"])
+@pytest.mark.parametrize("G,KVH,hd", [(32, 1, 128), (71, 1, 64), (4, 2, 256), (2, 2, 100), (20, 1, 3), (2, 2, 300)])
+def test_decode_attention_paged_bitwise_dense_wide(cuda, G, KVH, hd, dtype):
+    """The paged kernel at the new widths, groups and f16: within tolerance
+    of the plain version and bitwise the dense kernel on the gathered view."""
+    q, kp, vp, pages, cur = (t.to(cuda) for t in _paged_case(3, 4, KVH, G, hd, 512, 16, dtype, seed=hd + G))
+    before = kernels.launch_counts()["decode_attention_paged"]
+    got = decode.decode_attention_paged(q, kp, vp, pages, cur)
+    assert kernels.launch_counts()["decode_attention_paged"] == before + 1
+    _paged_held(got, q, kp, vp, pages, cur, dtype)
+
+
 @pytest.mark.parametrize("dtype", ATTN_DTYPES, ids=["bf16", "f32"])
 @pytest.mark.parametrize("hd", [40, 128])
 @pytest.mark.parametrize("G", list(range(1, 17)))
@@ -441,23 +565,23 @@ def test_decode_attention_every_group(cuda, G, hd, dtype):
 
 
 def test_attention_kernels_refuse_what_they_do_not_take(cuda):
-    """No fallback: hd past 128 or off the multiples of 8, G past 16 and
-    f16 raise, with their reason."""
+    """No fallback: hd past ``MAX_HEAD``, heads that do not split into the KV heads,
+    and integer inputs raise, with their reason, and launch nothing."""
     bf = torch.bfloat16
     mk = lambda *s, dtype=bf: _randn(*s).to(cuda, dtype)  # noqa: E731
-    for hd in (136, 20):
-        with pytest.raises(ValueError, match="multiple of 8"):
-            flash.flash_attention(mk(1, 4, 2, hd), mk(1, 4, 2, hd), mk(1, 4, 2, hd))
-        with pytest.raises(ValueError, match="multiple of 8"):
-            decode.decode_attention_bksd(mk(1, 1, 2, hd), mk(1, 2, 8, hd), mk(1, 2, 8, hd), 8)
-    with pytest.raises(ValueError, match="G = H / KVH"):
-        decode.decode_attention_bksd(mk(1, 1, 17, 64), mk(1, 1, 8, 64), mk(1, 1, 8, 64), 8)
+    before = kernels.launch_counts()
+    big = flash.MAX_HEAD + 8  # past what attend_any keeps in shared memory
+    with pytest.raises(ValueError, match=f"hd from 1 to {flash.MAX_HEAD}"):
+        flash.flash_attention(mk(1, 4, 2, big), mk(1, 4, 2, big), mk(1, 4, 2, big))
+    with pytest.raises(ValueError, match=f"hd from 1 to {flash.MAX_HEAD}"):
+        decode.decode_attention_bksd(mk(1, 1, 2, big), mk(1, 2, 8, big), mk(1, 2, 8, big), 8)
+    with pytest.raises(ValueError, match="H a multiple of KVH"):
+        decode.decode_attention_bksd(mk(1, 1, 5, 64), mk(1, 2, 8, 64), mk(1, 2, 8, 64), 8)
+    with pytest.raises(TypeError, match="dtype"):  # an integer among the inputs
+        flash.flash_attention(mk(1, 4, 2, 64), mk(1, 4, 2, 64), torch.zeros(1, 4, 2, 64, device=cuda, dtype=torch.int32))
     with pytest.raises(TypeError, match="dtype"):
-        flash.flash_attention(*(mk(1, 4, 2, 64, dtype=torch.float16) for _ in range(3)))
-    with pytest.raises(TypeError, match="dtype"):  # mixed dtypes
-        flash.flash_attention(mk(1, 4, 2, 64, dtype=torch.float32), mk(1, 4, 2, 64), mk(1, 4, 2, 64))
-    with pytest.raises(TypeError, match="dtype"):
-        decode.decode_attention_bksd(*(mk(1, 1, 2, 64, dtype=torch.float16) for _ in range(3)), 1)
+        decode.decode_attention_bksd(*(torch.zeros(1, 1, 2, 64, device=cuda, dtype=torch.int32) for _ in range(3)), 1)
+    assert kernels.launch_counts() == before
 
 
 @pytest.mark.parametrize("G,KVH", [(8, 2), (2, 8), (5, 8), (6, 8), (12, 8)])
@@ -556,6 +680,22 @@ SSD_CASES = [  # (B, S, H, P, G, N, E, h0, dtype of x, B, C and y)
     (3, 77, 8, 64, 4, 16, 3, False, torch.bfloat16),
     (2, 100, 4, 32, 1, 64, 1, True, torch.bfloat16),
     *((2, S, 8, 64, 2, 64, 2, True, torch.float32) for S in (65, 300)),  # the f32 route
+    # the published Mamba2 shapes (d_state 128, headdim 64) and P 128 on the
+    # dual form (P in blocks of 64 or 32 columns: 128, 96)
+    (2, 300, 4, 64, 1, 128, 2, True, torch.bfloat16),
+    (2, 65, 4, 64, 2, 128, 1, False, torch.bfloat16),
+    (2, 200, 2, 128, 1, 128, 1, True, torch.bfloat16),
+    (2, 130, 4, 128, 2, 64, 2, True, torch.bfloat16),
+    (2, 100, 4, 96, 2, 32, 1, True, torch.bfloat16),
+    # every other shape: the run-time (P, N) scan, bf16 and f32, state in
+    # shared memory or (N 700 at 64 columns) in the output
+    (2, 77, 4, 48, 2, 24, 2, True, torch.bfloat16),
+    (2, 40, 2, 64, 1, 8, 1, True, torch.bfloat16),
+    (3, 1, 4, 48, 2, 24, 3, True, torch.bfloat16),
+    (2, 100, 2, 64, 1, 128, 1, True, torch.float32),
+    (2, 50, 2, 200, 1, 16, 1, True, torch.float32),
+    (2, 77, 4, 48, 2, 24, 2, False, torch.float32),
+    (1, 10, 2, 64, 1, 700, 1, True, torch.float32),
 ]
 
 
@@ -585,10 +725,9 @@ def test_mamba2_ssd_reads_xbc_views_in_one_launch(cuda, pad):
     """x, B and C as the Mamba2 block hands them over: strided views of one
     xBC tensor, read in place — one wrapper call, one device kernel.  With
     a padding column the rows leave 16-byte boundaries and the wrapper
-    copies the views first (same result)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    copies the views first (same result).  The device work is counted as
+    the nodes of the call captured in a CUDA graph (``_graph_nodes``), which
+    does not depend on a profiler delivering its records."""
     B, S, H, P, G, N, E = 3, 200, 16, 64, 1, 64, 3
     gen = torch.Generator().manual_seed(7)
     xBC = torch.randn(B, S, H * P + 2 * G * N + pad, generator=gen).to(cuda, torch.bfloat16)
@@ -598,20 +737,16 @@ def test_mamba2_ssd_reads_xbc_views_in_one_launch(cuda, pad):
     dt = torch.nn.functional.softplus(torch.randn(B, S, H, generator=gen) - 2.0).to(cuda)
     A = (-torch.exp(torch.randn(E, H, generator=gen) * 0.3)).to(cuda)
     s0 = torch.randn(B, H, N, P, generator=gen).mul(0.2).to(cuda)
-    ssd.ssd(x, dt, A, Bm, Cm, initial_state=s0)  # build and load outside the profile
+    ssd.ssd(x, dt, A, Bm, Cm, initial_state=s0)  # build and load outside the capture
     torch.cuda.synchronize()
-    for _ in range(3):  # a trace now and then holds no device records: take another
-        before = kernels.launch_counts()["mamba2_ssd"]
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            y, hT = ssd.ssd(x, dt, A, Bm, Cm, initial_state=s0, return_final_state=True)
-            torch.cuda.synchronize()
-        assert kernels.launch_counts()["mamba2_ssd"] == before + 1
-        device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if device:
-            break
-    assert device, "no trace recorded the device"
+    before = kernels.launch_counts()["mamba2_ssd"]
+    nodes = _graph_nodes(lambda: ssd.ssd(x, dt, A, Bm, Cm, initial_state=s0, return_final_state=True))
+    assert kernels.launch_counts()["mamba2_ssd"] == before + 1
     if not pad:  # the call is one kernel, no copies
-        assert len(device) == 1, [e.name for e in device]
+        assert nodes == ["kernel"], nodes
+    else:  # the copies of the views, then the one scan kernel
+        assert nodes.count("kernel") >= 2 and set(nodes) <= {"kernel", "memcpy"}, nodes
+    y, hT = ssd.ssd(x, dt, A, Bm, Cm, initial_state=s0, return_final_state=True)
     py, ph = ssd.ssd_plain(x, dt, A, Bm, Cm, initial_state=s0)
     _normwise(y, py, 2**-7)
     _normwise(hT, ph, 1e-3)
@@ -634,6 +769,14 @@ WKV_CASES = [  # (B, S, H, D, E, logw scale, dtype)
     (5, 16, 64, 32, 5, 0.5, torch.float32),
     (5, 70, 64, 64, 1, 3.0, torch.bfloat16),
     (5, 45, 64, 16, 1, 2.0, torch.float32),
+    # every other D: the run-time-D kernel (D 128 and 48, a decode step, a
+    # small D, D 400 with the state in the output)
+    (2, 50, 2, 128, 1, 0.5, torch.float32),
+    (3, 33, 3, 48, 3, 0.5, torch.bfloat16),
+    (2, 1, 2, 128, 2, 0.5, torch.bfloat16),
+    (2, 70, 4, 128, 1, 3.0, torch.bfloat16),
+    (1, 20, 1, 8, 1, 2.0, torch.float32),
+    (1, 9, 1, 400, 1, 0.5, torch.float32),
 ]
 
 
@@ -685,15 +828,17 @@ def test_rwkv6_wkv_copies_views_off_16_byte_boundaries(cuda):
 
 
 def test_recurrent_kernels_refuse_what_they_do_not_take(cuda):
+    """Every (P, N) and every D runs (the run-time kernels); inputs that do
+    not fit each other raise, with the kernel's name, and launch nothing."""
     before = kernels.launch_counts()["mamba2_ssd"], kernels.launch_counts()["rwkv6_wkv"]
     x = torch.zeros(1, 4, 2, 16, device=cuda)
-    with pytest.raises(ValueError, match="ssd"):
+    with pytest.raises(ValueError, match="ssd"):  # B and C of different shapes
         ssd.ssd(x, torch.ones(1, 4, 2, device=cuda), -torch.ones(2, device=cuda),
-                torch.zeros(1, 4, 1, 12, device=cuda), torch.zeros(1, 4, 1, 12, device=cuda))
-    xb = torch.zeros(1, 4, 2, 48, device=cuda, dtype=torch.bfloat16)  # the dual form takes P in {32, 64}
+                torch.zeros(1, 4, 1, 12, device=cuda), torch.zeros(1, 4, 1, 16, device=cuda))
+    xb = torch.zeros(1, 4, 2, 48, device=cuda, dtype=torch.bfloat16)
     bb = torch.zeros(1, 4, 1, 16, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="ssd"):
-        ssd.ssd(xb, torch.ones(1, 4, 2, device=cuda), -torch.ones(2, device=cuda), bb, bb)
+    with pytest.raises(ValueError, match="ssd"):  # dt of the wrong length
+        ssd.ssd(xb, torch.ones(1, 3, 2, device=cuda), -torch.ones(2, device=cuda), bb, bb)
     with pytest.raises(TypeError, match="ssd"):  # B and C in x's dtype, as the block hands them over
         ssd.ssd(xb[..., :32], torch.ones(1, 4, 2, device=cuda), -torch.ones(2, device=cuda),
                 torch.zeros(1, 4, 1, 16, device=cuda), torch.zeros(1, 4, 1, 16, device=cuda))
@@ -702,8 +847,8 @@ def test_recurrent_kernels_refuse_what_they_do_not_take(cuda):
         ssd.ssd(x3, torch.ones(1, 4, 3, device=cuda), -torch.ones(3, device=cuda),
                 torch.zeros(1, 4, 2, 16, device=cuda), torch.zeros(1, 4, 2, 16, device=cuda))
     r = torch.zeros(1, 4, 2, 48, device=cuda)
-    with pytest.raises(ValueError, match="wkv6"):
-        wkv.wkv6(r, r, r, r, torch.zeros(2, 48, device=cuda))
+    with pytest.raises(ValueError, match="wkv6"):  # u of another width
+        wkv.wkv6(r, r, r, r, torch.zeros(2, 40, device=cuda))
     assert (kernels.launch_counts()["mamba2_ssd"], kernels.launch_counts()["rwkv6_wkv"]) == before
 
 

@@ -16,6 +16,7 @@ import subprocess
 import sys
 
 import jax
+import numpy as np
 import pytest
 import torch
 
@@ -453,3 +454,159 @@ def _leaves(tree):
     if isinstance(tree, (list, tuple)):
         return [x for v in tree for x in _leaves(v)]
     return [tree]
+
+
+# ---------------------------------------------------------------------------
+# the decode over a sequence-sharded cache: the ranks' partial softmaxes
+# merged by all-reduces (4 gloo ranks, tests/torch_mesh_world.py)
+# ---------------------------------------------------------------------------
+
+SEQ_DECODE_CASES = [  # cur_len ragged, a window, left-pad starts (every row sees some key)
+    dict(cur=[64, 37, 5, 50], window=None, starts=None),
+    dict(cur=[64, 37, 9, 50], window=20, starts=None),
+    dict(cur=[60, 40, 30, 64], window=None, starts=[0, 17, 3, 33]),
+    dict(cur=[64, 33, 12, 50], window=24, starts=[2, 0, 5, 40]),
+]
+
+
+def test_seq_sharded_decode_merges_to_the_unsharded_answer(tmp_path):
+    """The dense decode on DTensors whose (B, KVH, S, hd) cache is sharded
+    along S: each rank attends its own keys (their global offsets in
+    ``cur_len``, the window and ``starts``), and the merge of the partial
+    softmaxes equals ``decode_attention_plain`` on the whole cache within
+    1e-5 (f32), on every rank and mesh; no all-gather moves more than q's
+    bytes (the cache stays put) and the merge's all-reduces move O(B·H·hd)."""
+    from repro_torch.kernels.decode_attention import ops as dec
+
+    rng = np.random.default_rng(11)
+    B, H, KVH, S, hd = 4, 8, 2, 64, 16
+    q = torch.from_numpy(rng.standard_normal((B, 1, H, hd)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((B, KVH, S, hd)).astype(np.float32)) for _ in range(2))
+    cases = [dict(cur=torch.tensor(c["cur"], dtype=torch.int32), window=c["window"],
+                  starts=None if c["starts"] is None else torch.tensor(c["starts"], dtype=torch.int32))
+             for c in SEQ_DECODE_CASES]
+    torch.save({"q": q, "k": k, "v": v, "cases": cases}, tmp_path / "setup.pt")
+    r = subprocess.run([sys.executable, os.path.join(ROOT, "tests", "torch_mesh_world.py"), str(tmp_path),
+                        "seq_decode"], env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")},
+                       capture_output=True, text=True, timeout=240)
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-6000:]
+    ranks = [json.loads((tmp_path / f"seq_decode.rank{i}.json").read_text()) for i in range(4)]
+    q_bytes, out_bytes = q.numel() * 4, q.numel() * 4
+    for i, c in enumerate(cases):
+        want = dec.decode_attention_plain(q, k, v, c["cur"], window=c["window"], starts=c["starts"])
+        for mesh in ("data2_model2", "model4", "seq_over_both"):
+            for rank in ranks:
+                got = rank[f"{mesh}/{i}"]
+                torch.testing.assert_close(torch.tensor(got["out"]), want, rtol=1e-5, atol=1e-5)
+                coll = got["collectives"]
+                assert coll["all-gather"] <= q_bytes, (mesh, coll)
+                assert 0 < coll["all-reduce"] <= 2 * 3 * out_bytes, (mesh, coll)
+
+
+# ---------------------------------------------------------------------------
+# the loss with the vocabulary sharded (4 gloo ranks, tests/torch_mesh_world.py)
+# ---------------------------------------------------------------------------
+
+VOCAB_CE_MESHES = ("2x2", "1x4", "4x1")
+VOCAB_CE_CASES = 3  # B 4, c 6, D 4, V 16; integer logits, so the maxima tie
+
+
+def _vocab_ce_case(rng, i):
+    """h and head in {-1, 0, 1} (integer logits, exact in f32: most rows
+    tie at their maximum); targets drawn a third each from the first index
+    of the maximum, a later tied index and anywhere; a mask with zeros in
+    case 1 and 2."""
+    B, c, D, V = 4, 6, 4, 16
+    h = rng.integers(-1, 2, (B, c, D)).astype(np.float32)
+    head = rng.integers(-1, 2, (D, V)).astype(np.float32)
+    logits = h @ head
+    t = rng.integers(0, V, (B, c))
+    for b in range(B):
+        for j in range(c):
+            top = np.flatnonzero(logits[b, j] == logits[b, j].max())
+            kind = (b * c + j) % 3
+            t[b, j] = top[0] if kind == 0 else top[-1] if kind == 1 else t[b, j]
+    m = np.ones((B, c), np.float32) if i == 0 else (rng.random((B, c)) < 0.7).astype(np.float32)
+    return {k: torch.from_numpy(x) for k, x in dict(h=h, head=head, t=t.astype(np.int64), m=m).items()}
+
+
+@pytest.fixture(scope="module")
+def vocab_ce_world(tmp_path_factory):
+    rng = np.random.default_rng(5)
+    cases = [_vocab_ce_case(rng, i) for i in range(VOCAB_CE_CASES)]
+    root = tmp_path_factory.mktemp("vocab_ce")
+    torch.save({"cases": cases}, root / "setup.pt")
+    r = subprocess.run([sys.executable, os.path.join(ROOT, "tests", "torch_mesh_world.py"), str(root), "vocab_ce"],
+                       env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")},
+                       capture_output=True, text=True, timeout=240)
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-6000:]
+    return cases, [json.loads((root / f"vocab_ce.rank{i}.json").read_text()) for i in range(4)]
+
+
+@pytest.mark.parametrize("case", range(VOCAB_CE_CASES))
+@pytest.mark.parametrize("mesh", VOCAB_CE_MESHES)
+def test_vocab_sharded_loss_sums_equal_the_plain_ones(vocab_ce_world, mesh, case):
+    """The dry run's placed loss (``dtensor_calls.ce_chunk_vocab_sharded``,
+    the logits sharded by vocabulary) gives ``models.api._ce_chunk``'s sums
+    on the same inputs, on every rank: nll and z within 1e-5 (f32, other
+    summation orders), the mask and correct counts exactly — ties at the
+    maximum included, decided by the first index as ``argmax`` does (the
+    cases hold targets at later tied indices, which count as wrong).  No
+    all-gather moves the (B, c, V) f32 logits."""
+    from repro_torch.models import api
+
+    cases, ranks = vocab_ce_world
+    c = cases[case]
+    logits = c["h"] @ c["head"]
+    first = logits.argmax(-1)
+    assert bool(((logits.gather(-1, c["t"][..., None])[..., 0] == logits.amax(-1)) & (c["t"] != first)).any())
+    want = api._ce_chunk(c["h"], c["head"], c["t"], c["m"])
+    for rank in ranks:
+        got = rank[f"{mesh}/{case}"]
+        sums = torch.tensor(got["sums"])
+        torch.testing.assert_close(sums[:2], want[:2], rtol=1e-5, atol=1e-5)
+        assert sums[2:].tolist() == want[2:].tolist(), (sums, want)
+        assert got["collectives"]["all-gather"] < logits.numel() * 4, got["collectives"]
+
+
+_PLACED_TRAIN = """
+import dataclasses
+import torch
+import torch.distributed as dist
+from torch.testing._internal.distributed.fake_pg import FakeStore
+
+dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=8)
+from torch.distributed.device_mesh import init_device_mesh
+
+from repro_torch.configs import INPUT_SHAPES, get_config
+from repro_torch.launch import dryrun
+from repro_torch.sharding.logical import rules_for
+
+cfg = dataclasses.replace(get_config("qwen2.5-3b").reduced(), n_layers=2)
+shape = dataclasses.replace(INPUT_SHAPES["train_4k"], global_batch=4, seq_len=32)
+sizes = {"data": 2, "model": 4}
+mesh = init_device_mesh("cpu", (2, 4), mesh_dim_names=("data", "model"))
+rules = rules_for("train", batch=shape.global_batch)
+fn, args, _ = dryrun._program(cfg, shape, None, rules, sizes, mesh)
+step, _ = dryrun._count(fn, args, "train", rules, mesh)
+grads_only, _ = dryrun._count(dryrun._loss_grads(cfg, None), args[:2], "train", rules, mesh)
+params, _, m, v = args
+n_local = sum(p.to_local().numel() for p in dryrun.tree_leaves(params))
+extra = step["bytes"] - grads_only["bytes"]
+print("RESULT", step["collectives"]["all-reduce"], grads_only["collectives"]["all-reduce"], extra, n_local)
+"""
+
+
+def test_placed_train_step_runs_adamw_and_reduces_the_norm():
+    """The dry run's placed train pass (a reduced qwen2.5-3b, 2 layers, on a
+    fake (2, 4) world, in a subprocess) is the whole step: over the loss
+    and gradients alone it adds the gradient norm's all-reduce and AdamW's
+    traffic — at least the local parameter, moment and gradient slices
+    written and read (the update's slice writes charge 2x each, f32 moments
+    and parameters: >= 3 x 2 x 4 bytes a local parameter element)."""
+    r = subprocess.run([sys.executable, "-c", _PLACED_TRAIN], env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")},
+                       capture_output=True, text=True, timeout=240)
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-6000:]
+    step_ar, grads_ar, extra, n_local = map(int, r.stdout.split("RESULT")[1].split())
+    assert step_ar > grads_ar  # the norm's scalar all-reduce, on top of the gradients' reductions
+    assert extra >= 3 * 2 * 4 * n_local, (extra, n_local)

@@ -58,7 +58,7 @@ FORBIDDEN = re.compile(r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)\b[\s.])"
 
 
 @pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT)) for p in (ROOT / "src" / "repro_torch").rglob("*.py")) + ["chip_smoke.py", "chip_scan_compare.py", "chip_adamw_compare.py",
-                                   "chip_member_products.py"])
+                                   "chip_member_products.py", "dryrun_compare.py"])
 def test_source_has_no_jax_or_repro_import(path):
     text = (ROOT / path).read_text()
     assert not FORBIDDEN.search(text), FORBIDDEN.search(text).group(0)

@@ -11,7 +11,12 @@ meet through a ``FileStore`` under DIR, read
 test) and each write ``DIR/<check>.rank<r>.json``.  ``pods`` (8 ranks):
 the pod-placed classify on a (2, 2, 2) and a (4, 2, 1) mesh; ``one_rank``
 (1 rank): the one-rank checks, and both tiers of a placement on one
-rank's mesh.  Imports no JAX: the tests carry the JAX
+rank's mesh; ``seq_decode`` (4 ranks): the dense decode over a cache
+sharded along its sequence (``sharding.dtensor_calls.attention_call``'s
+merge of the ranks' partial softmaxes), on three meshes, with the
+collectives it issues; ``vocab_ce`` (4 ranks): the loss's chunk sums with
+the vocabulary sharded (``sharding.dtensor_calls.ce_chunk_vocab_sharded``)
+under the train rules, on three meshes.  Imports no JAX: the tests carry the JAX
 package's weights over through numpy.  A rank that raises fails the run
 (non-zero exit).
 """
@@ -340,10 +345,78 @@ def _degenerate(setup, mesh):
             "placed": [type(v["embed"]).__name__ for v in server.placed_values]}
 
 
-CHECKS = {"pods": world_of_8, "one_rank": world_of_1}
+def seq_decode(setup, rank):
+    """The dense decode on DTensors whose cache is sharded along its
+    sequence: on a (2, 2) mesh (rows on 'data', q's heads and the cache's
+    keys on 'model'), a (1, 4) one (keys over 4 ranks) and a (2, 2) one
+    whose keys go over both dims (the long-context rules: q replicated),
+    each case of ``setup["cases"]`` (window, starts, ragged cur_len); per
+    mesh and case the whole output and the collectives' bytes by kind."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.kernels.decode_attention import ops as dec
+    from repro_torch.launch.op_cost import OpCounter
+    from repro_torch.sharding.dtensor_calls import attention_call
+
+    out = {}
+    q, k, v = setup["q"], setup["k"], setup["v"]
+    meshes = {"data2_model2": ((2, 2), [Shard(0), Shard(2)], [Shard(0), Shard(2)]),
+              "model4": ((1, 4), [Replicate(), Shard(2)], [Replicate(), Shard(2)]),
+              "seq_over_both": ((2, 2), [Replicate(), Replicate()], [Shard(2), Shard(2)])}
+    for name, (shape, qp, kp) in meshes.items():
+        mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
+        qd = DTensor.from_local(q, mesh, [Replicate()] * 2).redistribute(mesh, qp)
+        kd, vd = (DTensor.from_local(t, mesh, [Replicate()] * 2).redistribute(mesh, kp) for t in (k, v))
+        for i, case in enumerate(setup["cases"]):
+            with OpCounter() as counter:
+                got = attention_call(dec.decode_attention_plain, qd, (kd, vd), 1, case["cur"],
+                                     seq_partial=dec.decode_attention_partial, window=case["window"],
+                                     starts=case["starts"])
+            out[f"{name}/{i}"] = {"out": got.full_tensor().tolist(), "placements": [str(p) for p in got.placements],
+                                  "collectives": counter.summary()["collectives"]}
+    return out
 
 
-WORLDS = {"pods": 8, "one_rank": 1}
+def vocab_ce(setup, rank):
+    """The loss's chunk sums on DTensors placed by the train rules (rows on
+    'data'; the head's embedding dim on 'data' and its vocabulary on
+    'model'), the logits kept sharded by vocabulary, on a (2, 2), a (1, 4)
+    and a (4, 1) mesh, for each case of ``setup["cases"]``: the whole sums
+    and the collectives' bytes by kind."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.launch.op_cost import OpCounter
+    from repro_torch.sharding.dtensor_calls import ce_chunk_vocab_sharded
+    from repro_torch.sharding.logical import axis_rules, logical_placements, logical_to_pspec, rules_for
+
+    rules = rules_for("train")
+    out = {}
+    for shape in ((2, 2), (1, 4), (4, 1)):
+        mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
+        name = "x".join(map(str, shape))
+
+        def put(t, axes):
+            whole = DTensor.from_local(t, mesh, [Replicate()] * 2)
+            return whole.redistribute(mesh, logical_placements(
+                logical_to_pspec(axes, rules, shape=tuple(t.shape), mesh=dict(zip(("data", "model"), shape))),
+                mesh, t.ndim))
+
+        for i, case in enumerate(setup["cases"]):
+            args = (put(case["h"], ("act_batch", "act_seq", "act_embed")), put(case["head"], ("embed", "vocab")),
+                    put(case["t"], ("act_batch", "act_seq")), put(case["m"], ("act_batch", "act_seq")))
+            with OpCounter() as counter, implicit_replication(), axis_rules(rules, mesh):
+                got = ce_chunk_vocab_sharded(*args)
+            out[f"{name}/{i}"] = {"sums": got.full_tensor().tolist(), "collectives": counter.summary()["collectives"]}
+    return out
+
+
+CHECKS = {"pods": world_of_8, "one_rank": world_of_1, "seq_decode": seq_decode, "vocab_ce": vocab_ce}
+
+
+WORLDS = {"pods": 8, "one_rank": 1, "seq_decode": 4, "vocab_ce": 4}
 
 
 def rank_main(rank, world, root, check):
